@@ -1,0 +1,154 @@
+"""Rules of the port that need no card: it imports no JAX and nothing of
+tpugs; its entry points default to CUDA and raise where there is none;
+the kernel wrappers reject what their kernels do not take, and CPU tensors
+run the plain twins without counting a launch; the kernel build is keyed
+on the sources."""
+
+import ast
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpugs_torch.convert import cameras_from_numpy, linear_encoder_from_numpy, scene_from_numpy
+from tpugs_torch.core.device import resolve_device
+from tpugs_torch.encoders.base import LinearRGBEncoder
+from tpugs_torch.kernels import build
+from tpugs_torch.lift.batch import backproject_views
+from tpugs_torch.raster import kernels as K
+from tpugs_torch.raster.colors import prepare_colors
+from tpugs_torch.raster.pack import pack_isect_all
+from tpugs_torch.raster.plan import build_plan
+from tpugs_torch.raster.projection import project
+from tpugs_torch.utils import synthetic
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "tpugs")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_tpugs():
+    files = sorted((REPO / "tpugs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [
+        (str(f.relative_to(REPO)), m)
+        for f in files
+        for m in _imported_modules(f)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"forbidden imports: {bad}"
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the entry points run there")
+
+
+ENTRY_POINTS = {
+    "random_scene": lambda: synthetic.random_scene(10),
+    "orbit_cameras": lambda: synthetic.orbit_cameras(2, 32, 32),
+    "LinearRGBEncoder": lambda: LinearRGBEncoder(4),
+    "scene_from_numpy": lambda: scene_from_numpy(synthetic.random_scene_arrays(5)),
+    "cameras_from_numpy": lambda: cameras_from_numpy(*synthetic.orbit_arrays(1, 8, 8), 8, 8),
+    "linear_encoder_from_numpy": lambda: linear_encoder_from_numpy(np.ones((3, 4))),
+    "backproject_views": lambda: backproject_views(
+        synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None],
+        32, 32, LinearRGBEncoder(4, device="cpu")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_raise_without_it(name):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name]()
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda:0")
+
+
+@pytest.fixture(scope="module")
+def small():
+    scene = synthetic.random_scene(120, seed=0, extent=0.8, scale_range=(0.02, 0.1),
+                                   device="cpu")
+    cams = synthetic.orbit_cameras(1, 64, 48, radius=2.5, device="cpu")
+    vm, Km = cams.viewmats[0], cams.Ks[0]
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, 64, 48)
+    plan = build_plan(proj, 64, 48, 16)
+    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan)
+    feats = torch.rand((plan.n_tiles, 256, 6))
+    return plan, pack, feats
+
+
+BAD_CALLS = {
+    "render f64 pack": (lambda p, k, f: K.render_tiles(k.double(), p), TypeError),
+    "render short pack": (lambda p, k, f: K.render_tiles(k[:-1], p), ValueError),
+    "adjoint f16 feats": (lambda p, k, f: K.adjoint_rows(k, f.half(), p), TypeError),
+    "adjoint strided feats": (
+        lambda p, k, f: K.adjoint_rows(k, f.transpose(0, 1).contiguous().transpose(0, 1), p),
+        ValueError),
+    "adjoint 2-d feats": (lambda p, k, f: K.adjoint_rows(k, f[0], p), ValueError),
+    "reduce int rows": (
+        lambda p, k, f: K.reduce_rows(torch.zeros((p.T_padded, 128), dtype=torch.int32), p, 7),
+        TypeError),
+    "reduce too many cols": (
+        lambda p, k, f: K.reduce_rows(torch.zeros((p.T_padded, 128)), p, 129), ValueError),
+    "reduce wrong rows": (
+        lambda p, k, f: K.reduce_rows(torch.zeros((p.T_padded + 1, 128)), p, 7), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_CALLS))
+def test_wrappers_reject_what_kernels_do_not_take(small, case):
+    plan, pack, feats = small
+    call, exc = BAD_CALLS[case]
+    with pytest.raises(exc):
+        call(plan, pack, feats)
+
+
+def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
+    plan, pack, feats = small
+    K.LAUNCHES.reset()
+    img, done = K.render_tiles(pack, plan)
+    rows = K.adjoint_rows(pack, feats, plan)
+    sums = K.reduce_rows(rows, plan, 7)
+    assert img.shape == (plan.n_tiles, 256, 5) and done.dtype == torch.int32
+    assert rows.shape == (plan.T_padded, 128) and sums.shape == (plan.num_gaussians, 7)
+    assert K.LAUNCHES.snapshot() == {"render": 0, "adjoint": 0, "reduce": 0}
+
+
+def test_build_is_keyed_on_sources_and_targets_sm90a(tmp_path, monkeypatch):
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    names = {p.name for p in build.CSRC_DIR.glob("*.cu")}
+    assert names == {"render.cu", "adjoint.cu", "reduce.cu"}
+    before = build.library_path()
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy)
+    monkeypatch.setattr(build, "CSRC_DIR", copy)
+    assert build.library_path() == before
+    (copy / "reduce.cu").write_text((copy / "reduce.cu").read_text() + "\n// edit\n")
+    assert build.library_path() != before
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is installed here")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "b")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build_library()

@@ -1,0 +1,24 @@
+"""tpugs_torch — the PyTorch + CUDA port of ``tpugs`` for NVIDIA Hopper.
+
+The JAX package ``tpugs`` is the reference; this package computes the same
+results on an H100. Plain tensor code is PyTorch; every Pallas kernel that
+``tpugs`` runs on the main path has a CUDA C++ counterpart in ``csrc/``,
+built with ``nvcc`` at first use (``kernels/build.py``) and wrapped in
+``raster/kernels.py`` beside a plain PyTorch twin that the CPU tests use.
+
+Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
+
+  core/      scene (raw parameterisation + activations), cameras, devices
+  utils/     synthetic scenes and orbit rigs (bit-identical to tpugs')
+  raster/    projection, SH, binning, per-view plan and pack, the three
+             kernels (render, adjoint, reduce) and the per-view drivers
+  encoders/  synthetic pixelwise encoders
+  lift/      the fused multi-view back-projection loop
+  kernels/   the nvcc build of ``csrc/*.cu``
+  convert.py numpy state in, port state out
+
+Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
+"""
+
+from tpugs_torch.core.camera import Camera  # noqa: F401
+from tpugs_torch.core.scene import GaussianScene  # noqa: F401
