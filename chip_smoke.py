@@ -17,7 +17,9 @@ Four phases; the first failure ends the run with a nonzero exit:
              tiles of one view held against the twins; every kernel must
              have launched at least once per view.
 4. kernels line — one JSON object per kernel with its launches, errors,
-             time, the twin's time and its bound on this card.
+             time, the twin's time, its bound on this card and, for B3,
+             the time of one library call (sparse CSR product) that
+             computes the same sums.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -30,6 +32,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -52,6 +55,13 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     abs_err = float((got - ref).abs().max()) if ref.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
     return abs_err, abs_err / scale if scale > 0 else abs_err
+
+
+def within_rows_tol(of_group: float, of_row: float, dtype) -> bool:
+    from tpugs_torch.raster.kernels import ROWS_TOL
+
+    group_tol, row_tol = ROWS_TOL[dtype]
+    return of_group <= group_tol and of_row <= row_tol
 
 
 def time_cuda(fn, iters: int, warmup: int = 1) -> float:
@@ -141,23 +151,25 @@ def phase_kernels():
         feats = enc(img_k[..., :3]).contiguous()
         rows32 = K.adjoint_rows(packed, feats, plan)
         torch.cuda.synchronize()
-        a, r = rel_err(rows32, K.adjoint_rows_plain(packed, feats, plan))
-        print(f"phase 2 ts={ts} D={D} B2 adjoint f32: max abs {a:.3e} rel {r:.3e}", flush=True)
-        check(r <= 1e-4, "B2 f32 within 1e-4 relative of its twin")
+        a, g, r = K.rows_error(rows32, K.adjoint_rows_plain(packed, feats, plan), D)
+        print(f"phase 2 ts={ts} D={D} B2 adjoint f32: max abs {a:.3e}, "
+              f"{g:.3e} of column-group max, {r:.3e} of row max", flush=True)
+        check(within_rows_tol(g, r, torch.float32), "B2 f32 rows within ROWS_TOL of its twin")
 
         fbf = feats.to(torch.bfloat16)
         rows_bf = K.adjoint_rows(packed, fbf, plan)
         torch.cuda.synchronize()
         rows_bf_t = K.adjoint_rows_plain(packed, fbf, plan)
-        a, r = rel_err(rows_bf, rows_bf_t)
+        a, g, r = K.rows_error(rows_bf, rows_bf_t, D)
         red_k = K.reduce_rows(rows_bf, plan, D + 1)
         torch.cuda.synchronize()
         red_t = K.reduce_rows_plain(rows_bf_t, plan, D + 1)
         _, r_den = rel_err(red_k[:, D], red_t[:, D])
         _, r_num = rel_err(red_k[:, :D], red_t[:, :D])
-        print(f"phase 2 ts={ts} D={D} B2 adjoint bf16: rows max abs {a:.3e} rel {r:.3e}; "
+        print(f"phase 2 ts={ts} D={D} B2 adjoint bf16: rows max abs {a:.3e}, "
+              f"{g:.3e} of column-group max, {r:.3e} of row max; "
               f"reduced den {r_den:.3e} num {r_num:.3e} of max", flush=True)
-        check(r <= 1e-2, "B2 bf16 rows within 1% of max of the twin")
+        check(within_rows_tol(g, r, torch.bfloat16), "B2 bf16 rows within ROWS_TOL of the twin")
         check(r_den <= 5e-3 and r_num <= 1e-2, "B2 bf16 sums within 0.5% / 1%")
 
         for rows in (rows32, rows_bf):
@@ -232,15 +244,17 @@ def phase_full_width():
     b1 = rel_err(r.tiles[tiles], img_t)
     rows = span_rows(plan, tiles)
     rows_t = K.adjoint_rows_plain(r.packed, r.feat_tiles, plan, tiles=tiles)
-    b2 = rel_err(r.rows[rows], rows_t[rows])
+    b2 = K.rows_error(r.rows[rows], rows_t[rows], D)
     gids = gaussians_of(plan, rows)
     red_t = K.reduce_rows_plain(r.rows, plan, D + 1, gaussians=gids)
     b3 = rel_err(r.sums[gids], red_t)
     b3_equal = torch.equal(r.sums[gids], red_t)
     print(f"phase 3 check on 64 tiles ({len(gids)} Gaussians): B1 rel {b1[1]:.3e}, "
-          f"B2 bf16 rel {b2[1]:.3e}, B3 bit-equal {b3_equal}", flush=True)
+          f"B2 bf16 {b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max, "
+          f"B3 bit-equal {b3_equal}", flush=True)
     check(b1[1] <= 1e-4, "B1 within 1e-4 on the sampled tiles")
-    check(b2[1] <= 1e-2, "B2 bf16 within 1% of max on the sampled tiles")
+    check(within_rows_tol(b2[1], b2[2], torch.bfloat16),
+          "B2 bf16 within ROWS_TOL on the sampled tiles")
     check(b3_equal, "B3 bit-equal on the sampled Gaussians")
     del rows_t
 
@@ -254,6 +268,22 @@ def phase_full_width():
     b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
     b3_ms = time_cuda(lambda: K.reduce_rows(r.rows, plan, D + 1), 5)
     b3_plain = time_cuda(lambda: K.reduce_rows_plain(r.rows, plan, D + 1), 1)
+    # B3 as one library call: a CSR 0/1 matrix (Gaussian x padded row, the
+    # plan's own lists) times the rows (cuSPARSE SpMM). It has no bf16-in,
+    # f32-out form, so it reads the rows converted to f32 beforehand.
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        select = torch.sparse_csr_tensor(
+            plan.gauss_offsets, plan.gauss_pos,
+            torch.ones(n_isects, dtype=torch.float32, device="cuda"),
+            size=(N_FULL, T_padded), check_invariants=False)
+    rows32 = r.rows[:, : D + 1].float()
+    lib_err = rel_err(select @ rows32, r.sums)
+    b3_lib = time_cuda(lambda: select @ rows32, 5)
+    print(f"phase 3 B3 library call (sparse CSR @ f32 rows): {b3_lib:.3f} ms, "
+          f"{lib_err[1]:.3e} of max from the kernel's sums", flush=True)
+    check(lib_err[1] <= 1e-5, "the library call computes B3's sums")
+    del select, rows32
 
     block_bytes = int(r.blocks_done.sum()) * 128 * 64  # pack rows the walk reads
 
@@ -270,11 +300,11 @@ def phase_full_width():
           f"T_padded {T_padded}, {int(r.blocks_done.sum())} blocks walked "
           f"({pairs} pixel-Gaussian pairs)", flush=True)
 
-    def rec(kid, name, src, replaces, n, err, ms, plain, b):
+    def rec(kid, name, src, replaces, n, err, ms, plain, b, lib=None):
         return {"id": kid, "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": err[0],
-                "max_err": err[1], "ms": ms, "plain_ms": plain, "bound_ms": b[0],
-                "bound_by": b[1], "library_ms": None}
+                "max_err": err[-1], "ms": ms, "plain_ms": plain, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib}
 
     return [
         rec("B1", "render", "tpugs_torch/csrc/render.cu",
@@ -285,7 +315,7 @@ def phase_full_width():
             b2_plain, b2_bound),
         rec("B3", "reduce", "tpugs_torch/csrc/reduce.cu",
             "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
-            b3_plain, b3_bound),
+            b3_plain, b3_bound, b3_lib),
     ]
 
 

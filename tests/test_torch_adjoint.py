@@ -22,7 +22,7 @@ from tpugs.raster.projection import project as j_project
 from tpugs.utils.synthetic import orbit_cameras, random_scene
 from tpugs_torch.convert import SCENE_FIELDS, cameras_from_numpy, scene_from_numpy
 from tpugs_torch.raster.colors import prepare_colors
-from tpugs_torch.raster.kernels import adjoint_rows, contrib_width
+from tpugs_torch.raster.kernels import ROWS_TOL, adjoint_rows, contrib_width, rows_error
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import project
@@ -100,3 +100,58 @@ def test_adjoint_bf16_within_budget_of_exact(views, tile):
     num, den = backproject_view(tpack, torch.from_numpy(feats).to(torch.bfloat16), tp)
     _within(den.numpy(), ws, 5e-3, "den")
     _within(num.numpy(), fs, 1e-2, "num")
+
+
+def _twin_rows(views, tile):
+    _, _, tp, tpack, feats, _, _ = views(tile)
+    return adjoint_rows(tpack, torch.from_numpy(feats), tp)
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_rows_error_sees_a_dropped_product_on_the_lightest_row(views, tile):
+    """A row whose weight is tiny next to the heaviest row passes any test
+    against the largest value; rows_error holds each row to its own."""
+    ref = _twin_rows(views, tile)
+    weight = ref[:, D].clone()
+    weight[weight < torch.finfo(torch.float32).tiny] = float("inf")
+    light = int(torch.argmin(weight))
+    got = ref.clone()
+    got[light, :D] = 0
+    assert float(ref[light, D]) < 1e-2 * float(ref[:, D].max())
+    _, _, of_row = rows_error(got, ref, D)
+    assert of_row == 1.0 > ROWS_TOL[torch.bfloat16][1]
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_rows_error_passes_one_bf16_ulp(views, tile):
+    """Every nonzero value one bf16 unit in the last place away stays
+    within the bf16 limits; zero rows stay exact."""
+    ref = _twin_rows(views, tile).to(torch.bfloat16)
+    bits = ref.view(torch.int16)
+    got = torch.where(ref != 0, bits + 1, bits).view(torch.bfloat16)
+    _, of_group, of_row = rows_error(got, ref, D)
+    group_tol, row_tol = ROWS_TOL[torch.bfloat16]
+    assert 0 < of_group <= 2**-7 < group_tol
+    assert 0 < of_row <= 2**-7 < row_tol
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_rows_error_sees_a_row_that_should_be_zero(views, tile):
+    ref = _twin_rows(views, tile)
+    zero = int(torch.nonzero((ref == 0).all(1))[0])
+    got = ref.clone()
+    got[zero, :D] = 1e-6
+    abs_err, _, of_row = rows_error(got, ref, D)
+    assert abs_err == pytest.approx(1e-6) and of_row == 1.0
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_rows_error_ignores_subnormal_rows(views, tile):
+    """Rows of weights below the smallest normal float (pixels whose T has
+    all but vanished) are held to that float, not to themselves."""
+    ref = _twin_rows(views, tile)
+    ref[0] = 1e-43
+    got = ref.clone()
+    got[0, 0] = 1e-43 + 1.4e-45  # one subnormal step: 1.4% of the value
+    _, _, of_row = rows_error(got, ref, D)
+    assert of_row <= 1e-6

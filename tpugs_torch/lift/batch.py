@@ -21,10 +21,11 @@ import torch
 from tpugs_torch.core.device import DeviceLike, resolve_device
 from tpugs_torch.core.scene import GaussianScene
 from tpugs_torch.raster.colors import prepare_colors
-from tpugs_torch.raster.kernels import TRANS_EPS, adjoint_rows, reduce_rows, render_tiles
+from tpugs_torch.raster.kernels import TRANS_EPS, render_tiles
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import Plan, build_plan
 from tpugs_torch.raster.projection import ProjectionConfig, project
+from tpugs_torch.raster.tiled import contribution_sums, split_sums
 from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 
 DEFAULT_TILE = 32  # larger tiles: ~4x fewer intersections than 16
@@ -45,11 +46,11 @@ class ViewResult:
 
     @property
     def num(self) -> torch.Tensor:
-        return self.sums[:, :-1]
+        return split_sums(self.sums)[0]
 
     @property
     def den(self) -> torch.Tensor:
-        return self.sums[:, -1]
+        return split_sums(self.sums)[1]
 
 
 def run_view(
@@ -85,10 +86,7 @@ def run_view(
         feats = image_to_tiles(encoder(rgb), tile_size)
     feats = feats.to(contrib_dtype).contiguous()
     mark("encode")
-    rows = adjoint_rows(packed, feats, plan, trans_eps)
-    mark("adjoint")
-    sums = reduce_rows(rows, plan, feats.shape[-1] + 1)
-    mark("reduce")
+    rows, sums = contribution_sums(packed, feats, plan, trans_eps, mark)
     return ViewResult(plan, packed, tiles, blocks_done, feats, rows, sums)
 
 

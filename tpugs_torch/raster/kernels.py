@@ -337,6 +337,45 @@ def adjoint_rows(
     return out
 
 
+# Limits of ``rows_error`` for B2 against its twin, (of column-group max, of
+# row max). f32: summation order only. bf16: two roundings to bf16 of nearly
+# equal f32 sums differ by at most one unit in the last place, 2^-7 of the
+# value (7.8e-3); within a row a weight may also round the other way before
+# the product, one more unit (2^-6 = 1.6e-2 of the row's largest value).
+ROWS_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def rows_error(got: torch.Tensor, ref: torch.Tensor, feature_dim: int):
+    """Scale-free distance of contribution rows ``got`` from ``ref``:
+    (max abs error; the largest error of the feature columns [:D] over
+    their largest magnitude, and likewise of the weight column D; the
+    largest error within any row's features, or its weight, over that
+    row's own largest magnitude). The weight column dwarfs the features
+    (L2-normalised, about 0.04 of it at D = 512) and rows span orders of
+    magnitude, so the last value is the one that sees a wrong product on a
+    light row. A row's scale is at least the smallest normal float: deep
+    in a tile, where T is far below ``trans_eps`` on some pixels, weights
+    fall to subnormals, whose fixed spacing makes any relative error there
+    meaningless. A row that is zero in one and normal in the other is
+    wholly wrong (error 1)."""
+    d = feature_dim
+    got, ref = got[:, : d + 1].float(), ref[:, : d + 1].float()
+    if ref.numel() == 0:
+        return 0.0, 0.0, 0.0
+    diff = (got - ref).abs()
+    mag = torch.maximum(got.abs(), ref.abs())
+    of_group, of_row = 0.0, 0.0
+    for cols in (slice(0, d), slice(d, d + 1)):
+        dg, mg = diff[:, cols], mag[:, cols]
+        scale = float(mg.max())
+        if scale > 0:
+            of_group = max(of_group, float(dg.max()) / scale)
+        row_scale = mg.amax(1).clamp_min(torch.finfo(torch.float32).tiny)
+        row_err = dg.amax(1) / row_scale
+        of_row = max(of_row, float(row_err.max()))
+    return float(diff.max()), of_group, of_row
+
+
 # ------------------------------------------------------------ B3 reduce
 
 

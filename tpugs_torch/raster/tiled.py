@@ -7,7 +7,7 @@ adjoint kernel slices channels internally.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -37,17 +37,39 @@ def render_view(
     return img[..., :3], img[..., 4]
 
 
-def backproject_view(
+def contribution_sums(
     packed: torch.Tensor,
     feat_tiles: torch.Tensor,  # (n_tiles, ts*ts, D), float32 or bfloat16
     plan: Plan,
     trans_eps: float = TRANS_EPS,
+    on_stage: Optional[Callable[[str], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused adjoint of one camera on the tile layout: (feat_sums (N, D),
-    weight_sums (N,)) in original Gaussian order. The denominator is the
-    ones-channel at column D of the contribution rows. Pixels outside the
-    image carry zero weight, so uncropped tile features are fine."""
-    D = feat_tiles.shape[-1]
+    """The fused adjoint of one camera on the tile layout: (contribution
+    rows (T_padded, width) from B2, sums (N, D + 1) float32 from B3 in
+    original Gaussian order). The sums hold the features, then the weight
+    denominator from the ones-channel at column D; ``split_sums`` parts
+    them. Pixels outside the image carry zero weight, so uncropped tile
+    features are fine. ``on_stage`` is called after "adjoint" and
+    "reduce"."""
+    mark = on_stage or (lambda name: None)
     rows = adjoint_rows(packed, feat_tiles, plan, trans_eps)
-    sums = reduce_rows(rows, plan, D + 1)
-    return sums[:, :D], sums[:, D]
+    mark("adjoint")
+    sums = reduce_rows(rows, plan, feat_tiles.shape[-1] + 1)
+    mark("reduce")
+    return rows, sums
+
+
+def split_sums(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(feat_sums (N, D), weight_sums (N,)) of ``contribution_sums``."""
+    return sums[:, :-1], sums[:, -1]
+
+
+def backproject_view(
+    packed: torch.Tensor,
+    feat_tiles: torch.Tensor,
+    plan: Plan,
+    trans_eps: float = TRANS_EPS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(feat_sums (N, D), weight_sums (N,)) of one camera; see
+    ``contribution_sums``."""
+    return split_sums(contribution_sums(packed, feat_tiles, plan, trans_eps)[1])
