@@ -6,7 +6,9 @@ Tolerances: B1 within 1e-4 of max|twin| (sum order, FMA outside the
 alpha clip); B2 rows within ``ROWS_TOL`` of the twin, measured by
 ``rows_error`` against each column group's largest value and each row's
 own (f32: 1e-4, summation order; bf16: one or two bf16 units in the last
-place); B3 bit-equal on the same rows.
+place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
+rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
+group's largest value (``grad_rows_error``), in f32 and bf16.
 """
 
 import pytest
@@ -18,6 +20,7 @@ from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import project
+from tpugs_torch.raster import train as T
 from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
 
 W, H = 200, 136
@@ -89,3 +92,41 @@ def test_reduce_kernel_bit_equal_to_twin(view, dtype):
     got = K.reduce_rows(rows, plan, feats.shape[-1] + 1)
     torch.cuda.synchronize()
     assert torch.equal(got, K.reduce_rows_plain(rows, plan, feats.shape[-1] + 1))
+
+
+@pytest.fixture(scope="module", params=[3, 131])
+def train_packs(view, request):
+    plan, pack, _ = view
+    d = request.param
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), device="cuda", generator=gen)
+    return plan, geom, cols, gen
+
+
+def test_train_fwd_kernel_matches_twin(train_packs):
+    plan, geom, cols, _ = train_packs
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    torch.cuda.synchronize()
+    img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
+    assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
+    assert torch.equal(done, done_t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_bwd_kernel_matches_twin(train_packs, dtype):
+    plan, geom, cols, gen = train_packs
+    d = cols.shape[1]
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    grem0 = (g * img).sum(-1)
+    args = (geom, cols, g, hterm, grem0, done, plan, dtype)
+    rows = T.train_rows(*args)
+    sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
+    torch.cuda.synchronize()
+    rows_t = T.train_rows_plain(*args)
+    _, of_group = T.grad_rows_error(rows, rows_t, d)
+    assert of_group <= T.GRAD_ROWS_TOL[dtype], of_group
+    _, of_group = T.grad_rows_error(sums, K.reduce_rows_plain(rows_t, plan, d + 8), d)
+    assert of_group <= T.GRAD_ROWS_TOL[dtype], of_group

@@ -14,6 +14,7 @@ import torch
 
 from tpugs_torch.convert import cameras_from_numpy, linear_encoder_from_numpy, scene_from_numpy
 from tpugs_torch.core.device import resolve_device
+from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.batch import backproject_views
@@ -22,6 +23,9 @@ from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import project
+from tpugs_torch.raster.train import pack_train, train_forward, train_rows
+from tpugs_torch.train.config import TrainConfig
+from tpugs_torch.train.trainer import Trainer, init_scene_from_points
 from tpugs_torch.utils import synthetic
 
 REPO = Path(__file__).resolve().parent.parent
@@ -64,6 +68,11 @@ ENTRY_POINTS = {
     "backproject_views": lambda: backproject_views(
         synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None],
         32, 32, LinearRGBEncoder(4, device="cpu")),
+    "get_encoder": lambda: get_encoder("linear:4"),
+    "init_scene_from_points": lambda: init_scene_from_points(
+        np.zeros((5, 3)), np.zeros((5, 3)), TrainConfig(feature_dim=0)),
+    "Trainer": lambda: Trainer(TrainConfig(strategy="none", feature_dim=0),
+                               synthetic.random_scene(10, device="cpu"), width=32, height=32),
 }
 
 
@@ -112,6 +121,38 @@ BAD_CALLS = {
 }
 
 
+def _train_inputs(plan, pack, d=5):
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), generator=torch.Generator().manual_seed(d))
+    img = torch.zeros((plan.height, plan.width, d))
+    hw = torch.zeros((plan.height, plan.width))
+    done = torch.ones((plan.n_tiles,), dtype=torch.int32)
+    return geom, cols, img, hw, done
+
+
+BAD_CALLS.update({
+    "train_fwd f64 geom": (lambda p, k, f: train_forward(k[:, :8].double(), k[:, 8:12], p),
+                           TypeError),
+    "train_fwd 16-col geom": (lambda p, k, f: train_forward(k, k[:, 8:12].contiguous(), p),
+                              ValueError),
+    "train_fwd 1-d cols": (lambda p, k, f: train_forward(k[:, :8].contiguous(), k[:, 8], p),
+                           ValueError),
+    "train_bwd short g": (
+        lambda p, k, f: train_rows(*_bwd_args(p, k, img=lambda i: i[:-1]), p), ValueError),
+    "train_bwd int64 blocks": (
+        lambda p, k, f: train_rows(*_bwd_args(p, k, done=lambda d: d.long()), p), TypeError),
+    "train_bwd f16 rows": (
+        lambda p, k, f: train_rows(*_bwd_args(p, k), p, torch.float16), TypeError),
+    "train_bwd too many channels": (
+        lambda p, k, f: train_rows(*_bwd_args(p, k, d=513), p), ValueError),
+})
+
+
+def _bwd_args(plan, pack, d=5, img=lambda i: i, done=lambda x: x):
+    geom, cols, g, hw, blocks = _train_inputs(plan, pack, d)
+    return geom, cols, img(g).contiguous(), hw, hw, done(blocks)
+
+
 @pytest.mark.parametrize("case", sorted(BAD_CALLS))
 def test_wrappers_reject_what_kernels_do_not_take(small, case):
     plan, pack, feats = small
@@ -128,13 +169,38 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     sums = K.reduce_rows(rows, plan, 7)
     assert img.shape == (plan.n_tiles, 256, 5) and done.dtype == torch.int32
     assert rows.shape == (plan.T_padded, 128) and sums.shape == (plan.num_gaussians, 7)
-    assert K.LAUNCHES.snapshot() == {"render": 0, "adjoint": 0, "reduce": 0}
+    geom, cols, g, hw, _ = _train_inputs(plan, pack)
+    image, alpha, done = train_forward(geom, cols, plan)
+    grad_rows = train_rows(geom, cols, g, hw, hw, done, plan)
+    assert image.shape == (48, 64, 5) and alpha.shape == (48, 64)
+    assert grad_rows.shape == (plan.T_padded, 16)
+    assert set(K.LAUNCHES.snapshot().values()) == {0}
+    assert set(K.LAUNCHES.snapshot()) == {"render", "adjoint", "reduce", "train_fwd",
+                                          "train_bwd"}
+
+
+UNPORTED = {
+    "tiled engine": (dict(raster_engine="tiled"), NotImplementedError),
+    "default strategy": (dict(strategy="default"), NotImplementedError),
+    "mcmc strategy": (dict(strategy="mcmc"), NotImplementedError),
+    "pose optimisation": (dict(pose_opt=True), NotImplementedError),
+    "unknown engine": (dict(raster_engine="fast"), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_trainer_raises_on_what_is_not_ported(case):
+    kw, exc = UNPORTED[case]
+    cfg = TrainConfig(**{"strategy": "none", "feature_dim": 0, **kw})
+    with pytest.raises(exc):
+        Trainer(cfg, synthetic.random_scene(10, device="cpu"), width=32, height=32,
+                n_cameras=2, device="cpu")
 
 
 def test_build_is_keyed_on_sources_and_targets_sm90a(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = {p.name for p in build.CSRC_DIR.glob("*.cu")}
-    assert names == {"render.cu", "adjoint.cu", "reduce.cu"}
+    assert names == {"render.cu", "adjoint.cu", "reduce.cu", "train_fwd.cu", "train_bwd.cu"}
     before = build.library_path()
     copy = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, copy)

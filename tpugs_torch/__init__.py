@@ -4,16 +4,19 @@ The JAX package ``tpugs`` is the reference; this package computes the same
 results on an H100. Plain tensor code is PyTorch; every Pallas kernel that
 ``tpugs`` runs on the main path has a CUDA C++ counterpart in ``csrc/``,
 built with ``nvcc`` at first use (``kernels/build.py``) and wrapped in
-``raster/kernels.py`` beside a plain PyTorch twin that the CPU tests use.
+``raster/kernels.py`` (lift) or ``raster/train.py`` (train step) beside a
+plain PyTorch twin that the CPU tests use.
 
 Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
 
   core/      scene (raw parameterisation + activations), cameras, devices
   utils/     synthetic scenes and orbit rigs (bit-identical to tpugs')
-  raster/    projection, SH, binning, per-view plan and pack, the three
-             kernels (render, adjoint, reduce) and the per-view drivers
-  encoders/  synthetic pixelwise encoders
+  raster/    projection, SH, binning, per-view plan and pack, the lift
+             kernels (render, adjoint, reduce), the per-view drivers, and
+             the differentiable train render (kernels train_fwd, train_bwd)
+  encoders/  synthetic pixelwise encoders and their registry
   lift/      the fused multi-view back-projection loop
+  train/     config, metrics, strategy "none" and the trainer's step
   kernels/   the nvcc build of ``csrc/*.cu``
   convert.py numpy state in, port state out
 

@@ -2,7 +2,8 @@
 
 The tests hand one numpy-seeded input to both packages through these:
 ``scene_from_numpy`` takes what ``np.asarray`` gives on each field of a
-``tpugs`` ``GaussianScene``; ``cameras_from_numpy`` a rig's viewmats and
+``tpugs`` ``GaussianScene`` (the trainer's ``features`` and ``feature_proj``
+where present and not None); ``cameras_from_numpy`` a rig's viewmats and
 intrinsics; ``linear_encoder_from_numpy`` a ``LinearRGBEncoder``'s
 ``(3, D)`` projection.
 """
@@ -20,6 +21,7 @@ from tpugs_torch.core.scene import GaussianScene
 from tpugs_torch.encoders.base import LinearRGBEncoder
 
 SCENE_FIELDS = ("means", "quats", "log_scales", "logit_opacities", "sh0", "shN")
+FEATURE_FIELDS = ("features", "feature_proj")  # optional: None on scenes without features
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -33,11 +35,17 @@ def scene_from_numpy(
     missing = [k for k in SCENE_FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays lack {missing}")
-    return GaussianScene(**{k: _f32(arrays[k], dev) for k in SCENE_FIELDS})
+    fields = {k: _f32(arrays[k], dev) for k in SCENE_FIELDS}
+    for k in FEATURE_FIELDS:
+        if arrays.get(k) is not None:
+            fields[k] = _f32(arrays[k], dev)
+    return GaussianScene(**fields)
 
 
 def scene_to_numpy(scene: GaussianScene) -> dict:
-    return {k: getattr(scene, k).detach().cpu().numpy() for k in SCENE_FIELDS}
+    """Every field that is not None, as float32 numpy arrays."""
+    return {k: getattr(scene, k).detach().cpu().numpy()
+            for k in SCENE_FIELDS + FEATURE_FIELDS if getattr(scene, k) is not None}
 
 
 def cameras_from_numpy(

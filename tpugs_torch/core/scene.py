@@ -4,11 +4,15 @@ Raw (pre-activation) parameterisation as in gsplat checkpoints:
 ``quats`` (N, 4) wxyz, not necessarily normalised; ``log_scales`` (N, 3);
 ``logit_opacities`` (N,); ``sh0`` (N, 1, 3) and ``shN`` (N, K, 3) SH
 coefficients. Activations (``sigmoid``/``exp``) are applied on access.
+The trainer's optional feature field: ``features`` (N, Df) per-Gaussian
+latents and ``feature_proj`` (Df, Dout), the shared projection to the
+teacher's width; both are None on scenes without features.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -21,6 +25,8 @@ class GaussianScene:
     logit_opacities: torch.Tensor  # (N,)
     sh0: torch.Tensor  # (N, 1, 3)
     shN: torch.Tensor  # (N, K, 3); K may be 0
+    features: Optional[torch.Tensor] = None  # (N, Df) feature field
+    feature_proj: Optional[torch.Tensor] = None  # (Df, Dout) shared projection
 
     @property
     def num_gaussians(self) -> int:
@@ -49,7 +55,8 @@ class GaussianScene:
     def to(self, device) -> "GaussianScene":
         return GaussianScene(
             **{
-                f.name: getattr(self, f.name).to(device)
+                f.name: None if getattr(self, f.name) is None
+                else getattr(self, f.name).to(device)
                 for f in dataclasses.fields(self)
             }
         )

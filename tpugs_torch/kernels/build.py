@@ -37,6 +37,13 @@ SIGNATURES = {
     # rows, offsets, pos, out, n, n_cols, row_stride, stream
     "tpugs_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     "tpugs_reduce_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # geom, cols, starts, ends, padded_starts, img, alpha, blocks_done,
+    # n_tiles, ntx, ts, W, H, D, eps, stream
+    "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # geom, cols, g, hterm, grem0, starts, ends, padded_starts, blocks_done, out,
+    # n_tiles, ntx, ts, W, H, D, row width, stream
+    "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 7 + [_P],
+    "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 

@@ -1,4 +1,5 @@
-"""The main path's three kernels, their wrappers and their plain twins.
+"""The lift path's three kernels, their wrappers and their plain twins,
+and the tile walk that the train kernels' twins (``raster/train.py``) share.
 Counterparts in ``tpugs/raster/pallas_tiled.py``:
 
   B1 ``render_tiles``  <- ``render_pallas_raw`` (:1328, kernel :1229)
@@ -59,9 +60,12 @@ class LaunchCounts:
     render: int = 0
     adjoint: int = 0
     reduce: int = 0
+    train_fwd: int = 0
+    train_bwd: int = 0
 
     def reset(self) -> None:
-        self.render = self.adjoint = self.reduce = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
     def snapshot(self) -> dict:
         return dataclasses.asdict(self)
@@ -138,17 +142,23 @@ def _tile_pixels(tiles: torch.Tensor, ntx: int, ts: int):
     return tx * ts + lx + 0.5, ty * ts + ly + 0.5
 
 
-def _block_alpha(geo, px, py, lane_valid):
-    """alpha (k, P, BLOCK) for block rows ``geo`` (k, BLOCK, 16) at pixels
-    px, py (k, P); ``lane_valid`` (k, BLOCK)."""
+def _block_terms(geo, px, py, lane_valid) -> dict:
+    """Per-pair terms (k, P, BLOCK) of block rows ``geo`` (k, BLOCK, >= 6;
+    geometry in columns 0..5) at pixels px, py (k, P); ``lane_valid``
+    (k, BLOCK). ``alpha`` is masked; ``keep`` is its mask; ``e`` is
+    exp(-max(sigma, 0)) and ``alpha_raw`` = op * e, as in
+    ``_block_weights_full``."""
     g = geo[:, None, :, COL_GEOM:COL_GEOM + 6]  # (k, 1, B, 6)
     mx, my, ca, cb, cc, op = g.unbind(-1)
     dx = px[..., None] - mx
     dy = py[..., None] - my
     sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-    alpha = torch.clamp(op * torch.exp(-torch.clamp(sigma, min=0.0)), max=ALPHA_MAX)
+    e = torch.exp(-torch.clamp(sigma, min=0.0))
+    alpha_raw = op * e
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
     keep = (sigma >= 0.0) & (alpha >= ALPHA_MIN) & lane_valid[:, None, :]
-    return torch.where(keep, alpha, torch.zeros_like(alpha))
+    return dict(dx=dx, dy=dy, sigma=sigma, e=e, alpha_raw=alpha_raw, keep=keep,
+                alpha=torch.where(keep, alpha, torch.zeros_like(alpha)))
 
 
 def _block_weights(alpha, trans):
@@ -158,18 +168,38 @@ def _block_weights(alpha, trans):
     return alpha * texc * trans[..., None], trans * incl[..., -1]
 
 
-def _walk_blocks(pack, plan, tiles, trans_eps, visit):
-    """The tile walk of B1/B2 for tiles ``tiles`` (k,), vectorised over
-    tiles: for each block index b, the tiles still running (``active``,
-    indices into ``tiles``) get their weights w (k_active, ts*ts, BLOCK)
-    through ``visit(active, b, w, block rows of the pack, their row
-    indices, pixel x, pixel y)``. Returns (T (k, ts*ts), blocks processed
-    (k,) int32)."""
+@dataclasses.dataclass
+class BlockStep:
+    """One step of ``_walk_blocks`` for the tiles still running:
+    ``active`` indexes the walked tiles; ``w`` (ka, ts*ts, BLOCK) are the
+    weights, ``trans`` (ka, ts*ts) the transmittance carried into the
+    block, ``terms`` the block's ``_block_terms``; ``geo`` the block's pack
+    rows and ``rows`` their indices."""
+
+    active: torch.Tensor
+    w: torch.Tensor
+    trans: torch.Tensor
+    terms: dict
+    geo: torch.Tensor
+    rows: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+
+
+def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None):
+    """The tile walk of B1/B2/B4/B5 for tiles ``tiles`` (k,), vectorised
+    over tiles: for each block index b, the tiles still running get a
+    ``BlockStep`` through ``visit``. A tile stops at its early exit, or,
+    with ``n_blocks`` (k,), after exactly that many blocks (the forward's
+    count, which the backward replays). Returns (T (k, ts*ts), blocks
+    processed (k,) int32)."""
     ntx, _ = plan.grid
     ts = plan.tile_size
     dev = pack.device
     count = (plan.tile_ends[tiles] - plan.tile_starts[tiles]).long()
     nb = (count + BLOCK - 1) // BLOCK
+    if n_blocks is not None:
+        nb = torch.minimum(nb, n_blocks.long())
     pstart = plan.padded_starts[tiles].long()
     px, py = _tile_pixels(tiles, ntx, ts)
     k = tiles.shape[0]
@@ -179,15 +209,18 @@ def _walk_blocks(pack, plan, tiles, trans_eps, visit):
     lane = torch.arange(BLOCK, device=dev)
     n_steps = int(nb.max()) if k else 0
     for b in range(n_steps):
-        active = torch.nonzero((b < nb) & (max_t > trans_eps)).squeeze(1)
+        running = b < nb
+        if n_blocks is None:
+            running &= max_t > trans_eps
+        active = torch.nonzero(running).squeeze(1)
         if active.numel() == 0:
             break
         rows = pstart[active, None] + b * BLOCK + lane[None, :]
-        geo = pack[rows]  # (ka, BLOCK, 16)
+        geo = pack[rows]  # (ka, BLOCK, pack columns)
         lane_valid = lane[None, :] < (count[active, None] - b * BLOCK)
-        alpha = _block_alpha(geo, px[active], py[active], lane_valid)
-        w, t_new = _block_weights(alpha, trans[active])
-        visit(active, b, w, geo, rows, px[active], py[active])
+        terms = _block_terms(geo, px[active], py[active], lane_valid)
+        w, t_new = _block_weights(terms["alpha"], trans[active])
+        visit(BlockStep(active, w, trans[active], terms, geo, rows, px[active], py[active]))
         trans[active] = t_new
         max_t[active] = t_new.max(dim=1).values
         done[active] += 1
@@ -215,9 +248,9 @@ def render_tiles_plain(
     k = tiles.shape[0]
     img = torch.zeros((k, plan.tile_size**2, 4), dtype=pack.dtype, device=pack.device)
 
-    def visit(active, b, w, geo, rows, px, py):
-        cols = geo[..., COL_COLOR:COL_COLOR + 4]  # (ka, BLOCK, 4)
-        img[active] += torch.bmm(w, cols)
+    def visit(st: BlockStep):
+        cols = st.geo[..., COL_COLOR:COL_COLOR + 4]  # (ka, BLOCK, 4)
+        img[st.active] += torch.bmm(st.w, cols)
 
     trans, done = _walk_blocks(pack, plan, tiles, trans_eps, visit)
     return torch.cat([img, (1.0 - trans)[..., None]], dim=-1), done
@@ -281,13 +314,13 @@ def adjoint_rows_plain(
     out = torch.zeros((plan.T_padded, width), dtype=dtype, device=pack.device)
     fext = _features_with_ones(feat_tiles[tiles], width)
 
-    def visit(active, b, w, geo, rows, px, py):
-        in_img = (px < plan.width) & (py < plan.height)
-        w = torch.where(in_img[..., None], w, torch.zeros_like(w))
+    def visit(st: BlockStep):
+        in_img = (st.px < plan.width) & (st.py < plan.height)
+        w = torch.where(in_img[..., None], st.w, torch.zeros_like(st.w))
         if dtype == torch.bfloat16:
             w = w.to(torch.bfloat16).to(torch.float32)
-        contrib = torch.bmm(w.transpose(1, 2), fext[active])
-        out[rows] = contrib.to(dtype)
+        contrib = torch.bmm(w.transpose(1, 2), fext[st.active])
+        out[st.rows] = contrib.to(dtype)
 
     _walk_blocks(pack, plan, tiles, trans_eps, visit)
     return out
