@@ -8,7 +8,8 @@ alpha clip); B2 rows within ``ROWS_TOL`` of the twin, measured by
 own (f32: 1e-4, summation order; bf16: one or two bf16 units in the last
 place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
-group's largest value (``grad_rows_error``), in f32 and bf16.
+group's largest value and of each entry's own magnitude
+(``grad_rows_error``), in f32 and bf16.
 """
 
 import pytest
@@ -125,8 +126,10 @@ def test_train_bwd_kernel_matches_twin(train_packs, dtype):
     rows = T.train_rows(*args)
     sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
     torch.cuda.synchronize()
-    rows_t = T.train_rows_plain(*args)
-    _, of_group = T.grad_rows_error(rows, rows_t, d)
-    assert of_group <= T.GRAD_ROWS_TOL[dtype], of_group
-    _, of_group = T.grad_rows_error(sums, K.reduce_rows_plain(rows_t, plan, d + 8), d)
-    assert of_group <= T.GRAD_ROWS_TOL[dtype], of_group
+    rows_t, mags = T.train_rows_plain(*args, magnitudes=True)
+    group_tol, entry_tol = T.GRAD_ROWS_TOL[dtype]
+    _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+    _, of_group, of_entry = T.grad_rows_error(
+        sums, K.reduce_rows_plain(rows_t, plan, d + 8), d, K.reduce_rows_plain(mags, plan, d + 8))
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)

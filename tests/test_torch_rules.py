@@ -185,6 +185,9 @@ UNPORTED = {
     "mcmc strategy": (dict(strategy="mcmc"), NotImplementedError),
     "pose optimisation": (dict(pose_opt=True), NotImplementedError),
     "unknown engine": (dict(raster_engine="fast"), ValueError),
+    "unread data_dir": (dict(data_dir="./data/bicycle"), NotImplementedError),
+    "unread lpips_net": (dict(lpips_net="vgg"), NotImplementedError),
+    "unread pallas_size_margin": (dict(pallas_size_margin=2.0), NotImplementedError),
 }
 
 

@@ -32,7 +32,8 @@ from tpugs.utils.synthetic import orbit_cameras
 from tpugs_torch.convert import FEATURE_FIELDS, SCENE_FIELDS, scene_to_numpy
 from tpugs_torch.train import metrics as tm
 from tpugs_torch.train.config import TrainConfig
-from tpugs_torch.train.trainer import Trainer, init_scene_from_points, means_lr
+from tpugs_torch.raster.train import grad_row_width
+from tpugs_torch.train.trainer import STAGES, Trainer, init_scene_from_points, means_lr
 
 W, H, N, STEPS = 64, 48, 120, 3
 KW = dict(max_steps=8, sh_degree=1, feature_dim=8, feature_out_dim=4, strategy="none",
@@ -162,6 +163,37 @@ def test_train_chunk_runs_steps_and_updates_every_parameter(setup):
     assert t.step == 2
     for k in FIELDS:
         assert not torch.equal(getattr(t.scene, k), before[k]), k
+
+
+def test_stage_marks_and_record_leave_the_step_unchanged(setup):
+    """With ``on_stage`` and ``record`` set, one step reports every stage in
+    order and records the render's kernel inputs and rows, and gives the
+    same losses and parameters as without them."""
+    _, _, batches, (pts, rgbs) = setup
+    staged = {k: np.stack([b[src] for b in batches])
+              for k, src in (("images", "image"), ("viewmats", "viewmat"), ("Ks", "K"))}
+    cfg = TrainConfig(**KW)
+
+    def trainer():
+        return Trainer(cfg, init_scene_from_points(pts, rgbs, cfg, device="cpu"), 1.0,
+                       teacher=lambda img: img @ torch.ones((3, 4)), width=W, height=H,
+                       device="cpu")
+
+    plain, watched = trainer(), trainer()
+    marks = []
+    watched.on_stage, watched.record = marks.append, {}
+    ref = plain.train_chunk(staged, 1, cam_idx=[1])
+    out = watched.train_chunk(staged, 1, cam_idx=[1])
+    assert tuple(marks) == STAGES
+    rec = watched.record
+    d = 3 + 1 + KW["feature_dim"]  # colour, depth, features
+    assert rec["cols"].shape == (rec["plan"].T_padded, d)
+    assert rec["rows"].shape == (rec["plan"].T_padded, grad_row_width(d))
+    assert rec["g_image"].shape == rec["image"].shape == (H, W, d)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    for k in FIELDS:
+        assert torch.equal(getattr(watched.scene, k), getattr(plain.scene, k)), k
 
 
 @pytest.mark.parametrize("fn", ["psnr", "ssim", "ssim_loss"])

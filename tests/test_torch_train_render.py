@@ -27,11 +27,15 @@ from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import Projected
 from tpugs_torch.raster.train import (
+    GEOM_GRADS,
+    GRAD_ROWS_TOL,
     grad_row_width,
+    grad_rows_error,
     pack_train,
     render_plan_train,
     train_forward,
     train_rows,
+    train_rows_plain,
 )
 
 W, H, N = 64, 48, 600
@@ -149,3 +153,80 @@ def test_exit_blocks_are_replayed_and_skipped_rows_are_zero():
     start = int(tplan.padded_starts[busy])
     assert rows[start:start + 128].abs().sum() > 0
     assert K.LAUNCHES.train_fwd == 0 and K.LAUNCHES.train_bwd == 0
+
+
+def _twin_rows(blocks=lambda done: done):
+    """The twin's f32 rows and their magnitudes for one dense view (D = 20,
+    early exits at 1e-4), the replayed block counts changed by ``blocks``."""
+    arrays, r, s, _, tplan = _inputs(20, False, 16)
+    geom, cpack = pack_train(*(torch.tensor(a) for a in arrays[:4]), tplan)
+    img, alpha, done = train_forward(geom, cpack, tplan, 1e-4)
+    g = torch.from_numpy(r)
+    hterm = torch.from_numpy(s) * (1.0 - alpha)
+    grem0 = (g * img).sum(-1)
+    return train_rows_plain(geom, cpack, g, hterm, grem0, blocks(done), tplan,
+                            magnitudes=True), done
+
+
+def _light_row_dropped(rows, mags):
+    """Zero the heaviest row that stays under 1e-4 of every column group's
+    max: the group measure cannot see it."""
+    a = rows[:, : 20 + GEOM_GRADS].abs()
+    group_max = torch.cat([a[:, :20].max().expand(20), a[:, 20:].amax(0)])
+    light = (a < 1e-4 * group_max).all(1) & (a.amax(1) > 0)
+    assert light.any(), "the view has light rows"
+    worst = torch.nonzero(light).squeeze(1)[a[light].amax(1).argmax()]
+    bad = rows.clone()
+    bad[worst] = 0.0
+    return bad
+
+
+def _last_block_not_replayed(rows, mags):
+    (short, _), _ = _twin_rows(lambda done: (done - 1).clamp_min(0))
+    return short
+
+
+@pytest.mark.parametrize("mutate,group_blind", [(_light_row_dropped, True),
+                                                (_last_block_not_replayed, False)])
+def test_grad_rows_error_sees_wrong_rows_by_their_magnitude(mutate, group_blind):
+    """``grad_rows_error``'s per-entry term (error over the entry's
+    magnitude) catches a dropped light row, which its column-group term
+    (error over the group's max) passes, and a replay one block short."""
+    (rows, mags), _ = _twin_rows()
+    assert grad_rows_error(rows, rows, 20, mags) == (0.0, 0.0, 0.0)
+    _, of_group, of_entry = grad_rows_error(mutate(rows, mags), rows, 20, mags)
+    group_tol, entry_tol = GRAD_ROWS_TOL[torch.float32]
+    assert of_entry > 1e2 * entry_tol, of_entry
+    assert (of_group <= group_tol) == group_blind, of_group
+
+
+def test_magnitudes_bound_every_row_entry():
+    """Each magnitude is the same sum over absolute values, so it bounds
+    its entry (up to f32 rounding), and is zero where the row is padding."""
+    (rows, mags), _ = _twin_rows()
+    assert mags.shape == rows.shape and float(mags.max()) > 0
+    assert bool((rows.abs() <= mags * (1 + 1e-5) + 1e-30).all())
+    assert not bool(mags[:, 20 + GEOM_GRADS:].any())
+
+
+@pytest.mark.parametrize("D,tile", [(20, 16), (3, 32)])
+def test_f32_twin_within_its_magnitudes_of_an_f64_twin(D, tile):
+    """The twin in f32 against itself in f64 stays within 1e-5 of each
+    entry's magnitude, while a row's own largest value is no scale for
+    its geometry gradients: there the same rounding reaches 10% of it
+    (sums over pixels and ``v = grem - prefix`` cancel)."""
+    arrays, r, s, _, tplan = _inputs(D, False, tile)
+    geom, cpack = pack_train(*(torch.tensor(a) for a in arrays[:4]), tplan)
+    img, alpha, done = train_forward(geom, cpack, tplan, 1e-4)
+    g = torch.from_numpy(r[..., :D]).contiguous()
+    hterm = torch.from_numpy(s) * (1.0 - alpha)
+    grem0 = (g * img).sum(-1)
+    rows, mags = train_rows_plain(geom, cpack, g, hterm, grem0, done, tplan, magnitudes=True)
+    exact = train_rows_plain(*(x.double() for x in (geom, cpack, g, hterm, grem0)), done,
+                             tplan, torch.float64)
+    _, of_group, of_entry = grad_rows_error(rows, exact, D, mags)
+    assert of_entry <= 1e-5 and of_group <= 1e-5, (of_group, of_entry)
+    geo = slice(D, D + GEOM_GRADS)
+    row_max = exact[:, geo].abs().amax(1).clamp_min(torch.finfo(torch.float32).tiny)
+    of_row_max = float(((rows[:, geo] - exact[:, geo]).abs().amax(1) / row_max).max())
+    assert of_row_max > 0.1, of_row_max

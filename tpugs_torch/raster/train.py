@@ -151,14 +151,21 @@ def train_rows_plain(
     geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan,
     contrib_dtype: torch.dtype = torch.float32,
     tiles: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    magnitudes: bool = False,
+):
     """B5's twin: as ``train_rows``; with ``tiles`` only those tiles'
     spans are filled. Per block, with u = g . colour (a product over
     channels), an inclusive prefix of w*u along the block (``cumsum``, not
     the reference's doubling scan) and the per-pixel carry ``grem``:
 
         d_alpha = texc * T * u - (grem - prefix + hterm) / max(1 - alpha, 1e-6)
-    """
+
+    With ``magnitudes`` it returns (rows, mags): ``mags`` (f32, the rows'
+    shape) holds for every entry the same sums taken over the absolute
+    values of every factor and term (|g|, |colour|, |grem| + prefix of
+    w*|u|, |hterm|, ...). That bounds the entry and scales its rounding
+    error, which cancellation in the sums over pixels and in ``v`` leaves
+    far above the entry itself (``grad_rows_error``)."""
     dev = geom.device
     if tiles is None:
         tiles = _all_tiles(plan, dev)
@@ -168,6 +175,8 @@ def train_rows_plain(
     g_t = image_to_tiles(g_image, ts)[tiles]
     h_t = image_to_tiles(hterm[..., None], ts)[tiles][..., 0]
     grem = image_to_tiles(grem0[..., None], ts)[tiles][..., 0].clone()
+    mags = torch.zeros(out.shape, dtype=torch.float32, device=dev) if magnitudes else None
+    grem_m = grem.abs() if magnitudes else None
 
     def visit(st: BlockStep):
         t = st.terms
@@ -195,9 +204,28 @@ def train_rows_plain(
         d_col = torch.bmm(st.w.transpose(1, 2), g_a)  # (ka, BLOCK, D)
         out[st.rows, : d + GEOM_GRADS] = torch.cat([d_col, geo_grads], -1).to(contrib_dtype)
         grem[st.active] = grem[st.active] - cs[..., -1]
+        if mags is None:
+            return
+        g_m = g_a.abs()
+        u_m = torch.bmm(g_m, cols[st.rows].abs().transpose(1, 2))
+        cs_m = torch.cumsum(st.w * u_m, dim=-1)
+        da_m = texc * st.trans[..., None] * u_m + (
+            grem_m[st.active][..., None] + cs_m + h_t[st.active].abs()[..., None]
+        ) / torch.clamp(1.0 - alpha, min=1e-6)
+        da_m = torch.where(t["keep"] & (t["alpha_raw"] < ALPHA_MAX), da_m, zero)
+        sig_m = torch.where(t["sigma"] > 0.0, da_m * op * t["e"], zero)
+        mx_m = sig_m * (ca * dx + cb * dy).abs()
+        my_m = sig_m * (cc * dy + cb * dx).abs()
+        geo_m = torch.stack([
+            mx_m, my_m, sig_m * (0.5 * dx * dx), sig_m * (dx * dy).abs(),
+            sig_m * (0.5 * dy * dy), da_m * t["e"], mx_m, my_m,
+        ], dim=-1).sum(1)
+        mags[st.rows, : d + GEOM_GRADS] = torch.cat(
+            [torch.bmm(st.w.transpose(1, 2), g_m), geo_m], -1)
+        grem_m[st.active] = grem_m[st.active] + cs_m[..., -1]
 
     _walk_blocks(geom, plan, tiles, 0.0, visit, n_blocks=blocks_done[tiles])
-    return out
+    return (out, mags) if magnitudes else out
 
 
 def train_rows(
@@ -249,23 +277,32 @@ def train_rows(
 
 
 # Limits of ``grad_rows_error`` for B5 (and B3's sums of its rows) against
-# the twin. f32: summation order (u over D, the prefix of w*u, the sums over
-# pixels); ``v = grem - prefix`` cancels late in a span, so rows are held
-# against each column group's largest value, not element-wise. bf16: two
-# roundings of nearly equal f32 values differ by one unit in the last
-# place, 2^-8 of the value (3.9e-3).
-GRAD_ROWS_TOL = {torch.float32: 3e-4, torch.bfloat16: 1e-2}
+# the twin, (of column-group max, of the entry's own magnitude). f32:
+# summation order (u over D, the prefix of w*u, the sums over pixels).
+# bf16: two roundings of nearly equal f32 values differ by one unit in the
+# last place, at most 2^-7 of the value (7.8e-3), and no entry exceeds its
+# magnitude.
+GRAD_ROWS_TOL = {torch.float32: (3e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
-def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int):
-    """(max abs error, largest error of a column group over that group's
-    largest magnitude) between B5 rows, or their per-Gaussian sums. The
-    groups are the D colour gradients, then each geometry column on its
-    own (their scales differ by orders of magnitude)."""
+def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int,
+                    mags: torch.Tensor):
+    """(max abs error; the largest error of a column group over that
+    group's largest magnitude; the largest error of any entry over its own
+    magnitude ``mags``) between B5 rows, or their per-Gaussian sums, with
+    ``mags`` from ``train_rows_plain(..., magnitudes=True)`` (summed like
+    the rows for the sums). The groups are the D colour gradients, then
+    each geometry column on its own (their scales differ by orders of
+    magnitude). The last value sees a wrong or missing light row, which
+    the group maximum hides: Gaussians late in a span, at small T, have
+    gradients orders of magnitude below it. An entry's own value is no
+    scale for it, because ``v = grem - prefix`` and the sums over pixels
+    cancel; its magnitude is. It is at least the smallest normal float, as
+    in ``rows_error``."""
     d = channels
     got, ref = got[:, : d + GEOM_GRADS].float(), ref[:, : d + GEOM_GRADS].float()
     if ref.numel() == 0:
-        return 0.0, 0.0
+        return 0.0, 0.0, 0.0
     diff = (got - ref).abs()
     mag = torch.maximum(got.abs(), ref.abs())
     worst = 0.0
@@ -273,7 +310,8 @@ def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int):
         scale = float(mag[:, cols].max())
         if scale > 0:
             worst = max(worst, float(diff[:, cols].max()) / scale)
-    return float(diff.max()), worst
+    own = mags[:, : d + GEOM_GRADS].float().clamp_min(torch.finfo(torch.float32).tiny)
+    return float(diff.max()), worst, float((diff / own).max())
 
 
 # -------------------------------------------------- autograd Function
@@ -291,22 +329,24 @@ class RenderTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, background, abs_probe,
-                plan, trans_eps, contrib_dtype, mark):
+                plan, trans_eps, contrib_dtype, mark, record):
         geom, cols = pack_train(means2d, conics, opacities, colors, plan)
         mark("pack")
         image, alpha, done = train_forward(geom, cols, plan, trans_eps)
+        if record is not None:
+            record.update(geom=geom, cols=cols, plan=plan, trans_eps=trans_eps,
+                          image=image.detach(), alpha=alpha.detach(), blocks_done=done)
         if background is not None:
             image = image + (1.0 - alpha)[..., None] * background
         mark("render")
         ctx.save_for_backward(geom, cols, image, alpha, done, background)
-        ctx.plan, ctx.contrib_dtype, ctx.mark = plan, contrib_dtype, mark
+        ctx.plan, ctx.contrib_dtype, ctx.mark, ctx.record = plan, contrib_dtype, mark, record
         return image, alpha
 
     @staticmethod
     def backward(ctx, g_image, g_alpha):
         geom, cols, image, alpha, done, background = ctx.saved_tensors
         plan, mark = ctx.plan, ctx.mark
-        mark("loss backward")
         d = cols.shape[1]
         g_image = g_image.float().contiguous()
         transs = 1.0 - alpha
@@ -320,12 +360,16 @@ class RenderTrain(torch.autograd.Function):
         hterm = (h * transs).contiguous()
         grem0 = (g_image * img_nobg).sum(-1).contiguous()
         rows = train_rows(geom, cols, g_image, hterm, grem0, done, plan, ctx.contrib_dtype)
+        if ctx.record is not None:
+            ctx.record.update(g_image=g_image, hterm=hterm, grem0=grem0,
+                              contrib_dtype=ctx.contrib_dtype, rows=rows)
         mark("B5 rows")
         sums = reduce_rows(rows, plan, d + GEOM_GRADS)
         mark("B3 reduce")
         gg = sums[:, d:]
         d_abs = gg[:, 6:8] if ctx.needs_input_grad[5] else None
-        return gg[:, 0:2], gg[:, 2:5], gg[:, 5], sums[:, :d], d_bg, d_abs, None, None, None, None
+        return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], sums[:, :d], d_bg, d_abs,
+                None, None, None, None, None)
 
 
 def render_plan_train(
@@ -339,12 +383,16 @@ def render_plan_train(
     abs_probe: Optional[torch.Tensor] = None,  # (N, 2) zeros
     contrib_dtype: torch.dtype = torch.float32,
     on_stage: Optional[Callable[[str], None]] = None,
+    record: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable render of one camera: (image (H, W, D), alpha (H, W)).
     ``on_stage(name)`` is called after "pack" and "render" in the forward
-    and at "loss backward", "B5 rows" and "B3 reduce" in the backward."""
+    and after "B5 rows" and "B3 reduce" in the backward. ``record``, a
+    dict, receives B4's inputs and outputs (geom, cols, plan, trans_eps,
+    image, alpha, blocks_done) and B5's further inputs and rows (g_image,
+    hterm, grem0, contrib_dtype, rows)."""
     return RenderTrain.apply(means2d, conics, opacities, colors, background, abs_probe,
-                             plan, trans_eps, contrib_dtype, on_stage or _no_mark)
+                             plan, trans_eps, contrib_dtype, on_stage or _no_mark, record)
 
 
 def render_scene(

@@ -3,12 +3,12 @@
 fields, defaults and ``adjust_steps``.
 
 Fields the port does not run yet are kept so that one configuration
-drives both packages; ``Trainer`` raises on the values that need them
-(``strategy`` "default"/"mcmc", pose and appearance optimisation,
-``raster_engine`` "tiled"). The ``pallas_*`` fields keep their names and
-configure the port's train kernels (B4/B5): tile size, gradient-row dtype
-and early-exit threshold. ``pallas_size_margin`` sizes the reference's
-static buckets and is not read: the port's plans are exact.
+drives both packages. ``Trainer`` raises on the values that need an
+unported part (``strategy`` "default"/"mcmc", pose and appearance
+optimisation, ``raster_engine`` "tiled") and on any field of ``NOT_READ``
+set away from its default, so that such a setting is not ignored. The
+``pallas_*`` fields keep their names and configure the port's train
+kernels (B4/B5): tile size, gradient-row dtype and early-exit threshold.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class TrainConfig:
     # tiled path
     raster_engine: str = "auto"
     pallas_tile_size: int = 0  # 0 = auto: 32 for >= 2^20-pixel renders, else 16
-    pallas_size_margin: float = 1.2  # the reference's static buckets; not read
+    pallas_size_margin: float = 1.2  # the reference's static buckets (NOT_READ)
     pallas_contrib_dtype: str = "float32"  # gradient-row dtype: float32 | bfloat16
     pallas_trans_eps: float = 1e-4  # early-exit threshold; 0.0 composites every block
 
@@ -130,3 +130,23 @@ class TrainConfig:
             refine_every=int(self.refine_every * f),
             reset_every=int(self.reset_every * f),
         )
+
+
+# Fields the port's Trainer never reads -> what reads them in tpugs. Left
+# out: fields read only under a setting that raises (the strategies'
+# refine_*/grow_*/prune_*/capacity_multiple, the pose_opt_* and app_*
+# options) and the schedules that ``adjust_steps`` rescales (eval_steps,
+# save_steps).
+NOT_READ = {
+    **dict.fromkeys(("data_dir", "data_factor", "result_dir", "test_every", "patch_size",
+                     "normalize_world_space", "init_type", "tb_every", "disable_viewer"),
+                    "the dataset and apps/train.py"),
+    **dict.fromkeys(("lpips_net", "compression"), "evaluate"),
+    "pallas_size_margin": "the static size buckets (the port's plans are exact)",
+}
+
+
+def unread_settings(cfg: TrainConfig) -> List[str]:
+    """Fields of ``NOT_READ`` that ``cfg`` sets away from their defaults."""
+    default = TrainConfig()
+    return [k for k in NOT_READ if getattr(cfg, k) != getattr(default, k)]

@@ -33,7 +33,7 @@ from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import Projected, ProjectionConfig, project, view_directions
 from tpugs_torch.raster.sh import sh_to_color
 from tpugs_torch.raster.train import render_plan_train, render_scene
-from tpugs_torch.train.config import TrainConfig
+from tpugs_torch.train.config import NOT_READ, TrainConfig, unread_settings
 from tpugs_torch.train.metrics import ssim_loss
 from tpugs_torch.train.strategy import GradState, make_strategy
 
@@ -146,6 +146,22 @@ def make_optimizer(cfg: TrainConfig, scene: GaussianScene, scene_scale: float = 
     return torch.optim.Adam(groups, eps=1e-15)
 
 
+class _StageAtGrad(torch.autograd.Function):
+    """Identity on its tensors whose backward calls ``mark(name)`` once their
+    gradients have all arrived: on the render's outputs, the end of the
+    loss's backward."""
+
+    @staticmethod
+    def forward(ctx, mark, name, *xs):
+        ctx.mark, ctx.name = mark, name
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.mark(ctx.name)
+        return (None, None, *grads)
+
+
 def _feature_l1(feat_img: torch.Tensor, proj_mat: torch.Tensor, teacher: torch.Tensor):
     """mean |feat_img @ proj_mat - teacher|, the teacher read as f32. At
     the garden shape the (H, W, D_out) f32 product is 2.2 GB; an 80 GB card
@@ -158,7 +174,9 @@ class Trainer:
     runs the kernels' plain twins). The scene's tensors become the
     optimised leaves. ``on_stage(name)``, if set, is called at the end of
     each of ``STAGES`` within a step (for timing; "teacher" only in
-    ``train_chunk``)."""
+    ``train_chunk``). ``record``, if set to a dict, receives each step's
+    render inputs, B4 outputs, B5 inputs and rows (``render_plan_train``),
+    so that the kernels can be checked on the main path's own inputs."""
 
     def __init__(
         self,
@@ -184,6 +202,10 @@ class Trainer:
         if n_cameras > 0 and cfg.app_opt and scene.features is not None:
             raise NotImplementedError("appearance optimisation is not ported yet: "
                                       "ROADMAP item 11")
+        unread = unread_settings(cfg)
+        if unread:
+            raise NotImplementedError("not read by the port yet (ROADMAP item 11): " + ", ".join(
+                f"TrainConfig.{k} ({NOT_READ[k]})" for k in unread))
         self.cfg = cfg
         self.scene = GaussianScene(**{
             f.name: None if getattr(scene, f.name) is None
@@ -206,6 +228,7 @@ class Trainer:
         self.contrib_dtype = getattr(torch, cfg.pallas_contrib_dtype)
         self._rng = np.random.default_rng(cfg.seed + 7)
         self.on_stage: Optional[Callable[[str], None]] = None
+        self.record: Optional[dict] = None
 
     def _mark(self, name: str) -> None:
         if self.on_stage is not None:
@@ -262,7 +285,10 @@ class Trainer:
         self._mark("plan")
         img, alpha = render_plan_train(
             proj.means2d, proj.conics, opac, allc, plan, trans_eps=cfg.pallas_trans_eps,
-            abs_probe=abs_probe, contrib_dtype=self.contrib_dtype, on_stage=self.on_stage)
+            abs_probe=abs_probe, contrib_dtype=self.contrib_dtype, on_stage=self.on_stage,
+            record=self.record)
+        if self.on_stage is not None:
+            img, alpha = _StageAtGrad.apply(self.on_stage, "loss backward", img, alpha)
         rgb = img[..., :3]
         off = 3
         if cfg.random_bkgd:
