@@ -3,23 +3,31 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Five phases; the first failure ends the run with a nonzero exit:
+Six phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
-             reduce; B4 train_fwd, B5 train_bwd in f32 and bf16 with B3's
-             sums of its rows) against its plain PyTorch twin on CUDA
-             tensors, at mid shapes with edge cases: W, H not multiples of
-             the tile, empty tiles, tiles that exit early, Gaussians
-             covering many tiles, D = 3, 20 and 131; then
-             ``render_plan_train`` with a background and the absgrad probe
-             against the same call on the CPU.
+             reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
+             bf16, each bit-equal to B2's rows and B3's sums; B4
+             train_fwd, B5 train_bwd in f32 and bf16 with B3's sums of its
+             rows) against its plain PyTorch twin on CUDA tensors, at mid
+             shapes with edge cases: W, H not multiples of the tile, empty
+             tiles, tiles that exit early, Gaussians covering many tiles,
+             D = 3, 20 and 131; S1's asynchronous-copy probe returns 19;
+             then ``render_plan_train`` with a background and the absgrad
+             probe against the same call on the CPU.
 3. full width — the canonical back-projection shape (N = 2^19 Gaussians,
              1296 x 840, D = 512, tile 32, linear encoder, 8 orbit views
-             after one warm-up view) through ``backproject_views``; per-stage
+             after one warm-up view) through ``backproject_views``, with the
+             default reduce engine and then with ``reduce_engine="scatter"``
+             (``num`` and ``den`` must be equal bit for bit); per-stage
              CUDA-event times, ms/view, views/s, peak memory; 64 random
-             tiles of one view held against the twins; every kernel must
-             have launched at least once per view.
+             tiles of one view held against the twins; each engine's kernels
+             must have launched at least once per view.
+   experiments — S1 (``experiments/scatter_write.py``): the six variants
+             at 15360 blocks against their twins, with their times and
+             ``index_copy_``'s; S2 (``experiments/reduce_tail.py``): the
+             reduce's passes on the canonical view's rows, with their times.
 4. training — the garden-scale feature-3DGS train step (2^19 Gaussians,
              1296 x 840, 131 rendered channels, a 512-d teacher, SH 3,
              tile 32) through ``Trainer.train_chunk``: 3 warm-up steps, 10
@@ -28,9 +36,10 @@ Five phases; the first failure ends the run with a nonzero exit:
              B5 and B3 launched every step; 64 random tiles of one step held
              against the twins.
 5. kernels line — one JSON object per kernel with its launches, errors,
-             time, the twin's time, its bound on this card and, for B3 (on
-             the lift's rows and on the train rows), the time of one
-             library call (sparse CSR product) that computes the same sums.
+             time, the twin's time, its bound on this card and, where one
+             exists, the time of one library call that computes the same
+             function (a sparse CSR product for B3, B7 and S2; S1's
+             ``index_copy_``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -88,21 +97,6 @@ def within_rows_tol(of_group: float, of_row: float, dtype) -> bool:
     return of_group <= group_tol and of_row <= row_tol
 
 
-def time_cuda(fn, iters: int, warmup: int = 1) -> float:
-    """Mean ms per call by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
 def span_rows(plan, tiles: torch.Tensor) -> torch.Tensor:
     """Padded row indices of the spans of ``tiles``."""
     count = (plan.tile_ends[tiles] - plan.tile_starts[tiles]).long()
@@ -143,13 +137,18 @@ def phase_kernels():
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster.colors import prepare_colors
     from tpugs_torch.raster.pack import pack_isect_all
-    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.experiments.scatter_write import async_copy_probe
+    from tpugs_torch.raster.plan import build_plan, with_scatter_extras
     from tpugs_torch.raster.projection import project
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
 
     W, H = 300, 200
     scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
     cams = orbit_cameras(2, W, H, radius=3.0, device="cuda")
+    got = int(async_copy_probe(torch.arange(64, dtype=torch.int32, device="cuda"), 2))
+    print(f"phase 2 S1 probe: cp.async of 8 int32 at a dynamic offset into shared "
+          f"memory returns {got}", flush=True)
+    check(got == 19, "the S1 probe returns 19")
     for ts, D, view in ((32, 64, 0), (16, 20, 1)):
         vm, Km = cams.viewmats[view], cams.Ks[view]
         proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
@@ -202,6 +201,32 @@ def phase_kernels():
             same = torch.equal(red, K.reduce_rows_plain(rows, plan, D + 1))
             print(f"phase 2 ts={ts} B3 reduce {rows.dtype}: bit-equal to twin: {same}", flush=True)
             check(same, "B3 bit-equal to its twin on the same rows")
+
+        # B6 and B7 on the same inputs, through the plan's scatter extras
+        splan = with_scatter_extras(plan)
+        real = splan.gauss_pos.long()
+        live = splan.slot_pos.long()[real]
+        for f, rows in ((feats, rows32), (fbf, rows_bf)):
+            striped = K.adjoint_scatter_rows(packed, f, splan)
+            torch.cuda.synchronize()
+            striped_t = K.adjoint_scatter_rows_plain(packed, f, splan)
+            a, g, r = K.rows_error(striped[live], striped_t[live], D)
+            b6_b2 = torch.equal(striped[live], rows[real])
+            sums = K.reduce_striped(striped, splan, D + 1)
+            cols = K.reduce_striped(striped, splan, D + 1, unpermute=False)
+            torch.cuda.synchronize()
+            b7_twin = torch.equal(sums, K.reduce_striped_plain(striped, splan, D + 1))
+            b7_b3 = torch.equal(sums, K.reduce_rows(rows, plan, D + 1))
+            b7_cols = torch.equal(cols, sums[splan.slot_order])
+            print(f"phase 2 ts={ts} D={D} B6 adjoint_scatter {f.dtype}: {len(live)} live "
+                  f"striped rows of {splan.R_striped + 1}, max abs {a:.3e}, {g:.3e} of "
+                  f"column-group max, {r:.3e} of row max, bit-equal to B2's rows {b6_b2}; "
+                  f"B7 stripe_sum bit-equal to twin {b7_twin}, to B3 {b7_b3}, "
+                  f"column order {b7_cols}", flush=True)
+            check(within_rows_tol(g, r, f.dtype), "B6 rows within ROWS_TOL of its twin")
+            check(b6_b2, "B6's rows bit-equal to B2's through slot_pos")
+            check(b7_twin and b7_b3 and b7_cols,
+                  "B7 bit-equal to its twin and to B3 on the same rows")
 
 
 def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
@@ -327,30 +352,22 @@ def _plan_to(plan, device):
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
-def phase_full_width():
-    """The canonical shape through the entry point. Returns the kernel
-    records for phase 4."""
-    from tpugs_torch.encoders.base import LinearRGBEncoder
-    from tpugs_torch.lift.batch import STAGES, backproject_views, run_view
+def timed_lift(args, engine: str):
+    """The 8 views through ``backproject_views`` with ``engine``: (num,
+    den, ms/view, launches, peak GB, stage ms/view, peak GB within each
+    stage)."""
+    from tpugs_torch.lift.batch import STAGES, backproject_views
     from tpugs_torch.raster import kernels as K
-    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
-
-    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
-    cams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
-    enc = LinearRGBEncoder(D_FULL, device="cuda")
-    args = (scene, cams.viewmats, cams.Ks, W_FULL, H_FULL, enc)
-
-    # warm-up view (allocator, cuBLAS, library load)
-    backproject_views(scene, cams.viewmats[:1], cams.Ks[:1], W_FULL, H_FULL, enc,
-                      tile_size=TILE)
-    torch.cuda.synchronize()
 
     events = []
+    stage_peak = dict.fromkeys(STAGES, 0.0)
 
     def on_stage(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev))
+        stage_peak[name] = max(stage_peak[name], torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
 
     start = torch.cuda.Event(enable_timing=True)
     torch.cuda.reset_peak_memory_stats()
@@ -358,34 +375,85 @@ def phase_full_width():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    num, den = backproject_views(*args, tile_size=TILE, on_stage=on_stage)
+    num, den = backproject_views(*args, tile_size=TILE, on_stage=on_stage,
+                                 reduce_engine=engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.LAUNCHES.snapshot()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
+    peak_gb = max([torch.cuda.max_memory_allocated() / 1e9, *stage_peak.values()])
     stage_ms = dict.fromkeys(STAGES, 0.0)
     prev = start
     for name, ev in events:
         stage_ms[name] += prev.elapsed_time(ev) / VIEWS
         prev = ev
-    check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all()),
-          "num and den finite")
-    lit = float((den > 0).float().mean())
-    check(lit > 0, "some Gaussians have den > 0")
-    for name in ("render", "adjoint", "reduce"):
-        check(launches[name] >= VIEWS,
-              f"{name} kernel launched at least once per view ({launches[name]})")
-    stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
-    print(f"phase 3 full width N={N_FULL} {W_FULL}x{H_FULL} D={D_FULL} tile={TILE} "
-          f"views={VIEWS}: {1e3 * wall / VIEWS:.2f} ms/view, {VIEWS / wall:.3f} views/s, "
-          f"peak {peak_gb:.2f} GB, den>0 on {100 * lit:.1f}% of Gaussians; "
-          f"stage ms/view (CUDA events): {stages}; launches {launches}", flush=True)
+    return num, den, 1e3 * wall / VIEWS, launches, peak_gb, stage_ms, stage_peak
+
+
+def csr_select(offsets, columns, n_cols):
+    """A 0/1 CSR matrix (len(offsets) - 1, n_cols) with ``columns`` listed
+    row by row: one library product by it sums the selected rows."""
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            offsets, columns, torch.ones(columns.shape[0], dtype=torch.float32,
+                                         device=columns.device),
+            size=(offsets.shape[0] - 1, n_cols), check_invariants=False)
+
+
+def phase_full_width():
+    """The canonical shape through the entry point, with both reduce
+    engines. Returns the kernel records for the kernels line and one view's
+    result for the experiments phase."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.lift.batch import backproject_views, run_view
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+
+    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
+    enc = LinearRGBEncoder(D_FULL, device="cuda")
+    args = (scene, cams.viewmats, cams.Ks, W_FULL, H_FULL, enc)
+
+    # warm-up view of each engine (allocator, cuBLAS, library load)
+    for engine in ("pallas", "scatter"):
+        backproject_views(scene, cams.viewmats[:1], cams.Ks[:1], W_FULL, H_FULL, enc,
+                          tile_size=TILE, reduce_engine=engine)
+    torch.cuda.synchronize()
+
+    results = {}
+    for engine, kernels in (("pallas", ("render", "adjoint", "reduce")),
+                            ("scatter", ("render", "adjoint_scatter", "stripe_sum"))):
+        num, den, ms_view, launches, peak_gb, stage_ms, stage_peak = timed_lift(args, engine)
+        results[engine] = (num.cpu(), den.cpu(), launches)
+        check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all()),
+              "num and den finite")
+        lit = float((den > 0).float().mean())
+        check(lit > 0, "some Gaussians have den > 0")
+        for name in kernels:
+            check(launches[name] >= VIEWS,
+                  f"{name} kernel launched at least once per view ({launches[name]})")
+        stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
+        peaks = " ".join(f"{k}={v:.2f}" for k, v in stage_peak.items())
+        print(f"phase 3 full width reduce_engine={engine} N={N_FULL} {W_FULL}x{H_FULL} "
+              f"D={D_FULL} tile={TILE} views={VIEWS}: {ms_view:.2f} ms/view, "
+              f"{1e3 / ms_view:.3f} views/s, peak {peak_gb:.2f} GB, den>0 on "
+              f"{100 * lit:.1f}% of Gaussians; stage ms/view (CUDA events): {stages}; "
+              f"peak GB within each stage: {peaks}; launches {launches}", flush=True)
+        del num, den  # the next engine's peak memory is its own
+    (num, den, launches), (num_s, den_s, launches_s) = results["pallas"], results["scatter"]
+    same = torch.equal(num_s, num) and torch.equal(den_s, den)
+    print(f"phase 3 reduce_engine=scatter num and den bit-equal to the default engine's: "
+          f"{same}", flush=True)
+    check(same, "the scatter engine's num and den equal the default engine's bit for bit")
+    del num, den, num_s, den_s, results
 
     # 64 random tiles of view 0 against the twins
     r = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE)
+    r_s = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE,
+                   reduce_engine="scatter")
     torch.cuda.synchronize()
-    plan, D = r.plan, D_FULL
+    plan, plan_s, D = r.plan, r_s.plan, D_FULL
     gen = torch.Generator(device="cuda").manual_seed(0)
     tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
     img_t, _ = K.render_tiles_plain(r.packed, plan, tiles=tiles)
@@ -393,18 +461,34 @@ def phase_full_width():
     rows = span_rows(plan, tiles)
     rows_t = K.adjoint_rows_plain(r.packed, r.feat_tiles, plan, tiles=tiles)
     b2 = K.rows_error(r.rows[rows], rows_t[rows], D)
+    del rows_t
     gids = gaussians_of(plan, rows)
     red_t = K.reduce_rows_plain(r.rows, plan, D + 1, gaussians=gids)
     b3 = rel_err(r.sums[gids], red_t)
     b3_equal = torch.equal(r.sums[gids], red_t)
+    real = rows[plan.padded_gid[rows] < plan.num_gaussians]  # rows with an intersection
+    dest = plan_s.slot_pos.long()[real]
+    striped_t = K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s, tiles=tiles)
+    b6 = K.rows_error(r_s.rows[dest], striped_t[dest], D)
+    del striped_t
+    b6_b2 = torch.equal(r_s.rows[dest], r.rows[real])
+    red7_t = K.reduce_striped_plain(r_s.rows, plan_s, D + 1, gaussians=gids)
+    b7 = rel_err(r_s.sums[gids], red7_t)
+    b7_equal = torch.equal(r_s.sums[gids], red7_t) and torch.equal(r_s.sums[gids], red_t)
+    b7_b3_view = torch.equal(r_s.sums, r.sums)
     print(f"phase 3 check on 64 tiles ({len(gids)} Gaussians): B1 rel {b1[1]:.3e}, "
           f"B2 bf16 {b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max, "
-          f"B3 bit-equal {b3_equal}", flush=True)
+          f"B3 bit-equal {b3_equal}; B6 bf16 {b6[1]:.3e} of column-group max, "
+          f"{b6[2]:.3e} of row max, bit-equal to B2 {b6_b2}; B7 bit-equal to its twin and "
+          f"B3 {b7_equal}, on the whole view {b7_b3_view}", flush=True)
     check(b1[1] <= 1e-4, "B1 within 1e-4 on the sampled tiles")
     check(within_rows_tol(b2[1], b2[2], torch.bfloat16),
           "B2 bf16 within ROWS_TOL on the sampled tiles")
     check(b3_equal, "B3 bit-equal on the sampled Gaussians")
-    del rows_t
+    check(within_rows_tol(b6[1], b6[2], torch.bfloat16),
+          "B6 bf16 within ROWS_TOL on the sampled tiles")
+    check(b6_b2, "B6 bit-equal to B2 on the sampled tiles")
+    check(b7_equal and b7_b3_view, "B7 bit-equal to its twin and to B3")
 
     # times at the main path's shapes, and the bounds of this view's work
     pairs = int(r.blocks_done.sum()) * 128 * TILE * TILE
@@ -416,35 +500,51 @@ def phase_full_width():
     b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
     b3_ms = time_cuda(lambda: K.reduce_rows(r.rows, plan, D + 1), 5)
     b3_plain = time_cuda(lambda: K.reduce_rows_plain(r.rows, plan, D + 1), 1)
+    b6_ms = time_cuda(lambda: K.adjoint_scatter_rows(r.packed, r.feat_tiles, plan_s), 3)
+    b6_plain = time_cuda(
+        lambda: K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s), 1)
+    b7_ms = time_cuda(lambda: K.reduce_striped(r_s.rows, plan_s, D + 1), 5)
+    b7_plain = time_cuda(lambda: K.reduce_striped_plain(r_s.rows, plan_s, D + 1), 1)
     # B3 as one library call: a CSR 0/1 matrix (Gaussian x padded row, the
     # plan's own lists) times the rows (cuSPARSE SpMM). It has no bf16-in,
     # f32-out form, so it reads the rows converted to f32 beforehand.
-    with warnings.catch_warnings():  # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        select = torch.sparse_csr_tensor(
-            plan.gauss_offsets, plan.gauss_pos,
-            torch.ones(n_isects, dtype=torch.float32, device="cuda"),
-            size=(N_FULL, T_padded), check_invariants=False)
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, T_padded)
     rows32 = r.rows[:, : D + 1].float()
     lib_err = rel_err(select @ rows32, r.sums)
     b3_lib = time_cuda(lambda: select @ rows32, 5)
-    print(f"phase 3 B3 library call (sparse CSR @ f32 rows): {b3_lib:.3f} ms, "
-          f"{lib_err[1]:.3e} of max from the kernel's sums", flush=True)
-    check(lib_err[1] <= 1e-5, "the library call computes B3's sums")
     del select, rows32
+    # B7 likewise, over the striped positions; the rows it never reads are
+    # zeroed in the f32 copy (B6 leaves them unwritten).
+    live = plan_s.slot_pos.long()[plan_s.gauss_pos.long()]
+    select = csr_select(plan_s.gauss_offsets, live.to(torch.int32), plan_s.R_striped + 1)
+    striped32 = torch.zeros((plan_s.R_striped + 1, D + 1), device="cuda")
+    striped32[live] = r_s.rows[live, : D + 1].float()
+    lib7_err = rel_err(select @ striped32, r_s.sums)
+    b7_lib = time_cuda(lambda: select @ striped32, 5)
+    del select, striped32
+    print(f"phase 3 library calls (sparse CSR @ f32 rows): B3 {b3_lib:.3f} ms, "
+          f"{lib_err[1]:.3e} of max from the kernel's sums; B7 (striped positions) "
+          f"{b7_lib:.3f} ms, {lib7_err[1]:.3e}", flush=True)
+    check(lib_err[1] <= 1e-5 and lib7_err[1] <= 1e-5, "the library calls compute the sums")
 
     block_bytes = int(r.blocks_done.sum()) * 128 * 64  # pack rows the walk reads
+    b2_bytes = block_bytes + n_tiles * tspx * D * 2 + T_padded * (D + 1) * 2
 
     b1_bound = bound(block_bytes + n_tiles * tspx * 5 * 4, PAIR_OPS * pairs, PEAK_F32_FLOPS)
-    b2_bound = bound(block_bytes + n_tiles * tspx * D * 2 + T_padded * (D + 1) * 2,
-                     2 * pairs * (D + 1), PEAK_BF16_FLOPS)
+    b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
     b3_bound = bound(n_isects * ((D + 1) * 2 + 4) + N_FULL * ((D + 1) * 4 + 4),
+                     n_isects * (D + 1), PEAK_F32_FLOPS)
+    b6_bound = bound(b2_bytes + T_padded * 4, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
+    b7_bound = bound(n_isects * (D + 1) * 2 + N_FULL * ((D + 1) * 4 + 4 + 8),
                      n_isects * (D + 1), PEAK_F32_FLOPS)
     print(f"phase 3 work of one view: {n_tiles} tiles, {n_isects} intersections, "
           f"T_padded {T_padded}, {int(r.blocks_done.sum())} blocks walked "
-          f"({pairs} pixel-Gaussian pairs)", flush=True)
+          f"({pairs} pixel-Gaussian pairs); scatter layout R_striped {plan_s.R_striped}, "
+          f"{plan_s.stripe_base.shape[0]} stripes; B2 {b2_ms:.3f} ms, B3 {b3_ms:.3f} ms; "
+          f"B6 {b6_ms:.3f} ms (twin {b6_plain:.1f}), "
+          f"B7 {b7_ms:.3f} ms (twin {b7_plain:.1f})", flush=True)
 
-    return [
+    records = [
         rec("B1", "render", "tpugs_torch/csrc/render.cu",
             "tpugs/raster/pallas_tiled.py:1328", launches["render"], b1, b1_ms,
             b1_plain, b1_bound),
@@ -454,6 +554,141 @@ def phase_full_width():
         rec("B3", "reduce", "tpugs_torch/csrc/reduce.cu",
             "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
             b3_plain, b3_bound, b3_lib),
+        rec("B6", "adjoint_scatter", "tpugs_torch/csrc/adjoint.cu",
+            "tpugs/raster/pallas_tiled.py:1870", launches_s["adjoint_scatter"], b6, b6_ms,
+            b6_plain, b6_bound),
+        rec("B7", "stripe_sum", "tpugs_torch/csrc/stripe_sum.cu",
+            "tpugs/raster/pallas_tiled.py:1987", launches_s["stripe_sum"], b7, b7_ms,
+            b7_plain, b7_bound, b7_lib),
+    ]
+    return records, r
+
+
+S1_ITERS = 5  # timed launches of each S1 variant
+
+
+def phase_experiments(r):
+    """S1's variants at the reference's 15360 blocks and S2's passes on
+    the canonical view ``r`` (a default-engine ``ViewResult``). Returns
+    their kernel records."""
+    from tpugs_torch.experiments import reduce_tail as S2
+    from tpugs_torch.experiments import scatter_write as S1
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.plan import with_scatter_extras
+    from tpugs_torch.utils.timing import time_cuda
+
+    # S1: every variant against its twin; scatter is contig permuted by pos
+    nb = S1.NB_DEFAULT
+    n_rows = nb * S1.BLOCK_ROWS
+    pos = S1.permutation(n_rows).cuda()
+    pos64 = pos.long()
+    out_k, out_t, contig = (torch.empty((n_rows, S1.ROW_ELEMS), dtype=torch.bfloat16,
+                                        device="cuda") for _ in range(3))
+    worst, equal = (0.0, 0.0), True
+    for it in S1.COMPUTE_ITERS:
+        S1.run_variant(pos, False, it, contig)
+        for scatter in (False, True):
+            S1.run_variant(pos, scatter, it, out_k)
+            torch.cuda.synchronize()
+            S1.scatter_write_plain(out_t, pos if scatter else None, it)
+            worst = max(worst, rel_err(out_k, out_t), key=lambda e: e[1])
+            equal &= torch.equal(out_k, out_t)
+        check(torch.equal(out_k[pos64], contig), f"S1 scatter rows land at pos (it={it})")
+    print(f"phase 3x S1 {nb} blocks: kernel against twin in all six variants: largest "
+          f"error {worst[1]:.3e} of max, bit-equal {equal}", flush=True)
+    check(worst[1] <= 2.0**-7, "S1 within one bf16 unit of its twin")
+    s1_plain = time_cuda(lambda: S1.scatter_write_plain(out_t, pos, 0), 1)
+    src_rows = S1.run_variant(pos, False, 0, contig)
+    s1_lib = time_cuda(lambda: out_t.index_copy_(0, pos64, src_rows), S1_ITERS)
+    check(torch.equal(out_t, S1.run_variant(pos, True, 0, out_k)),
+          "index_copy_ writes the scatter variant's rows")
+    del out_k, out_t, contig, src_rows, pos64
+    S1.reset_launches()
+    variants = S1.measure(nb, iters=S1_ITERS, device="cuda")
+    s1_launches = S1.LAUNCHES["scatter_write"]
+    for v in variants:
+        print(f"phase 3x S1 {v['variant']:8s}[it={v['compute_iters']}] -> {v['ms']:.3f} ms  "
+              f"{v['mrows_s']:.1f} M rows/s  {v['gb_s']:.1f} GB/s", flush=True)
+    print(f"phase 3x S1 library index_copy_ of the same rows: {s1_lib:.3f} ms", flush=True)
+    # Diagnostic: each block's rows contiguous, the blocks in shuffled places
+    blocks = S1.permutation(nb, seed=1).cuda().long()
+    pos_blk = (blocks[:, None] * S1.BLOCK_ROWS
+               + torch.arange(S1.BLOCK_ROWS, device="cuda")).reshape(-1).to(torch.int32)
+    out = torch.empty((n_rows, S1.ROW_ELEMS), dtype=torch.bfloat16, device="cuda")
+    for it in (0, 48):
+        ms = time_cuda(lambda: S1.run_variant(pos_blk, True, it, out), S1_ITERS)
+        print(f"phase 3x S1 diagnostic block-shuffled contig [it={it}] -> {ms:.3f} ms",
+              flush=True)
+    del out, pos_blk, blocks
+    src = torch.arange(64, dtype=torch.int32, device="cuda")
+    probe_ms = time_cuda(lambda: S1.async_copy_probe(src, 2), 20)
+    probe_plain = time_cuda(lambda: S1.async_copy_probe_plain(src, 2), 20)
+    probe_launches = S1.LAUNCHES["async_copy_probe"]
+    probe_err = rel_err(S1.async_copy_probe(src, 2), S1.async_copy_probe_plain(src, 2))
+    check(int(S1.async_copy_probe(src, 2)) == 19, "the S1 probe returns 19")
+    s1 = {(v["variant"], v["compute_iters"]): v["ms"] for v in variants}
+    s1_bound = bound(S1.row_bytes(n_rows, True), 2 * S1.multiply_adds(nb, 0), PEAK_F32_FLOPS)
+    for it in S1.COMPUTE_ITERS:
+        for name in ("contig", "scatter"):
+            b = bound(S1.row_bytes(n_rows, name == "scatter"),
+                      2 * S1.multiply_adds(nb, it), PEAK_F32_FLOPS)
+            print(f"phase 3x S1 bound {name}[it={it}]: {b[0]:.3f} ms ({b[1]}); "
+                  f"share {b[0] / s1[name, it]:.3f}", flush=True)
+
+    # S2: the reduce's passes on the view's own rows
+    D = D_FULL
+    plan = with_scatter_extras(r.plan)
+    K.LAUNCHES.reset()
+    fns = S2.passes(r.rows, plan, D + 1)
+    unperm_equal = torch.equal(fns["stripe+unpermute"](), r.sums)
+    # index_add_ adds with float atomics, which flush subnormal sums to zero
+    acc = fns["scatter-acc"]()
+    normal = r.sums.abs() >= torch.finfo(torch.float32).tiny
+    acc_equal = torch.equal(acc[normal], r.sums[normal])
+    flushed = int((acc[~normal] != r.sums[~normal]).sum())
+    acc_equal &= bool((acc[~normal][acc[~normal] != r.sums[~normal]] == 0).all())
+    del acc
+    print(f"phase 3x S2 stripe+unpermute bit-equal to B3 {unperm_equal}; scatter-acc "
+          f"bit-equal to B3 on every normal sum {acc_equal}, {flushed} subnormal sums "
+          f"flushed to zero by index_add_", flush=True)
+    check(unperm_equal and acc_equal, "S2's unpermuted stripe sums equal B3's")
+    s2_ms = {name: time_cuda(fn, 5) for name, fn in fns.items()}
+    s2_launches = K.LAUNCHES.stripe_sum
+    nbytes = S2.pass_bytes(plan, r.rows.shape[1], D + 1, r.rows.element_size())
+    for name, ms in s2_ms.items():
+        b = 1e3 * nbytes[name] / PEAK_BYTES_S
+        print(f"phase 3x S2 {name:17s} -> {ms:.3f} ms (bound {b:.3f} ms by bytes, share "
+              f"{b / ms:.3f})", flush=True)
+    for name, why in S2.NOT_APPLICABLE.items():
+        print(f"phase 3x S2 {name}: not applicable ({why})", flush=True)
+    src2 = S2.stripe_sources(plan)
+    s2_plain = time_cuda(lambda: K.reduce_striped_plain(
+        r.rows[src2], plan, D + 1, unpermute=False), 1)
+    stripe = fns["stripe"]()
+    # library: a CSR 0/1 matrix over the plan rows in column order
+    counts = plan.culled.long()
+    offsets = torch.zeros(plan.num_gaussians + 1, dtype=torch.int64, device="cuda")
+    offsets[1:] = torch.cumsum(counts, 0)
+    owner = torch.repeat_interleave(torch.arange(plan.num_gaussians, device="cuda"), counts)
+    g = plan.slot_order[owner]
+    k = plan.gauss_offsets.long()[g] + torch.arange(plan.n_isects, device="cuda") - offsets[owner]
+    select = csr_select(offsets.to(torch.int32), plan.gauss_pos[k], plan.T_padded)
+    rows32 = r.rows[:, : D + 1].float()
+    s2_err = rel_err(select @ rows32, stripe)
+    s2_lib = time_cuda(lambda: select @ rows32, 5)
+    check(s2_err[1] <= 1e-5, "the library call computes S2's stripe sums")
+    del select, rows32
+    s2_bound = (1e3 * nbytes["stripe"] / PEAK_BYTES_S, "bytes")
+    return [
+        rec("S1", "scatter_write (scatter, compute_iters 0)",
+            "tpugs_torch/csrc/exp_scatter_write.cu", "scripts/exp_scatter_write.py:120",
+            s1_launches, worst, s1["scatter", 0], s1_plain, s1_bound, s1_lib),
+        rec("S1-probe", "async_copy_probe", "tpugs_torch/csrc/exp_scatter_write.cu",
+            "scripts/exp_scatter_write.py:143", probe_launches, probe_err, probe_ms,
+            probe_plain, bound(32 + 4, 0, PEAK_F32_FLOPS)),
+        rec("S2", "reduce_tail stripe (gather + stripe_sum in column order)",
+            "tpugs_torch/csrc/stripe_sum.cu", "scripts/exp_reduce_tail.py:53",
+            s2_launches, s2_err, s2_ms["stripe"], s2_plain, s2_bound, s2_lib),
     ]
 
 
@@ -480,6 +715,7 @@ def phase_train():
     from tpugs_torch.train.config import TrainConfig
     from tpugs_torch.train.trainer import STAGES, Trainer, init_scene_from_points
     from tpugs_torch.utils.synthetic import orbit_cameras
+    from tpugs_torch.utils.timing import time_cuda
 
     n, w, h = N_FULL, W_FULL, H_FULL
     t0 = time.perf_counter()
@@ -601,12 +837,7 @@ def phase_train():
                                              torch.bfloat16), 3)
     b3_ms = time_cuda(lambda: K.reduce_rows(rows, plan, D + 8), 5)
     b3_plain = time_cuda(lambda: K.reduce_rows_plain(rows, plan, D + 8), 1)
-    with warnings.catch_warnings():  # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        select = torch.sparse_csr_tensor(
-            plan.gauss_offsets, plan.gauss_pos,
-            torch.ones(n_isects, dtype=torch.float32, device="cuda"),
-            size=(n, t_padded), check_invariants=False)
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, t_padded)
     rows_d = rows[:, : D + 8].float().contiguous()
     lib_err = rel_err(select @ rows_d, sums)
     b3_lib = time_cuda(lambda: select @ rows_d, 5)
@@ -658,7 +889,9 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_train_kernels()
-    records = phase_full_width()
+    records, view = phase_full_width()
+    records += phase_experiments(view)
+    del view
     records += phase_train()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

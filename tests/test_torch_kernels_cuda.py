@@ -9,17 +9,22 @@ own (f32: 1e-4, summation order; bf16: one or two bf16 units in the last
 place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
-(``grad_rows_error``), in f32 and bf16.
+(``grad_rows_error``), in f32 and bf16. B6's live striped rows within
+``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``;
+B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
+bf16 unit of the twin's (they are expected bit-equal) and scattered to
+``pos``; its probe reads 19.
 """
 
 import pytest
 import torch
 
 from tpugs_torch.encoders.base import LinearRGBEncoder
+from tpugs_torch.experiments import scatter_write as S1
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
-from tpugs_torch.raster.plan import build_plan
+from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
 from tpugs_torch.raster import train as T
 from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
@@ -93,6 +98,58 @@ def test_reduce_kernel_bit_equal_to_twin(view, dtype):
     got = K.reduce_rows(rows, plan, feats.shape[-1] + 1)
     torch.cuda.synchronize()
     assert torch.equal(got, K.reduce_rows_plain(rows, plan, feats.shape[-1] + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adjoint_scatter_kernel_matches_twin_and_b2(view, dtype):
+    plan, pack, feats = view
+    f = feats.to(dtype)
+    splan = with_scatter_extras(plan)
+    got = K.adjoint_scatter_rows(pack, f, splan)
+    rows = K.adjoint_rows(pack, f, plan)
+    torch.cuda.synchronize()
+    real = splan.gauss_pos.long()
+    live = splan.slot_pos.long()[real]
+    ref = K.adjoint_scatter_rows_plain(pack, f, splan)
+    _, of_group, of_row = K.rows_error(got[live], ref[live], f.shape[-1])
+    group_tol, row_tol = K.ROWS_TOL[dtype]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    assert torch.equal(got[live], rows[real])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stripe_sum_kernel_bit_equal_to_twin_and_b3(view, dtype):
+    plan, pack, feats = view
+    f = feats.to(dtype)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, f, splan)
+    n_cols = f.shape[-1] + 1
+    got = K.reduce_striped(striped, splan, n_cols)
+    cols = K.reduce_striped(striped, splan, n_cols, unpermute=False)
+    b3 = K.reduce_rows(K.adjoint_rows(pack, f, plan), plan, n_cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.reduce_striped_plain(striped, splan, n_cols))
+    assert torch.equal(got, b3)
+    assert torch.equal(cols, got[splan.slot_order])
+
+
+@pytest.mark.parametrize("iters", [0, 16, 48])
+def test_scatter_write_kernel_matches_twin(iters):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    pos = S1.permutation(64 * 128).cuda()
+    contig = S1.run_variant(pos, False, iters)
+    scatter = S1.run_variant(pos, True, iters)
+    torch.cuda.synchronize()
+    ref = S1.scatter_write_plain(torch.empty_like(contig), None, iters)
+    assert _rel(contig, ref) <= 2.0**-7
+    assert torch.equal(scatter[pos.long()], contig)
+
+
+def test_async_copy_probe_reads_19():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert int(S1.async_copy_probe(torch.arange(64, dtype=torch.int32, device="cuda"), 2)) == 19
 
 
 @pytest.fixture(scope="module", params=[3, 131])

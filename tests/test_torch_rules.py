@@ -16,12 +16,13 @@ from tpugs_torch.convert import cameras_from_numpy, linear_encoder_from_numpy, s
 from tpugs_torch.core.device import resolve_device
 from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
+from tpugs_torch.experiments import scatter_write
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.batch import backproject_views
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
-from tpugs_torch.raster.plan import build_plan
+from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
 from tpugs_torch.raster.train import pack_train, train_forward, train_rows
 from tpugs_torch.train.config import TrainConfig
@@ -118,6 +119,37 @@ BAD_CALLS = {
         lambda p, k, f: K.reduce_rows(torch.zeros((p.T_padded, 128)), p, 129), ValueError),
     "reduce wrong rows": (
         lambda p, k, f: K.reduce_rows(torch.zeros((p.T_padded + 1, 128)), p, 7), ValueError),
+    "adjoint_scatter f16 feats": (
+        lambda p, k, f: K.adjoint_scatter_rows(k, f.half(), with_scatter_extras(p)), TypeError),
+    "adjoint_scatter f64 pack": (
+        lambda p, k, f: K.adjoint_scatter_rows(k.double(), f, with_scatter_extras(p)),
+        TypeError),
+    "adjoint_scatter meta pack": (
+        lambda p, k, f: K.adjoint_scatter_rows(k.to("meta"), f, with_scatter_extras(p)),
+        ValueError),
+    "adjoint_scatter plan without extras": (
+        lambda p, k, f: K.adjoint_scatter_rows(k, f, p), ValueError),
+    "stripe_sum int rows": (
+        lambda p, k, f: K.reduce_striped(torch.zeros(
+            (with_scatter_extras(p).R_striped + 1, 128), dtype=torch.int32),
+            with_scatter_extras(p), 7), TypeError),
+    "stripe_sum meta rows": (
+        lambda p, k, f: K.reduce_striped(torch.zeros(
+            (with_scatter_extras(p).R_striped + 1, 128), device="meta"),
+            with_scatter_extras(p), 7), ValueError),
+    "stripe_sum wrong rows": (
+        lambda p, k, f: K.reduce_striped(torch.zeros((p.T_padded, 128)),
+                                         with_scatter_extras(p), 7), ValueError),
+    "stripe_sum too many cols": (
+        lambda p, k, f: K.reduce_striped(torch.zeros(
+            (with_scatter_extras(p).R_striped + 1, 128)), with_scatter_extras(p), 129),
+        ValueError),
+    "stripe_sum plan without extras": (
+        lambda p, k, f: K.reduce_striped(torch.zeros((p.T_padded, 128)), p, 7), ValueError),
+    "scatter_write meta rows": (
+        lambda p, k, f: scatter_write.scatter_write(
+            torch.zeros((128, 1024), dtype=torch.bfloat16, device="meta"), None, 0),
+        ValueError),
 }
 
 
@@ -174,9 +206,17 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     grad_rows = train_rows(geom, cols, g, hw, hw, done, plan)
     assert image.shape == (48, 64, 5) and alpha.shape == (48, 64)
     assert grad_rows.shape == (plan.T_padded, 16)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, feats, splan)
+    assert striped.shape == (splan.R_striped + 1, 128)
+    assert torch.equal(K.reduce_striped(striped, splan, 7), sums)
+    scatter_write.reset_launches()
+    scatter_write.run_variant(scatter_write.permutation(128), True, 1)
+    assert int(scatter_write.async_copy_probe(torch.arange(64, dtype=torch.int32), 2)) == 19
+    assert set(scatter_write.LAUNCHES.values()) == {0}
     assert set(K.LAUNCHES.snapshot().values()) == {0}
     assert set(K.LAUNCHES.snapshot()) == {"render", "adjoint", "reduce", "train_fwd",
-                                          "train_bwd"}
+                                          "train_bwd", "adjoint_scatter", "stripe_sum"}
 
 
 UNPORTED = {
@@ -203,7 +243,8 @@ def test_trainer_raises_on_what_is_not_ported(case):
 def test_build_is_keyed_on_sources_and_targets_sm90a(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = {p.name for p in build.CSRC_DIR.glob("*.cu")}
-    assert names == {"render.cu", "adjoint.cu", "reduce.cu", "train_fwd.cu", "train_bwd.cu"}
+    assert names == {"render.cu", "adjoint.cu", "reduce.cu", "train_fwd.cu", "train_bwd.cu",
+                     "stripe_sum.cu", "exp_scatter_write.cu"}
     before = build.library_path()
     copy = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, copy)
@@ -211,6 +252,17 @@ def test_build_is_keyed_on_sources_and_targets_sm90a(tmp_path, monkeypatch):
     assert build.library_path() == before
     (copy / "reduce.cu").write_text((copy / "reduce.cu").read_text() + "\n// edit\n")
     assert build.library_path() != before
+
+
+def test_every_entry_point_has_a_signature():
+    """Each ``extern "C"`` function of csrc/ is bound with its argument
+    types, and each bound name exists in the sources."""
+    import re
+
+    defined = set()
+    for cu in build.CSRC_DIR.glob("*.cu"):
+        defined |= set(re.findall(r'extern "C" int (\w+)\(', cu.read_text()))
+    assert defined == set(build.SIGNATURES)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -12,11 +12,13 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   core/      scene (raw parameterisation + activations), cameras, devices
   utils/     synthetic scenes and orbit rigs (bit-identical to tpugs')
   raster/    projection, SH, binning, per-view plan and pack, the lift
-             kernels (render, adjoint, reduce), the per-view drivers, and
+             kernels (render, adjoint, reduce; the opt-in scatter engine's
+             adjoint_scatter and stripe_sum), the per-view calls of them, and
              the differentiable train render (kernels train_fwd, train_bwd)
   encoders/  synthetic pixelwise encoders and their registry
   lift/      the fused multi-view back-projection loop
   train/     config, metrics, strategy "none" and the trainer's step
+  experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail)
   kernels/   the nvcc build of ``csrc/*.cu``
   convert.py numpy state in, port state out
 

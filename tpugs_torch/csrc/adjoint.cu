@@ -29,6 +29,21 @@
 //   then the 128 rows are written and the tile-wide exit is tested with
 //   __syncthreads_or. Per-pixel T persists in shared memory across blocks.
 // Shared memory: about 134 KB dynamic (both modes) + 7 KB static.
+//
+// B6 — the scatter-write adjoint of the opt-in scatter reduce engine.
+// Replaces tpugs/raster/pallas_tiled.py::adjoint_scatter_pallas_raw
+// (kernel _make_adjoint_scatter_kernel). It is this kernel instantiated
+// with a destination table: row r goes to out + dest[r] * DC instead of
+// out + r * DC, at all three write sites (the products of both modes and
+// the zero rows of blocks past the early exit, which are real
+// intersections and are summed). Weights and products are B2's own
+// instructions, so each row is bit-equal to B2's. dest is the plan's
+// slot_pos: rows land in the striped layout that B7 (stripe_sum.cu) reads
+// in sequence; every padding slot maps to one trash row, whose racing
+// writes are harmless because nothing reads it. Rows keep B2's width; the
+// reference's 1024-lane rows are a Mosaic unit and are not copied. Bound:
+// B2's, plus 4 bytes of dest per written row; the scattered rows (1.3 KB
+// at D = 512) are each written whole by consecutive threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +84,16 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Row r of the plan is written to output row r (B2) or dest[r] (B6).
+template <bool kScatter>
+__device__ __forceinline__ long long out_row(const int* __restrict__ dest, long long r) {
+  if constexpr (kScatter) {
+    return dest[r];
+  } else {
+    return r;
+  }
+}
 
 // F[pl][c] = feats[tile][pix0 + pl][c0 + c] for c0 + c < D, 1 at column D,
 // 0 after; 16-byte loads where the row allows.
@@ -124,8 +149,9 @@ struct MmaProduct {
 
   // Called by all threads after a barrier that ends every read of Wt/Fs
   // (the f32 stage Cs aliases them).
-  __device__ void store(bf16* __restrict__ out, long long row0, int DC, int c0,
-                        float* Cs, int tid) {
+  template <bool kScatter>
+  __device__ void store(bf16* __restrict__ out, const int* __restrict__ dest, long long row0,
+                        int DC, int c0, float* Cs, int tid) {
     const int warp = tid / 32;
 #pragma unroll
     for (int j = 0; j < kSlice / 16; ++j)
@@ -135,7 +161,7 @@ struct MmaProduct {
     for (int idx = tid; idx < kBlock * kSlice / 2; idx += kThreads) {
       const int g = idx / (kSlice / 2);
       const int c = (idx % (kSlice / 2)) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + g) * DC + c0 + c) =
+      *reinterpret_cast<__nv_bfloat162*>(out + out_row<kScatter>(dest, row0 + g) * DC + c0 + c) =
           __floats2bfloat162_rn(Cs[g * kLdc + c], Cs[g * kLdc + c + 1]);
     }
   }
@@ -170,12 +196,13 @@ struct FmaProduct {
     }
   }
 
-  __device__ void store(float* __restrict__ out, long long row0, int DC, int c0,
-                        float*, int tid) {
+  template <bool kScatter>
+  __device__ void store(float* __restrict__ out, const int* __restrict__ dest, long long row0,
+                        int DC, int c0, float*, int tid) {
     const int tg = tid / 16, tc = tid % 16;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float* o = out + (row0 + tg * 8 + i) * DC + c0 + tc * 8;
+      float* o = out + out_row<kScatter>(dest, row0 + tg * 8 + i) * DC + c0 + tc * 8;
       *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       *reinterpret_cast<float4*>(o + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
     }
@@ -186,12 +213,13 @@ template <typename T>
 using ProductOf = typename std::conditional<std::is_same<T, bf16>::value, MmaProduct,
                                             FmaProduct>::type;
 
-template <typename T>
+template <typename T, bool kScatter>
 __global__ void __launch_bounds__(kThreads)
 adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_starts,
                const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
-               const T* __restrict__ feats, T* __restrict__ out, int ntx, int ts,
-               int width, int height, int D, int DC, float trans_eps, int vec_ok) {
+               const T* __restrict__ feats, const int* __restrict__ dest, T* __restrict__ out,
+               int ntx, int ts, int width, int height, int D, int DC, float trans_eps,
+               int vec_ok) {
   using L = Layout<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Wt = reinterpret_cast<T*>(smem);
@@ -219,7 +247,8 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
     const long long row0 = pstart + static_cast<long long>(b) * kBlock;
     if (!keep) {  // early exit: the remaining blocks' rows are zeros
       for (int idx = tid; idx < kBlock * kSlice; idx += kThreads)
-        out[(row0 + idx / kSlice) * DC + c0 + idx % kSlice] = from_f<T>(0.0f);
+        out[out_row<kScatter>(dest, row0 + idx / kSlice) * DC + c0 + idx % kSlice] =
+            from_f<T>(0.0f);
       continue;
     }
     load_geom(g, pack, row0, tid);
@@ -248,30 +277,32 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
       prod.accumulate(Wt, Fs, tid);
       __syncthreads();
     }
-    prod.store(out, row0, DC, c0, Cs, tid);
+    prod.template store<kScatter>(out, dest, row0, DC, c0, Cs, tid);
     int any = 0;
     for (int p = tid; p < tspx; p += kThreads) any |= Tpix[p] > trans_eps;
     keep = __syncthreads_or(any);
   }
 }
 
-template <typename T>
+template <typename T, bool kScatter>
 int launch(const float* pack, const int* tile_starts, const int* tile_ends,
-           const int* padded_starts, const T* feats, T* out, int n_tiles, int ntx, int ts,
-           int width, int height, int D, int DC, float trans_eps, cudaStream_t stream) {
+           const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
+           int ntx, int ts, int width, int height, int D, int DC, float trans_eps,
+           cudaStream_t stream) {
   using L = Layout<T>;
-  if (DC % kSlice != 0 || DC < D + 1 || ts * ts > kMaxPixels || (ts * ts) % L::P != 0)
+  if (DC % kSlice != 0 || DC < D + 1 || ts * ts > kMaxPixels || (ts * ts) % L::P != 0 ||
+      kScatter != (dest != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::kBytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int V = 16 / sizeof(T);
   const int vec_ok = (D % V == 0) && (reinterpret_cast<uintptr_t>(feats) % 16 == 0);
   const dim3 grid(DC / kSlice, n_tiles);
-  adjoint_kernel<T><<<grid, kThreads, L::kBytes, stream>>>(
-      pack, tile_starts, tile_ends, padded_starts, feats, out, ntx, ts, width, height, D,
-      DC, trans_eps, vec_ok);
+  adjoint_kernel<T, kScatter><<<grid, kThreads, L::kBytes, stream>>>(
+      pack, tile_starts, tile_ends, padded_starts, feats, dest, out, ntx, ts, width, height,
+      D, DC, trans_eps, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -283,8 +314,9 @@ extern "C" int tpugs_adjoint_f32(const float* pack, const int* tile_starts,
                                  const float* feats, float* out, int n_tiles, int ntx,
                                  int ts, int width, int height, int D, int DC,
                                  float trans_eps, cudaStream_t stream) {
-  return tpugs::launch<float>(pack, tile_starts, tile_ends, padded_starts, feats, out,
-                              n_tiles, ntx, ts, width, height, D, DC, trans_eps, stream);
+  return tpugs::launch<float, false>(pack, tile_starts, tile_ends, padded_starts, feats,
+                                     nullptr, out, n_tiles, ntx, ts, width, height, D, DC,
+                                     trans_eps, stream);
 }
 
 extern "C" int tpugs_adjoint_bf16(const float* pack, const int* tile_starts,
@@ -292,7 +324,29 @@ extern "C" int tpugs_adjoint_bf16(const float* pack, const int* tile_starts,
                                   const __nv_bfloat16* feats, __nv_bfloat16* out,
                                   int n_tiles, int ntx, int ts, int width, int height,
                                   int D, int DC, float trans_eps, cudaStream_t stream) {
-  return tpugs::launch<__nv_bfloat16>(pack, tile_starts, tile_ends, padded_starts, feats,
-                                      out, n_tiles, ntx, ts, width, height, D, DC,
-                                      trans_eps, stream);
+  return tpugs::launch<__nv_bfloat16, false>(pack, tile_starts, tile_ends, padded_starts,
+                                             feats, nullptr, out, n_tiles, ntx, ts, width,
+                                             height, D, DC, trans_eps, stream);
+}
+
+extern "C" int tpugs_adjoint_scatter_f32(const float* pack, const int* tile_starts,
+                                         const int* tile_ends, const int* padded_starts,
+                                         const float* feats, const int* dest, float* out,
+                                         int n_tiles, int ntx, int ts, int width,
+                                         int height, int D, int DC, float trans_eps,
+                                         cudaStream_t stream) {
+  return tpugs::launch<float, true>(pack, tile_starts, tile_ends, padded_starts, feats, dest,
+                                    out, n_tiles, ntx, ts, width, height, D, DC, trans_eps,
+                                    stream);
+}
+
+extern "C" int tpugs_adjoint_scatter_bf16(const float* pack, const int* tile_starts,
+                                          const int* tile_ends, const int* padded_starts,
+                                          const __nv_bfloat16* feats, const int* dest,
+                                          __nv_bfloat16* out, int n_tiles, int ntx, int ts,
+                                          int width, int height, int D, int DC,
+                                          float trans_eps, cudaStream_t stream) {
+  return tpugs::launch<__nv_bfloat16, true>(pack, tile_starts, tile_ends, padded_starts,
+                                            feats, dest, out, n_tiles, ntx, ts, width,
+                                            height, D, DC, trans_eps, stream);
 }

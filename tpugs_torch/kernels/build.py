@@ -44,6 +44,17 @@ SIGNATURES = {
     # n_tiles, ntx, ts, W, H, D, row width, stream
     "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 7 + [_P],
     "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,
+    # eps, stream
+    "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "tpugs_adjoint_scatter_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # striped, base, culled, index (or null), out, n, n_cols, row_stride, stream
+    "tpugs_stripe_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "tpugs_stripe_sum_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    # pos (or null), out, nb, compute_iters, stream
+    "tpugs_exp_scatter_write": [_P, _P, _I, _I, _P],
+    # src, offset, out, stream
+    "tpugs_exp_async_copy_probe": [_P, _I, _P, _P],
 }
 
 

@@ -5,7 +5,10 @@ and ``tpugs/lift/batch.py:182`` (``normalize_field``).
 
 Per view: projection + SH colours, the exact per-view plan, the pack, the
 render kernel (B1), the 2D encoder on the tile layout, the adjoint kernel
-(B2) and the reduce kernel (B3). ``backproject_views`` is a plain loop
+(B2) and the reduce kernel (B3) — or, with ``reduce_engine="scatter"``,
+the scatter-write adjoint (B6) and the stripe sum (B7) on a plan built with
+``scatter=True`` (``pallas_batch.py:114``), bit-equal to the default
+engine. ``backproject_views`` is a plain loop
 over views that accumulates ``num``/``den``; the reference's dispatch
 groups and optimisation barriers amortise TPU transport latency and have
 no counterpart here.
@@ -41,7 +44,7 @@ class ViewResult:
     tiles: torch.Tensor  # (n_tiles, ts*ts, 5) [rgb, depth, 1 - T]
     blocks_done: torch.Tensor  # (n_tiles,) blocks each tile processed
     feat_tiles: torch.Tensor  # (n_tiles, ts*ts, D) in the contribution dtype
-    rows: torch.Tensor  # (T_padded, width) contribution rows
+    rows: torch.Tensor  # (T_padded, width) rows; (R_striped + 1, width) striped with "scatter"
     sums: torch.Tensor  # (N, D + 1) float32: features | weight
 
     @property
@@ -65,15 +68,17 @@ def run_view(
     proj_config: ProjectionConfig = ProjectionConfig(),
     trans_eps: float = TRANS_EPS,
     on_stage: Optional[Callable[[str], None]] = None,
+    reduce_engine: str = "pallas",
 ) -> ViewResult:
     """The per-view pipeline on the scene's device. ``on_stage(name)`` is
-    called after each of ``STAGES`` (for timing)."""
+    called after each of ``STAGES`` (for timing). ``reduce_engine`` is
+    "pallas" (B2 + B3) or "scatter" (B6 + B7); see ``contribution_sums``."""
     mark = on_stage or (lambda name: None)
     proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
                    viewmat, K, width, height, proj_config)
     cols3 = prepare_colors(scene.means, scene.colors_all, viewmat, scene.sh_degree)
     mark("project+sh")
-    plan = build_plan(proj, width, height, tile_size)
+    plan = build_plan(proj, width, height, tile_size, scatter=(reduce_engine == "scatter"))
     mark("plan")
     packed = pack_isect_all(proj, cols3, plan)
     mark("pack")
@@ -86,7 +91,7 @@ def run_view(
         feats = image_to_tiles(encoder(rgb), tile_size)
     feats = feats.to(contrib_dtype).contiguous()
     mark("encode")
-    rows, sums = contribution_sums(packed, feats, plan, trans_eps, mark)
+    rows, sums = contribution_sums(packed, feats, plan, trans_eps, mark, reduce_engine)
     return ViewResult(plan, packed, tiles, blocks_done, feats, rows, sums)
 
 
@@ -102,10 +107,11 @@ def backproject_one_view(
     proj_config: ProjectionConfig = ProjectionConfig(),
     trans_eps: float = TRANS_EPS,
     on_stage: Optional[Callable[[str], None]] = None,
+    reduce_engine: str = "pallas",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(feat_sums (N, D), weight_sums (N,)) of one view."""
     r = run_view(scene, viewmat, K, width, height, encoder, tile_size,
-                 contrib_dtype, proj_config, trans_eps, on_stage)
+                 contrib_dtype, proj_config, trans_eps, on_stage, reduce_engine)
     return r.num, r.den
 
 
@@ -122,11 +128,14 @@ def backproject_views(
     trans_eps: float = TRANS_EPS,
     device: DeviceLike = "cuda",
     on_stage: Optional[Callable[[str], None]] = None,
+    reduce_engine: str = "pallas",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All views, one after another: (num (N, D), den (N,)) float32 on
     ``device``. The scene and cameras are moved there; the encoder's
     weights must already live there. ``contrib_dtype`` bfloat16 is the
-    production path, float32 the exact one."""
+    production path, float32 the exact one. ``reduce_engine`` "pallas"
+    (default) or "scatter" give bit-equal results; "xla" is not ported
+    (NotImplementedError) and any other value raises ValueError."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     viewmats = viewmats.to(dev)
@@ -137,7 +146,7 @@ def backproject_views(
     for c in range(viewmats.shape[0]):
         fs, ws = backproject_one_view(
             scene, viewmats[c], Ks[c], width, height, encoder, tile_size,
-            contrib_dtype, proj_config, trans_eps, on_stage,
+            contrib_dtype, proj_config, trans_eps, on_stage, reduce_engine,
         )
         num += fs
         den += ws

@@ -1,10 +1,17 @@
-"""The lift path's three kernels, their wrappers and their plain twins,
-and the tile walk that the train kernels' twins (``raster/train.py``) share.
+"""The lift path's kernels, their wrappers and their plain twins, and the
+tile walk that the train kernels' twins (``raster/train.py``) share.
 Counterparts in ``tpugs/raster/pallas_tiled.py``:
 
   B1 ``render_tiles``  <- ``render_pallas_raw`` (:1328, kernel :1229)
   B2 ``adjoint_rows``  <- ``adjoint_pallas_raw`` (:1573, kernel :1390)
   B3 ``reduce_rows``   <- ``reduce_contribs_pallas`` (:2178, kernel :2121)
+
+and the opt-in scatter reduce engine (a plan built with ``scatter=True``):
+
+  B6 ``adjoint_scatter_rows`` <- ``adjoint_scatter_pallas_raw`` (:1870,
+                                 kernel :1672)
+  B7 ``reduce_striped``       <- ``reduce_striped_pallas`` (:1987, kernel
+                                 :1945)
 
 plus the shared block weights (``_block_weights_full`` :1105) and tile
 pixel centres (``_tile_pixels`` :1219).
@@ -43,7 +50,7 @@ import torch
 
 from tpugs_torch.raster.binning import cdiv
 from tpugs_torch.raster.pack import COL_COLOR, COL_GEOM, PACK_COLS
-from tpugs_torch.raster.plan import BLOCK, Plan
+from tpugs_torch.raster.plan import BLOCK, Plan, scatter_columns
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
@@ -62,6 +69,8 @@ class LaunchCounts:
     reduce: int = 0
     train_fwd: int = 0
     train_bwd: int = 0
+    adjoint_scatter: int = 0
+    stripe_sum: int = 0
 
     def reset(self) -> None:
         for f in dataclasses.fields(self):
@@ -105,6 +114,17 @@ def _check_plan(plan: Plan, device) -> None:
     _check(plan.gauss_pos, "plan.gauss_pos", (torch.int32,), (plan.n_isects,), device)
     if plan.tile_size not in (16, 32):
         raise ValueError(f"tile_size {plan.tile_size}: the kernels take 16 or 32")
+
+
+def _check_scatter_plan(plan: Plan, device) -> None:
+    if plan.slot_pos is None:
+        raise ValueError("the scatter engine needs a plan built with scatter=True")
+    n = plan.num_gaussians
+    _check(plan.slot_pos, "plan.slot_pos", (torch.int32,), (plan.T_padded,), device)
+    _check(plan.culled, "plan.culled", (torch.int32,), (n,), device)
+    _check(plan.slot_order, "plan.slot_order", (torch.int64,), (n,), device)
+    n_stripes = plan.stripe_base.shape[0] if plan.stripe_base.ndim == 1 else -1
+    _check(plan.stripe_base, "plan.stripe_base", (torch.int32,), (n_stripes,), device)
 
 
 def _dispatch(device: torch.device) -> bool:
@@ -326,6 +346,44 @@ def adjoint_rows_plain(
     return out
 
 
+def _check_adjoint(pack: torch.Tensor, feat_tiles: torch.Tensor, plan: Plan) -> int:
+    """Checks of B2 and B6; returns D."""
+    dev = pack.device
+    _check(pack, "pack", (torch.float32,), (plan.T_padded, PACK_COLS), dev)
+    if feat_tiles.ndim != 3:
+        raise ValueError(f"feat_tiles must be (n_tiles, ts*ts, D), got {tuple(feat_tiles.shape)}")
+    D = feat_tiles.shape[-1]
+    _check(feat_tiles, "feat_tiles", CONTRIB_DTYPES, (plan.n_tiles, plan.tile_size**2, D), dev)
+    _check_plan(plan, dev)
+    if D < 1:
+        raise ValueError("feat_tiles needs at least one channel")
+    return D
+
+
+def _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, dest) -> None:
+    """B2 (``dest`` None: row r at out[r]) or B6 (row r at out[dest[r]])."""
+    from tpugs_torch.kernels.build import load_library
+
+    if plan.n_tiles > 65535:
+        raise ValueError(f"{plan.n_tiles} tiles exceed the adjoint kernel's grid")
+    lib = load_library()
+    bf16 = feat_tiles.dtype == torch.bfloat16
+    if dest is None:
+        fn = lib.tpugs_adjoint_bf16 if bf16 else lib.tpugs_adjoint_f32
+        extra = ()
+    else:
+        fn = lib.tpugs_adjoint_scatter_bf16 if bf16 else lib.tpugs_adjoint_scatter_f32
+        extra = (_ptr(dest),)
+    ntx, _ = plan.grid
+    rc = fn(
+        _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
+        _ptr(plan.padded_starts), _ptr(feat_tiles), *extra, _ptr(out),
+        plan.n_tiles, ntx, plan.tile_size, plan.width, plan.height,
+        feat_tiles.shape[-1], out.shape[1], float(trans_eps), _stream(),
+    )
+    _launched(rc, "adjoint" if dest is None else "adjoint_scatter")
+
+
 def adjoint_rows(
     pack: torch.Tensor,
     feat_tiles: torch.Tensor,
@@ -335,37 +393,14 @@ def adjoint_rows(
     """B2: contribution rows (T_padded, contrib_width(D)) in the features'
     dtype (float32 or bfloat16). Row r holds, for the intersection in
     padded slot r, sum_p w(p) * [features(p) | 1 | 0...]."""
-    dev = pack.device
-    nt, tspx = plan.n_tiles, plan.tile_size**2
-    _check(pack, "pack", (torch.float32,), (plan.T_padded, PACK_COLS), dev)
-    if feat_tiles.ndim != 3:
-        raise ValueError(f"feat_tiles must be (n_tiles, ts*ts, D), got {tuple(feat_tiles.shape)}")
-    D = feat_tiles.shape[-1]
-    _check(feat_tiles, "feat_tiles", CONTRIB_DTYPES, (nt, tspx, D), dev)
-    _check_plan(plan, dev)
-    if D < 1:
-        raise ValueError("feat_tiles needs at least one channel")
-    if not _dispatch(dev):
+    D = _check_adjoint(pack, feat_tiles, plan)
+    if not _dispatch(pack.device):
         return adjoint_rows_plain(pack, feat_tiles, plan, trans_eps)
-    from tpugs_torch.kernels.build import load_library
-
-    lib = load_library()
-    width = contrib_width(D)
-    out = torch.empty((plan.T_padded, width), dtype=feat_tiles.dtype, device=dev)
-    if nt == 0 or plan.T_padded == 0:
+    out = torch.empty((plan.T_padded, contrib_width(D)), dtype=feat_tiles.dtype,
+                      device=pack.device)
+    if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
-    if nt > 65535:
-        raise ValueError(f"{nt} tiles exceed the adjoint kernel's grid")
-    fn = (lib.tpugs_adjoint_bf16 if feat_tiles.dtype == torch.bfloat16
-          else lib.tpugs_adjoint_f32)
-    ntx, _ = plan.grid
-    rc = fn(
-        _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
-        _ptr(plan.padded_starts), _ptr(feat_tiles), _ptr(out),
-        nt, ntx, plan.tile_size, plan.width, plan.height, D, width,
-        float(trans_eps), _stream(),
-    )
-    _launched(rc, "adjoint")
+    _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, None)
     LAUNCHES.adjoint += 1
     return out
 
@@ -464,4 +499,119 @@ def reduce_rows(rows: torch.Tensor, plan: Plan, n_cols: int) -> torch.Tensor:
     )
     _launched(rc, "reduce")
     LAUNCHES.reduce += 1
+    return out
+
+
+# ----------------------------------------- B6 scatter-write adjoint
+
+
+def adjoint_scatter_rows_plain(
+    pack: torch.Tensor,
+    feat_tiles: torch.Tensor,
+    plan: Plan,
+    trans_eps: float = TRANS_EPS,
+    tiles: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B6's twin: B2's twin's rows, each moved to its striped row
+    ``plan.slot_pos[r]``. The buffer starts as NaN, so a row that nothing
+    writes, read by a sum, shows; padding slots all land on the trash row
+    ``R_striped``."""
+    rows = adjoint_rows_plain(pack, feat_tiles, plan, trans_eps, tiles)
+    out = torch.full((plan.R_striped + 1, rows.shape[1]), float("nan"),
+                     dtype=rows.dtype, device=rows.device)
+    out[plan.slot_pos.long()] = rows
+    return out
+
+
+def adjoint_scatter_rows(
+    pack: torch.Tensor,
+    feat_tiles: torch.Tensor,
+    plan: Plan,
+    trans_eps: float = TRANS_EPS,
+) -> torch.Tensor:
+    """B6: B2's contribution rows written straight into the striped layout
+    of a ``scatter=True`` plan: (R_striped + 1, contrib_width(D)) in the
+    features' dtype, row ``plan.slot_pos[r]`` holding B2's row r. Striped
+    rows past a column's kept count are never written (their contents are
+    undefined, and ``reduce_striped`` never reads them); the last row is
+    the trash row of the padding slots."""
+    D = _check_adjoint(pack, feat_tiles, plan)
+    dev = pack.device
+    _check_scatter_plan(plan, dev)
+    if not _dispatch(dev):
+        return adjoint_scatter_rows_plain(pack, feat_tiles, plan, trans_eps)
+    out = torch.empty((plan.R_striped + 1, contrib_width(D)), dtype=feat_tiles.dtype,
+                      device=dev)
+    if plan.n_tiles == 0 or plan.T_padded == 0:
+        return out
+    _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, plan.slot_pos)
+    LAUNCHES.adjoint_scatter += 1
+    return out
+
+
+# ------------------------------------------------- B7 masked stripe sum
+
+
+def reduce_striped_plain(
+    striped: torch.Tensor,
+    plan: Plan,
+    n_cols: int,
+    unpermute: bool = True,
+    gaussians: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """B7's twin: for each column c, the f32 sum from 0 of striped rows
+    ``stripe_base[j] + c`` for j = 0 .. culled[c] - 1, added stripe by
+    stripe in j order (B3's order, so the sums are bit-equal to it on the
+    same rows). (N, n_cols) in original Gaussian order, or in column order
+    without ``unpermute``; (k, n_cols) for ``gaussians`` (k,) original
+    indices."""
+    dev = striped.device
+    n = plan.num_gaussians
+    cols = torch.arange(n, device=dev) if gaussians is None else scatter_columns(plan)[gaussians]
+    culled = plan.culled.long()[cols]
+    base = plan.stripe_base.long()
+    acc = torch.zeros((cols.shape[0], n_cols), dtype=torch.float32, device=dev)
+    for j in range(base.shape[0]):
+        sel = torch.nonzero(culled > j).squeeze(1)
+        acc[sel] += striped[base[j] + cols[sel], :n_cols].to(torch.float32)
+    if gaussians is not None or not unpermute:
+        return acc
+    out = torch.empty_like(acc)
+    out[plan.slot_order] = acc
+    return out
+
+
+def reduce_striped(
+    striped: torch.Tensor, plan: Plan, n_cols: int, unpermute: bool = True
+) -> torch.Tensor:
+    """B7: (N, n_cols) float32 per-Gaussian sums of a striped buffer from
+    ``adjoint_scatter_rows``, each written to the Gaussian's original index
+    (``unpermute``, the reference's ``acc[inv]`` fused) or, without it, in
+    column order (``plan.slot_order[c]`` is column c's Gaussian)."""
+    dev = striped.device
+    if striped.ndim != 2:
+        raise ValueError(f"striped must be (R_striped + 1, width), got {tuple(striped.shape)}")
+    width = striped.shape[1]
+    _check(striped, "striped", CONTRIB_DTYPES, (plan.R_striped + 1, width), dev)
+    _check_scatter_plan(plan, dev)
+    if not 1 <= n_cols <= width or width % 2:
+        raise ValueError(f"n_cols {n_cols} must lie in [1, {width}], width even")
+    if not _dispatch(dev):
+        return reduce_striped_plain(striped, plan, n_cols, unpermute)
+    from tpugs_torch.kernels.build import load_library
+
+    lib = load_library()
+    n = plan.num_gaussians
+    out = torch.empty((n, n_cols), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    fn = (lib.tpugs_stripe_sum_bf16 if striped.dtype == torch.bfloat16
+          else lib.tpugs_stripe_sum_f32)
+    index = _ptr(plan.slot_order) if unpermute else ctypes.c_void_p(None)
+    rc = fn(
+        _ptr(striped), _ptr(plan.stripe_base), _ptr(plan.culled), index, _ptr(out),
+        n, n_cols, width, _stream(),
+    )
+    _launched(rc, "stripe_sum")
+    LAUNCHES.stripe_sum += 1
     return out

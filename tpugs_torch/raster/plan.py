@@ -19,11 +19,17 @@ order and f32 arithmetic:
 Sizes are exact per view, so nothing is truncated: the reference's static
 buckets, size classes and overflow audit have no counterpart here. A plan
 whose indices would not fit int32 raises.
+
+With ``scatter=True`` the plan also carries the striped layout of the
+opt-in scatter reduce engine (``with_scatter_extras``; counterpart
+``pallas_tiled.py:476-525`` and ``_striped_layout`` :1656), built from the
+CSR lists above: nothing new is binned.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -48,6 +54,15 @@ class Plan:
     width: int
     height: int
     tile_size: int
+    # Scatter extras (``scatter=True``), None otherwise. Column c of the
+    # striped layout is Gaussian slot_order[c]; cover row j of column c
+    # lives at striped row stripe_base[j] + c; row R_striped is the trash
+    # row of padding slots.
+    slot_order: Optional[torch.Tensor] = None  # (N,) int64 column -> original index
+    culled: Optional[torch.Tensor] = None  # (N,) int32 kept intersections per column
+    stripe_base: Optional[torch.Tensor] = None  # (max culled,) int32 first row of stripe j
+    slot_pos: Optional[torch.Tensor] = None  # (T_padded,) int32 striped row per padded slot
+    R_striped: int = 0
 
     @property
     def grid(self):
@@ -68,7 +83,11 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
     return c - x
 
 
-def build_plan(proj: Projected, width: int, height: int, tile_size: int) -> Plan:
+def build_plan(
+    proj: Projected, width: int, height: int, tile_size: int, scatter: bool = False
+) -> Plan:
+    """The exact plan of one view; ``scatter=True`` adds the striped
+    layout of the scatter reduce engine (``with_scatter_extras``)."""
     dev = proj.means2d.device
     n = proj.means2d.shape[0]
     ntx, nty = tile_grid(width, height, tile_size)
@@ -170,7 +189,7 @@ def build_plan(proj: Projected, width: int, height: int, tile_size: int) -> Plan
     gauss_pos[dest] = pos_entry.to(torch.int32)
 
     i32 = torch.int32
-    return Plan(
+    plan = Plan(
         order=order,
         padded_gid=padded_gid,
         tile_starts=tile_starts.to(i32),
@@ -183,4 +202,79 @@ def build_plan(proj: Projected, width: int, height: int, tile_size: int) -> Plan
         width=width,
         height=height,
         tile_size=tile_size,
+    )
+    return with_scatter_extras(plan) if scatter else plan
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def scatter_columns(plan: Plan) -> torch.Tensor:
+    """(N,) int64: the striped column of each original Gaussian, the
+    inverse of ``plan.slot_order``."""
+    return _inverse(plan.slot_order)
+
+
+def with_scatter_extras(plan: Plan) -> Plan:
+    """``plan`` with the striped layout of the scatter engine:
+
+    * ``culled``: each Gaussian's kept-intersection count, its CSR length
+      (the reference's compacted culled cover, ``pallas_tiled.py:441-459``),
+      in column order;
+    * ``slot_order``: the column order, a stable sort by descending kept
+      count. The reference sorts by bbox count (``:333``) and sizes each
+      cover row by static caps; sorting by the kept count makes the exact
+      caps ``cap[j] = #{c : culled[c] > j}`` a prefix of the columns, so
+      they never increase with j and leave no holes;
+    * ``stripe_base``: cover row j's first striped row, the exclusive
+      cumsum of the caps each padded to a multiple of ``BLOCK``
+      (``_striped_layout``, with no static ``cover_caps``); ``R_striped``
+      is their total;
+    * ``slot_pos``: the inverse map. The j-th CSR entry of column c's
+      Gaussian goes to ``stripe_base[j] + c``; every other padded slot to
+      the trash row ``R_striped``. Caps are exact, so no real entry can
+      fall outside its stripe (the reference's ``:511`` has no such
+      clamp).
+
+    Cost: a sort of N, a scatter of n_isects and one host sync (the number
+    of stripes and ``R_striped``)."""
+    dev = plan.gauss_offsets.device
+    n = plan.num_gaussians
+    i64 = dict(dtype=torch.int64, device=dev)
+    off = plan.gauss_offsets.long()
+    per_orig = off[1:] - off[:-1]
+    slot_order = torch.sort(-per_orig, stable=True).indices
+    culled = per_orig[slot_order]
+    # Columns are sorted by descending count, so a 128-column block is
+    # live in stripe j iff its first column is, and the padded cap of
+    # stripe j is BLOCK x #{blocks b : culled[BLOCK * b] > j}.
+    leads = culled[::BLOCK]
+    sizes = torch.stack([culled[:1].sum(), leads.sum() * BLOCK])
+    n_stripes, r_striped = sizes.tolist()  # the one host sync
+    if r_striped + 1 > _I32_MAX:
+        raise ValueError(
+            f"striped layout needs {r_striped + 1} rows; int32 indices overflow"
+        )
+    lead_hist = torch.zeros(n_stripes + 1, **i64).scatter_add_(
+        0, leads, torch.ones_like(leads)
+    )
+    blocks_live = leads.shape[0] - torch.cumsum(lead_hist, 0)[:n_stripes]
+    stripe_base = _excl_cumsum(blocks_live * BLOCK)
+
+    column = _inverse(slot_order)
+    owner = torch.repeat_interleave(torch.arange(n, **i64), per_orig,
+                                    output_size=plan.n_isects)
+    j = torch.arange(plan.n_isects, **i64) - off[owner]
+    slot_pos = torch.full((plan.T_padded,), r_striped, dtype=torch.int32, device=dev)
+    slot_pos[plan.gauss_pos.long()] = (stripe_base[j] + column[owner]).to(torch.int32)
+    return dataclasses.replace(
+        plan,
+        slot_order=slot_order,
+        culled=culled.to(torch.int32),
+        stripe_base=stripe_base.to(torch.int32),
+        slot_pos=slot_pos,
+        R_striped=r_striped,
     )
