@@ -5,7 +5,8 @@
 
 Six phases; the first failure ends the run with a nonzero exit:
 
-1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them.
+1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
+             B2's resident clusters by cluster size.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
              reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
              bf16, each bit-equal to B2's rows and B3's sums; B4
@@ -15,7 +16,9 @@ Six phases; the first failure ends the run with a nonzero exit:
              tiles, tiles that exit early, Gaussians covering many tiles,
              D = 3, 20 and 131; S1's asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
-             probe against the same call on the CPU.
+             probe against the same call on the CPU; B2 and B6 at D = 200,
+             300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs), tiles 16
+             and 32, f32 and bf16 (B2 against its twin, B6 bit-equal).
 3. full width — the canonical back-projection shape (N = 2^19 Gaussians,
              1296 x 840, D = 512, tile 32, linear encoder, 8 orbit views
              after one warm-up view) through ``backproject_views``, with the
@@ -128,6 +131,12 @@ def phase_build():
     print(f"phase 1 build: {dt:.1f} s -> {so}", flush=True)
     for line in ptxas:
         print(f"  ptxas: {line}")
+    lib = load_library()
+    for bf16, name in ((1, "bf16"), (0, "f32")):
+        resident = {c: lib.tpugs_adjoint_max_clusters(bf16, c) for c in (1, 2, 3, 5, 6, 8)}
+        print(f"phase 1 B2 {name}: resident clusters by cluster size "
+              f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
+        check(all(n > 0 for n in resident.values()), f"B2 {name} clusters fit on the card")
 
 
 def phase_kernels():
@@ -227,6 +236,52 @@ def phase_kernels():
             check(b6_b2, "B6's rows bit-equal to B2's through slot_pos")
             check(b7_twin and b7_b3 and b7_cols,
                   "B7 bit-equal to its twin and to B3 on the same rows")
+
+
+CLUSTER_D = (200, 300, 600, 1100)  # S = 2, 3, 5, 9 slices: clusters of 2, 3, 5, 5 CTAs
+
+
+def phase_clusters():
+    """B2 and B6 at widths whose channel slices make clusters of 2, 3, 5
+    and 5 CTAs (at D = 1100 two clusters per tile, one CTA without
+    columns), tiles 16 and 32, f32 and bf16: B2 within ROWS_TOL of its
+    twin, B6 bit-equal to B2."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.colors import prepare_colors
+    from tpugs_torch.raster.pack import pack_isect_all
+    from tpugs_torch.raster.plan import build_plan, with_scatter_extras
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    W, H = 300, 200
+    scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
+    cams = orbit_cameras(1, W, H, radius=3.0, device="cuda")
+    vm, Km = cams.viewmats[0], cams.Ks[0]
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
+    cols3 = prepare_colors(scene.means, scene.colors_all, vm, scene.sh_degree)
+    for ts in (16, 32):
+        plan = build_plan(proj, W, H, ts)
+        splan = with_scatter_extras(plan)
+        packed = pack_isect_all(proj, cols3, plan)
+        img, _ = K.render_tiles(packed, plan)
+        real = splan.gauss_pos.long()
+        live = splan.slot_pos.long()[real]
+        for D in CLUSTER_D:
+            c, grid_x = K.adjoint_cluster(K.contrib_width(D))
+            feats = LinearRGBEncoder(D, seed=3, device="cuda")(img[..., :3]).contiguous()
+            for dtype in (torch.float32, torch.bfloat16):
+                f = feats.to(dtype)
+                rows = K.adjoint_rows(packed, f, plan)
+                striped = K.adjoint_scatter_rows(packed, f, splan)
+                torch.cuda.synchronize()
+                a, g, r = K.rows_error(rows, K.adjoint_rows_plain(packed, f, plan), D)
+                same = torch.equal(striped[live], rows[real])
+                print(f"phase 2 clusters ts={ts} D={D} (C={c}, grid x {grid_x}) B2 {dtype}: "
+                      f"max abs {a:.3e}, {g:.3e} of column-group max, {r:.3e} of row max; "
+                      f"B6 bit-equal to B2 {same}", flush=True)
+                check(within_rows_tol(g, r, dtype), "B2 rows within ROWS_TOL of the twin")
+                check(same, "B6's rows bit-equal to B2's")
 
 
 def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
@@ -888,6 +943,7 @@ def main() -> int:
 
     phase_build()
     phase_kernels()
+    phase_clusters()
     phase_train_kernels()
     records, view = phase_full_width()
     records += phase_experiments(view)

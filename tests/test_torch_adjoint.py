@@ -22,7 +22,8 @@ from tpugs.raster.projection import project as j_project
 from tpugs.utils.synthetic import orbit_cameras, random_scene
 from tpugs_torch.convert import SCENE_FIELDS, cameras_from_numpy, scene_from_numpy
 from tpugs_torch.raster.colors import prepare_colors
-from tpugs_torch.raster.kernels import ROWS_TOL, adjoint_rows, contrib_width, rows_error
+from tpugs_torch.raster.kernels import (
+    CHANNEL_SLICE, MAX_CLUSTER, ROWS_TOL, adjoint_cluster, adjoint_rows, contrib_width, rows_error)
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import project
@@ -155,3 +156,20 @@ def test_rows_error_ignores_subnormal_rows(views, tile):
     got[0, 0] = 1e-43 + 1.4e-45  # one subnormal step: 1.4% of the value
     _, _, of_row = rows_error(got, ref, D)
     assert of_row <= 1e-6
+
+
+@pytest.mark.parametrize("slices, cluster, grid_x", [
+    (1, 1, 1), (2, 2, 2), (5, 5, 5), (8, 8, 8), (9, 5, 10), (17, 6, 18)])
+def test_adjoint_cluster_geometry(slices, cluster, grid_x):
+    """B2's clusters: C = ceil(S / ceil(S / 8)) CTAs, one per channel slice,
+    ceil(S / 8) clusters per tile; every slice has a CTA, at most C - 1
+    CTAs have none, and no cluster exceeds the portable size."""
+    c, gx = adjoint_cluster(slices * CHANNEL_SLICE)
+    assert (c, gx) == (cluster, grid_x)
+    assert c <= MAX_CLUSTER and gx % c == 0 and slices <= gx < slices + c
+
+
+@pytest.mark.parametrize("width", [0, 100, 129])
+def test_adjoint_cluster_refuses_a_ragged_width(width):
+    with pytest.raises(ValueError):
+        adjoint_cluster(width)

@@ -10,7 +10,8 @@ place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
 (``grad_rows_error``), in f32 and bf16. B6's live striped rows within
-``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``;
+``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``,
+also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
 bf16 unit of the twin's (they are expected bit-equal) and scattered to
 ``pos``; its probe reads 19.
@@ -72,16 +73,21 @@ def test_adjoint_kernel_matches_twin(view, dtype):
     assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
 
 
-def test_adjoint_kernel_weights_match_twin_per_pixel(view):
+@pytest.mark.parametrize("extra", [0, 300])
+def test_adjoint_kernel_weights_match_twin_per_pixel(view, extra):
     """With one-hot pixel features each f32 row holds its intersection's
     per-pixel weights. No (pixel, Gaussian) pair may be kept by one side of
     the 1/255 alpha clip and dropped by the other (a step of (1/255)*T),
     and normal weights agree to 1e-4 (transmittance products in another
     order). Subnormal weights, of pixels whose T has all but vanished, are
-    left out."""
+    left out. The tile's pixels, and so its weights and its exit, are split
+    over the ranks of a cluster: S = 3 or 5 slices (tile 16), 9 or 11
+    (tile 32: two clusters per tile, one CTA without columns); a rank that
+    exits alone, or late, shows as whole wrong blocks."""
     plan, pack, _ = view
     tspx = plan.tile_size**2
-    eye = torch.eye(tspx, device="cuda").expand(plan.n_tiles, tspx, tspx).contiguous()
+    eye = torch.zeros((plan.n_tiles, tspx, tspx + extra), device="cuda")
+    eye[:, :, :tspx] = torch.eye(tspx, device="cuda")
     got = K.adjoint_rows(pack, eye, plan)[:, :tspx]
     torch.cuda.synchronize()
     ref = K.adjoint_rows_plain(pack, eye, plan)[:, :tspx]
@@ -89,6 +95,26 @@ def test_adjoint_kernel_weights_match_twin_per_pixel(view):
     assert not ((got == 0) != (ref == 0))[normal].any()
     both = normal & (ref != 0)
     assert float(((got - ref).abs() / ref.abs())[both].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [200, 300, 600, 1100])
+def test_adjoint_clusters_match_twin_and_b6(view, d, dtype):
+    """B2 with S = 2, 3, 5, 9 channel slices (clusters of C = 2, 3, 5, 5
+    CTAs; at S = 9 two clusters per tile and one CTA without columns)
+    against its twin by ``rows_error``; B6 bit-equal to B2."""
+    plan, pack, feats = view
+    img, _ = K.render_tiles(pack, plan)
+    f = LinearRGBEncoder(d, seed=4, device="cuda")(img[..., :3]).to(dtype).contiguous()
+    got = K.adjoint_rows(pack, f, plan)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, f, splan)
+    torch.cuda.synchronize()
+    _, of_group, of_row = K.rows_error(got, K.adjoint_rows_plain(pack, f, plan), d)
+    group_tol, row_tol = K.ROWS_TOL[dtype]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    real = splan.gauss_pos.long()
+    assert torch.equal(striped[splan.slot_pos.long()[real]], got[real])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

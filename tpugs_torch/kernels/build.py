@@ -31,9 +31,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # pack, starts, ends, padded_starts, out, blocks_done, n_tiles, ntx, ts, eps, stream
     "tpugs_render": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # pack, starts, ends, padded_starts, feats, out, n_tiles, ntx, ts, W, H, D, DC, eps, stream
-    "tpugs_adjoint_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "tpugs_adjoint_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
+    # pack, starts, ends, padded_starts, feats, out, n_tiles, ntx, ts, W, H, D, DC, eps,
+    # cluster size, grid x, stream
+    "tpugs_adjoint_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "tpugs_adjoint_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    # bf16 (0/1), cluster size -> resident clusters
+    "tpugs_adjoint_max_clusters": [_I, _I],
     # rows, offsets, pos, out, n, n_cols, row_stride, stream
     "tpugs_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     "tpugs_reduce_bf16": [_P] * 4 + [_I] * 3 + [_P],
@@ -45,9 +48,9 @@ SIGNATURES = {
     "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 7 + [_P],
     "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 7 + [_P],
     # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,
-    # eps, stream
-    "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "tpugs_adjoint_scatter_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # eps, cluster size, grid x, stream
+    "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
+    "tpugs_adjoint_scatter_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
     # striped, base, culled, index (or null), out, n, n_cols, row_stride, stream
     "tpugs_stripe_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
     "tpugs_stripe_sum_bf16": [_P] * 5 + [_I] * 3 + [_P],

@@ -56,6 +56,7 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
 TRANS_EPS = 1e-4  # early-exit transmittance threshold
 CHANNEL_SLICE = 128  # contribution-row columns per CUDA block of B2
+MAX_CLUSTER = 8  # CTAs per thread-block cluster of B2 (the portable limit)
 RENDER_CHANNELS = 5  # rgb, depth, 1 - T
 CONTRIB_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -360,6 +361,20 @@ def _check_adjoint(pack: torch.Tensor, feat_tiles: torch.Tensor, plan: Plan) -> 
     return D
 
 
+def adjoint_cluster(width: int) -> Tuple[int, int]:
+    """(C, gridDim.x) of B2 and B6 for contribution rows ``width`` wide:
+    the S = width / CHANNEL_SLICE channel slices of a tile go to
+    ceil(S / MAX_CLUSTER) clusters of C = ceil(S / ceil(S / MAX_CLUSTER))
+    CTAs each, one CTA per slice; the CTAs past the last slice write no
+    columns."""
+    if width < 1 or width % CHANNEL_SLICE:
+        raise ValueError(f"row width {width} is not a positive multiple of {CHANNEL_SLICE}")
+    s = width // CHANNEL_SLICE
+    per_tile = cdiv(s, MAX_CLUSTER)
+    c = cdiv(s, per_tile)
+    return c, c * per_tile
+
+
 def _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, dest) -> None:
     """B2 (``dest`` None: row r at out[r]) or B6 (row r at out[dest[r]])."""
     from tpugs_torch.kernels.build import load_library
@@ -379,7 +394,8 @@ def _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, dest) -> None:
         _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
         _ptr(plan.padded_starts), _ptr(feat_tiles), *extra, _ptr(out),
         plan.n_tiles, ntx, plan.tile_size, plan.width, plan.height,
-        feat_tiles.shape[-1], out.shape[1], float(trans_eps), _stream(),
+        feat_tiles.shape[-1], out.shape[1], float(trans_eps), *adjoint_cluster(out.shape[1]),
+        _stream(),
     )
     _launched(rc, "adjoint" if dest is None else "adjoint_scatter")
 
