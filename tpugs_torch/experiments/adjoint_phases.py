@@ -56,9 +56,9 @@ _PR3_ZERO = """      for (int idx = tid; idx < kBlock * kSlice; idx += kThreads)
 """
 # The blocks each tile walks, from B1, for variants without the walk.
 _DONE_GLOBAL: Sub = ('#include "common.cuh"\n',
-                     '#include "common.cuh"\n__device__ const int* g_done = nullptr;\n')
-_DONE_SETTER = ('\nextern "C" int tpugs_diag_set_done(const int* p) {\n'
-                '  return static_cast<int>(cudaMemcpyToSymbol(g_done, &p, sizeof(p)));\n}\n')
+                     '#include "common.cuh"\n__device__ const int* g_done = nullptr;\n'
+                     'extern "C" int tpugs_diag_set_done(const int* p) {\n'
+                     '  return static_cast<int>(cudaMemcpyToSymbol(g_done, &p, sizeof(p)));\n}\n')
 
 TABLES: Dict[str, Dict[str, List[Sub]]] = {
     "pr3": {
@@ -116,18 +116,17 @@ def variant_source(text: str, table: Dict[str, List[Sub]], phases) -> str:
             if n != 1:
                 raise ValueError(f"phase {phase!r}: pattern found {n} times, expected once:\n{old}")
             text = text.replace(old, new)
-    if "walk" in phases:
-        text += _DONE_SETTER
     return text
 
 
-def variants(table: str):
-    """The variants whose phases ``table`` knows."""
-    return [(name, phases) for name, phases in VARIANTS
-            if all(p in TABLES[table] for p in phases)]
+def variants(table: Dict[str, List[Sub]], variant_list=VARIANTS):
+    """The variants of ``variant_list`` whose phases ``table`` knows."""
+    return [(name, phases) for name, phases in variant_list
+            if all(p in table for p in phases)]
 
 
-def build_variants(source: Path, table: str, out_dir: Path) -> Dict[str, Path]:
+def build_variants(source: Path, table: Dict[str, List[Sub]], out_dir: Path,
+                   variant_list=VARIANTS) -> Dict[str, Path]:
     """Compile every variant of ``source`` (all nvcc processes at once);
     returns name -> library. ptxas' report goes to ``<library>.log``."""
     from tpugs_torch.kernels.build import CSRC_DIR, NVCC_FLAGS, nvcc_path
@@ -136,10 +135,10 @@ def build_variants(source: Path, table: str, out_dir: Path) -> Dict[str, Path]:
     text = source.read_text()
     nvcc = nvcc_path()
     procs = {}
-    for name, phases in variants(table):
+    for name, phases in variants(table, variant_list):
         stem = name.replace(" ", "_")
         cu = out_dir / f"{stem}.cu"
-        cu.write_text(variant_source(text, TABLES[table], phases))
+        cu.write_text(variant_source(text, table, phases))
         so = out_dir / f"{stem}.so"
         procs[name] = (so, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC_DIR), str(cu), "-o",
@@ -184,7 +183,7 @@ def measure(source: Path, table: str, iters: int = 5) -> List[Tuple[str, str, fl
     from tpugs_torch.utils.timing import time_cuda
 
     libs = {name: _load(so, table) for name, so in
-            build_variants(source, table, Path(K.__file__).resolve().parents[2]
+            build_variants(source, TABLES[table], Path(K.__file__).resolve().parents[2]
                            / "build" / "adjoint_phases").items()}
     r, r_s = canonical_views()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -214,7 +213,7 @@ def measure(source: Path, table: str, iters: int = 5) -> List[Tuple[str, str, fl
         raise RuntimeError("the full copy's rows differ from the package's B2")
     done = r.blocks_done.to(torch.int32).contiguous()
     results = []
-    order = [name for name, _ in variants(table)] + ["full"]
+    order = [name for name, _ in variants(TABLES[table])] + ["full"]
     for name in order:
         lib = libs[name]
         if hasattr(lib, "tpugs_diag_set_done"):
