@@ -6,7 +6,7 @@
 Six phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
-             B2's resident clusters by cluster size.
+             B2's resident clusters by cluster size, B5's by tile and D.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
              reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
              bf16, each bit-equal to B2's rows and B3's sums; B4
@@ -14,7 +14,8 @@ Six phases; the first failure ends the run with a nonzero exit:
              rows) against its plain PyTorch twin on CUDA tensors, at mid
              shapes with edge cases: W, H not multiples of the tile, empty
              tiles, tiles that exit early, Gaussians covering many tiles,
-             D = 3, 20 and 131; S1's asynchronous-copy probe returns 19;
+             D = 3, 20 and 131 (B5 also at 256, its cluster kernel's
+             widest, and 300, its one-CTA kernel; two launches bit-equal); S1's asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
              300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs), tiles 16
@@ -137,6 +138,11 @@ def phase_build():
         print(f"phase 1 B2 {name}: resident clusters by cluster size "
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B2 {name} clusters fit on the card")
+        resident = {(ts, d): lib.tpugs_train_bwd_max_clusters(bf16, ts, d)
+                    for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256))}
+        print(f"phase 1 B5 {name} rows: resident clusters by (tile, D) "
+              f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
+        check(all(n > 0 for n in resident.values()), f"B5 {name} clusters fit on the card")
 
 
 def phase_kernels():
@@ -291,10 +297,18 @@ def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
     return of_group <= group_tol and of_entry <= entry_tol
 
 
+# (tile, D, view) of phase 2's train kernels: B5's cluster kernel in
+# clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256, its one-CTA
+# kernel above (train_cluster)
+TRAIN_KERNEL_SHAPES = ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0), (32, 256, 0),
+                       (16, 300, 1), (32, 300, 1))
+
+
 def phase_train_kernels():
     """B4 and B5 (f32 and bf16 rows, and B3's sums of them) against their
     twins at mid shapes, then one ``render_plan_train`` with a background
     and the absgrad probe against the same call on CPU copies (the twins)."""
+    from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.kernels import reduce_rows, reduce_rows_plain
     from tpugs_torch.raster.plan import build_plan
@@ -306,7 +320,7 @@ def phase_train_kernels():
     cams = orbit_cameras(2, W, H, radius=3.0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     seen_exit = seen_empty = False
-    for ts, D, view in ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0)):
+    for ts, D, view in TRAIN_KERNEL_SHAPES:
         vm, Km = cams.viewmats[view], cams.Ks[view]
         proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
         plan = build_plan(proj, W, H, ts)
@@ -332,21 +346,30 @@ def phase_train_kernels():
         hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha_k)
         grem0 = (g * img_k).sum(-1)
         args = (geom, cols, g, hterm, grem0, done_k, plan)
+        layout = T.train_cluster(ts, D)
         for dtype in (torch.float32, torch.bfloat16):
+            K.LAUNCHES.reset()
             rows_k = T.train_rows(*args, dtype)
             sums_k = reduce_rows(rows_k, plan, D + T.GEOM_GRADS)
             torch.cuda.synchronize()
+            launched = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_wide)
+            check(launched == ((0, 1) if layout is None else (1, 0)),
+                  f"B5 at D = {D} launched the kernel its width selects ({launched})")
+            same = torch.equal(T.train_rows(*args, dtype), rows_k)
             rows_t, mags = T.train_rows_plain(*args, dtype, magnitudes=True)
             sums_t = reduce_rows_plain(rows_t, plan, D + T.GEOM_GRADS)
             sums_m = reduce_rows_plain(mags, plan, D + T.GEOM_GRADS)
             a, g_rows, e_rows = T.grad_rows_error(rows_k, rows_t, D, mags)
             _, g_sums, e_sums = T.grad_rows_error(sums_k, sums_t, D, sums_m)
-            print(f"phase 2 ts={ts} D={D} B5 train_bwd {dtype}: rows max abs {a:.3e}, "
+            kind = "one-CTA kernel" if layout is None else "cluster (C, P) = {}".format(layout)
+            print(f"phase 2 ts={ts} D={D} B5 train_bwd {dtype} ({kind}): rows max abs {a:.3e}, "
                   f"{g_rows:.3e} of column-group max, {e_rows:.3e} of the entry's magnitude; "
-                  f"B3 sums {g_sums:.3e} and {e_sums:.3e}", flush=True)
+                  f"B3 sums {g_sums:.3e} and {e_sums:.3e}; a second launch bit-equal {same}",
+                  flush=True)
             check(within_grad_tol(g_rows, e_rows, dtype)
                   and within_grad_tol(g_sums, e_sums, dtype),
                   "B5 rows and their sums within GRAD_ROWS_TOL of the twins")
+            check(same, "two B5 launches give the same rows")
     check(seen_exit, "a tile that exits early")
     check(seen_empty, "an empty tile")
 

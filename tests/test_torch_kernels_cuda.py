@@ -9,7 +9,9 @@ own (f32: 1e-4, summation order; bf16: one or two bf16 units in the last
 place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
-(``grad_rows_error``), in f32 and bf16. B6's live striped rows within
+(``grad_rows_error``), in f32 and bf16, at widths of B5's cluster kernel
+(D = 3, 131, 256) and of its one-CTA kernel (D = 300); two B5 launches
+bit-equal. B6's live striped rows within
 ``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``,
 also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
@@ -178,7 +180,9 @@ def test_async_copy_probe_reads_19():
     assert int(S1.async_copy_probe(torch.arange(64, dtype=torch.int32, device="cuda"), 2)) == 19
 
 
-@pytest.fixture(scope="module", params=[3, 131])
+# B5's cluster kernel at D = 3, 131, 256 (clusters of 2 CTAs at tile 16, 8 at
+# tile 32), its one-CTA kernel at D = 300
+@pytest.fixture(scope="module", params=[3, 131, 256, 300])
 def train_packs(view, request):
     plan, pack, _ = view
     d = request.param
@@ -206,9 +210,12 @@ def test_train_bwd_kernel_matches_twin(train_packs, dtype):
     hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
     grem0 = (g * img).sum(-1)
     args = (geom, cols, g, hterm, grem0, done, plan, dtype)
+    K.LAUNCHES.reset()
     rows = T.train_rows(*args)
     sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
     torch.cuda.synchronize()
+    wide = T.train_cluster(plan.tile_size, d) is None
+    assert (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_wide) == ((0, 1) if wide else (1, 0))
     rows_t, mags = T.train_rows_plain(*args, magnitudes=True)
     group_tol, entry_tol = T.GRAD_ROWS_TOL[dtype]
     _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
@@ -216,3 +223,22 @@ def test_train_bwd_kernel_matches_twin(train_packs, dtype):
     _, of_group, of_entry = T.grad_rows_error(
         sums, K.reduce_rows_plain(rows_t, plan, d + 8), d, K.reduce_rows_plain(mags, plan, d + 8))
     assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
+    """Two launches give the same rows bit for bit (no atomics; the
+    cluster's partial rows are summed in rank order), on a view with an
+    empty tile and a tile that exits early."""
+    plan, geom, cols, gen = train_packs
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    spans = plan.tile_ends - plan.tile_starts
+    assert bool((spans == 0).any()), "an empty tile"
+    assert bool((done < (spans + 127) // 128).any()), "a tile that exits early"
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan, dtype)
+    first = T.train_rows(*args)
+    second = T.train_rows(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -80,6 +80,7 @@
 
 #include <type_traits>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace tpugs {
@@ -126,59 +127,10 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
 
-// ------------------------------------------------ cluster and async copies
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// The address of shared variable ``addr`` in cluster rank ``rank``'s CTA.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint4 v) {
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x),
-               "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, int v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-// All threads of all CTAs of the cluster: arrive (release), wait (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // Orders this thread's earlier shared-memory writes (plain, cp.async or
 // DSMEM) before later reads by the tensor cores' asynchronous proxy.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)),
-               "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf2(float a, float b) {

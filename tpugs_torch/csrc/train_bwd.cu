@@ -13,34 +13,56 @@
 // sigma > 0. Summed over the tile's pixels per Gaussian, one row per
 // intersection: [d col = sum_p w g (D) | dmx dmy dca dcb dcc dop |dmx|
 // |dmy| | 0 pad], in f32 or cast to bf16 at the store. Rows of blocks
-// past blocks_done are zero (B3 reads every position). Each row belongs to
-// one tile, so one CUDA block writes it: no atomics, the same rows on
-// every run.
+// past blocks_done are zero (B3 reads every position). No atomics: the
+// same rows on every run.
 //
-// Bound on an H100: operations. Per walked (pixel, Gaussian) pair, 2D f32
-// multiply-adds (u and d col) plus ~60 operations for the blend state and
-// the adjoint; the bytes are the packs and g once, and one row per
-// intersection out. Not TF32 (gradients are held at 3e-4 of their max).
+// Bound on an H100: operations. Per walked (pixel, Gaussian) pair ~30
+// operations for the blend state, and per pair with a nonzero alpha 2D
+// f32 multiply-adds (u and d col) and ~30 for the adjoint; the bytes are
+// the packs and g once, and one row per intersection out: 2.538 ms at the
+// garden train step (67 TFLOP/s f32; chip_smoke.py). Not TF32 (gradients
+// are held at 3e-4 of their max).
 //
-// Design. g for a 32x32 tile at D = 131 is 557 KB, and the per-pair
-// state (u, w, d sigma, d op) of a 128-Gaussian block over 1024 pixels
-// another 2 MB: neither fits in 227 KB. So one CUDA block of 256 threads
-// per tile walks each block in sub-blocks of 32 Gaussians and the tile's
-// pixels in chunks of 256 (one thread per pixel):
-//   (1) u for the thread's pixel and the 32 Gaussians, in registers, from
-//       g staged in 32-channel slices (Gs) and the colours (Ct);
-//   (2) the sequential walk over the 32 Gaussians, carrying T, texc, the
-//       prefix and grem per pixel in shared memory between sub-blocks and
-//       chunks; it stores w, d sigma and d op per pair;
-//   (3) the 8 geometry sums: 8 threads per Gaussian over the chunk's
-//       pixels (dx, dy recomputed exactly), then a shuffle over the 8;
-//   (4) d col += w^T g over the chunk, g restaged in 32-channel slices.
-// After the chunks, the 32 rows are written. Shared memory is about
-// 160 KB + 128 B per channel (D <= 512).
+// Design (D <= 256: the cluster kernel). The TPU kernel keeps a tile's
+// whole g in VMEM (536 KB at D = 131); a Hopper CTA has 227 KB, and the
+// one-CTA kernel below restaged g in 32-channel slices eight times per
+// walked block (about 38 GB from L2 per step), which cost 47% of its time
+// (experiments/train_bwd_phases.py). So a tile is a thread-block cluster
+// of C = ts^2 / 128 CTAs (8 at tile 32, 2 at tile 16; train_cluster in
+// raster/train.py, which the C side checks). Rank r owns pixels [128r,
+// 128r + 128), 4 or 8 whole pixel rows, for every block; it loads their g
+// once per tile (68 KB at D = 131) and keeps it, with one thread per pixel
+// carrying T, texc, the prefix and grem in registers: no state crosses
+// ranks, and B4's blocks_done fixes the walk. Per 32-Gaussian sub-block:
+//   (1) u (128 x 32) = G Ct^T from shared memory, a 4 x 8 register tile
+//       per thread (12 float4 loads per 128 FMAs); the colours Ct (32 x
+//       D) come in by cp.async, issued a sub-block ahead;
+//   (2) today's walk, the same instructions in the same order (u is still
+//       summed over the channels in order, so each pair's values are the
+//       one-CTA kernel's); each Gaussian's 8 geometry terms are summed over
+//       the warp by a 9-shuffle reduce-scatter, skipped where no lane has a
+//       nonzero d alpha;
+//   (3) the partial d col (32 x D) = W^T G over the rank's pixels: warp w
+//       takes 8 Gaussians, lane l the columns l + 32j, 8 x ceil(D/32)
+//       accumulators; written with the geometry partials (the 4 warps in
+//       order) into Dpart, laid out as the 32 rows themselves;
+//   (4) after a cluster barrier, rank q sums its 1/C of the rows' 16-byte
+//       vectors over the C ranks' Dpart, in rank order 0..C-1, by DSMEM
+//       loads, and stores them; an arrive here and a wait before the next
+//       Dpart write let the next sub-block start before the others finish.
+// Shared memory per CTA: g, max(Ct, u/w), Dpart and the warps' geometry
+// sums: 109 KB at D = 131, so two CTAs fit on an SM; 207 KB at D = 256.
+// Zero rows and the row epilogue store 16 bytes per thread.
+//
+// Widths D > 256 (CLUSTER_MAX_CHANNELS) take the one-CTA kernel below
+// (tpugs_train_bwd_wide_*), chosen by width alone: there g and the
+// partials of a cluster of 8 no longer fit one CTA's shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace tpugs {
@@ -50,8 +72,398 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kGeomCols = 8;
 constexpr int kGeomGrads = 8;
+constexpr int kSub = 32;  // Gaussians per sub-block
+
+__device__ __forceinline__ void store(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store(bf16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// ------------------------------------------------------- the cluster kernel
+
+constexpr int kPix = 128;            // pixels per rank; PIXELS_PER_RANK in raster/train.py
+constexpr int kCThreads = kPix;      // one thread per pixel in the walk
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kMaxClusterD = 256;    // CLUSTER_MAX_CHANNELS in raster/train.py
+constexpr int kMaxCluster = 8;       // portable cluster size: ts = 32 gives C = 8
+constexpr int kNc = kMaxClusterD / 32;  // d col columns per lane
+constexpr int kLdU = kSub + 4;       // Us/Ws[pixel][gaussian]
+static_assert(kCWarps * 8 == kSub, "warp w owns Gaussians 8w..8w+7 of d col");
+
+// Shared memory of one rank, in floats. g is [kPix][ldg] with ldg / 4 odd,
+// so 8 pixels' float4s at one channel fall in 8 distinct bank groups; the
+// colour rows Ct[kSub][ldg] share region X with u and then w
+// (Us/Ws[kPix][kLdU]); Dpart[kSub][RW] is this rank's partial of the
+// sub-block's 32 rows, laid out as the rows themselves; GeoW[warp][kSub][8]
+// the geometry sums of each warp's 32 pixels.
+struct ClusterLayout {
+  int D4, ldg, RW;
+  __host__ __device__ ClusterLayout(int D, int row_width) : RW(row_width) {
+    D4 = (D + 3) / 4 * 4;
+    ldg = (D4 / 4) % 2 ? D4 : D4 + 4;
+  }
+  __host__ __device__ int x() const { return kPix * ldg; }
+  __host__ __device__ int x_size() const {
+    return kSub * ldg > kPix * kLdU ? kSub * ldg : kPix * kLdU;
+  }
+  __host__ __device__ int dpart() const { return x() + x_size(); }
+  __host__ __device__ int geow() const { return dpart() + kSub * RW; }
+  __host__ __device__ size_t bytes() const {
+    return size_t(geow() + kCWarps * kSub * kGeomGrads) * sizeof(float);
+  }
+};
+
+// The sub-block's colour rows cols[row .. row + 32) into Ct (4-byte
+// cp.async, one committed group), zeros in columns [D, D4).
+__device__ __forceinline__ void stage_colours(float* Ct, const float* __restrict__ cols,
+                                              long long row, int D, const ClusterLayout& L,
+                                              int tid) {
+  const float* src = cols + row * D;
+  for (int e = tid; e < kSub * D; e += kCThreads) {
+    const int i = e / D;
+    cp_async4(Ct + i * L.ldg + e - i * D, src + e);
+  }
+  const int pad = L.D4 - D;
+  for (int e = tid; e < kSub * pad; e += kCThreads) Ct[(e / pad) * L.ldg + D + e % pad] = 0.0f;
+  cp_async_commit();
+}
+
+// a[0..7] summed over the warp's 32 lanes by a reduce-scatter (9 shuffles):
+// lane l returns the sum of a[(l >> 2) & 7]. A fixed tree: the same sums on
+// every run.
+__device__ __forceinline__ float warp_sum8(const float (&a)[kGeomGrads], int lane) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float b[4], c[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    b[j] = (h16 ? a[j + 4] : a[j]) + __shfl_xor_sync(0xffffffffu, h16 ? a[j] : a[j + 4], 16);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    c[j] = (h8 ? b[j + 2] : b[j]) + __shfl_xor_sync(0xffffffffu, h8 ? b[j] : b[j + 2], 8);
+  float d = (h4 ? c[1] : c[0]) + __shfl_xor_sync(0xffffffffu, h4 ? c[0] : c[1], 4);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  return d;
+}
+
+__device__ __forceinline__ void add4(float4& s, const float4 v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// This rank's share of the sub-block's 32 rows (out points at the first):
+// each 16-byte vector of output is the sum of the C ranks' partials, in
+// rank order 0..C-1, read through DSMEM.
+__device__ __forceinline__ void sum_partials(float* __restrict__ out, const uint32_t (&part)[kMaxCluster],
+                                             int C, int rank, int RW, int tid) {
+  const int n = kSub * RW / 4;
+  const int per = (n + C - 1) / C;
+  const int end = min(n, (rank + 1) * per);
+  for (int v = rank * per + tid; v < end; v += kCThreads) {
+    float4 s = ld_cluster_f4(part[0] + 16u * v);
+    for (int r = 1; r < C; ++r) add4(s, ld_cluster_f4(part[r] + 16u * v));
+    *reinterpret_cast<float4*>(out + 4 * v) = s;
+  }
+}
+__device__ __forceinline__ void sum_partials(bf16* __restrict__ out, const uint32_t (&part)[kMaxCluster],
+                                             int C, int rank, int RW, int tid) {
+  const int n = kSub * RW / 8;
+  const int per = (n + C - 1) / C;
+  const int end = min(n, (rank + 1) * per);
+  for (int v = rank * per + tid; v < end; v += kCThreads) {
+    float4 s = ld_cluster_f4(part[0] + 32u * v);
+    float4 t = ld_cluster_f4(part[0] + 32u * v + 16u);
+    for (int r = 1; r < C; ++r) {
+      add4(s, ld_cluster_f4(part[r] + 32u * v));
+      add4(t, ld_cluster_f4(part[r] + 32u * v + 16u));
+    }
+    const __nv_bfloat162 h[4] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w),
+                                 __floats2bfloat162_rn(t.x, t.y), __floats2bfloat162_rn(t.z, t.w)};
+    *reinterpret_cast<uint4*>(out + 8 * v) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
+// one tile, rank r its pixels [r * kPix, (r + 1) * kPix).
+template <typename OutT>
+__global__ void __launch_bounds__(kCThreads, 2)
+train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
+                         const float* __restrict__ gimg, const float* __restrict__ hterm,
+                         const float* __restrict__ grem0, const int* __restrict__ tile_starts,
+                         const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
+                         const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
+                         int ts, int width, int height, int D, int RW, int C) {
+  extern __shared__ __align__(16) float smem[];
+  const ClusterLayout L(D, RW);
+  float* Gs = smem;                 // [kPix][ldg]: this rank's g, for the whole tile
+  float* X = smem + L.x();          // Ct[kSub][ldg], then Us/Ws[kPix][kLdU]
+  float* Dpart = smem + L.dpart();  // [kSub][RW]
+  float* GeoW = smem + L.geow();    // [kCWarps][kSub][kGeomGrads]
+  __shared__ BlockGeom g;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rank = static_cast<int>(cluster_rank());
+  const int tile = blockIdx.x / C;
+  const int ts_shift = __ffs(ts) - 1;  // ts is 16 or 32
+  const int ldg = L.ldg, D4 = L.D4;
+  const int count = tile_ends[tile] - tile_starts[tile];
+  const int nb = (count + kBlock - 1) / kBlock;
+  const int nb_done = min(blocks_done[tile], nb);
+  const long long pstart = padded_starts[tile];
+  const int x0 = (tile % ntx) * ts;
+  const int y0 = (tile / ntx) * ts;
+  uint32_t part[kMaxCluster];  // every rank's Dpart, as DSMEM addresses
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
+
+  // this thread's pixel and its carried state
+  const int p = rank * kPix + tid;
+  const int xi = x0 + (p & (ts - 1));
+  const int yi = y0 + (p >> ts_shift);
+  const bool in_img = xi < width && yi < height;
+  const float px = static_cast<float>(xi) + 0.5f;
+  const float py = static_cast<float>(yi) + 0.5f;
+  const long long pix = static_cast<long long>(yi) * width + xi;
+  const float h = in_img ? hterm[pix] : 0.0f;
+  float grem = in_img ? grem0[pix] : 0.0f;
+  float trans = 1.0f;
+
+  // this rank's g, once per tile: 0 outside the image and in columns [D, D4)
+  for (int idx = tid; idx < kPix * D4; idx += kCThreads) {
+    const int pl = idx / D4;
+    const int c = idx - pl * D4;
+    const int q = rank * kPix + pl;
+    const int x = x0 + (q & (ts - 1));
+    const int y = y0 + (q >> ts_shift);
+    float v = 0.0f;
+    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
+    Gs[pl * ldg + c] = v;
+  }
+  // row columns past the geometry sums: 0 in every partial
+  const int n_pad = RW - D - kGeomGrads;
+  for (int e = tid; e < kSub * n_pad; e += kCThreads)
+    Dpart[(e / n_pad) * RW + D + kGeomGrads + e % n_pad] = 0.0f;
+  if (nb_done > 0) stage_colours(X, cols, pstart, D, L, tid);
+  cluster_arrive();  // every CTA of the cluster has started
+  cluster_wait();
+  cluster_arrive();  // Dpart is free (paired with the first sub-block's wait)
+
+  for (int b = 0; b < nb_done; ++b) {
+    const long long row0 = pstart + static_cast<long long>(b) * kBlock;
+    load_geom(g, geom, row0, tid, kGeomCols);  // the last walk's reads ended at a barrier
+    const int remaining = count - b * kBlock;
+    float texc = 1.0f, cs = 0.0f;
+    for (int s = 0; s < kBlock / kSub; ++s) {
+      const int gbase = s * kSub;
+      cp_async_wait_all();
+      __syncthreads();  // the colours and the block's geometry are in
+
+      // (1) u = G Ct^T: thread (pg, gg) takes pixels pg + 32j, Gaussians gg + 4m;
+      // each u is summed over the channels in order, as before
+      {
+        const int gg = tid & 3, pg = tid >> 2;
+        float u[4][8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int m = 0; m < 8; ++m) u[j][m] = 0.0f;
+        for (int k = 0; k < D4; k += 4) {
+          float4 gv[4], cv[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            gv[j] = *reinterpret_cast<const float4*>(Gs + (pg + 32 * j) * ldg + k);
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            cv[m] = *reinterpret_cast<const float4*>(X + (gg + 4 * m) * ldg + k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 8; ++m) {
+              float a = fmaf(gv[j].x, cv[m].x, u[j][m]);
+              a = fmaf(gv[j].y, cv[m].y, a);
+              a = fmaf(gv[j].z, cv[m].z, a);
+              u[j][m] = fmaf(gv[j].w, cv[m].w, a);
+            }
+        }
+        __syncthreads();  // every read of the colours is done
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int m = 0; m < 8; ++m) X[(pg + 32 * j) * kLdU + gg + 4 * m] = u[j][m];
+      }
+      __syncthreads();
+
+      // (2) the walk over the sub-block for this thread's pixel; w replaces u
+      // in place, and each Gaussian's 8 geometry terms are summed over the warp
+      {
+        float* row = X + tid * kLdU;
+        for (int i4 = 0; i4 < kSub; i4 += 4) {
+          const float4 u4 = *reinterpret_cast<const float4*>(row + i4);
+          const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
+          float ww[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i4 + e;
+            const int gi = gbase + i;
+            const PairTerms t = pair_terms(g, gi, px, py);
+            const float alpha = clipped_alpha(t, gi < remaining);
+            const bool kept = alpha != 0.0f;
+            const float w = alpha * texc * trans;
+            cs = fmaf(w, uu[e], cs);
+            const float v = grem - cs;
+            const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
+            const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
+            ww[e] = w;
+            texc *= 1.0f - alpha;
+            float sum = 0.0f;  // every term is 0 when no lane has a d_araw
+            if (__any_sync(0xffffffffu, d_araw != 0.0f)) {
+              const float ds = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
+              const float dx = t.dx, dy = t.dy;
+              const float ca = g.ca[gi], cb = g.cb[gi], cc = g.cc[gi];
+              const float dmx = ds * -(ca * dx + cb * dy);
+              const float dmy = ds * -(cc * dy + cb * dx);
+              const float a[kGeomGrads] = {dmx, dmy, ds * (0.5f * dx * dx), ds * (dx * dy),
+                                           ds * (0.5f * dy * dy), d_araw * t.e, fabsf(dmx),
+                                           fabsf(dmy)};
+              sum = warp_sum8(a, lane);
+            }
+            if ((lane & 3) == 0) GeoW[(warp * kSub + i) * kGeomGrads + (lane >> 2)] = sum;
+          }
+          *reinterpret_cast<float4*>(row + i4) = make_float4(ww[0], ww[1], ww[2], ww[3]);
+        }
+      }
+      __syncthreads();
+
+      // (3) the partial d col = W^T G over this rank's pixels: warp w takes
+      // Gaussians 8w..8w+7, lane l the columns l + 32j
+      const int nc = (D + 31) / 32;
+      float acc[8][kNc];
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int j = 0; j < kNc; ++j) acc[m][j] = 0.0f;
+      for (int q = 0; q < kPix; ++q) {
+        const float4 w0 = *reinterpret_cast<const float4*>(X + q * kLdU + 8 * warp);
+        const float4 w1 = *reinterpret_cast<const float4*>(X + q * kLdU + 8 * warp + 4);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        const float* gq = Gs + q * ldg + lane;
+#pragma unroll
+        for (int j = 0; j < kNc; ++j) {
+          if (j < nc) {
+            const float gv = gq[32 * j];
+#pragma unroll
+            for (int m = 0; m < 8; ++m) acc[m][j] = fmaf(wv[m], gv, acc[m][j]);
+          }
+        }
+      }
+      cluster_wait();  // every rank has read this rank's previous partials
+#pragma unroll
+      for (int j = 0; j < kNc; ++j) {
+        const int c = lane + 32 * j;
+        if (j < nc && c < D) {
+#pragma unroll
+          for (int m = 0; m < 8; ++m) Dpart[(8 * warp + m) * RW + c] = acc[m][j];
+        }
+      }
+      for (int e = tid; e < kSub * kGeomGrads; e += kCThreads) {
+        constexpr int kW = kSub * kGeomGrads;  // one warp's GeoW
+        Dpart[(e / kGeomGrads) * RW + D + e % kGeomGrads] =
+            ((GeoW[e] + GeoW[kW + e]) + GeoW[2 * kW + e]) + GeoW[3 * kW + e];
+      }
+      __syncthreads();  // every read of Ws is done
+      if (s + 1 < kBlock / kSub)
+        stage_colours(X, cols, row0 + gbase + kSub, D, L, tid);
+      else if (b + 1 < nb_done)
+        stage_colours(X, cols, row0 + kBlock, D, L, tid);
+      cluster_arrive();  // every rank's partials are complete
+      cluster_wait();
+      // (4) this rank's share of the 32 rows: the C partials summed in rank order
+      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);
+      cluster_arrive();  // this rank has read the others' partials
+    }
+    trans *= texc;
+    grem -= cs;
+  }
+  // blocks the forward's early exit skipped: zero rows, 16 bytes a store,
+  // split over the cluster's ranks (the span is 16-byte aligned)
+  constexpr int V = 16 / sizeof(OutT);
+  const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
+  const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * RW / V;
+  for (long long v = rank * kCThreads + tid; v < n_vec; v += C * kCThreads)
+    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
+  cluster_wait();  // no rank leaves while another may still read its partials
+}
+
+cudaLaunchConfig_t cluster_config(int n_tiles, int C, size_t bytes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * n_tiles, 1, 1);
+  cfg.blockDim = dim3(kCThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// (C, P) as raster/train.py::train_cluster gives them, or an error.
+template <typename OutT>
+cudaError_t prepare_cluster(int ts, int D, int RW, int C, int P, size_t* bytes) {
+  if (D < 1 || D > kMaxClusterD || RW < D + kGeomGrads || RW % 4 != 0 ||
+      (ts != 16 && ts != 32) || P != kPix || C * P != ts * ts || C > kMaxCluster)
+    return cudaErrorInvalidValue;
+  *bytes = ClusterLayout(D, RW).bytes();
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*bytes));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename OutT>
+int launch_cluster(const float* geom, const float* cols, const float* gimg, const float* hterm,
+                   const float* grem0, const int* tile_starts, const int* tile_ends,
+                   const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
+                   int ntx, int ts, int width, int height, int D, int RW, int C, int P,
+                   cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_cluster<OutT>(ts, D, RW, C, P, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_cluster_kernel<OutT>, geom, cols, gimg, hterm, grem0,
+                         tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
+                         width, height, D, RW, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the cluster kernel at (ts, D) that can be resident at once,
+// or minus a CUDA error.
+template <typename OutT>
+int max_clusters(int ts, int D) {
+  const int RW = (D + kGeomGrads + 3) / 4 * 4;
+  const int C = ts * ts / kPix;
+  size_t bytes = 0;
+  cudaError_t e = prepare_cluster<OutT>(ts, D, RW, C, kPix, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_cluster_kernel<OutT>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// ------------------------------------- the one-CTA kernel (D > kMaxClusterD)
+
 constexpr int kThreads = 256;     // = pixels per chunk
-constexpr int kSub = 32;          // Gaussians per sub-block
 constexpr int kDK = 32;           // channels per staged slice of g
 constexpr int kMaxPixels = 1024;
 constexpr int kLdG = kDK + 1;     // Gs[pixel][channel]
@@ -63,8 +475,6 @@ constexpr size_t kFixedFloats = size_t(kThreads) * kLdG + size_t(kDK) * kLdC +
                                 size_t(kThreads) * kLdW + 2 * size_t(kSub) * kLdD +
                                 size_t(kSub) * kGeomGrads + 4 * size_t(kMaxPixels);
 
-__device__ __forceinline__ void store(float* o, float v) { *o = v; }
-__device__ __forceinline__ void store(bf16* o, float v) { *o = __float2bfloat16_rn(v); }
 
 // Gs[q][k] = g(pixel q of chunk c, channel d0 + k), 0 outside the image
 // or past D; ts = 1 << ts_shift. Each warp reads 32 consecutive channels of
@@ -87,7 +497,7 @@ __device__ __forceinline__ void stage_g(float* Gs, const float* __restrict__ gim
 
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
-train_bwd_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
+train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                  const float* __restrict__ gimg, const float* __restrict__ hterm,
                  const float* __restrict__ grem0, const int* __restrict__ tile_starts,
                  const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
@@ -289,11 +699,13 @@ train_bwd_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
   // blocks the forward's early exit skipped: zero rows
   const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
   const long long n_zero = static_cast<long long>(nb - nb_done) * kBlock * RW;
-  for (long long idx = tid; idx < n_zero; idx += kThreads) store(out + zero0 + idx, 0.0f);
+  constexpr int V = 16 / sizeof(OutT);  // 16-byte stores; the span is 16-byte aligned
+  for (long long v = tid; v < n_zero / V; v += kThreads)
+    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
 }
 
 template <typename OutT>
-int launch(const float* geom, const float* cols, const float* gimg, const float* hterm,
+int launch_wide(const float* geom, const float* cols, const float* gimg, const float* hterm,
            const float* grem0, const int* tile_starts, const int* tile_ends,
            const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles, int ntx,
            int ts, int width, int height, int D, int RW, cudaStream_t stream) {
@@ -301,11 +713,11 @@ int launch(const float* geom, const float* cols, const float* gimg, const float*
   if (D < 1 || RW < D + kGeomGrads || (ts != 16 && ts != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = (kFixedFloats + size_t(kSub) * Dpad) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_kernel<OutT>,
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_wide_kernel<OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  train_bwd_kernel<OutT><<<n_tiles, kThreads, bytes, stream>>>(
+  train_bwd_wide_kernel<OutT><<<n_tiles, kThreads, bytes, stream>>>(
       geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done, out,
       ntx, ts, width, height, D, Dpad, RW);
   return static_cast<int>(cudaGetLastError());
@@ -314,25 +726,45 @@ int launch(const float* geom, const float* cols, const float* gimg, const float*
 }  // namespace
 }  // namespace tpugs
 
-extern "C" int tpugs_train_bwd_f32(const float* geom, const float* cols, const float* gimg,
-                                   const float* hterm, const float* grem0,
-                                   const int* tile_starts, const int* tile_ends,
-                                   const int* padded_starts, const int* blocks_done,
-                                   float* out, int n_tiles, int ntx, int ts, int width,
-                                   int height, int D, int RW, cudaStream_t stream) {
-  return tpugs::launch<float>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,
-                              padded_starts, blocks_done, out, n_tiles, ntx, ts, width, height,
-                              D, RW, stream);
+#define TPUGS_TRAIN_BWD_ARGS                                                                  \
+  const float *geom, const float *cols, const float *gimg, const float *hterm,              \
+      const float *grem0, const int *tile_starts, const int *tile_ends,                     \
+      const int *padded_starts, const int *blocks_done
+#define TPUGS_TRAIN_BWD_PASS                                                                  \
+  geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done
+
+// The cluster kernel, for D <= 256, at (C, P) from raster/train.py::train_cluster.
+extern "C" int tpugs_train_bwd_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
+                                   int ts, int width, int height, int D, int RW, int C, int P,
+                                   cudaStream_t stream) {
+  return tpugs::launch_cluster<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
+                                      height, D, RW, C, P, stream);
 }
 
-extern "C" int tpugs_train_bwd_bf16(const float* geom, const float* cols, const float* gimg,
-                                    const float* hterm, const float* grem0,
-                                    const int* tile_starts, const int* tile_ends,
-                                    const int* padded_starts, const int* blocks_done,
-                                    __nv_bfloat16* out, int n_tiles, int ntx, int ts,
-                                    int width, int height, int D, int RW,
-                                    cudaStream_t stream) {
-  return tpugs::launch<__nv_bfloat16>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,
-                                      padded_starts, blocks_done, out, n_tiles, ntx, ts, width,
-                                      height, D, RW, stream);
+extern "C" int tpugs_train_bwd_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, int n_tiles,
+                                    int ntx, int ts, int width, int height, int D, int RW,
+                                    int C, int P, cudaStream_t stream) {
+  return tpugs::launch_cluster<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts,
+                                              width, height, D, RW, C, P, stream);
+}
+
+// The one-CTA kernel, for D > 256 (any D <= 512).
+extern "C" int tpugs_train_bwd_wide_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
+                                        int ts, int width, int height, int D, int RW,
+                                        cudaStream_t stream) {
+  return tpugs::launch_wide<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height,
+                                   D, RW, stream);
+}
+
+extern "C" int tpugs_train_bwd_wide_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
+                                         int n_tiles, int ntx, int ts, int width, int height,
+                                         int D, int RW, cudaStream_t stream) {
+  return tpugs::launch_wide<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
+                                           height, D, RW, stream);
+}
+
+// Resident clusters of the cluster kernel at tile ts and D channels (bf16
+// or f32 rows), or minus a CUDA error.
+extern "C" int tpugs_train_bwd_max_clusters(int bf16, int ts, int D) {
+  return bf16 ? tpugs::max_clusters<__nv_bfloat16>(ts, D) : tpugs::max_clusters<float>(ts, D);
 }

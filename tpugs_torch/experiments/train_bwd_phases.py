@@ -16,6 +16,10 @@ through its own ``tpugs_train_bwd_f32``. The phases:
   geometry    the 8 geometry sums over pixels
   d col       the product d col = w^T g
   zero rows   the rows of the blocks past a tile's early exit
+  colour staging  (cluster kernel) the sub-blocks' colour copies
+  exchange    (cluster kernel) the DSMEM sums of the ranks' partial rows
+  occupancy   (cluster kernel) not a phase: 114 KB more shared memory per
+              CTA, so that only one fits on an SM
 
 A variant's rows are wrong by design; only the full copy's rows are held
 to the plain twin, on 64 sampled tiles, within ``GRAD_ROWS_TOL``. Table
@@ -85,14 +89,53 @@ TABLES: Dict[str, Dict[str, List[Sub]]] = {
     },
 }
 
+_CLUSTER_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
+            const float alpha = clipped_alpha(t, gi < remaining);
+            const bool kept = alpha != 0.0f;
+            const float w = alpha * texc * trans;
+            cs = fmaf(w, uu[e], cs);
+            const float v = grem - cs;
+            const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
+            const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
+            ww[e] = w;
+            texc *= 1.0f - alpha;
+            float sum = 0.0f;"""
+_CLUSTER_CONST_WALK = """            PairTerms t;
+            t.dx = 0.5f + grem;
+            t.dy = 0.5f + h;
+            t.sigma = 1.0f;
+            t.e = 0.5f;
+            t.alpha_raw = trans;
+            const float d_araw = 1e-3f * gi;
+            cs = fmaf(1e-3f, uu[e], cs);
+            ww[e] = 1e-3f;
+            float sum = 0.0f;"""
+
+TABLES["cluster"] = {
+    "u product": [("for (int k = 0; k < D4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
+    "g staging": [("    Gs[pl * ldg + c] = v;\n", "")],
+    "colour staging": [("    cp_async4(Ct + i * L.ldg + e - i * D, src + e);\n", "")],
+    "walk": [(_CLUSTER_WALK, _CLUSTER_CONST_WALK)],
+    "geometry": [("if (__any_sync(0xffffffffu, d_araw != 0.0f)) {", "if (false) {")],
+    "d col": [("for (int q = 0; q < kPix; ++q) {", "for (int q = 0; q < 0; ++q) {")],
+    "zero rows": [("    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n"
+                   "  cluster_wait();", "  cluster_wait();")],
+    "exchange": [("      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);\n", "")],
+    "occupancy": [("*bytes = ClusterLayout(D, RW).bytes();",
+                   "*bytes = ClusterLayout(D, RW).bytes() + 114 * 1024;")],
+}
+
 VARIANTS = (
     ("full", ()),
     ("no u product", ("u product",)),
     ("no g staging", ("g staging",)),
+    ("no colour staging", ("colour staging",)),
     ("no walk", ("walk",)),
     ("no geometry sums", ("geometry",)),
     ("no d col product", ("d col",)),
     ("no zero rows", ("zero rows",)),
+    ("no DSMEM sums", ("exchange",)),
+    ("one CTA per SM", ("occupancy",)),
     ("no products", ("u product", "d col")),
 )
 

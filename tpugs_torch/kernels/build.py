@@ -44,9 +44,14 @@ SIGNATURES = {
     # n_tiles, ntx, ts, W, H, D, eps, stream
     "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     # geom, cols, g, hterm, grem0, starts, ends, padded_starts, blocks_done, out,
-    # n_tiles, ntx, ts, W, H, D, row width, stream
-    "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 7 + [_P],
-    "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    # n_tiles, ntx, ts, W, H, D, row width, cluster size, pixels per rank, stream
+    "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 9 + [_P],
+    "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 9 + [_P],
+    # the same without the cluster geometry: the one-CTA kernel of wide rows
+    "tpugs_train_bwd_wide_f32": [_P] * 10 + [_I] * 7 + [_P],
+    "tpugs_train_bwd_wide_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    # bf16 (0/1), tile size, D -> resident clusters
+    "tpugs_train_bwd_max_clusters": [_I, _I, _I],
     # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,
     # eps, cluster size, grid x, stream
     "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],

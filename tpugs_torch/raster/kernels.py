@@ -70,6 +70,7 @@ class LaunchCounts:
     reduce: int = 0
     train_fwd: int = 0
     train_bwd: int = 0
+    train_bwd_wide: int = 0
     adjoint_scatter: int = 0
     stripe_sum: int = 0
 

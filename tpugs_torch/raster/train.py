@@ -52,7 +52,9 @@ from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 
 GEOM_COLS = 8  # [mx, my, conic_a, conic_b, conic_c, opacity, 0, 0]
 GEOM_GRADS = 8  # dmx dmy dca dcb dcc dop |dmx| |dmy|
-MAX_CHANNELS = 512  # B5 keeps 32 Gaussians x D colour-gradient sums in shared memory
+MAX_CHANNELS = 512  # B5's one-CTA kernel keeps 32 Gaussians x D sums in shared memory
+CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory
+PIXELS_PER_RANK = 128  # pixels of a tile per CTA of B5's cluster kernel
 
 
 def grad_row_width(channels: int) -> int:
@@ -145,6 +147,21 @@ def train_forward(
 
 
 # ----------------------------------------------------------- B5 backward
+
+
+def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
+    """(C, P) of B5's cluster kernel: a tile's ts*ts pixels go to a cluster
+    of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile
+    32, 2 at tile 16). None for more than CLUSTER_MAX_CHANNELS channels,
+    whose g does not fit a CTA's shared memory: those take the one-CTA
+    kernel. The C side refuses any other (C, P)."""
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
+    if not 1 <= channels <= MAX_CHANNELS:
+        raise ValueError(f"{channels} channels: B5 takes 1 to {MAX_CHANNELS}")
+    if channels > CLUSTER_MAX_CHANNELS:
+        return None
+    return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
 
 
 def train_rows_plain(
@@ -242,7 +259,9 @@ def train_rows(
     (float32, or bfloat16 cast at the store). Inputs: the packs, the image
     cotangent ``g_image`` (H, W, D), ``hterm`` = h * T_final and ``grem0``
     = g . (image without background) per pixel (H, W), and B4's
-    ``blocks_done``. Rows of blocks the forward skipped are zero."""
+    ``blocks_done``. Rows of blocks the forward skipped are zero. Up to
+    CLUSTER_MAX_CHANNELS channels the cluster kernel runs, above it the
+    one-CTA kernel: chosen by width alone (``train_cluster``)."""
     d = _check_packs(geom, cols, plan)
     dev = geom.device
     h, w, nt = plan.height, plan.width, plan.n_tiles
@@ -264,15 +283,25 @@ def train_rows(
     out = torch.empty((plan.T_padded, width), dtype=contrib_dtype, device=dev)
     if nt == 0 or plan.T_padded == 0:
         return out
-    fn = lib.tpugs_train_bwd_bf16 if contrib_dtype == torch.bfloat16 else lib.tpugs_train_bwd_f32
+    bf16 = contrib_dtype == torch.bfloat16
+    cluster = train_cluster(plan.tile_size, d)
+    if cluster is None:
+        fn = lib.tpugs_train_bwd_wide_bf16 if bf16 else lib.tpugs_train_bwd_wide_f32
+    else:
+        fn = lib.tpugs_train_bwd_bf16 if bf16 else lib.tpugs_train_bwd_f32
     ntx, _ = plan.grid
     rc = fn(
         _ptr(geom), _ptr(cols), _ptr(g_image), _ptr(hterm), _ptr(grem0),
         _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
-        _ptr(blocks_done), _ptr(out), nt, ntx, plan.tile_size, w, h, d, width, _stream(),
+        _ptr(blocks_done), _ptr(out), nt, ntx, plan.tile_size, w, h, d, width,
+        *(cluster or ()), _stream(),
     )
-    _launched(rc, "train_bwd")
-    LAUNCHES.train_bwd += 1
+    if cluster is None:
+        _launched(rc, "train_bwd_wide")
+        LAUNCHES.train_bwd_wide += 1
+    else:
+        _launched(rc, "train_bwd")
+        LAUNCHES.train_bwd += 1
     return out
 
 
