@@ -79,21 +79,20 @@ __device__ __forceinline__ void store(bf16* o, float v) { *o = __float2bfloat16_
 
 // ------------------------------------------------------- the cluster kernel
 
-constexpr int kPix = 128;            // pixels per rank; PIXELS_PER_RANK in raster/train.py
-constexpr int kCThreads = kPix;      // one thread per pixel in the walk
-constexpr int kCWarps = kCThreads / 32;
-constexpr int kMaxClusterD = 256;    // CLUSTER_MAX_CHANNELS in raster/train.py
-constexpr int kMaxCluster = 8;       // portable cluster size: ts = 32 gives C = 8
-constexpr int kNc = kMaxClusterD / 32;  // d col columns per lane
-constexpr int kLdU = kSub + 4;       // Us/Ws[pixel][gaussian]
-static_assert(kCWarps * 8 == kSub, "warp w owns Gaussians 8w..8w+7 of d col");
+constexpr int kPix = 128;             // pixels per rank; PIXELS_PER_RANK in raster/train.py
+constexpr int kCThreads = 2 * kPix;   // the walk takes warps 0-3, one thread per pixel
+constexpr int kWalkWarps = kPix / 32;
+constexpr int kMaxClusterD = 256;     // CLUSTER_MAX_CHANNELS in raster/train.py
+constexpr int kMaxCluster = 8;        // portable cluster size: ts = 32 gives C = 8
+constexpr int kLdU = kSub + 4;        // Us/Ws[pixel][gaussian]
+static_assert(kWalkWarps * 8 == kSub, "d col: warp w takes Gaussians 8 (w % 4) + 0..7");
 
 // Shared memory of one rank, in floats. g is [kPix][ldg] with ldg / 4 odd,
 // so 8 pixels' float4s at one channel fall in 8 distinct bank groups; the
 // colour rows Ct[kSub][ldg] share region X with u and then w
 // (Us/Ws[kPix][kLdU]); Dpart[kSub][RW] is this rank's partial of the
 // sub-block's 32 rows, laid out as the rows themselves; GeoW[warp][kSub][8]
-// the geometry sums of each warp's 32 pixels.
+// the geometry sums of each walking warp's 32 pixels.
 struct ClusterLayout {
   int D4, ldg, RW;
   __host__ __device__ ClusterLayout(int D, int row_width) : RW(row_width) {
@@ -107,9 +106,17 @@ struct ClusterLayout {
   __host__ __device__ int dpart() const { return x() + x_size(); }
   __host__ __device__ int geow() const { return dpart() + kSub * RW; }
   __host__ __device__ size_t bytes() const {
-    return size_t(geow() + kCWarps * kSub * kGeomGrads) * sizeof(float);
+    return size_t(geow() + kWalkWarps * kSub * kGeomGrads) * sizeof(float);
   }
 };
+
+// Local pixel l (0..127) of a rank, in its ts x (128 / ts) pixel rows:
+// each 32 form an 8 x 4 patch, so a walking warp sees nearby pixels and
+// more often finds no nonzero d alpha for a Gaussian.
+__device__ __forceinline__ int2 local_xy(int l, int ts) {
+  const int w = l >> 5, lane = l & 31, per_row = ts >> 3;
+  return make_int2(8 * (w % per_row) + (lane & 7), 4 * (w / per_row) + (lane >> 3));
+}
 
 // The sub-block's colour rows cols[row .. row + 32) into Ct (4-byte
 // cp.async, one committed group), zeros in columns [D, D4).
@@ -161,7 +168,9 @@ __device__ __forceinline__ void sum_partials(float* __restrict__ out, const uint
   const int end = min(n, (rank + 1) * per);
   for (int v = rank * per + tid; v < end; v += kCThreads) {
     float4 s = ld_cluster_f4(part[0] + 16u * v);
-    for (int r = 1; r < C; ++r) add4(s, ld_cluster_f4(part[r] + 16u * v));
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < C) add4(s, ld_cluster_f4(part[r] + 16u * v));
     *reinterpret_cast<float4*>(out + 4 * v) = s;
   }
 }
@@ -173,13 +182,83 @@ __device__ __forceinline__ void sum_partials(bf16* __restrict__ out, const uint3
   for (int v = rank * per + tid; v < end; v += kCThreads) {
     float4 s = ld_cluster_f4(part[0] + 32u * v);
     float4 t = ld_cluster_f4(part[0] + 32u * v + 16u);
-    for (int r = 1; r < C; ++r) {
-      add4(s, ld_cluster_f4(part[r] + 32u * v));
-      add4(t, ld_cluster_f4(part[r] + 32u * v + 16u));
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r) {
+      if (r < C) {
+        add4(s, ld_cluster_f4(part[r] + 32u * v));
+        add4(t, ld_cluster_f4(part[r] + 32u * v + 16u));
+      }
     }
     const __nv_bfloat162 h[4] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w),
                                  __floats2bfloat162_rn(t.x, t.y), __floats2bfloat162_rn(t.z, t.w)};
     *reinterpret_cast<uint4*>(out + 8 * v) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// (3) The partial d col = W^T G over this rank's pixels, NC = ceil(D / 32):
+// warp w takes Gaussians 8 (w % 4) + 0..7 over pixel half w / 4, lane l
+// the columns l + 32j; the halves are added, then written with the
+// geometry partials (the walking warps in order) into Dpart once every
+// rank has read the previous ones.
+template <int NC>
+__device__ __forceinline__ void partial_rows(const float* X, const float* Gs, float* Dpart,
+                                             const float* GeoW, int ldg, int D, int RW,
+                                             int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g0 = 8 * (warp % kWalkWarps);
+  const int q0 = (warp / kWalkWarps) * (kPix / 2);
+  float acc[8][NC];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[m][j] = 0.0f;
+#pragma unroll 2
+  for (int q = q0; q < q0 + kPix / 2; ++q) {
+    const float4 w0 = *reinterpret_cast<const float4*>(X + q * kLdU + g0);
+    const float4 w1 = *reinterpret_cast<const float4*>(X + q * kLdU + g0 + 4);
+    const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float* gq = Gs + q * ldg + lane;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const float gv = gq[32 * j];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) acc[m][j] = fmaf(wv[m], gv, acc[m][j]);
+    }
+  }
+  cluster_wait();  // every rank has read this rank's previous partials
+  const bool second = warp >= kWalkWarps;
+  if (second) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) Dpart[(g0 + m) * RW + c] = acc[m][j];
+      }
+    }
+  } else {
+    constexpr int kW = kSub * kGeomGrads;  // one walking warp's GeoW
+    const int e = tid;                      // 128 threads, 256 sums: two each
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = e + h * kPix;
+      Dpart[(f / kGeomGrads) * RW + D + f % kGeomGrads] =
+          ((GeoW[f] + GeoW[kW + f]) + GeoW[2 * kW + f]) + GeoW[3 * kW + f];
+    }
+  }
+  __syncthreads();
+  if (!second) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          float* o = Dpart + (g0 + m) * RW + c;
+          *o = acc[m][j] + *o;
+        }
+      }
+    }
   }
 }
 
@@ -198,14 +277,13 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   float* Gs = smem;                 // [kPix][ldg]: this rank's g, for the whole tile
   float* X = smem + L.x();          // Ct[kSub][ldg], then Us/Ws[kPix][kLdU]
   float* Dpart = smem + L.dpart();  // [kSub][RW]
-  float* GeoW = smem + L.geow();    // [kCWarps][kSub][kGeomGrads]
+  float* GeoW = smem + L.geow();    // [kWalkWarps][kSub][kGeomGrads]
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int rank = static_cast<int>(cluster_rank());
   const int tile = blockIdx.x / C;
-  const int ts_shift = __ffs(ts) - 1;  // ts is 16 or 32
   const int ldg = L.ldg, D4 = L.D4;
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
@@ -217,11 +295,13 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
 
-  // this thread's pixel and its carried state
-  const int p = rank * kPix + tid;
-  const int xi = x0 + (p & (ts - 1));
-  const int yi = y0 + (p >> ts_shift);
-  const bool in_img = xi < width && yi < height;
+  const int rank_y = y0 + rank * (kPix / ts);  // the rank's first pixel row
+
+  // this thread's pixel (threads of the walk) and its carried state
+  const int2 lp = local_xy(tid, ts);
+  const int xi = x0 + lp.x;
+  const int yi = rank_y + lp.y;
+  const bool in_img = tid < kPix && xi < width && yi < height;
   const float px = static_cast<float>(xi) + 0.5f;
   const float py = static_cast<float>(yi) + 0.5f;
   const long long pix = static_cast<long long>(yi) * width + xi;
@@ -233,9 +313,9 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   for (int idx = tid; idx < kPix * D4; idx += kCThreads) {
     const int pl = idx / D4;
     const int c = idx - pl * D4;
-    const int q = rank * kPix + pl;
-    const int x = x0 + (q & (ts - 1));
-    const int y = y0 + (q >> ts_shift);
+    const int2 l = local_xy(pl, ts);
+    const int x = x0 + l.x;
+    const int y = rank_y + l.y;
     float v = 0.0f;
     if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
     Gs[pl * ldg + c] = v;
@@ -259,27 +339,28 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       cp_async_wait_all();
       __syncthreads();  // the colours and the block's geometry are in
 
-      // (1) u = G Ct^T: thread (pg, gg) takes pixels pg + 32j, Gaussians gg + 4m;
+      // (1) u = G Ct^T: thread (pg, gg) takes pixels pg + 32j, Gaussians gg + 8m;
       // each u is summed over the channels in order, as before
       {
-        const int gg = tid & 3, pg = tid >> 2;
-        float u[4][8];
+        const int gg = tid & 7, pg = tid >> 3;
+        float u[4][4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int m = 0; m < 8; ++m) u[j][m] = 0.0f;
+          for (int m = 0; m < 4; ++m) u[j][m] = 0.0f;
+#pragma unroll 2
         for (int k = 0; k < D4; k += 4) {
-          float4 gv[4], cv[8];
+          float4 gv[4], cv[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             gv[j] = *reinterpret_cast<const float4*>(Gs + (pg + 32 * j) * ldg + k);
 #pragma unroll
-          for (int m = 0; m < 8; ++m)
-            cv[m] = *reinterpret_cast<const float4*>(X + (gg + 4 * m) * ldg + k);
+          for (int m = 0; m < 4; ++m)
+            cv[m] = *reinterpret_cast<const float4*>(X + (gg + 8 * m) * ldg + k);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int m = 0; m < 8; ++m) {
+            for (int m = 0; m < 4; ++m) {
               float a = fmaf(gv[j].x, cv[m].x, u[j][m]);
               a = fmaf(gv[j].y, cv[m].y, a);
               a = fmaf(gv[j].z, cv[m].z, a);
@@ -290,13 +371,13 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int m = 0; m < 8; ++m) X[(pg + 32 * j) * kLdU + gg + 4 * m] = u[j][m];
+          for (int m = 0; m < 4; ++m) X[(pg + 32 * j) * kLdU + gg + 8 * m] = u[j][m];
       }
       __syncthreads();
 
       // (2) the walk over the sub-block for this thread's pixel; w replaces u
       // in place, and each Gaussian's 8 geometry terms are summed over the warp
-      {
+      if (tid < kPix) {
         float* row = X + tid * kLdU;
         for (int i4 = 0; i4 < kSub; i4 += 4) {
           const float4 u4 = *reinterpret_cast<const float4*>(row + i4);
@@ -335,41 +416,15 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       }
       __syncthreads();
 
-      // (3) the partial d col = W^T G over this rank's pixels: warp w takes
-      // Gaussians 8w..8w+7, lane l the columns l + 32j
-      const int nc = (D + 31) / 32;
-      float acc[8][kNc];
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int j = 0; j < kNc; ++j) acc[m][j] = 0.0f;
-      for (int q = 0; q < kPix; ++q) {
-        const float4 w0 = *reinterpret_cast<const float4*>(X + q * kLdU + 8 * warp);
-        const float4 w1 = *reinterpret_cast<const float4*>(X + q * kLdU + 8 * warp + 4);
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-        const float* gq = Gs + q * ldg + lane;
-#pragma unroll
-        for (int j = 0; j < kNc; ++j) {
-          if (j < nc) {
-            const float gv = gq[32 * j];
-#pragma unroll
-            for (int m = 0; m < 8; ++m) acc[m][j] = fmaf(wv[m], gv, acc[m][j]);
-          }
-        }
-      }
-      cluster_wait();  // every rank has read this rank's previous partials
-#pragma unroll
-      for (int j = 0; j < kNc; ++j) {
-        const int c = lane + 32 * j;
-        if (j < nc && c < D) {
-#pragma unroll
-          for (int m = 0; m < 8; ++m) Dpart[(8 * warp + m) * RW + c] = acc[m][j];
-        }
-      }
-      for (int e = tid; e < kSub * kGeomGrads; e += kCThreads) {
-        constexpr int kW = kSub * kGeomGrads;  // one warp's GeoW
-        Dpart[(e / kGeomGrads) * RW + D + e % kGeomGrads] =
-            ((GeoW[e] + GeoW[kW + e]) + GeoW[2 * kW + e]) + GeoW[3 * kW + e];
+      switch ((D + 31) / 32) {  // (3), with ceil(D / 32) columns per lane
+        case 1: partial_rows<1>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 2: partial_rows<2>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 3: partial_rows<3>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 4: partial_rows<4>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 5: partial_rows<5>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 6: partial_rows<6>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 7: partial_rows<7>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        default: partial_rows<8>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
       }
       __syncthreads();  // every read of Ws is done
       if (s + 1 < kBlock / kSub)

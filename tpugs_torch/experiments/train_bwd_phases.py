@@ -117,7 +117,8 @@ TABLES["cluster"] = {
     "colour staging": [("    cp_async4(Ct + i * L.ldg + e - i * D, src + e);\n", "")],
     "walk": [(_CLUSTER_WALK, _CLUSTER_CONST_WALK)],
     "geometry": [("if (__any_sync(0xffffffffu, d_araw != 0.0f)) {", "if (false) {")],
-    "d col": [("for (int q = 0; q < kPix; ++q) {", "for (int q = 0; q < 0; ++q) {")],
+    "d col": [("for (int q = q0; q < q0 + kPix / 2; ++q) {",
+               "for (int q = q0; q < q0; ++q) {")],
     "zero rows": [("    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n"
                    "  cluster_wait();", "  cluster_wait();")],
     "exchange": [("      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);\n", "")],
