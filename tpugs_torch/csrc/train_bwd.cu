@@ -92,7 +92,8 @@ static_assert(kWalkWarps * 8 == kSub, "d col: warp w takes Gaussians 8 (w % 4) +
 // colour rows Ct[kSub][ldg] share region X with u and then w
 // (Us/Ws[kPix][kLdU]); Dpart[kSub][RW] is this rank's partial of the
 // sub-block's 32 rows, laid out as the rows themselves; GeoW[warp][kSub][8]
-// the geometry sums of each walking warp's 32 pixels.
+// the geometry sums of each walking warp's 32 pixels; Wmask[kPix] each
+// pixel's nonzero weights of the sub-block, one bit per Gaussian.
 struct ClusterLayout {
   int D4, ldg, RW;
   __host__ __device__ ClusterLayout(int D, int row_width) : RW(row_width) {
@@ -105,9 +106,8 @@ struct ClusterLayout {
   }
   __host__ __device__ int dpart() const { return x() + x_size(); }
   __host__ __device__ int geow() const { return dpart() + kSub * RW; }
-  __host__ __device__ size_t bytes() const {
-    return size_t(geow() + kWalkWarps * kSub * kGeomGrads) * sizeof(float);
-  }
+  __host__ __device__ int wmask() const { return geow() + kWalkWarps * kSub * kGeomGrads; }
+  __host__ __device__ size_t bytes() const { return size_t(wmask() + kPix) * sizeof(float); }
 };
 
 // Local pixel l (0..127) of a rank, in its ts x (128 / ts) pixel rows:
@@ -133,22 +133,26 @@ __device__ __forceinline__ void stage_colours(float* Ct, const float* __restrict
   cp_async_commit();
 }
 
-// a[0..7] summed over the warp's 32 lanes by a reduce-scatter (9 shuffles):
-// lane l returns the sum of a[(l >> 2) & 7]. A fixed tree: the same sums on
-// every run.
-__device__ __forceinline__ float warp_sum8(const float (&a)[kGeomGrads], int lane) {
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float b[4], c[2];
+// v[0..31] summed over the warp's 32 lanes by a reduce-scatter, 31
+// shuffles in 5 levels (16 independent ones in the first): lane l returns
+// the sum of v[l]. A fixed tree: the same sums on every run.
+template <int H>
+__device__ __forceinline__ void reduce_scatter_level(float (&v)[32], int lane) {
+  const bool hi = lane & H;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    b[j] = (h16 ? a[j + 4] : a[j]) + __shfl_xor_sync(0xffffffffu, h16 ? a[j] : a[j + 4], 16);
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    c[j] = (h8 ? b[j + 2] : b[j]) + __shfl_xor_sync(0xffffffffu, h8 ? b[j] : b[j + 2], 8);
-  float d = (h4 ? c[1] : c[0]) + __shfl_xor_sync(0xffffffffu, h4 ? c[0] : c[1], 4);
-  d += __shfl_xor_sync(0xffffffffu, d, 2);
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  return d;
+  for (int j = 0; j < H; ++j) {
+    const float keep = hi ? v[j + H] : v[j];
+    const float give = hi ? v[j] : v[j + H];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, give, H);
+  }
+}
+__device__ __forceinline__ float warp_sum32(float (&v)[32], int lane) {
+  reduce_scatter_level<16>(v, lane);
+  reduce_scatter_level<8>(v, lane);
+  reduce_scatter_level<4>(v, lane);
+  reduce_scatter_level<2>(v, lane);
+  reduce_scatter_level<1>(v, lane);
+  return v[0];
 }
 
 __device__ __forceinline__ void add4(float4& s, const float4 v) {
@@ -161,8 +165,9 @@ __device__ __forceinline__ void add4(float4& s, const float4 v) {
 // This rank's share of the sub-block's 32 rows (out points at the first):
 // each 16-byte vector of output is the sum of the C ranks' partials, in
 // rank order 0..C-1, read through DSMEM.
-__device__ __forceinline__ void sum_partials(float* __restrict__ out, const uint32_t (&part)[kMaxCluster],
-                                             int C, int rank, int RW, int tid) {
+__device__ __forceinline__ void sum_partials(float* __restrict__ out,
+                                             const uint32_t (&part)[kMaxCluster], int C,
+                                             int rank, int RW, int tid) {
   const int n = kSub * RW / 4;
   const int per = (n + C - 1) / C;
   const int end = min(n, (rank + 1) * per);
@@ -174,8 +179,9 @@ __device__ __forceinline__ void sum_partials(float* __restrict__ out, const uint
     *reinterpret_cast<float4*>(out + 4 * v) = s;
   }
 }
-__device__ __forceinline__ void sum_partials(bf16* __restrict__ out, const uint32_t (&part)[kMaxCluster],
-                                             int C, int rank, int RW, int tid) {
+__device__ __forceinline__ void sum_partials(bf16* __restrict__ out,
+                                             const uint32_t (&part)[kMaxCluster], int C,
+                                             int rank, int RW, int tid) {
   const int n = kSub * RW / 8;
   const int per = (n + C - 1) / C;
   const int end = min(n, (rank + 1) * per);
@@ -197,13 +203,14 @@ __device__ __forceinline__ void sum_partials(bf16* __restrict__ out, const uint3
 
 // (3) The partial d col = W^T G over this rank's pixels, NC = ceil(D / 32):
 // warp w takes Gaussians 8 (w % 4) + 0..7 over pixel half w / 4, lane l
-// the columns l + 32j; the halves are added, then written with the
-// geometry partials (the walking warps in order) into Dpart once every
-// rank has read the previous ones.
+// the columns l + 32j, and skips the pixels whose 8 weights are all 0 (a
+// uniform branch: the weights are the warp's broadcast); the halves are
+// added, then written with the geometry partials (the walking warps in
+// order) into Dpart once every rank has read the previous ones.
 template <int NC>
 __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, float* Dpart,
-                                             const float* GeoW, int ldg, int D, int RW,
-                                             int tid) {
+                                             const float* GeoW, const uint32_t* Wmask, int ldg,
+                                             int D, int RW, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
   const int g0 = 8 * (warp % kWalkWarps);
   const int q0 = (warp / kWalkWarps) * (kPix / 2);
@@ -214,6 +221,7 @@ __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, fl
     for (int j = 0; j < NC; ++j) acc[m][j] = 0.0f;
 #pragma unroll 2
   for (int q = q0; q < q0 + kPix / 2; ++q) {
+    if (((Wmask[q] >> g0) & 0xffu) == 0u) continue;  // the 8 weights are 0: no change
     const float4 w0 = *reinterpret_cast<const float4*>(X + q * kLdU + g0);
     const float4 w1 = *reinterpret_cast<const float4*>(X + q * kLdU + g0 + 4);
     const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
@@ -278,6 +286,7 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   float* X = smem + L.x();          // Ct[kSub][ldg], then Us/Ws[kPix][kLdU]
   float* Dpart = smem + L.dpart();  // [kSub][RW]
   float* GeoW = smem + L.geow();    // [kWalkWarps][kSub][kGeomGrads]
+  uint32_t* Wmask = reinterpret_cast<uint32_t*>(smem + L.wmask());  // [kPix]
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
@@ -376,13 +385,16 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       __syncthreads();
 
       // (2) the walk over the sub-block for this thread's pixel; w replaces u
-      // in place, and each Gaussian's 8 geometry terms are summed over the warp
+      // in place; the 8 geometry terms of every 4 Gaussians are summed over
+      // the warp at once (skipped where no lane has a nonzero d alpha)
       if (tid < kPix) {
         float* row = X + tid * kLdU;
+        uint32_t mask = 0;
         for (int i4 = 0; i4 < kSub; i4 += 4) {
           const float4 u4 = *reinterpret_cast<const float4*>(row + i4);
           const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
-          float ww[4];
+          float ww[4], dsv[4], dopv[4], dxv[4], dyv[4];
+          bool any = false;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = i4 + e;
@@ -396,35 +408,52 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
             const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
             const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
             ww[e] = w;
+            mask |= static_cast<uint32_t>(w != 0.0f) << i;
             texc *= 1.0f - alpha;
-            float sum = 0.0f;  // every term is 0 when no lane has a d_araw
-            if (__any_sync(0xffffffffu, d_araw != 0.0f)) {
-              const float ds = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
-              const float dx = t.dx, dy = t.dy;
+            dsv[e] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
+            dopv[e] = d_araw * t.e;
+            dxv[e] = t.dx;
+            dyv[e] = t.dy;
+            any |= d_araw != 0.0f;
+          }
+          *reinterpret_cast<float4*>(row + i4) = make_float4(ww[0], ww[1], ww[2], ww[3]);
+          float sum = 0.0f;  // every term is 0 when no lane has a nonzero d alpha
+          if (__any_sync(0xffffffffu, any)) {
+            float a[4 * kGeomGrads];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int gi = gbase + i4 + e;
+              const float ds = dsv[e], dx = dxv[e], dy = dyv[e];
               const float ca = g.ca[gi], cb = g.cb[gi], cc = g.cc[gi];
               const float dmx = ds * -(ca * dx + cb * dy);
               const float dmy = ds * -(cc * dy + cb * dx);
-              const float a[kGeomGrads] = {dmx, dmy, ds * (0.5f * dx * dx), ds * (dx * dy),
-                                           ds * (0.5f * dy * dy), d_araw * t.e, fabsf(dmx),
-                                           fabsf(dmy)};
-              sum = warp_sum8(a, lane);
+              a[kGeomGrads * e + 0] = dmx;
+              a[kGeomGrads * e + 1] = dmy;
+              a[kGeomGrads * e + 2] = ds * (0.5f * dx * dx);
+              a[kGeomGrads * e + 3] = ds * (dx * dy);
+              a[kGeomGrads * e + 4] = ds * (0.5f * dy * dy);
+              a[kGeomGrads * e + 5] = dopv[e];
+              a[kGeomGrads * e + 6] = fabsf(dmx);
+              a[kGeomGrads * e + 7] = fabsf(dmy);
             }
-            if ((lane & 3) == 0) GeoW[(warp * kSub + i) * kGeomGrads + (lane >> 2)] = sum;
+            sum = warp_sum32(a, lane);
           }
-          *reinterpret_cast<float4*>(row + i4) = make_float4(ww[0], ww[1], ww[2], ww[3]);
+          // lane l holds term l % 8 of Gaussian i4 + l / 8
+          GeoW[(warp * kSub + i4) * kGeomGrads + lane] = sum;
         }
+        Wmask[tid] = mask;
       }
       __syncthreads();
 
       switch ((D + 31) / 32) {  // (3), with ceil(D / 32) columns per lane
-        case 1: partial_rows<1>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 2: partial_rows<2>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 3: partial_rows<3>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 4: partial_rows<4>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 5: partial_rows<5>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 6: partial_rows<6>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        case 7: partial_rows<7>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
-        default: partial_rows<8>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 1: partial_rows<1>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 2: partial_rows<2>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 3: partial_rows<3>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 4: partial_rows<4>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 5: partial_rows<5>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 6: partial_rows<6>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 7: partial_rows<7>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        default: partial_rows<8>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
       }
       __syncthreads();  // every read of Ws is done
       if (s + 1 < kBlock / kSub)

@@ -98,25 +98,27 @@ _CLUSTER_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
             const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
             const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
             ww[e] = w;
+            mask |= static_cast<uint32_t>(w != 0.0f) << i;
             texc *= 1.0f - alpha;
-            float sum = 0.0f;"""
-_CLUSTER_CONST_WALK = """            PairTerms t;
-            t.dx = 0.5f + grem;
-            t.dy = 0.5f + h;
-            t.sigma = 1.0f;
-            t.e = 0.5f;
-            t.alpha_raw = trans;
-            const float d_araw = 1e-3f * gi;
+            dsv[e] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
+            dopv[e] = d_araw * t.e;
+            dxv[e] = t.dx;
+            dyv[e] = t.dy;"""
+_CLUSTER_CONST_WALK = """            const float d_araw = 1e-3f * gi;
             cs = fmaf(1e-3f, uu[e], cs);
             ww[e] = 1e-3f;
-            float sum = 0.0f;"""
+            mask |= 1u << i;
+            dsv[e] = d_araw + grem + h + trans;
+            dopv[e] = d_araw;
+            dxv[e] = px;
+            dyv[e] = py;"""
 
 TABLES["cluster"] = {
     "u product": [("for (int k = 0; k < D4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
     "g staging": [("    Gs[pl * ldg + c] = v;\n", "")],
     "colour staging": [("    cp_async4(Ct + i * L.ldg + e - i * D, src + e);\n", "")],
     "walk": [(_CLUSTER_WALK, _CLUSTER_CONST_WALK)],
-    "geometry": [("if (__any_sync(0xffffffffu, d_araw != 0.0f)) {", "if (false) {")],
+    "geometry": [("if (__any_sync(0xffffffffu, any)) {", "if (false) {")],
     "d col": [("for (int q = q0; q < q0 + kPix / 2; ++q) {",
                "for (int q = q0; q < q0; ++q) {")],
     "zero rows": [("    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n"
