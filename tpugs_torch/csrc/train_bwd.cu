@@ -92,8 +92,7 @@ static_assert(kWalkWarps * 8 == kSub, "d col: warp w takes Gaussians 8 (w % 4) +
 // colour rows Ct[kSub][ldg] share region X with u and then w
 // (Us/Ws[kPix][kLdU]); Dpart[kSub][RW] is this rank's partial of the
 // sub-block's 32 rows, laid out as the rows themselves; GeoW[warp][kSub][8]
-// the geometry sums of each walking warp's 32 pixels; Wmask[kPix] each
-// pixel's nonzero weights of the sub-block, one bit per Gaussian.
+// the geometry sums of each walking warp's 32 pixels.
 struct ClusterLayout {
   int D4, ldg, RW;
   __host__ __device__ ClusterLayout(int D, int row_width) : RW(row_width) {
@@ -106,8 +105,9 @@ struct ClusterLayout {
   }
   __host__ __device__ int dpart() const { return x() + x_size(); }
   __host__ __device__ int geow() const { return dpart() + kSub * RW; }
-  __host__ __device__ int wmask() const { return geow() + kWalkWarps * kSub * kGeomGrads; }
-  __host__ __device__ size_t bytes() const { return size_t(wmask() + kPix) * sizeof(float); }
+  __host__ __device__ size_t bytes() const {
+    return size_t(geow() + kWalkWarps * kSub * kGeomGrads) * sizeof(float);
+  }
 };
 
 // Local pixel l (0..127) of a rank, in its ts x (128 / ts) pixel rows:
@@ -203,14 +203,13 @@ __device__ __forceinline__ void sum_partials(bf16* __restrict__ out,
 
 // (3) The partial d col = W^T G over this rank's pixels, NC = ceil(D / 32):
 // warp w takes Gaussians 8 (w % 4) + 0..7 over pixel half w / 4, lane l
-// the columns l + 32j, and skips the pixels whose 8 weights are all 0 (a
-// uniform branch: the weights are the warp's broadcast); the halves are
-// added, then written with the geometry partials (the walking warps in
-// order) into Dpart once every rank has read the previous ones.
+// the columns l + 32j; the halves are added, then written with the
+// geometry partials (the walking warps in order) into Dpart once every
+// rank has read the previous ones.
 template <int NC>
 __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, float* Dpart,
-                                             const float* GeoW, const uint32_t* Wmask, int ldg,
-                                             int D, int RW, int tid) {
+                                             const float* GeoW, int ldg, int D, int RW,
+                                             int tid) {
   const int warp = tid >> 5, lane = tid & 31;
   const int g0 = 8 * (warp % kWalkWarps);
   const int q0 = (warp / kWalkWarps) * (kPix / 2);
@@ -221,7 +220,6 @@ __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, fl
     for (int j = 0; j < NC; ++j) acc[m][j] = 0.0f;
 #pragma unroll 2
   for (int q = q0; q < q0 + kPix / 2; ++q) {
-    if (((Wmask[q] >> g0) & 0xffu) == 0u) continue;  // the 8 weights are 0: no change
     const float4 w0 = *reinterpret_cast<const float4*>(X + q * kLdU + g0);
     const float4 w1 = *reinterpret_cast<const float4*>(X + q * kLdU + g0 + 4);
     const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
@@ -286,7 +284,6 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   float* X = smem + L.x();          // Ct[kSub][ldg], then Us/Ws[kPix][kLdU]
   float* Dpart = smem + L.dpart();  // [kSub][RW]
   float* GeoW = smem + L.geow();    // [kWalkWarps][kSub][kGeomGrads]
-  uint32_t* Wmask = reinterpret_cast<uint32_t*>(smem + L.wmask());  // [kPix]
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
@@ -389,7 +386,6 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       // the warp at once (skipped where no lane has a nonzero d alpha)
       if (tid < kPix) {
         float* row = X + tid * kLdU;
-        uint32_t mask = 0;
         for (int i4 = 0; i4 < kSub; i4 += 4) {
           const float4 u4 = *reinterpret_cast<const float4*>(row + i4);
           const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
@@ -408,7 +404,6 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
             const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
             const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
             ww[e] = w;
-            mask |= static_cast<uint32_t>(w != 0.0f) << i;
             texc *= 1.0f - alpha;
             dsv[e] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
             dopv[e] = d_araw * t.e;
@@ -441,19 +436,18 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
           // lane l holds term l % 8 of Gaussian i4 + l / 8
           GeoW[(warp * kSub + i4) * kGeomGrads + lane] = sum;
         }
-        Wmask[tid] = mask;
       }
       __syncthreads();
 
       switch ((D + 31) / 32) {  // (3), with ceil(D / 32) columns per lane
-        case 1: partial_rows<1>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 2: partial_rows<2>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 3: partial_rows<3>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 4: partial_rows<4>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 5: partial_rows<5>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 6: partial_rows<6>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        case 7: partial_rows<7>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
-        default: partial_rows<8>(X, Gs, Dpart, GeoW, Wmask, ldg, D, RW, tid); break;
+        case 1: partial_rows<1>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 2: partial_rows<2>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 3: partial_rows<3>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 4: partial_rows<4>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 5: partial_rows<5>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 6: partial_rows<6>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        case 7: partial_rows<7>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
+        default: partial_rows<8>(X, Gs, Dpart, GeoW, ldg, D, RW, tid); break;
       }
       __syncthreads();  // every read of Ws is done
       if (s + 1 < kBlock / kSub)

@@ -98,7 +98,6 @@ _CLUSTER_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
             const float d_alpha = texc * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
             const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
             ww[e] = w;
-            mask |= static_cast<uint32_t>(w != 0.0f) << i;
             texc *= 1.0f - alpha;
             dsv[e] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
             dopv[e] = d_araw * t.e;
@@ -107,7 +106,6 @@ _CLUSTER_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
 _CLUSTER_CONST_WALK = """            const float d_araw = 1e-3f * gi;
             cs = fmaf(1e-3f, uu[e], cs);
             ww[e] = 1e-3f;
-            mask |= 1u << i;
             dsv[e] = d_araw + grem + h + trans;
             dopv[e] = d_araw;
             dxv[e] = px;
