@@ -29,30 +29,41 @@
 // walked block (about 38 GB from L2 per step), which cost 47% of its time
 // (experiments/train_bwd_phases.py). So a tile is a thread-block cluster
 // of C = ts^2 / 128 CTAs (8 at tile 32, 2 at tile 16; train_cluster in
-// raster/train.py, which the C side checks). Rank r owns pixels [128r,
-// 128r + 128), 4 or 8 whole pixel rows, for every block; it loads their g
-// once per tile (68 KB at D = 131) and keeps it, with one thread per pixel
-// carrying T, texc, the prefix and grem in registers: no state crosses
-// ranks, and B4's blocks_done fixes the walk. Per 32-Gaussian sub-block:
-//   (1) u (128 x 32) = G Ct^T from shared memory, a 4 x 8 register tile
-//       per thread (12 float4 loads per 128 FMAs); the colours Ct (32 x
-//       D) come in by cp.async, issued a sub-block ahead;
-//   (2) today's walk, the same instructions in the same order (u is still
-//       summed over the channels in order, so each pair's values are the
-//       one-CTA kernel's); each Gaussian's 8 geometry terms are summed over
-//       the warp by a 9-shuffle reduce-scatter, skipped where no lane has a
-//       nonzero d alpha;
-//   (3) the partial d col (32 x D) = W^T G over the rank's pixels: warp w
-//       takes 8 Gaussians, lane l the columns l + 32j, 8 x ceil(D/32)
-//       accumulators; written with the geometry partials (the 4 warps in
-//       order) into Dpart, laid out as the 32 rows themselves;
+// raster/train.py, which the C side checks) of 256 threads. Rank r owns
+// 128 pixels, 4 or 8 whole pixel rows of the tile, in 8 x 4 patches of 32,
+// for every block; it loads their g once per tile (68 KB at D = 131) and
+// keeps it. Threads 0-127 (warps 0-3) carry one pixel's T, texc, prefix
+// and grem in registers: no state crosses ranks, and B4's blocks_done
+// fixes the walk. Per 32-Gaussian sub-block:
+//   (1) u (128 x 32) = G Ct^T from shared memory, a 4 x 4 register tile
+//       per thread (8 float4 loads per 64 FMAs); the colours Ct (32 x D)
+//       come in by cp.async, issued a sub-block ahead;
+//   (2) warps 0-3 walk: the one-CTA kernel's instructions in its order (u
+//       is summed over the channels in order too, so each pair's values
+//       are that kernel's); the 8 geometry terms of each 4 Gaussians are
+//       summed over the warp by one 31-shuffle reduce-scatter, skipped
+//       where no lane has a nonzero d alpha;
+//   (3) the partial d col (32 x D) = W^T G: warp w takes 8 Gaussians over
+//       half the pixels, lane l the columns l + 32j (8 x ceil(D/32)
+//       accumulators, the count a template argument); the halves are
+//       added and written with the geometry partials (the 4 walking warps
+//       in order) into Dpart, laid out as the 32 rows themselves;
 //   (4) after a cluster barrier, rank q sums its 1/C of the rows' 16-byte
 //       vectors over the C ranks' Dpart, in rank order 0..C-1, by DSMEM
 //       loads, and stores them; an arrive here and a wait before the next
 //       Dpart write let the next sub-block start before the others finish.
-// Shared memory per CTA: g, max(Ct, u/w), Dpart and the warps' geometry
-// sums: 109 KB at D = 131, so two CTAs fit on an SM; 207 KB at D = 256.
-// Zero rows and the row epilogue store 16 bytes per thread.
+// Shared memory per CTA: g, max(Ct, u/w), Dpart and the walking warps'
+// geometry sums, 111,104 bytes with the block's geometry at D = 131, so
+// two CTAs fit on an SM (the phases tool: one CTA per SM costs 12 ms
+// more); 207,360 at D = 256. Zero rows and the row epilogue store 16
+// bytes per thread.
+//
+// Measured (experiments/train_bwd_phases.py, one recorded garden train
+// step, f32 rows, NVIDIA H100 80GB HBM3, 700.00 W): 27.9 ms against 69.9
+// for the one-CTA kernel in the same call. Of it: the d col product 8.3
+// ms, the u product 7.4, the geometry sums 4.9, the walk 3.4, the colour
+// staging 0.9, the DSMEM sums 0.9. The products run at about half the
+// f32 FMA rate, and the walk on half the warps.
 //
 // Widths D > 256 (CLUSTER_MAX_CHANNELS) take the one-CTA kernel below
 // (tpugs_train_bwd_wide_*), chosen by width alone: there g and the
@@ -354,7 +365,7 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int m = 0; m < 4; ++m) u[j][m] = 0.0f;
-#pragma unroll 2
+#pragma unroll 1  // unrolled by 2 or 4 it ran 1-2% slower (phases tool)
         for (int k = 0; k < D4; k += 4) {
           float4 gv[4], cv[4];
 #pragma unroll
