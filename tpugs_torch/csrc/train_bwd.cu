@@ -58,12 +58,12 @@
 // more); 207,360 at D = 256. Zero rows and the row epilogue store 16
 // bytes per thread.
 //
-// Measured (experiments/train_bwd_phases.py, one recorded garden train
-// step, f32 rows, NVIDIA H100 80GB HBM3, 700.00 W): 27.9 ms against 69.9
-// for the one-CTA kernel in the same call. Of it: the d col product 8.3
-// ms, the u product 7.4, the geometry sums 4.9, the walk 3.4, the colour
-// staging 0.9, the DSMEM sums 0.9. The products run at about half the
-// f32 FMA rate, and the walk on half the warps.
+// Measured at the garden train step (f32 rows, NVIDIA H100 80GB HBM3,
+// 700.00 W): 26.5 ms in chip_smoke.py, against 68.9 for the one-CTA kernel
+// (PERF.md); experiments/train_bwd_phases.py in one call: 27.0 ms against
+// 70.2. Of it: the u product 7.1 ms, the d col product 6.9, the geometry
+// sums 4.3, the walk 2.3, the colour staging 1.0, the DSMEM sums 0.5. The
+// products run at about half the f32 FMA rate, the walk on half the warps.
 //
 // Widths D > 256 (CLUSTER_MAX_CHANNELS) take the one-CTA kernel below
 // (tpugs_train_bwd_wide_*), chosen by width alone: there g and the
