@@ -6,7 +6,8 @@
 Six phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
-             B2's resident clusters by cluster size, B5's by tile and D.
+             B2's resident clusters by cluster size, B4's and B5's by
+             tile and D.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
              reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
              bf16, each bit-equal to B2's rows and B3's sums; B4
@@ -14,8 +15,11 @@ Six phases; the first failure ends the run with a nonzero exit:
              rows) against its plain PyTorch twin on CUDA tensors, at mid
              shapes with edge cases: W, H not multiples of the tile, empty
              tiles, tiles that exit early, Gaussians covering many tiles,
-             D = 3, 20 and 131 (B5 also at 256, its cluster kernel's
-             widest, and 300, its one-CTA kernel; two launches bit-equal); S1's asynchronous-copy probe returns 19;
+             D = 3, 20 and 131 (B4 and B5 also at 256, their cluster
+             kernels' widest, and 300, their wide kernels; each width's
+             launch counters; B4's alpha and exit blocks bit-equal to its
+             wide kernel's; two launches bit-equal); S1's
+             asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
              300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs), tiles 16
@@ -143,6 +147,11 @@ def phase_build():
         print(f"phase 1 B5 {name} rows: resident clusters by (tile, D) "
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B5 {name} clusters fit on the card")
+    resident = {(ts, d): lib.tpugs_train_fwd_max_clusters(ts, d)
+                for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256))}
+    print(f"phase 1 B4: resident clusters by (tile, D) (cudaOccupancyMaxActiveClusters): "
+          f"{resident}", flush=True)
+    check(all(n > 0 for n in resident.values()), "B4 clusters fit on the card")
 
 
 def phase_kernels():
@@ -297,9 +306,9 @@ def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
     return of_group <= group_tol and of_entry <= entry_tol
 
 
-# (tile, D, view) of phase 2's train kernels: B5's cluster kernel in
-# clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256, its one-CTA
-# kernel above (train_cluster)
+# (tile, D, view) of phase 2's train kernels: B4's and B5's cluster kernels
+# in clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256, their wide
+# kernels above (train_fwd_cluster, train_cluster)
 TRAIN_KERNEL_SHAPES = ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0), (32, 256, 0),
                        (16, 300, 1), (32, 300, 1))
 
@@ -308,6 +317,7 @@ def phase_train_kernels():
     """B4 and B5 (f32 and bf16 rows, and B3's sums of them) against their
     twins at mid shapes, then one ``render_plan_train`` with a background
     and the absgrad probe against the same call on CPU copies (the twins)."""
+    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.kernels import reduce_rows, reduce_rows_plain
@@ -319,6 +329,7 @@ def phase_train_kernels():
     scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
     cams = orbit_cameras(2, W, H, radius=3.0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
+    lib = load_library()
     seen_exit = seen_empty = False
     for ts, D, view in TRAIN_KERNEL_SHAPES:
         vm, Km = cams.viewmats[view], cams.Ks[view]
@@ -330,17 +341,33 @@ def phase_train_kernels():
         spans = plan.tile_ends - plan.tile_starts
         nb = (spans + 127) // 128
 
+        K.LAUNCHES.reset()
         img_k, alpha_k, done_k = T.train_forward(geom, cols, plan)
         torch.cuda.synchronize()
+        fwd_cluster = T.train_fwd_cluster(ts, D)
+        launched = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide)
+        check(launched == ((0, 1) if fwd_cluster is None else (1, 0)),
+              f"B4 at D = {D} launched the kernel its width selects ({launched})")
+        again = T.train_forward(geom, cols, plan)
+        img_w, alpha_w, done_w = T._launch_train_fwd(lib, geom, cols, plan, K.TRANS_EPS, None)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((img_k, alpha_k, done_k), again))
+        as_wide = torch.equal(alpha_k, alpha_w) and torch.equal(done_k, done_w)
+        _, r_wide = rel_err(img_k, img_w)
         img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
         seen_exit |= bool((done_t < nb).any())
         seen_empty |= bool((spans == 0).any())
         _, r_img = rel_err(img_k, img_t)
         _, r_alpha = rel_err(alpha_k, alpha_t)
-        print(f"phase 2 ts={ts} D={D} B4 train_fwd: image rel {r_img:.3e}, alpha rel "
-              f"{r_alpha:.3e} (exit blocks differ on {int((done_k != done_t).sum())} tiles)",
-              flush=True)
+        kind = "wide kernel" if fwd_cluster is None else "cluster (C, P) = {}".format(fwd_cluster)
+        print(f"phase 2 ts={ts} D={D} B4 train_fwd ({kind}): image rel {r_img:.3e}, alpha rel "
+              f"{r_alpha:.3e} (exit blocks differ on {int((done_k != done_t).sum())} tiles); "
+              f"against the wide kernel: image rel {r_wide:.3e}, alpha and exit blocks "
+              f"bit-equal {as_wide}; a second launch bit-equal {same}", flush=True)
         check(r_img <= 1e-4 and r_alpha <= 1e-4, "B4 within 1e-4 relative of its twin")
+        check(as_wide and r_wide <= 1e-4, "B4's alpha and exit blocks bit-equal to the wide "
+              "kernel's, its image within 1e-4")
+        check(same, "two B4 launches give the same outputs")
 
         g = torch.randn((H, W, D), device="cuda", generator=gen)
         hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha_k)
@@ -787,6 +814,7 @@ def phase_train():
     import numpy as np
 
     from tpugs_torch.encoders import get_encoder
+    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.tiles import image_to_tiles
@@ -851,6 +879,8 @@ def phase_train():
     for name in ("train_fwd", "train_bwd", "reduce"):
         check(launches[name] >= TRAIN_STEPS,
               f"{name} kernel launched at least once per step ({launches[name]})")
+    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_wide"] == 0,
+          "D = 131 takes the cluster kernels of B4 and B5")
     stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
     print(f"phase 4 train N={n} {w}x{h} D=131 (feature 128 -> teacher 512) tile="
           f"{tr.tile_size} steps={TRAIN_STEPS} at SH 3: {1e3 * wall / TRAIN_STEPS:.2f} ms/step, "
@@ -907,6 +937,8 @@ def phase_train():
     n_isects, t_padded, width = plan.n_isects, plan.T_padded, rows.shape[1]
     b4_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, eps), 5)
     b4_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, eps), 1)
+    lib = load_library()
+    b4_wide = time_cuda(lambda: T._launch_train_fwd(lib, geom, cols, plan, eps, None), 3)
     b5_ms = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan, dtype),
                       3)
     b5_plain = time_cuda(
@@ -934,7 +966,7 @@ def phase_train():
     print(f"phase 4 work of one step: {plan.n_tiles} tiles, {n_isects} intersections, "
           f"T_padded {t_padded}, {walked} blocks walked ({pairs} pixel-Gaussian pairs, "
           f"{weighted} with a nonzero weight, {kept} with a nonzero alpha); "
-          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
+          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}; the wide kernel {b4_wide:.3f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
           f"with bf16 rows {b5_bf16:.3f} ms), "
           f"B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}, library {b3_lib:.3f} ms, "
           f"{lib_err[1]:.3e} of max from the kernel)", flush=True)

@@ -10,8 +10,11 @@ place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
 (``grad_rows_error``), in f32 and bf16, at widths of B5's cluster kernel
-(D = 3, 131, 256) and of its one-CTA kernel (D = 300); two B5 launches
-bit-equal. B6's live striped rows within
+(D = 3, 20, 131, 256) and of its one-CTA kernel (D = 300); two B5 launches
+bit-equal. B4 at the same widths launches the kernel its width selects
+(``train_fwd_cluster``); its cluster kernel's alpha and exit blocks are
+bit-equal to the wide kernel's on the same inputs, and two B4 launches
+give the same outputs bit for bit. B6's live striped rows within
 ``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``,
 also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
@@ -180,9 +183,9 @@ def test_async_copy_probe_reads_19():
     assert int(S1.async_copy_probe(torch.arange(64, dtype=torch.int32, device="cuda"), 2)) == 19
 
 
-# B5's cluster kernel at D = 3, 131, 256 (clusters of 2 CTAs at tile 16, 8 at
-# tile 32), its one-CTA kernel at D = 300
-@pytest.fixture(scope="module", params=[3, 131, 256, 300])
+# B4's and B5's cluster kernels at D = 3, 20, 131, 256 (clusters of 2 CTAs at
+# tile 16, 8 at tile 32), their wide kernels at D = 300
+@pytest.fixture(scope="module", params=[3, 20, 131, 256, 300])
 def train_packs(view, request):
     plan, pack, _ = view
     d = request.param
@@ -194,11 +197,46 @@ def train_packs(view, request):
 
 def test_train_fwd_kernel_matches_twin(train_packs):
     plan, geom, cols, _ = train_packs
+    K.LAUNCHES.reset()
     img, alpha, done = T.train_forward(geom, cols, plan)
     torch.cuda.synchronize()
+    wide = T.train_fwd_cluster(plan.tile_size, cols.shape[1]) is None
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == ((0, 1) if wide else (1, 0))
     img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
     assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
     assert torch.equal(done, done_t)
+
+
+def test_train_fwd_cluster_kernel_matches_the_wide_kernel(train_packs):
+    """The cluster kernel computes every weight with the wide kernel's
+    instructions in its order: alpha and the exit blocks are bit-equal to
+    the wide kernel's on the same inputs (the image differs by the sum
+    order and 3xTF32, within 1e-4). At D = 300 both calls are the wide
+    kernel."""
+    from tpugs_torch.kernels.build import load_library
+
+    plan, geom, cols, _ = train_packs
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    K.LAUNCHES.reset()
+    img_w, alpha_w, done_w = T._launch_train_fwd(load_library(), geom, cols, plan,
+                                                 K.TRANS_EPS, None)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (0, 1)
+    assert torch.equal(alpha, alpha_w) and torch.equal(done, done_w)
+    assert _rel(img, img_w) <= 1e-4
+
+
+def test_train_fwd_kernel_is_deterministic(train_packs):
+    """Two launches give the same image, alpha and exit blocks bit for bit,
+    on a view with an empty tile and a tile that exits early."""
+    plan, geom, cols, _ = train_packs
+    first = T.train_forward(geom, cols, plan)
+    second = T.train_forward(geom, cols, plan)
+    torch.cuda.synchronize()
+    spans = plan.tile_ends - plan.tile_starts
+    assert bool((spans == 0).any()), "an empty tile"
+    assert bool((first[2] < (spans + 127) // 128).any()), "a tile that exits early"
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

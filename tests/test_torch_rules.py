@@ -216,8 +216,8 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     assert set(scatter_write.LAUNCHES.values()) == {0}
     assert set(K.LAUNCHES.snapshot().values()) == {0}
     assert set(K.LAUNCHES.snapshot()) == {"render", "adjoint", "reduce", "train_fwd",
-                                          "train_bwd", "train_bwd_wide", "adjoint_scatter",
-                                          "stripe_sum"}
+                                          "train_fwd_wide", "train_bwd", "train_bwd_wide",
+                                          "adjoint_scatter", "stripe_sum"}
 
 
 UNPORTED = {

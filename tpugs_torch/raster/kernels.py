@@ -69,6 +69,7 @@ class LaunchCounts:
     adjoint: int = 0
     reduce: int = 0
     train_fwd: int = 0
+    train_fwd_wide: int = 0
     train_bwd: int = 0
     train_bwd_wide: int = 0
     adjoint_scatter: int = 0

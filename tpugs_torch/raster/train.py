@@ -3,7 +3,8 @@ twins and the ``torch.autograd.Function`` around them. Counterparts in
 ``tpugs/raster/pallas_train.py``:
 
   ``pack_train``        <- ``pack_train`` (:98)
-  B4 ``train_forward``  <- ``_forward_tiles`` (:229, kernel :134) and
+  B4 ``train_forward``  <- ``_forward_tiles`` (:229, kernel :134, ``pallas_call``
+                           :250) and
                            ``_forward_impl`` (:258)
   B5 ``train_rows``     <- ``_backward_impl`` (:496, kernel :275)
   ``RenderTrain``       <- ``_train_core`` and its VJP (:586-637)
@@ -53,8 +54,9 @@ from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 GEOM_COLS = 8  # [mx, my, conic_a, conic_b, conic_c, opacity, 0, 0]
 GEOM_GRADS = 8  # dmx dmy dca dcb dcc dop |dmx| |dmy|
 MAX_CHANNELS = 512  # B5's one-CTA kernel keeps 32 Gaussians x D sums in shared memory
-CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory
-PIXELS_PER_RANK = 128  # pixels of a tile per CTA of B5's cluster kernel
+CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory,
+# B4's its image in wgmma accumulators
+PIXELS_PER_RANK = 128  # pixels of a tile per CTA of the B4 and B5 cluster kernels
 
 
 def grad_row_width(channels: int) -> int:
@@ -116,34 +118,65 @@ def _check_packs(geom, cols, plan: Plan) -> int:
     return cols.shape[1]
 
 
-def train_forward(
-    geom: torch.Tensor, cols: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B4: image (H, W, D) and alpha = 1 - T (H, W), float32, without a
-    background, and the number of 128-Gaussian blocks each tile walked
-    before its early exit (n_tiles,) int32."""
-    d = _check_packs(geom, cols, plan)
-    dev = geom.device
-    if not _dispatch(dev):
-        return train_forward_plain(geom, cols, plan, trans_eps)
-    from tpugs_torch.kernels.build import load_library
+def train_fwd_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
+    """(C, P) of B4's cluster kernel: a tile's ts*ts pixels go to a cluster
+    of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile 32,
+    2 at tile 16). None for more than CLUSTER_MAX_CHANNELS channels, whose
+    wgmma accumulators do not fit a thread's registers, and for other tiles
+    (their pixels do not split into ranks of P): those take the wide kernel,
+    which takes any width. The C side refuses any other (C, P)."""
+    if not 1 <= tile_size <= 32:
+        raise ValueError(f"tile_size {tile_size}: B4 takes 1 to 32")
+    if channels < 1:
+        raise ValueError(f"{channels} channels: B4 takes at least 1")
+    if channels > CLUSTER_MAX_CHANNELS or tile_size not in (16, 32):
+        return None
+    return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
 
-    lib = load_library()
-    nt, w, h = plan.n_tiles, plan.width, plan.height
+
+def _launch_train_fwd(lib, geom, cols, plan: Plan, trans_eps: float, cluster):
+    """One B4 launch into new outputs: the cluster kernel at ``cluster`` =
+    (C, P), or the wide kernel for None; counts it in ``LAUNCHES``."""
+    dev = geom.device
+    nt, w, h, d = plan.n_tiles, plan.width, plan.height, cols.shape[1]
     img = torch.empty((h, w, d), dtype=torch.float32, device=dev)
     alpha = torch.empty((h, w), dtype=torch.float32, device=dev)
     done = torch.empty((nt,), dtype=torch.int32, device=dev)
     if nt == 0:
         return img, alpha, done
+    if cols.data_ptr() % 16:
+        raise ValueError("cols must be 16-byte aligned (the kernel copies 16-byte vectors)")
     ntx, _ = plan.grid
-    rc = lib.tpugs_train_fwd(
+    fn = lib.tpugs_train_fwd_wide if cluster is None else lib.tpugs_train_fwd
+    rc = fn(
         _ptr(geom), _ptr(cols), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
         _ptr(plan.padded_starts), _ptr(img), _ptr(alpha), _ptr(done),
-        nt, ntx, plan.tile_size, w, h, d, float(trans_eps), _stream(),
+        nt, ntx, plan.tile_size, w, h, d, float(trans_eps), *(cluster or ()), _stream(),
     )
-    _launched(rc, "train_fwd")
-    LAUNCHES.train_fwd += 1
+    if cluster is None:
+        _launched(rc, "train_fwd_wide")
+        LAUNCHES.train_fwd_wide += 1
+    else:
+        _launched(rc, "train_fwd")
+        LAUNCHES.train_fwd += 1
     return img, alpha, done
+
+
+def train_forward(
+    geom: torch.Tensor, cols: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B4: image (H, W, D) and alpha = 1 - T (H, W), float32, without a
+    background, and the number of 128-Gaussian blocks each tile walked
+    before its early exit (n_tiles,) int32. Up to CLUSTER_MAX_CHANNELS
+    channels at tiles 16 and 32 the cluster kernel runs, else the wide
+    kernel (``train_fwd_cluster``)."""
+    d = _check_packs(geom, cols, plan)
+    if not _dispatch(geom.device):
+        return train_forward_plain(geom, cols, plan, trans_eps)
+    from tpugs_torch.kernels.build import load_library
+
+    cluster = train_fwd_cluster(plan.tile_size, d)
+    return _launch_train_fwd(load_library(), geom, cols, plan, trans_eps, cluster)
 
 
 # ----------------------------------------------------------- B5 backward
