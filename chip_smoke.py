@@ -6,16 +6,18 @@
 Six phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
-             B2's resident clusters by cluster size, B4's and B5's by
-             tile and D.
+             B1's resident clusters by tile, with and without its cull;
+             B2's by cluster size, B4's and B5's by tile and D.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
              reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
              bf16, each bit-equal to B2's rows and B3's sums; B4
              train_fwd, B5 train_bwd in f32 and bf16 with B3's sums of its
              rows) against its plain PyTorch twin on CUDA tensors, at mid
              shapes with edge cases: W, H not multiples of the tile, empty
-             tiles, tiles that exit early, Gaussians covering many tiles,
-             D = 3, 20 and 131 (B4 and B5 also at 256, their cluster
+             tiles, tiles that exit early, Gaussians covering many tiles
+             (B1's culled walk bit-equal, image and exit blocks, to its
+             unculled instantiation, each counting its own launches, and
+             two launches bit-equal), D = 3, 20 and 131 (B4 and B5 also at 256, their cluster
              kernels' widest, and 300, their wide kernels; each width's
              launch counters; B4's alpha and exit blocks bit-equal to its
              wide kernel's; two launches bit-equal); S1's
@@ -31,7 +33,10 @@ Six phases; the first failure ends the run with a nonzero exit:
              (``num`` and ``den`` must be equal bit for bit); per-stage
              CUDA-event times, ms/view, views/s, peak memory; 64 random
              tiles of one view held against the twins; each engine's kernels
-             must have launched at least once per view.
+             must have launched at least once per view; B1 bit-equal to its
+             unculled instantiation on every tile of the view, and the
+             view's walked, live-rectangle and nonzero-alpha pairs, counted
+             by the twin's walk, for B1's two bounds.
    experiments — S1 (``experiments/scatter_write.py``): the six variants
              at 15360 blocks against their twins, with their times and
              ``index_copy_``'s; S2 (``experiments/reduce_tail.py``): the
@@ -137,6 +142,11 @@ def phase_build():
     for line in ptxas:
         print(f"  ptxas: {line}")
     lib = load_library()
+    resident = {(ts, cull): lib.tpugs_render_max_clusters(ts, cull)
+                for ts in (16, 32) for cull in (1, 0)}
+    print(f"phase 1 B1: resident clusters by (tile, cull) (cudaOccupancyMaxActiveClusters; "
+          f"clusters of 1 and 4 CTAs): {resident}", flush=True)
+    check(all(n > 0 for n in resident.values()), "B1 clusters fit on the card")
     for bf16, name in ((1, "bf16"), (0, "f32")):
         resident = {c: lib.tpugs_adjoint_max_clusters(bf16, c) for c in (1, 2, 3, 5, 6, 8)}
         print(f"phase 1 B2 {name}: resident clusters by cluster size "
@@ -182,17 +192,33 @@ def phase_kernels():
         spans = plan.tile_ends - plan.tile_starts
         covers = plan.gauss_offsets[1:] - plan.gauss_offsets[:-1]
 
+        K.LAUNCHES.reset()
         img_k, done_k = K.render_tiles(packed, plan)
+        img_u, done_u = K.render_tiles_unculled(packed, plan)
+        again = K.render_tiles(packed, plan)
         torch.cuda.synchronize()
+        counts = (K.LAUNCHES.render, K.LAUNCHES.render_unculled)
         img_t, done_t = K.render_tiles_plain(packed, plan)
         nb = (spans + 127) // 128
         check(bool((spans == 0).any()), "an empty tile")
         check(bool((done_t < nb).any()), "a tile that exits early")
         check(int(covers.max()) >= 6, "a Gaussian covering many tiles")
         a, r = rel_err(img_k, img_t)
-        print(f"phase 2 ts={ts} B1 render: max abs {a:.3e} rel {r:.3e} "
-              f"(exit blocks differ on {int((done_k != done_t).sum())} tiles)", flush=True)
-        check(r <= 1e-4, "B1 within 1e-4 relative of its twin")
+        _, r_u = rel_err(img_u, img_t)
+        culled = torch.equal(img_k, img_u) and torch.equal(done_k, done_u)
+        same = torch.equal(img_k, again[0]) and torch.equal(done_k, again[1])
+        # The twin's transmittance is a cumprod, whose order of products the
+        # library chooses, and its exp is torch's: a tile whose largest T
+        # lies within rounding of trans_eps may exit one block apart.
+        print(f"phase 2 ts={ts} B1 render: max abs {a:.3e} rel {r:.3e} (unculled rel "
+              f"{r_u:.3e}); culled bit-equal to unculled (image and exit blocks) {culled}, "
+              f"two launches bit-equal {same}, launches (render, render_unculled) {counts}; "
+              f"exit blocks differ from the twin's on {int((done_k != done_t).sum())} tiles",
+              flush=True)
+        check(r <= 1e-4 and r_u <= 1e-4, "B1 within 1e-4 relative of its twin")
+        check(culled, "B1's culled walk bit-equal to its unculled instantiation")
+        check(same, "two B1 launches bit-equal")
+        check(counts == (2, 1), "each B1 instantiation counts its own launches")
 
         enc = LinearRGBEncoder(D, seed=3, device="cuda")
         feats = enc(img_k[..., :3]).contiguous()
@@ -449,6 +475,24 @@ def walked_pairs(geom, plan, trans_eps):
     return int(done.sum()) * 128 * plan.tile_size**2, weighted, kept
 
 
+def render_pairs(pack, plan):
+    """(pixel-Gaussian pairs B1 walks unculled, those B1's culled walk
+    evaluates, those with a nonzero alpha) over every tile, by the twin's
+    walk with the cull."""
+    from tpugs_torch.raster.kernels import TRANS_EPS, _all_tiles, _walk_blocks
+
+    counts = torch.zeros(2, dtype=torch.int64, device=pack.device)
+
+    def visit(st):
+        counts[0] += st.terms["live"].sum()
+        counts[1] += (st.terms["alpha"] != 0).sum()
+
+    _, done = _walk_blocks(pack, plan, _all_tiles(plan, pack.device), TRANS_EPS, visit,
+                           cull=True)
+    live, nonzero = counts.tolist()
+    return int(done.sum()) * 128 * plan.tile_size**2, live, nonzero
+
+
 def _plan_to(plan, device):
     import dataclasses
 
@@ -510,6 +554,7 @@ def phase_full_width():
     engines. Returns the kernel records for the kernels line and one view's
     result for the experiments phase."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.lift.batch import backproject_views, run_view
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
@@ -595,11 +640,25 @@ def phase_full_width():
     check(b6_b2, "B6 bit-equal to B2 on the sampled tiles")
     check(b7_equal and b7_b3_view, "B7 bit-equal to its twin and to B3")
 
+    # B1's culled walk against its unculled instantiation on every tile
+    img_u, done_u = K.render_tiles_unculled(r.packed, plan)
+    torch.cuda.synchronize()
+    b1_culled = torch.equal(r.tiles, img_u) and torch.equal(r.blocks_done, done_u)
+    del img_u
+    walked, live, nonzero = render_pairs(r.packed, plan)
+    print(f"phase 3 B1 on every tile of view 0: culled bit-equal to unculled (image and "
+          f"exit blocks) {b1_culled}; pairs walked {walked}, with a live 8x4 rectangle "
+          f"{live} ({100 * live / walked:.1f}%), with a nonzero alpha {nonzero} "
+          f"({100 * nonzero / walked:.1f}%)", flush=True)
+    check(b1_culled, "B1's culled walk bit-equal to its unculled instantiation on the view")
+
     # times at the main path's shapes, and the bounds of this view's work
     pairs = int(r.blocks_done.sum()) * 128 * TILE * TILE
+    check(pairs == walked, "the twin's walk takes the kernel's blocks")
     n_tiles, T_padded, n_isects = plan.n_tiles, plan.T_padded, plan.n_isects
     tspx = TILE * TILE
-    b1_ms = time_cuda(lambda: K.render_tiles(r.packed, plan), 5)
+    b1_ms = time_cuda(lambda: K.render_tiles(r.packed, plan), 20)
+    b1_unculled = time_cuda(lambda: K.render_tiles_unculled(r.packed, plan), 20)
     b1_plain = time_cuda(lambda: K.render_tiles_plain(r.packed, plan), 1)
     b2_ms = time_cuda(lambda: K.adjoint_rows(r.packed, r.feat_tiles, plan), 3)
     b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
@@ -635,7 +694,11 @@ def phase_full_width():
     block_bytes = int(r.blocks_done.sum()) * 128 * 64  # pack rows the walk reads
     b2_bytes = block_bytes + n_tiles * tspx * D * 2 + T_padded * (D + 1) * 2
 
-    b1_bound = bound(block_bytes + n_tiles * tspx * 5 * 4, PAIR_OPS * pairs, PEAK_F32_FLOPS)
+    # B1: the least work of any exact design evaluates the pairs with a
+    # nonzero alpha; the walked pairs' bound is the old one, printed beside it
+    b1_bytes = block_bytes + n_tiles * tspx * 5 * 4
+    b1_bound = bound(b1_bytes, PAIR_OPS * nonzero, PEAK_F32_FLOPS)
+    b1_walked = bound(b1_bytes, PAIR_OPS * pairs, PEAK_F32_FLOPS)
     b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
     b3_bound = bound(n_isects * ((D + 1) * 2 + 4) + N_FULL * ((D + 1) * 4 + 4),
                      n_isects * (D + 1), PEAK_F32_FLOPS)
@@ -645,14 +708,21 @@ def phase_full_width():
     print(f"phase 3 work of one view: {n_tiles} tiles, {n_isects} intersections, "
           f"T_padded {T_padded}, {int(r.blocks_done.sum())} blocks walked "
           f"({pairs} pixel-Gaussian pairs); scatter layout R_striped {plan_s.R_striped}, "
-          f"{plan_s.stripe_base.shape[0]} stripes; B2 {b2_ms:.3f} ms, B3 {b3_ms:.3f} ms; "
+          f"{plan_s.stripe_base.shape[0]} stripes; B1 {b1_ms:.4f} ms (unculled "
+          f"{b1_unculled:.4f}, twin {b1_plain:.1f}; bound {b1_bound[0]:.4f} ms by "
+          f"{b1_bound[1]} on the nonzero-alpha pairs, share {b1_bound[0] / b1_ms:.3f}; "
+          f"{b1_walked[0]:.4f} ms on the walked pairs, share {b1_walked[0] / b1_ms:.3f}); "
+          f"B2 {b2_ms:.3f} ms, B3 {b3_ms:.3f} ms; "
           f"B6 {b6_ms:.3f} ms (twin {b6_plain:.1f}), "
           f"B7 {b7_ms:.3f} ms (twin {b7_plain:.1f})", flush=True)
 
+    b1_rec = rec("B1", "render", "tpugs_torch/csrc/render.cu",
+                 "tpugs/raster/pallas_tiled.py:1328", launches["render"], b1, b1_ms,
+                 b1_plain, b1_bound)
+    b1_rec.update(bound_walked_ms=b1_walked[0], unculled_ms=b1_unculled,
+                  resident_clusters=load_library().tpugs_render_max_clusters(TILE, 1))
     records = [
-        rec("B1", "render", "tpugs_torch/csrc/render.cu",
-            "tpugs/raster/pallas_tiled.py:1328", launches["render"], b1, b1_ms,
-            b1_plain, b1_bound),
+        b1_rec,
         rec("B2", "adjoint", "tpugs_torch/csrc/adjoint.cu",
             "tpugs/raster/pallas_tiled.py:1573", launches["adjoint"], b2, b2_ms,
             b2_plain, b2_bound),

@@ -3,8 +3,9 @@ no CPU mode, so without a card these skip (``python -m pytest
 tests/test_torch_kernels_cuda.py`` on the H100 runs them).
 
 Tolerances: B1 within 1e-4 of max|twin| (sum order, FMA outside the
-alpha clip); B2 rows within ``ROWS_TOL`` of the twin, measured by
-``rows_error`` against each column group's largest value and each row's
+alpha clip), and its culled walk bit-equal (image and blocks_done) to its
+unculled instantiation, at tiles 16 and 32; B2 rows within ``ROWS_TOL``
+of the twin, measured by ``rows_error`` against each column group's largest value and each row's
 own (f32: 1e-4, summation order; bf16: one or two bf16 units in the last
 place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
@@ -65,6 +66,37 @@ def test_render_kernel_matches_twin(view):
     torch.cuda.synchronize()
     ref, _ = K.render_tiles_plain(pack, plan)
     assert _rel(got, ref) <= 1e-4
+
+
+def test_render_cull_is_bit_equal_to_the_unculled_kernel(view):
+    """B1's per-warp cull skips only pairs whose alpha is 0 at every pixel
+    of the warp: the image and blocks_done equal the unculled
+    instantiation's bit for bit, each instantiation counts its own
+    launches, and two launches give the same bits."""
+    plan, pack, _ = view
+    K.LAUNCHES.reset()
+    img, done = K.render_tiles(pack, plan)
+    img_u, done_u = K.render_tiles_unculled(pack, plan)
+    img2, done2 = K.render_tiles(pack, plan)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES.render, K.LAUNCHES.render_unculled) == (2, 1)
+    assert torch.equal(img, img_u) and torch.equal(done, done_u)
+    assert torch.equal(img, img2) and torch.equal(done, done2)
+    ref, done_t = K.render_tiles_plain(pack, plan)
+    assert _rel(img_u, ref) <= 1e-4
+    nb = (plan.tile_ends - plan.tile_starts + 127) // 128
+    assert bool((done <= nb).all()) and bool((done_t <= nb).all())
+
+
+def test_render_kernel_resident_clusters():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpugs_torch.kernels.build import load_library
+
+    lib = load_library()
+    for ts in (16, 32):
+        for cull in (0, 1):
+            assert lib.tpugs_render_max_clusters(ts, cull) > 0, (ts, cull)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

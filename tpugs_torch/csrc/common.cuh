@@ -19,7 +19,7 @@ struct BlockGeom {
 };
 
 // Loads rows [row0, row0 + kBlock) of a (T, cols) pack whose first six
-// columns are the geometry (cols 16 for B1/B2, 8 for B4/B5); threads
+// columns are the geometry (cols 16 for B2, 8 for B4/B5); threads
 // 0..kBlock-1 take one row each.
 __device__ __forceinline__ void load_geom(BlockGeom& g, const float* pack,
                                           long long row0, int tid, int cols = kPackCols) {
@@ -41,17 +41,22 @@ struct PairTerms {
   float dx, dy, sigma, e, alpha_raw;
 };
 
+__device__ __forceinline__ PairTerms pair_terms(float mx, float my, float ca, float cb,
+                                                float cc, float op, float px, float py) {
+  PairTerms t;
+  t.dx = __fsub_rn(px, mx);
+  t.dy = __fsub_rn(py, my);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, t.dx), t.dx),
+                               __fmul_rn(__fmul_rn(cc, t.dy), t.dy));
+  t.sigma = __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(cb, t.dx), t.dy));
+  t.e = expf(-fmaxf(t.sigma, 0.0f));
+  t.alpha_raw = __fmul_rn(op, t.e);
+  return t;
+}
+
 __device__ __forceinline__ PairTerms pair_terms(const BlockGeom& g, int i, float px,
                                                 float py) {
-  PairTerms t;
-  t.dx = __fsub_rn(px, g.mx[i]);
-  t.dy = __fsub_rn(py, g.my[i]);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(g.ca[i], t.dx), t.dx),
-                               __fmul_rn(__fmul_rn(g.cc[i], t.dy), t.dy));
-  t.sigma = __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(g.cb[i], t.dx), t.dy));
-  t.e = expf(-fmaxf(t.sigma, 0.0f));
-  t.alpha_raw = __fmul_rn(g.op[i], t.e);
-  return t;
+  return pair_terms(g.mx[i], g.my[i], g.ca[i], g.cb[i], g.cc[i], g.op[i], px, py);
 }
 
 // alpha of those terms; 0 past the span (``valid`` false), below 1/255, or

@@ -29,8 +29,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # pack, starts, ends, padded_starts, out, blocks_done, n_tiles, ntx, ts, eps, stream
-    "tpugs_render": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # pack, starts, ends, padded_starts, out, blocks_done, n_tiles, ntx, ts, eps,
+    # cull (0/1), cluster size, stream
+    "tpugs_render": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
+    # tile size, cull (0/1) -> resident clusters
+    "tpugs_render_max_clusters": [_I, _I],
     # pack, starts, ends, padded_starts, feats, out, n_tiles, ntx, ts, W, H, D, DC, eps,
     # cluster size, grid x, stream
     "tpugs_adjoint_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],

@@ -21,6 +21,14 @@ anything else. A CPU tensor goes to the plain twin (``*_plain``), a CUDA
 tensor to the CUDA kernel in ``tpugs_torch/csrc`` or an exception; nothing
 falls back. Each kernel launch adds one to ``LAUNCHES``.
 
+B1 walks, per warp of 8 x 4 pixels, only the Gaussians of a block that can
+reach the 1/255 clip somewhere in the warp's rectangle (``rect_live``, the
+plan's sub-cutoff test on the rectangle's pixel centres with a margin for
+rounding). A culled pair has alpha 0 at every pixel of the rectangle, so
+the result is bit-equal to the walk of every pair, which
+``render_tiles_unculled`` launches for the checks and
+``render_tiles_plain(..., cull=True)`` mirrors on the CPU.
+
 Semantics shared by B1 and B2 (the exact path of the reference; the port
 computes exact weights in both contribution dtypes):
 
@@ -59,6 +67,10 @@ CHANNEL_SLICE = 128  # contribution-row columns per CUDA block of B2
 MAX_CLUSTER = 8  # CTAs per thread-block cluster of B2 (the portable limit)
 RENDER_CHANNELS = 5  # rgb, depth, 1 - T
 CONTRIB_DTYPES = (torch.float32, torch.bfloat16)
+RENDER_THREADS = 256  # threads of a B1 CTA, one per pixel
+RECT_W, RECT_H = 8, 4  # a B1 warp's pixel rectangle
+CULL_SLACK = 1e-3  # the plan's slack on sig_cut (plan.py step 3)
+CULL_MARGIN = 1e-4  # of the quadratic's term magnitudes, against f32 rounding
 
 
 @dataclasses.dataclass
@@ -66,6 +78,7 @@ class LaunchCounts:
     """How many times each CUDA kernel was launched (twins do not count)."""
 
     render: int = 0
+    render_unculled: int = 0
     adjoint: int = 0
     reduce: int = 0
     train_fwd: int = 0
@@ -191,6 +204,65 @@ def _block_weights(alpha, trans):
     return alpha * texc * trans[..., None], trans * incl[..., -1]
 
 
+def tile_rects(tiles: torch.Tensor, ntx: int, ts: int):
+    """B1's warp rectangles of tiles ``tiles`` (k,): the first pixel centres
+    x0, y0 (k, R) of the R = ts*ts / 32 rectangles of RECT_W x RECT_H
+    pixels, row-major over the tile, and each tile pixel's rectangle
+    (ts*ts,) int64."""
+    dev = tiles.device
+    per_row = ts // RECT_W
+    r = torch.arange(ts * ts // (RECT_W * RECT_H), device=dev)
+    tx = (tiles % ntx)[:, None] * ts
+    ty = (tiles // ntx)[:, None] * ts
+    x0 = (tx + (r % per_row)[None, :] * RECT_W).to(torch.float32) + 0.5
+    y0 = (ty + (r // per_row)[None, :] * RECT_H).to(torch.float32) + 0.5
+    lp = torch.arange(ts * ts, device=dev)
+    rect_of = (lp // ts) // RECT_H * per_row + (lp % ts) // RECT_W
+    return x0, y0, rect_of
+
+
+def rect_live(geo, x0, y0, lane_valid) -> torch.Tensor:
+    """B1's cull (``cull_consts`` and ``rect_dead`` in ``csrc/render.cu``,
+    the same f32 operations but the logarithm): live bits (k, R, BLOCK) of
+    block rows ``geo`` (k, BLOCK, >= 6; geometry in columns 0..5) on the R
+    rectangles of RECT_W x RECT_H pixel centres whose first centres are x0,
+    y0 (k, R); ``lane_valid`` (k, BLOCK) marks the slots inside the span.
+
+    A pair is dead when the minimum of sigma over the rectangle of pixel
+    centres (the plan's edge minima, and 0 if the centre lies inside), less
+    CULL_MARGIN times the sum of the quadratic's term magnitudes there,
+    exceeds sig_cut = ln(max(255 op, 1)) + CULL_SLACK: then alpha < 1/255 at
+    every pixel. A conic that is not positive definite, or a NaN or negative
+    opacity, has sig_cut +inf and is never dead; nor is a pair with any
+    other value that is not finite (fmin/fmax skip NaN as fminf/fmaxf do,
+    and the margin is then infinite or NaN)."""
+    g = geo[:, None, :, COL_GEOM:COL_GEOM + 6]  # (k, 1, B, 6)
+    mx, my, ca, cb, cc, op = g.unbind(-1)
+    tiny = torch.full_like(ca, 1e-12)
+    ok = (ca > 0.0) & (cc > 0.0) & (ca * cc > cb * cb) & (op >= 0.0)
+    cut = torch.log(torch.fmax(255.0 * op, torch.ones_like(op))) + CULL_SLACK
+    cut = torch.where(ok, cut, torch.full_like(cut, float("inf")))
+    inv_a, inv_c = 1.0 / torch.fmax(ca, tiny), 1.0 / torch.fmax(cc, tiny)
+    x0, y0 = x0[..., None], y0[..., None]  # (k, R, 1)
+    x1, y1 = x0 + (RECT_W - 1), y0 + (RECT_H - 1)
+    lx, ux, ly, uy = x0 - mx, x1 - mx, y0 - my, y1 - my
+
+    def edge(e, lo, hi, ce, co, inv_co):
+        cbe = cb * e
+        t = torch.fmin(torch.fmax(-cbe * inv_co, lo), hi)
+        return (0.5 * ce) * e * e + (0.5 * co) * t * t + cbe * t
+
+    qmin = torch.fmin(torch.fmin(edge(lx, ly, uy, ca, cc, inv_c), edge(ux, ly, uy, ca, cc, inv_c)),
+                      torch.fmin(edge(ly, lx, ux, cc, ca, inv_a), edge(uy, lx, ux, cc, ca, inv_a)))
+    inside = (lx <= 0.0) & (ux >= 0.0) & (ly <= 0.0) & (uy >= 0.0)
+    qmin = torch.where(inside, torch.fmin(qmin, torch.zeros_like(qmin)), qmin)
+    ex = torch.fmax(lx.abs(), ux.abs())
+    ey = torch.fmax(ly.abs(), uy.abs())
+    terms = (0.5 * ca) * ex * ex + (0.5 * cc) * ey * ey + cb.abs() * ex * ey
+    dead = qmin - CULL_MARGIN * terms > cut
+    return lane_valid[:, None, :] & ~dead
+
+
 @dataclasses.dataclass
 class BlockStep:
     """One step of ``_walk_blocks`` for the tiles still running:
@@ -209,13 +281,15 @@ class BlockStep:
     py: torch.Tensor
 
 
-def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None):
+def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None, cull=False):
     """The tile walk of B1/B2/B4/B5 for tiles ``tiles`` (k,), vectorised
     over tiles: for each block index b, the tiles still running get a
     ``BlockStep`` through ``visit``. A tile stops at its early exit, or,
     with ``n_blocks`` (k,), after exactly that many blocks (the forward's
-    count, which the backward replays). Returns (T (k, ts*ts), blocks
-    processed (k,) int32)."""
+    count, which the backward replays). With ``cull`` the alpha of every
+    pair that B1's cull skips is set to 0 and ``terms["live"]`` (ka, ts*ts,
+    BLOCK) holds the live bit of each pixel's rectangle. Returns (T (k,
+    ts*ts), blocks processed (k,) int32)."""
     ntx, _ = plan.grid
     ts = plan.tile_size
     dev = pack.device
@@ -225,6 +299,8 @@ def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None):
         nb = torch.minimum(nb, n_blocks.long())
     pstart = plan.padded_starts[tiles].long()
     px, py = _tile_pixels(tiles, ntx, ts)
+    if cull:
+        rx0, ry0, rect_of = tile_rects(tiles, ntx, ts)
     k = tiles.shape[0]
     trans = torch.ones((k, ts * ts), dtype=pack.dtype, device=dev)
     max_t = torch.ones((k,), dtype=pack.dtype, device=dev)
@@ -242,6 +318,10 @@ def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None):
         geo = pack[rows]  # (ka, BLOCK, pack columns)
         lane_valid = lane[None, :] < (count[active, None] - b * BLOCK)
         terms = _block_terms(geo, px[active], py[active], lane_valid)
+        if cull:
+            live = rect_live(geo, rx0[active], ry0[active], lane_valid)[:, rect_of]
+            terms["live"] = live
+            terms["alpha"] = torch.where(live, terms["alpha"], torch.zeros_like(terms["alpha"]))
         w, t_new = _block_weights(terms["alpha"], trans[active])
         visit(BlockStep(active, w, trans[active], terms, geo, rows, px[active], py[active]))
         trans[active] = t_new
@@ -262,10 +342,12 @@ def render_tiles_plain(
     plan: Plan,
     trans_eps: float = TRANS_EPS,
     tiles: Optional[torch.Tensor] = None,
+    cull: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1's twin. Returns per-tile images (k, ts*ts, 5) [r, g, b, depth,
     1 - T] and the blocks each tile processed (k,) int32, for all tiles or
-    for ``tiles``."""
+    for ``tiles``; with ``cull`` the alpha of every pair the kernel's cull
+    skips is forced to 0 (the same bits)."""
     if tiles is None:
         tiles = _all_tiles(plan, pack.device)
     k = tiles.shape[0]
@@ -275,15 +357,31 @@ def render_tiles_plain(
         cols = st.geo[..., COL_COLOR:COL_COLOR + 4]  # (ka, BLOCK, 4)
         img[st.active] += torch.bmm(st.w, cols)
 
-    trans, done = _walk_blocks(pack, plan, tiles, trans_eps, visit)
+    trans, done = _walk_blocks(pack, plan, tiles, trans_eps, visit, cull=cull)
     return torch.cat([img, (1.0 - trans)[..., None]], dim=-1), done
 
 
-def render_tiles(
-    pack: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B1: per-tile images (n_tiles, ts*ts, 5) float32 and the number of
-    128-Gaussian blocks each tile processed before its early exit."""
+def render_cluster(tile_size: int) -> int:
+    """CTAs per thread-block cluster of B1: one tile's ts*ts pixels at
+    RENDER_THREADS per CTA (4 at tile 32, 1 at tile 16)."""
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size {tile_size}: the render kernel takes 16 or 32")
+    return tile_size**2 // RENDER_THREADS
+
+
+def launch_render(lib, pack, plan, trans_eps, cull, out, done) -> None:
+    """One launch of ``lib``'s ``tpugs_render`` (the package's library or a
+    copy of it) into ``out`` and ``done``."""
+    ntx, _ = plan.grid
+    rc = lib.tpugs_render(
+        _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
+        _ptr(out), _ptr(done), plan.n_tiles, ntx, plan.tile_size, float(trans_eps), int(cull),
+        render_cluster(plan.tile_size), _stream(),
+    )
+    _launched(rc, "render" if cull else "render_unculled")
+
+
+def _render(pack, plan, trans_eps, cull):
     dev = pack.device
     _check(pack, "pack", (torch.float32,), (plan.T_padded, PACK_COLS), dev)
     _check_plan(plan, dev)
@@ -291,21 +389,34 @@ def render_tiles(
         return render_tiles_plain(pack, plan, trans_eps)
     from tpugs_torch.kernels.build import load_library
 
-    lib = load_library()
     nt, tspx = plan.n_tiles, plan.tile_size**2
     out = torch.empty((nt, tspx, RENDER_CHANNELS), dtype=torch.float32, device=dev)
     done = torch.empty((nt,), dtype=torch.int32, device=dev)
     if nt == 0:
         return out, done
-    ntx, _ = plan.grid
-    rc = lib.tpugs_render(
-        _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
-        _ptr(plan.padded_starts), _ptr(out), _ptr(done),
-        nt, ntx, plan.tile_size, float(trans_eps), _stream(),
-    )
-    _launched(rc, "render")
-    LAUNCHES.render += 1
+    launch_render(load_library(), pack, plan, trans_eps, cull, out, done)
+    if cull:
+        LAUNCHES.render += 1
+    else:
+        LAUNCHES.render_unculled += 1
     return out, done
+
+
+def render_tiles(
+    pack: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1: per-tile images (n_tiles, ts*ts, 5) float32 and the number of
+    128-Gaussian blocks each tile processed before its early exit."""
+    return _render(pack, plan, trans_eps, True)
+
+
+def render_tiles_unculled(
+    pack: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's instantiation without the cull, for the checks that hold it
+    bit-equal to ``render_tiles``: every warp walks all 128 Gaussians of a
+    block. Counted in ``LAUNCHES.render_unculled``; never on a main path."""
+    return _render(pack, plan, trans_eps, False)
 
 
 # ----------------------------------------------------------- B2 adjoint
