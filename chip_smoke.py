@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Six phases; the first failure ends the run with a nonzero exit:
+Seven phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -48,11 +48,24 @@ Six phases; the first failure ends the run with a nonzero exit:
              CUDA-event times; the loss finite, every parameter moved, B4,
              B5 and B3 launched every step; 64 random tiles of one step held
              against the twins.
-5. kernels line — one JSON object per kernel with its launches, errors,
+5. raster API and eager lift — the canonical lift shape (N = 2^19,
+             1296 x 840, D = 512, 8 orbit views) at tile 16 with no early
+             exit (the reference's tiled path): ``create_feature_field``
+             (B4 renders, B2 with f32 rows and B3 lift; ms/view, peak
+             memory, launches), ``prune_by_gradients`` (B2 on one zero
+             channel, B3) then ``verify_pruning_equivalence`` (B4; max
+             pixel error under 1/510), one ``rasterize`` in RGB+ED with a
+             background forward and backward (B4; B5 and B3; ms, peak,
+             every gradient finite and nonzero); 64 random tiles hold B4,
+             B2 and B3 (view 0) and B5 (the rasterize render) against their
+             twins at trans_eps 0; the kernels' times and bounds on this
+             path's walked pairs.
+6. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
-             ``index_copy_``).
+             ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
+             B5-tiled.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -118,6 +131,13 @@ def span_rows(plan, tiles: torch.Tensor) -> torch.Tensor:
     owner = torch.repeat_interleave(torch.arange(len(tiles), device=tiles.device), length)
     first = torch.cumsum(length, 0) - length
     return start[owner] + torch.arange(int(length.sum()), device=tiles.device) - first[owner]
+
+
+def tile_inside(h, w, ts, tiles):
+    """(k, ts*ts, 1) True on the pixels of ``tiles`` inside the image."""
+    from tpugs_torch.raster.tiles import image_to_tiles
+
+    return image_to_tiles(torch.ones((h, w, 1), device="cuda"), ts)[tiles] > 0
 
 
 def gaussians_of(plan, rows: torch.Tensor) -> torch.Tensor:
@@ -974,7 +994,7 @@ def phase_train():
     gen = torch.Generator(device="cuda").manual_seed(0)
     tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
     img_t, alpha_t, done_t = T.train_tiles_plain(geom, cols, plan, eps, tiles)
-    inside = image_to_tiles(torch.ones((h, w, 1), device="cuda"), plan.tile_size)[tiles] > 0
+    inside = tile_inside(h, w, plan.tile_size, tiles)
     b4 = rel_err(torch.where(inside, image_to_tiles(img, plan.tile_size)[tiles], 0.0),
                  torch.where(inside, img_t, 0.0))
     b4_alpha = rel_err(torch.where(inside[..., 0], image_to_tiles(
@@ -1053,6 +1073,252 @@ def phase_train():
     ]
 
 
+# Phase 5: the raster API and the eager lift at the canonical lift shape,
+# tile 16 (the API's TileConfig), with no early exit (trans_eps 0, the
+# reference's tiled path): B4 renders, B2 with f32 rows and B3 lift, B5 and
+# B3 differentiate ``rasterize``.
+EAGER_TILE = 16
+
+
+def phase_eager():
+    """``create_feature_field``, ``prune_by_gradients`` then
+    ``verify_pruning_equivalence``, and one ``rasterize`` forward and
+    backward, at N = 2^19, 1296 x 840, D = 512 over the 8 orbit views.
+    Returns the kernel records of B4, B2, B3 and B5 on this path."""
+    from tpugs_torch import rasterize
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.lift.backproject import backproject_view, create_feature_field
+    from tpugs_torch.lift.prune import prune_by_gradients, verify_pruning_equivalence
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.api import plan_render, rasterize_with_plan
+    from tpugs_torch.raster.tiles import image_to_tiles
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+
+    n, w, h, D, ts = N_FULL, W_FULL, H_FULL, D_FULL, EAGER_TILE
+    scene = random_scene(n, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    enc = LinearRGBEncoder(D, device="cuda")
+    vm0, K0 = cams.viewmats[0], cams.Ks[0]
+    backproject_view(scene, vm0, K0, w, h, enc)  # warm-up view
+    torch.cuda.synchronize()
+
+    # 1. the eager lift over the 8 views
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    field = create_feature_field(scene, cams, enc, verbose=False)
+    torch.cuda.synchronize()
+    lift_ms = 1e3 * (time.perf_counter() - t0) / VIEWS
+    launches = K.LAUNCHES.snapshot()
+    lift_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(field.shape == (n, D) and bool(torch.isfinite(field).all()), "the field finite")
+    lit = float((field.abs().sum(1) > 0).float().mean())
+    check(lit > 0, "some Gaussians have a feature")
+    for name in ("train_fwd", "adjoint", "reduce"):
+        check(launches[name] >= VIEWS, f"{name} launched at least once per view ({launches[name]})")
+    check(launches["train_fwd_wide"] == 0, "D = 3 takes B4's cluster kernel")
+    print(f"phase 5 create_feature_field N={n} {w}x{h} D={D} tile={ts} views={VIEWS} "
+          f"trans_eps=0: {lift_ms:.2f} ms/view, {1e3 / lift_ms:.3f} views/s, peak "
+          f"{lift_peak:.2f} GB, {100 * lit:.1f}% of Gaussians with a feature; launches "
+          f"{launches}", flush=True)
+    del field
+
+    # 64 random tiles of view 0 against the twins, on the path's own inputs
+    seen = {}
+    backproject_view(scene, vm0, K0, w, h, enc, record=seen)
+    torch.cuda.synchronize()
+    geom, cols, plan, done = (seen[k] for k in ("geom", "cols", "plan", "blocks_done"))
+    packed, feats, aplan, rows, sums = (seen[k] for k in (
+        "packed", "feat_tiles", "adjoint_plan", "adjoint_rows", "adjoint_sums"))
+    check(seen["trans_eps"] == 0.0, "the render walks every block")
+    # At trans_eps 0 a tile stops only once T is exactly 0 at all its pixels
+    # (f32 underflow under many opaque Gaussians); alpha = 1 - T is then 1.
+    n_blocks = ((plan.tile_ends - plan.tile_starts + 127) // 128).int()
+    all_tiles = torch.arange(plan.n_tiles, device="cuda")
+    alpha_tiles = image_to_tiles(seen["alpha"][..., None], ts)[..., 0]
+    opaque = ((alpha_tiles == 1.0) | ~tile_inside(h, w, ts, all_tiles)[..., 0]).all(1)
+    short = done < n_blocks
+    print(f"phase 5 view 0: {int(short.sum())} of {plan.n_tiles} tiles stop before their "
+          f"last block (T underflowed to 0), {int((n_blocks - done).sum())} of "
+          f"{int(n_blocks.sum())} blocks left unwalked", flush=True)
+    check(bool(opaque[short].all()), "a tile stops early only where alpha is 1 at every pixel")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    inside = tile_inside(h, w, ts, tiles)
+    img_t, alpha_t, done_t = T.train_tiles_plain(geom, cols, plan, 0.0, tiles)
+    b4 = rel_err(torch.where(inside, image_to_tiles(seen["image"], ts)[tiles], 0.0),
+                 torch.where(inside, img_t, 0.0))
+    b4_alpha = rel_err(torch.where(inside[..., 0], alpha_tiles[tiles], 0.0),
+                       torch.where(inside[..., 0], alpha_t, 0.0))
+    # the twin's T underflows in another order of products: where the walks
+    # end apart, both must have reached alpha 1
+    apart = done[tiles] != done_t
+    twin_opaque = ((alpha_t == 1.0) | ~inside[..., 0]).all(1)
+    span = span_rows(plan, tiles)
+    rows_t = K.adjoint_rows_plain(packed, feats, aplan, 0.0, tiles=tiles)
+    b2 = K.rows_error(rows[span], rows_t[span], D)
+    del rows_t
+    gids = gaussians_of(plan, span)
+    red_t = K.reduce_rows_plain(rows, plan, D + 1, gaussians=gids)
+    b3 = rel_err(sums[gids], red_t)
+    b3_equal = torch.equal(sums[gids], red_t)
+    print(f"phase 5 check on 64 tiles of view 0 ({len(gids)} Gaussians), trans_eps=0: B4 "
+          f"image rel {b4[1]:.3e}, alpha rel {b4_alpha[1]:.3e}, blocks walked differ from "
+          f"the twin's on {int(apart.sum())} tiles; B2 f32 {b2[1]:.3e} of column-group max, "
+          f"{b2[2]:.3e} of row max; B3 bit-equal {b3_equal}", flush=True)
+    check(b4[1] <= 1e-4 and b4_alpha[1] <= 1e-4,
+          "B4 within 1e-4 of its twin on the sampled tiles")
+    check(bool((opaque[tiles] & twin_opaque)[apart].all()),
+          "B4's walk ends apart from its twin's only where both reached alpha 1")
+    check(within_rows_tol(b2[1], b2[2], torch.float32), "B2 f32 within ROWS_TOL")
+    check(b3_equal, "B3 bit-equal on the sampled Gaussians")
+
+    # 2. pruning and the render-equivalence check
+    K.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    pruned = prune_by_gradients(scene, cams, verbose=False)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    launches_p = K.LAUNCHES.snapshot()
+    K.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    max_err, total_err = verify_pruning_equivalence(scene, pruned, cams, verbose=False)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launches_v = K.LAUNCHES.snapshot()
+    check(launches_p["adjoint"] >= VIEWS and launches_p["reduce"] >= VIEWS,
+          f"prune_by_gradients ran B2 and B3 every view ({launches_p})")
+    check(launches_v["train_fwd"] >= 2 * VIEWS,
+          f"verify_pruning_equivalence rendered both scenes through B4 ({launches_v})")
+    share = 100 * (n - pruned.num_gaussians) / n
+    print(f"phase 5 prune_by_gradients: {prune_s:.3f} s for {VIEWS} views, {share:.3f}% "
+          f"pruned ({n - pruned.num_gaussians} of {n}); verify_pruning_equivalence: "
+          f"{verify_s:.3f} s, max pixel error {max_err:.3e} (< 1/510), total "
+          f"{total_err:.3e}; launches {launches_p} then {launches_v}", flush=True)
+    del pruned
+
+    # 3. rasterize RGB+ED forward and backward
+    leaves = [t.detach().clone().requires_grad_() for t in (
+        scene.means, scene.quats, scene.scales, scene.opacities, scene.colors_all)]
+    bg = torch.rand((3,), device="cuda", generator=gen)
+    g = torch.randn((1, h, w, 4), device="cuda", generator=gen)
+
+    def forward():
+        return rasterize(*leaves, vm0[None], K0[None], w, h, sh_degree=scene.sh_degree,
+                         render_mode="RGB+ED", backgrounds=bg)
+
+    imgs, alphas, _ = forward()  # warm-up
+    torch.autograd.grad((imgs * g).sum(), leaves)
+    torch.cuda.synchronize()
+    del imgs, alphas
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.reset()
+    ev[0].record()
+    imgs, alphas, meta = forward()
+    ev[1].record()
+    grads = torch.autograd.grad((imgs * g).sum(), leaves)
+    ev[2].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    rast_peak = torch.cuda.max_memory_allocated() / 1e9
+    launches_r = K.LAUNCHES.snapshot()
+    check(imgs.shape == (1, h, w, 4) and bool(torch.isfinite(imgs).all()), "images finite")
+    names = ("means", "quats", "scales", "opacities", "colors")
+    for name, gr in zip(names, grads):
+        check(bool(torch.isfinite(gr).all()) and bool((gr != 0).any()),
+              f"the gradient of {name} finite and nonzero")
+    for name in ("train_fwd", "train_bwd", "reduce"):
+        check(launches_r[name] >= 1, f"rasterize launched {name} ({launches_r})")
+    print(f"phase 5 rasterize RGB+ED with a background, one camera: forward {fwd_ms:.2f} ms, "
+          f"backward {bwd_ms:.2f} ms (CUDA events), peak {rast_peak:.2f} GB; gradients finite "
+          f"and nonzero: {', '.join(names)}; launches {launches_r}", flush=True)
+    del grads
+
+    # the same render through rasterize_with_plan, recorded: B5 on 64 tiles
+    seen5 = {}
+    plan5 = plan_render(*leaves[:4], vm0, K0, w, h)
+    img5, _ = rasterize_with_plan(*leaves, vm0, K0, plan5, scene.sh_degree, "RGB+ED", bg,
+                                  record=seen5)
+    torch.autograd.grad((img5 * g[0]).sum(), leaves)
+    torch.cuda.synchronize()
+    check(torch.equal(img5, imgs[0]), "the recorded render equals rasterize's bit for bit")
+    del imgs, alphas, meta, img5
+    g5, cols5, plan5, done5 = (seen5[k] for k in ("geom", "cols", "plan", "blocks_done"))
+    d5 = cols5.shape[1]
+    args5 = (g5, cols5, seen5["g_image"], seen5["hterm"], seen5["grem0"], done5, plan5)
+    tiles5 = torch.randperm(plan5.n_tiles, device="cuda", generator=gen)[:64]
+    span5 = span_rows(plan5, tiles5)
+    rows5_t, mags5 = T.train_rows_plain(*args5, torch.float32, tiles5, magnitudes=True)
+    b5 = T.grad_rows_error(seen5["rows"][span5], rows5_t[span5], d5, mags5[span5])
+    print(f"phase 5 check on 64 tiles of the rasterize render (D={d5}, trans_eps=0): B5 f32 "
+          f"rows {b5[1]:.3e} of column-group max, {b5[2]:.3e} of the entry's magnitude",
+          flush=True)
+    check(within_grad_tol(b5[1], b5[2], torch.float32), "B5 within GRAD_ROWS_TOL")
+    del rows5_t, mags5
+
+    # 4. times at the path's shapes and the bounds of its work at trans_eps 0
+    d4 = cols.shape[1]
+    b4_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, 0.0), 5)
+    b4_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, 0.0), 1)
+    b2_ms = time_cuda(lambda: K.adjoint_rows(packed, feats, aplan, 0.0), 3)
+    b2_plain = time_cuda(lambda: K.adjoint_rows_plain(packed, feats, aplan, 0.0), 1)
+    b3_ms = time_cuda(lambda: K.reduce_rows(rows, plan, D + 1), 5)
+    b3_plain = time_cuda(lambda: K.reduce_rows_plain(rows, plan, D + 1), 1)
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, plan.T_padded)
+    rows32 = rows[:, : D + 1].contiguous()
+    lib_err = rel_err(select @ rows32, sums)
+    b3_lib = time_cuda(lambda: select @ rows32, 5)
+    check(lib_err[1] <= 1e-5, "the library call computes B3's sums")
+    del select, rows32
+    b5_ms = time_cuda(lambda: T.train_rows(*args5, torch.float32), 5)
+    b5_plain = time_cuda(lambda: T.train_rows_plain(*args5, torch.float32), 1)
+
+    walked = int(done.sum())
+    pairs, weighted, kept = walked_pairs(geom, plan, 0.0)
+    check(pairs == walked * 128 * ts * ts, "the twin's walk takes the kernel's blocks")
+    tspx = ts * ts
+    b4_bound = bound(walked * 128 * (8 + d4) * 4 + h * w * (d4 + 1) * 4,
+                     pairs * PAIR_OPS + weighted * 2 * d4, PEAK_F32_FLOPS)
+    b4_walked = bound(walked * 128 * (8 + d4) * 4 + h * w * (d4 + 1) * 4,
+                      pairs * (PAIR_OPS + 2 * d4), PEAK_F32_FLOPS)
+    b2_bytes = walked * 128 * 64 + plan.n_tiles * tspx * D * 4 + plan.T_padded * (D + 1) * 4
+    b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_F32_FLOPS)
+    b3_bound = bound(plan.n_isects * ((D + 1) * 4 + 4) + n * ((D + 1) * 4 + 4),
+                     plan.n_isects * (D + 1), PEAK_F32_FLOPS)
+    # rasterize rendered view 0 of the same scene: B5 replays B4's walk
+    check(torch.equal(done5, done), "rasterize's render walked view 0's blocks")
+    b5_bound = bound(walked * 128 * (8 + d5) * 4 + h * w * (d5 + 2) * 4 + 4 * plan5.n_tiles
+                     + plan5.T_padded * T.grad_row_width(d5) * 4,
+                     pairs * PAIR_OPS + kept * (4 * d5 + PAIR_OPS), PEAK_F32_FLOPS)
+    print(f"phase 5 work of view 0 at tile {ts}, trans_eps=0: {plan.n_tiles} tiles, "
+          f"{plan.n_isects} intersections, T_padded {plan.T_padded}, {walked} blocks walked "
+          f"({pairs} pixel-Gaussian pairs, {weighted} with a nonzero weight, {kept} with a "
+          f"nonzero alpha); B4 D={d4} {b4_ms:.3f} ms (twin {b4_plain:.1f}; bound "
+          f"{b4_bound[0]:.4f} ms by {b4_bound[1]}, {b4_walked[0]:.4f} on the walked pairs' "
+          f"products); B2 f32 D={D} {b2_ms:.3f} ms (twin {b2_plain:.1f}; bound "
+          f"{b2_bound[0]:.4f} ms by {b2_bound[1]} on the walked pairs); B3 {b3_ms:.3f} ms "
+          f"(twin {b3_plain:.1f}, library {b3_lib:.3f}, {lib_err[1]:.3e} of max from the "
+          f"kernel); B5 D={d5} {b5_ms:.3f} ms (twin {b5_plain:.1f}; bound {b5_bound[0]:.4f} "
+          f"ms by {b5_bound[1]})", flush=True)
+    return [
+        rec("B4-tiled", "train_fwd (render_tiled, trans_eps 0)", "tpugs_torch/csrc/train_fwd.cu",
+            "tpugs/raster/pallas_train.py:250", launches["train_fwd"], b4, b4_ms, b4_plain,
+            b4_bound),
+        rec("B2-tiled", "adjoint (backproject_tiled, f32, trans_eps 0)",
+            "tpugs_torch/csrc/adjoint.cu", "tpugs/raster/pallas_tiled.py:1623",
+            launches["adjoint"], b2, b2_ms, b2_plain, b2_bound),
+        rec("B3-tiled", "reduce (backproject_tiled rows)", "tpugs_torch/csrc/reduce.cu",
+            "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms, b3_plain,
+            b3_bound, b3_lib),
+        rec("B5-tiled", "train_bwd (rasterize backward, trans_eps 0)",
+            "tpugs_torch/csrc/train_bwd.cu", "tpugs/raster/pallas_train.py:557",
+            launches_r["train_bwd"], b5, b5_ms, b5_plain, b5_bound),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -1074,6 +1340,7 @@ def main() -> int:
     records += phase_experiments(view)
     del view
     records += phase_train()
+    records += phase_eager()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

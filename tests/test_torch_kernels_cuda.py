@@ -20,7 +20,9 @@ give the same outputs bit for bit. B6's live striped rows within
 also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
 bf16 unit of the twin's (they are expected bit-equal) and scattered to
-``pos``; its probe reads 19.
+``pos``; its probe reads 19. The tiled path's regime, ``trans_eps`` = 0
+(every block walked): B4 and B5 at D = 3 and 4, and B2 with one zero
+channel, held by the same limits.
 """
 
 import pytest
@@ -34,6 +36,7 @@ from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
 from tpugs_torch.raster import train as T
+from tpugs_torch.raster.tiles import image_to_tiles
 from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
 
 W, H = 200, 136
@@ -312,3 +315,69 @@ def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
     second = T.train_rows(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# The tiled path's regime (render_tiled, backproject_tiled): no early exit,
+# B4 and B5 at D = 3 and 4 (RGB, RGB + depth), B2 with one zero channel.
+@pytest.mark.parametrize("d", [3, 4])
+def test_train_kernels_without_early_exit_match_twins(view, d):
+    """At trans_eps = 0 a tile walks all its blocks unless T underflows to
+    0 at every pixel (each exit test is a strict T > trans_eps): B4 within
+    1e-4 of its twin, B5's f32 rows and B3's sums of them within
+    GRAD_ROWS_TOL."""
+    plan, pack, _ = view
+    gen = torch.Generator(device="cuda").manual_seed(11 + d)
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), device="cuda", generator=gen)
+    K.LAUNCHES.reset()
+    img, alpha, done = T.train_forward(geom, cols, plan, 0.0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES.train_fwd == 1
+    img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan, 0.0)
+    assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
+    assert int(done.sum()) > int(T.train_forward(geom, cols, plan)[2].sum())
+    # A tile stops early only once T is 0 at all its pixels (f32 underflow,
+    # alpha 1), and the twin's products underflow in another order: where
+    # the walks end apart, both alphas are 1.
+    inside = image_to_tiles(torch.ones_like(alpha)[..., None], plan.tile_size)[..., 0] > 0
+
+    def opaque(a):
+        return ((image_to_tiles(a[..., None], plan.tile_size)[..., 0] == 1.0) | ~inside).all(1)
+
+    short = done < (plan.tile_ends - plan.tile_starts + 127) // 128
+    assert bool(opaque(alpha)[short].all())
+    apart = done != done_t
+    assert bool((opaque(alpha) & opaque(alpha_t))[apart].all())
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan, torch.float32)
+    rows = T.train_rows(*args)
+    sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
+    torch.cuda.synchronize()
+    rows_t, mags = T.train_rows_plain(*args, magnitudes=True)
+    group_tol, entry_tol = T.GRAD_ROWS_TOL[torch.float32]
+    _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+    _, of_group, of_entry = T.grad_rows_error(
+        sums, K.reduce_rows_plain(rows_t, plan, d + 8), d, K.reduce_rows_plain(mags, plan, d + 8))
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+
+
+def test_adjoint_kernel_one_zero_channel_without_early_exit(view):
+    """``backproject_tiled`` without features: B2 on one zero channel at
+    trans_eps = 0, whose ones-column carries the weights (within ROWS_TOL
+    of the twin), and B3's sums of it bit-equal to the twin's."""
+    plan, pack, _ = view
+    feats = torch.zeros((plan.n_tiles, plan.tile_size**2, 1), device="cuda")
+    rows = K.adjoint_rows(pack, feats, plan, 0.0)
+    torch.cuda.synchronize()
+    ref = K.adjoint_rows_plain(pack, feats, plan, 0.0)
+    _, of_group, of_row = K.rows_error(rows, ref, 1)
+    group_tol, row_tol = K.ROWS_TOL[torch.float32]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    early = K.adjoint_rows(pack, feats, plan)  # the default trans_eps skips blocks
+    assert int((rows[:, 1] != 0).sum()) > int((early[:, 1] != 0).sum())
+    sums = K.reduce_rows(rows, plan, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, K.reduce_rows_plain(rows, plan, 2))
+    assert bool((sums[:, 0] == 0).all())

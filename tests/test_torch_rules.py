@@ -18,7 +18,10 @@ from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
 from tpugs_torch.experiments import scatter_write
 from tpugs_torch.kernels import build
-from tpugs_torch.lift.batch import backproject_views
+from tpugs_torch.lift.backproject import create_feature_field
+from tpugs_torch.lift.batch import backproject_views, create_feature_field_batch, estimate_sizes
+from tpugs_torch.lift.ops import accumulate_view
+from tpugs_torch.lift.prune import prune_by_gradients, verify_pruning_equivalence
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
@@ -54,6 +57,33 @@ def test_port_imports_no_jax_and_no_tpugs():
     assert not bad, f"forbidden imports: {bad}"
 
 
+def _queue_a_items():
+    """Item numbers of ``ROADMAP.md``'s queue A ("### A." up to the next
+    "### " heading): the lines that open with "N. "."""
+    import re
+
+    text = (REPO / "ROADMAP.md").read_text()
+    start = text.index("### A.")
+    queue = text[start:text.index("\n### ", start + 1)]
+    return {int(m) for m in re.findall(r"^(\d+)\. ", queue, flags=re.M)}
+
+
+def test_roadmap_pointers_name_queue_a_items():
+    """Every "ROADMAP item N" in the port's messages and docstrings names
+    an item of queue A."""
+    import re
+
+    items = _queue_a_items()
+    assert items == set(range(1, len(items) + 1)) and len(items) >= 5
+    pointers = [
+        (str(f.relative_to(REPO)), int(n))
+        for f in sorted((REPO / "tpugs_torch").rglob("*.py"))
+        for n in re.findall(r"ROADMAP(?: queue A)?\s+item\s+(\d+)", f.read_text())
+    ]
+    assert pointers, "the port points at queue A where it raises"
+    assert all(n in items for _, n in pointers), [p for p in pointers if p[1] not in items]
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the entry points run there")
@@ -74,7 +104,29 @@ ENTRY_POINTS = {
         np.zeros((5, 3)), np.zeros((5, 3)), TrainConfig(feature_dim=0)),
     "Trainer": lambda: Trainer(TrainConfig(strategy="none", feature_dim=0),
                                synthetic.random_scene(10, device="cpu"), width=32, height=32),
+    "Trainer tiled": lambda: Trainer(
+        TrainConfig(strategy="none", feature_dim=0, raster_engine="tiled"),
+        synthetic.random_scene(10, device="cpu"), width=32, height=32),
+    "accumulate_view": lambda: accumulate_view(
+        synthetic.random_scene(10, device="cpu"), torch.eye(4), torch.eye(3), 32, 32),
+    "create_feature_field": lambda: create_feature_field(
+        synthetic.random_scene(10, device="cpu"), _cpu_cams(), LinearRGBEncoder(4, device="cpu"),
+        verbose=False),
+    "create_feature_field_batch": lambda: create_feature_field_batch(
+        synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None], 32, 32,
+        LinearRGBEncoder(4, device="cpu")),
+    "estimate_sizes": lambda: estimate_sizes(synthetic.random_scene(10, device="cpu"),
+                                             _cpu_cams()),
+    "prune_by_gradients": lambda: prune_by_gradients(
+        synthetic.random_scene(10, device="cpu"), _cpu_cams(), verbose=False),
+    "verify_pruning_equivalence": lambda: verify_pruning_equivalence(
+        synthetic.random_scene(10, device="cpu"), synthetic.random_scene(10, device="cpu"),
+        _cpu_cams(), verbose=False),
 }
+
+
+def _cpu_cams():
+    return synthetic.orbit_cameras(1, 32, 32, device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -222,7 +274,7 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
 
 
 UNPORTED = {
-    "tiled engine": (dict(raster_engine="tiled"), NotImplementedError),
+    "unread compression": (dict(compression="png"), NotImplementedError),
     "default strategy": (dict(strategy="default"), NotImplementedError),
     "mcmc strategy": (dict(strategy="mcmc"), NotImplementedError),
     "pose optimisation": (dict(pose_opt=True), NotImplementedError),

@@ -14,7 +14,9 @@ port's default engine, on the CPU.
   reduce_engine="scatter")`` (Pallas in interpret mode, f32 rows): 1e-4 x
   max|ref|, as ``test_torch_lift.py`` (matmul summation order); against the
   port's default engine: bit-equal in f32 and bf16;
-* refusals: "xla" and unknown engines raise.
+* refusals: unknown engines raise (names are case-sensitive); "xla", once
+  refused, is ported (``raster/reduce.py``) and gives B3's sums to 1e-6 of
+  max.
 """
 
 import dataclasses
@@ -264,7 +266,7 @@ def test_run_view_keeps_the_striped_buffer():
 
 
 REFUSED = {
-    "xla": NotImplementedError,
+    "XLA": ValueError,
     "bogus": ValueError,
     "Scatter": ValueError,
 }
@@ -286,6 +288,13 @@ def test_engines_the_port_lacks_raise(views, engine):
                           reduce_engine=engine)
 
 
-def test_xla_refusal_points_to_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        contribution_sums(torch.zeros(0), torch.zeros(0), None, reduce_engine="xla")
+def test_xla_refusal_points_to_the_roadmap(views):
+    """The XLA engine is no longer refused: it runs, and the refusal of an
+    unknown engine names it among the engines the port has."""
+    _, plan, pack, feats = views(0, 16)
+    _, ref = contribution_sums(pack, feats, plan)
+    _, got = contribution_sums(pack, feats, plan, reduce_engine="xla")
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((got - ref).abs().max()) <= 1e-6 * scale
+    with pytest.raises(ValueError, match="xla"):
+        contribution_sums(pack, feats, plan, reduce_engine="bogus")

@@ -13,10 +13,13 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   utils/     synthetic scenes and orbit rigs (bit-identical to tpugs')
   raster/    projection, SH, binning, per-view plan and pack, the lift
              kernels (render, adjoint, reduce; the opt-in scatter engine's
-             adjoint_scatter and stripe_sum), the per-view calls of them, and
-             the differentiable train render (kernels train_fwd, train_bwd)
+             adjoint_scatter and stripe_sum), the per-view calls of them,
+             the XLA reduce engine, the differentiable train render (kernels
+             train_fwd, train_bwd), the tiled render and adjoint on them, the
+             dense oracle and the gsplat-shaped ``rasterize`` API
   encoders/  synthetic pixelwise encoders and their registry
-  lift/      the fused multi-view back-projection loop
+  lift/      the fused multi-view back-projection loop, the eager lift
+             (``create_feature_field``) and gradient pruning
   train/     config, metrics, strategy "none" and the trainer's step
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail)
   kernels/   the nvcc build of ``csrc/*.cu``
@@ -27,3 +30,4 @@ Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 
 from tpugs_torch.core.camera import Camera  # noqa: F401
 from tpugs_torch.core.scene import GaussianScene  # noqa: F401
+from tpugs_torch.raster.api import rasterize  # noqa: F401

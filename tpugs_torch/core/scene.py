@@ -1,4 +1,4 @@
-"""3DGS scene state. Counterpart: ``tpugs/core/scene.py:37-75``.
+"""3DGS scene state. Counterpart: ``tpugs/core/scene.py:37-120``.
 
 Raw (pre-activation) parameterisation as in gsplat checkpoints:
 ``quats`` (N, 4) wxyz, not necessarily normalised; ``log_scales`` (N, 3);
@@ -51,6 +51,43 @@ class GaussianScene:
     def colors_all(self) -> torch.Tensor:
         """(N, 1+K, 3) concatenated SH coefficients."""
         return torch.cat([self.sh0, self.shN], dim=1)
+
+    def replace(self, **kw) -> "GaussianScene":
+        return dataclasses.replace(self, **kw)
+
+    def select(self, mask_or_idx) -> "GaussianScene":
+        """Every per-Gaussian tensor indexed by a bool mask or an index
+        tensor (N,), on the scene's device; ``feature_proj`` is shared."""
+        take = torch.as_tensor(mask_or_idx, device=self.means.device)
+        return GaussianScene(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name) if f.name == "feature_proj"
+            else getattr(self, f.name)[take]
+            for f in dataclasses.fields(self)
+        })
+
+    def pad_to(self, n_pad: int) -> "GaussianScene":
+        """Pad with transparent Gaussians up to ``n_pad``: opacity
+        sigmoid(-30), log-scale -10, identity rotation, zero colour. They
+        never contribute."""
+        n = self.num_gaussians
+        if n_pad < n:
+            raise ValueError(f"pad_to({n_pad}) smaller than N={n}")
+        extra = n_pad - n
+        if extra == 0:
+            return self
+
+        def pad(a, fill=0.0):
+            if a is None:
+                return None
+            return torch.cat([a, a.new_full((extra,) + tuple(a.shape[1:]), fill)])
+
+        quats = torch.cat([self.quats, self.quats.new_tensor([[1.0, 0, 0, 0]]).expand(extra, 4)])
+        return GaussianScene(
+            means=pad(self.means), quats=quats, log_scales=pad(self.log_scales, -10.0),
+            logit_opacities=pad(self.logit_opacities, -30.0), sh0=pad(self.sh0),
+            shN=pad(self.shN), features=pad(self.features), feature_proj=self.feature_proj,
+        )
 
     def to(self, device) -> "GaussianScene":
         return GaussianScene(

@@ -1,6 +1,6 @@
 """Encoder registry. Counterpart: ``tpugs/encoders/__init__.py::get_encoder``,
 for the ``grayscale`` and ``linear[:D]`` specs; the ViT encoders wait for
-ROADMAP item 9."""
+ROADMAP item 2."""
 
 from __future__ import annotations
 
@@ -16,5 +16,5 @@ def get_encoder(name: str, device: DeviceLike = "cuda"):
         dim = int(name.split(":")[1]) if ":" in name else 16
         return LinearRGBEncoder(feature_dim=dim, device=device)
     if name in ("lseg", "dino"):
-        raise NotImplementedError(f"encoder {name!r} is not ported yet: ROADMAP item 9")
+        raise NotImplementedError(f"encoder {name!r} is not ported yet: ROADMAP item 2")
     raise ValueError(f"unknown encoder {name!r}")

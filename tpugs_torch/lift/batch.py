@@ -1,7 +1,8 @@
 """Fused multi-view feature back-projection on the three kernels.
 Counterparts: ``tpugs/lift/pallas_batch.py:69-154``
 (``backproject_one_view_pallas``), ``:443`` (``backproject_views_grouped``)
-and ``tpugs/lift/batch.py:182`` (``normalize_field``).
+and ``tpugs/lift/batch.py`` (``StaticSizes``, ``estimate_sizes`` :38-72,
+``normalize_field`` :182, ``create_feature_field_batch`` :186).
 
 Per view: projection + SH colours, the exact per-view plan, the pack, the
 render kernel (B1), the 2D encoder on the tile layout, the adjoint kernel
@@ -17,18 +18,20 @@ no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from tpugs_torch.core.device import DeviceLike, resolve_device
 from tpugs_torch.core.scene import GaussianScene
 from tpugs_torch.raster.colors import prepare_colors
+from tpugs_torch.core.camera import Camera
+from tpugs_torch.raster.binning import bucket, tile_bbox, tile_grid
 from tpugs_torch.raster.kernels import TRANS_EPS, render_tiles
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import Plan, build_plan
 from tpugs_torch.raster.projection import ProjectionConfig, project
-from tpugs_torch.raster.tiled import contribution_sums, split_sums
+from tpugs_torch.raster.tiled import TileConfig, contribution_sums, required_blocks, split_sums
 from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 
 DEFAULT_TILE = 32  # larger tiles: ~4x fewer intersections than 16
@@ -129,17 +132,22 @@ def backproject_views(
     device: DeviceLike = "cuda",
     on_stage: Optional[Callable[[str], None]] = None,
     reduce_engine: str = "pallas",
+    cam_weights: Optional[torch.Tensor] = None,  # (C,)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All views, one after another: (num (N, D), den (N,)) float32 on
     ``device``. The scene and cameras are moved there; the encoder's
     weights must already live there. ``contrib_dtype`` bfloat16 is the
     production path, float32 the exact one. ``reduce_engine`` "pallas"
-    (default) or "scatter" give bit-equal results; "xla" is not ported
-    (NotImplementedError) and any other value raises ValueError."""
+    (default) or "scatter" give bit-equal results, "xla" equal to float
+    rounding; any other value raises ValueError. ``cam_weights`` multiplies
+    each view's sums (0 drops a padding camera), as the reference's scan
+    does."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     viewmats = viewmats.to(dev)
     Ks = Ks.to(dev)
+    if cam_weights is not None:
+        cam_weights = torch.as_tensor(cam_weights, dtype=torch.float32).tolist()
     n = scene.num_gaussians
     num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
     den = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -148,6 +156,8 @@ def backproject_views(
             scene, viewmats[c], Ks[c], width, height, encoder, tile_size,
             contrib_dtype, proj_config, trans_eps, on_stage, reduce_engine,
         )
+        if cam_weights is not None:
+            fs, ws = cam_weights[c] * fs, cam_weights[c] * ws
         num += fs
         den += ws
     return num, den
@@ -158,3 +168,74 @@ def normalize_field(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     features = num / (den[:, None] + 1e-12)
     features = features / torch.linalg.vector_norm(features, dim=-1, keepdim=True)
     return torch.nan_to_num(features, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+class StaticSizes(NamedTuple):
+    """The reference's static shape buckets of a camera batch. The port's
+    plans are exact, so these change no result; ``estimate_sizes`` still
+    measures them."""
+
+    max_cover: int
+    max_blocks: int
+
+
+def estimate_sizes(
+    scene: GaussianScene,
+    cams: Camera,
+    proj_config: ProjectionConfig = ProjectionConfig(),
+    tile_config: TileConfig = TileConfig(),
+    probe_cameras: int = 0,
+    device: DeviceLike = "cuda",
+) -> StaticSizes:
+    """The largest bbox cover and per-tile span in blocks over (a probe
+    subset of) the cameras, each bucketed to a power of two as the
+    reference does."""
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    idxs = range(cams.num_cameras)
+    if probe_cameras and probe_cameras < cams.num_cameras:
+        idxs = range(0, cams.num_cameras, max(1, cams.num_cameras // probe_cameras))
+    ts = tile_config.tile_size
+    ntx, nty = tile_grid(cams.width, cams.height, ts)
+    max_cover, max_blocks = 1, 1
+    with torch.no_grad():
+        for c in idxs:
+            proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
+                           cams.viewmats[c].to(dev), cams.Ks[c].to(dev), cams.width,
+                           cams.height, proj_config)
+            tx0, ty0, tx1, ty1 = tile_bbox(proj.means2d, proj.radii, proj.valid, ts, ntx, nty)
+            cover = int(((tx1 - tx0) * (ty1 - ty0)).max()) if scene.num_gaussians else 0
+            plan = build_plan(proj, cams.width, cams.height, ts)
+            max_cover = max(max_cover, bucket(cover))
+            max_blocks = max(max_blocks, bucket(required_blocks(plan, tile_config.block_size)))
+    return StaticSizes(bucket(max_cover), bucket(max_blocks))
+
+
+def create_feature_field_batch(
+    scene: GaussianScene,
+    viewmats: torch.Tensor,  # (C, 4, 4)
+    Ks: torch.Tensor,  # (C, 3, 3)
+    width: int,
+    height: int,
+    encoder,
+    sizes: Optional[StaticSizes] = None,
+    cam_weights: Optional[torch.Tensor] = None,  # (C,)
+    proj_config: ProjectionConfig = ProjectionConfig(),
+    tile_config: TileConfig = TileConfig(),
+    feature_dim: Optional[int] = None,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """All views to the normalised (N, D) feature field:
+    ``backproject_views`` at the reference's tiled semantics (no early
+    exit, f32 rows, ``tile_config.tile_size``), then ``normalize_field``.
+    ``sizes`` (the reference's static buckets) changes nothing;
+    ``cam_weights`` multiplies each view's sums. The weight sums count
+    the pixels inside W x H only (the kernels' rule; the reference's tiled
+    adjoint also counts the rest of edge tiles)."""
+    if feature_dim is not None and feature_dim != encoder.feature_dim:
+        raise ValueError(f"feature_dim {feature_dim} != the encoder's {encoder.feature_dim}")
+    num, den = backproject_views(
+        scene, viewmats, Ks, width, height, encoder, tile_size=tile_config.tile_size,
+        contrib_dtype=torch.float32, proj_config=proj_config, trans_eps=0.0, device=device,
+        cam_weights=cam_weights)
+    return normalize_field(num, den)

@@ -1,0 +1,1 @@
+from tpugs_torch.raster.api import rasterize  # noqa: F401

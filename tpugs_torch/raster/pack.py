@@ -26,25 +26,39 @@ def pack_isect_all(
     proj: Projected, colors3: Optional[torch.Tensor], plan: Plan
 ) -> torch.Tensor:
     opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
-    zeros = torch.zeros_like(opac)
+    return pack_rows(proj.means2d, proj.conics, opac, proj.depths, colors3, plan)
+
+
+def pack_rows(
+    means2d: torch.Tensor,  # (N, 2) original order
+    conics: torch.Tensor,  # (N, 3)
+    opacities: torch.Tensor,  # (N,) validity-masked
+    depths: Optional[torch.Tensor],  # (N,) or None for zeros
+    colors3: Optional[torch.Tensor],  # (N, 3) or None for zeros
+    plan: Plan,
+) -> torch.Tensor:
+    """``pack_isect_all`` of loose per-Gaussian tensors."""
+    zeros = torch.zeros_like(opacities)
+    if depths is None:
+        depths = zeros
     if colors3 is None:
         c0 = c1 = c2 = zeros
     else:
         c0, c1, c2 = colors3[:, 0], colors3[:, 1], colors3[:, 2]
     packed = torch.stack(
         [
-            proj.means2d[:, 0],
-            proj.means2d[:, 1],
-            proj.conics[:, 0],
-            proj.conics[:, 1],
-            proj.conics[:, 2],
-            opac,
-            proj.depths,
+            means2d[:, 0],
+            means2d[:, 1],
+            conics[:, 0],
+            conics[:, 1],
+            conics[:, 2],
+            opacities,
+            depths,
             zeros,
             c0,
             c1,
             c2,
-            proj.depths,
+            depths,
             zeros,
             zeros,
             zeros,

@@ -8,8 +8,9 @@ order and f32 arithmetic:
 1. depth order: a stable argsort of depth, ``+inf`` for invalid Gaussians;
 2. tile rectangles (``tile_bbox``) expanded row-major per Gaussian with an
    exclusive cumsum and ``repeat_interleave`` (one host sync for the total);
-3. the sub-cutoff ellipse cull (``qmin <= sig_cut + 1e-3``), same f32
-   expression as ``pallas_tiled.py:357-396``;
+3. the sub-cutoff ellipse cull (``binning.tile_cut_mask`` without its
+   magnitude slack: ``qmin <= sig_cut + 1e-3``, the f32 expression of
+   ``pallas_tiled.py:357-396``);
 4. a sort by (tile, depth rank);
 5. per-tile spans padded to ``BLOCK`` Gaussians, ``padded_gid``;
 6. each Gaussian's intersection positions in increasing tile order, stored
@@ -33,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from tpugs_torch.raster.binning import tile_bbox, tile_grid
+from tpugs_torch.raster.binning import tile_bbox, tile_cut_mask, tile_grid
 from tpugs_torch.raster.projection import Projected
 
 BLOCK = 128  # Gaussians per kernel block
@@ -119,34 +120,11 @@ def build_plan(
     gy = ty0[rank].long() + jy
 
     # 3. exact sub-cutoff cull: min of the conic quadratic over the tile
-    #    rectangle against ln(255*op) (pallas_tiled.py:357-396)
-    ts = float(tile_size)
-    x0 = gx.to(torch.float32) * ts
-    y0 = gy.to(torch.float32) * ts
-    mx, my = m2d[rank, 0], m2d[rank, 1]
-    ca, cb, cc = conics[rank, 0], conics[rank, 1], conics[rank, 2]
-    lx = x0 - mx
-    ux = lx + ts
-    ly = y0 - my
-    uy = ly + ts
-    inside = (lx <= 0.0) & (ux >= 0.0) & (ly <= 0.0) & (uy >= 0.0)
-    ca_s = torch.clamp(ca, min=1e-12)
-    cc_s = torch.clamp(cc, min=1e-12)
-
-    def edge_x(dxe):
-        dye = torch.clamp(-cb * dxe / cc_s, min=ly, max=uy)
-        return (0.5 * ca) * dxe * dxe + (0.5 * cc) * dye * dye + cb * dxe * dye
-
-    def edge_y(dye):
-        dxe = torch.clamp(-cb * dye / ca_s, min=lx, max=ux)
-        return (0.5 * ca) * dxe * dxe + (0.5 * cc) * dye * dye + cb * dxe * dye
-
-    qmin = torch.minimum(
-        torch.minimum(edge_x(lx), edge_x(ux)),
-        torch.minimum(edge_y(ly), edge_y(uy)),
-    )
-    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
-    keep = torch.nonzero(qmin <= sig_cut[rank] + 1e-3).squeeze(1)
+    #    rectangle against ln(255*op) (pallas_tiled.py:357-396, which has
+    #    no magnitude slack)
+    keep = tile_cut_mask(m2d[rank], conics[rank], sig_cut[rank], gx[:, None], gy[:, None],
+                         tile_size, magnitude_slack=False)
+    keep = torch.nonzero(keep[:, 0]).squeeze(1)
     rank = rank[keep]
     tid = (gy * ntx + gx)[keep]
     n_isects = rank.shape[0]
@@ -218,6 +196,18 @@ def scatter_columns(plan: Plan) -> torch.Tensor:
     return _inverse(plan.slot_order)
 
 
+def slot_columns(plan: Plan):
+    """(slot_order (N,) int64, culled (N,) int64): the columns of the
+    cover-major slot table, a stable sort of the Gaussians by descending
+    kept-intersection count (their CSR lengths), and those counts in
+    column order. The striped layout and the XLA reduce engine
+    (``raster/reduce.py``) share them."""
+    off = plan.gauss_offsets.long()
+    per_orig = off[1:] - off[:-1]
+    slot_order = torch.sort(-per_orig, stable=True).indices
+    return slot_order, per_orig[slot_order]
+
+
 def with_scatter_extras(plan: Plan) -> Plan:
     """``plan`` with the striped layout of the scatter engine:
 
@@ -246,8 +236,7 @@ def with_scatter_extras(plan: Plan) -> Plan:
     i64 = dict(dtype=torch.int64, device=dev)
     off = plan.gauss_offsets.long()
     per_orig = off[1:] - off[:-1]
-    slot_order = torch.sort(-per_orig, stable=True).indices
-    culled = per_orig[slot_order]
+    slot_order, culled = slot_columns(plan)
     # Columns are sorted by descending count, so a 128-column block is
     # live in stripe j iff its first column is, and the padded cap of
     # stripe j is BLOCK x #{blocks b : culled[BLOCK * b] > j}.

@@ -383,18 +383,40 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def channel_chunks(channels: int):
+    """[start, end) column ranges of at most MAX_CHANNELS each, B5's widest
+    launch: a wider render runs B4 and B5 once per chunk."""
+    return [(a, min(a + MAX_CHANNELS, channels)) for a in range(0, channels, MAX_CHANNELS)]
+
+
 class RenderTrain(torch.autograd.Function):
     """(image (H, W, D), alpha (H, W)) of one camera, differentiable in
     means2d, conics, opacities, colours and the background. The backward
     is B5 then B3. ``abs_probe`` (N, 2) never touches the render; its
-    gradient is the absgrad statistic, sum over pixels of |d means2d|."""
+    gradient is the absgrad statistic, sum over pixels of |d means2d|.
+
+    Above MAX_CHANNELS channels B4 and B5 run once per chunk of
+    ``channel_chunks``: alpha and the walked blocks do not depend on the
+    colours (the first chunk's are kept), and the alpha adjoint is linear in
+    the per-channel terms u and V, so each chunk's B5 gets its own channels'
+    ``grem0``, only the first gets the background/alpha term ``hterm``, and
+    the chunks' geometry gradients are summed. The absgrad columns, sums of
+    absolute values per pixel, are not linear in the chunks: a probe with
+    more than MAX_CHANNELS channels raises."""
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, background, abs_probe,
                 plan, trans_eps, contrib_dtype, mark, record):
+        chunks = channel_chunks(colors.shape[1])
+        if len(chunks) > 1 and (abs_probe is not None or record is not None):
+            raise ValueError(f"{colors.shape[1]} channels render in chunks of {MAX_CHANNELS}: "
+                             "abs_probe and record take at most that many")
         geom, cols = pack_train(means2d, conics, opacities, colors, plan)
         mark("pack")
-        image, alpha, done = train_forward(geom, cols, plan, trans_eps)
+        outs = [train_forward(geom, cols[:, a:b].contiguous(), plan, trans_eps)
+                for a, b in chunks]
+        image = torch.cat([o[0] for o in outs], -1) if len(outs) > 1 else outs[0][0]
+        _, alpha, done = outs[0]
         if record is not None:
             record.update(geom=geom, cols=cols, plan=plan, trans_eps=trans_eps,
                           image=image.detach(), alpha=alpha.detach(), blocks_done=done)
@@ -409,7 +431,7 @@ class RenderTrain(torch.autograd.Function):
     def backward(ctx, g_image, g_alpha):
         geom, cols, image, alpha, done, background = ctx.saved_tensors
         plan, mark = ctx.plan, ctx.mark
-        d = cols.shape[1]
+        chunks = channel_chunks(cols.shape[1])
         g_image = g_image.float().contiguous()
         transs = 1.0 - alpha
         h = -g_alpha.float()
@@ -420,17 +442,26 @@ class RenderTrain(torch.autograd.Function):
             d_bg = torch.einsum("hw,hwd->d", transs, g_image)
             img_nobg = image - transs[..., None] * background
         hterm = (h * transs).contiguous()
-        grem0 = (g_image * img_nobg).sum(-1).contiguous()
-        rows = train_rows(geom, cols, g_image, hterm, grem0, done, plan, ctx.contrib_dtype)
-        if ctx.record is not None:
-            ctx.record.update(g_image=g_image, hterm=hterm, grem0=grem0,
-                              contrib_dtype=ctx.contrib_dtype, rows=rows)
-        mark("B5 rows")
-        sums = reduce_rows(rows, plan, d + GEOM_GRADS)
-        mark("B3 reduce")
-        gg = sums[:, d:]
+        col_grads, geo_grads = [], None
+        for i, (a, b) in enumerate(chunks):
+            g_c = g_image[..., a:b].contiguous()
+            grem0 = (g_c * img_nobg[..., a:b]).sum(-1).contiguous()
+            rows = train_rows(geom, cols[:, a:b].contiguous(), g_c,
+                              hterm if i == 0 else torch.zeros_like(hterm), grem0, done, plan,
+                              ctx.contrib_dtype)
+            if ctx.record is not None:
+                ctx.record.update(g_image=g_image, hterm=hterm, grem0=grem0,
+                                  contrib_dtype=ctx.contrib_dtype, rows=rows)
+            mark("B5 rows")
+            sums = reduce_rows(rows, plan, b - a + GEOM_GRADS)
+            mark("B3 reduce")
+            col_grads.append(sums[:, : b - a])
+            gg = sums[:, b - a:]
+            geo_grads = gg if geo_grads is None else geo_grads + gg
+        d_col = torch.cat(col_grads, 1) if len(col_grads) > 1 else col_grads[0]
+        gg = geo_grads
         d_abs = gg[:, 6:8] if ctx.needs_input_grad[5] else None
-        return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], sums[:, :d], d_bg, d_abs,
+        return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], d_col, d_bg, d_abs,
                 None, None, None, None, None)
 
 

@@ -5,7 +5,7 @@ fields, defaults and ``adjust_steps``.
 Fields the port does not run yet are kept so that one configuration
 drives both packages. ``Trainer`` raises on the values that need an
 unported part (``strategy`` "default"/"mcmc", pose and appearance
-optimisation, ``raster_engine`` "tiled") and on any field of ``NOT_READ``
+optimisation) and on any field of ``NOT_READ``
 set away from its default, so that such a setting is not ignored. The
 ``pallas_*`` fields keep their names and configure the port's train
 kernels (B4/B5): tile size, gradient-row dtype and early-exit threshold.
@@ -101,8 +101,8 @@ class TrainConfig:
     far_plane: float = 1e10
     antialiased: bool = False
     # "auto" and "pallas": the train kernels (B4/B5) on CUDA tensors, their
-    # plain twins on CPU tensors; "tiled" waits for the differentiable
-    # tiled path
+    # plain twins on CPU tensors, at pallas_trans_eps; "tiled": the same
+    # kernels with no early exit at TileConfig's tile (render_tiled)
     raster_engine: str = "auto"
     pallas_tile_size: int = 0  # 0 = auto: 32 for >= 2^20-pixel renders, else 16
     pallas_size_margin: float = 1.2  # the reference's static buckets (NOT_READ)

@@ -5,7 +5,7 @@
 ``GradState`` accumulates the screen-space gradient statistic on the
 trainer's device. Of the strategies only "none" runs in this slice: the
 Default and MCMC ``refine`` (and the trainer's optimizer-state surgery
-around it) wait for ROADMAP item 11.
+around it) wait for ROADMAP item 4.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def make_strategy(config, scene_scale: float, seed: int = 0):
     if config.strategy in ("default", "mcmc"):
         raise NotImplementedError(
             f"strategy {config.strategy!r} (densification refine) is not ported yet: "
-            "ROADMAP item 11; use strategy='none'"
+            "ROADMAP item 4; use strategy='none'"
         )
     if config.strategy == "none":
         return None

@@ -6,7 +6,9 @@
 
 Joint RGB + feature distillation: per step, projection and SH on the
 scene's tensors, the exact per-view plan, the differentiable render
-(``raster/train.py``: kernel B4 forward, B5 + B3 backward), L1 + SSIM,
+(``raster/train.py``: kernel B4 forward, B5 + B3 backward; with
+``raster_engine="tiled"``, ``raster/tiled.py::render_tiled``, the same
+kernels with no early exit at the ``TileConfig`` tile), L1 + SSIM,
 the optional depth loss, the feature L1 against the teacher, and one Adam
 step per parameter group. ``train_chunk`` is a plain loop over steps: the
 reference's ``lax.scan`` and static size buckets have no counterpart, and
@@ -14,7 +16,7 @@ nothing overflows because plans are exact. The screen-gradient statistic
 comes from a zero ``offset2d`` probe added to the projected means (and the
 absgrad probe of the render), as in the reference: no hooks.
 
-Not ported yet (ROADMAP item 11): densification ``refine`` and its
+Not ported yet (ROADMAP item 4): densification ``refine`` and its
 optimizer-state surgery, pose and appearance modules, LPIPS, ``evaluate``
 and checkpoints, the dataset and the apps.
 """
@@ -29,9 +31,11 @@ import torch
 
 from tpugs_torch.core.device import DeviceLike, resolve_device
 from tpugs_torch.core.scene import GaussianScene
+from tpugs_torch.raster.api import plan_render, rasterize_with_plan
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import Projected, ProjectionConfig, project, view_directions
 from tpugs_torch.raster.sh import sh_to_color
+from tpugs_torch.raster.tiled import TileConfig, render_tiled
 from tpugs_torch.raster.train import render_plan_train, render_scene
 from tpugs_torch.train.config import NOT_READ, TrainConfig, unread_settings
 from tpugs_torch.train.metrics import ssim_loss
@@ -190,21 +194,17 @@ class Trainer:
         device: DeviceLike = "cuda",
     ):
         self.device = resolve_device(device)
-        if cfg.raster_engine == "tiled":
-            raise NotImplementedError(
-                "raster_engine 'tiled' (the differentiable tiled path) is not ported yet: "
-                "ROADMAP item 7; use 'auto'")
-        if cfg.raster_engine not in ("auto", "pallas"):
+        if cfg.raster_engine not in ("auto", "pallas", "tiled"):
             raise ValueError(f"unknown raster_engine {cfg.raster_engine!r} "
                              "(expected auto|pallas|tiled)")
         if n_cameras > 0 and (cfg.pose_opt or cfg.pose_noise > 0.0):
-            raise NotImplementedError("pose optimisation is not ported yet: ROADMAP item 11")
+            raise NotImplementedError("pose optimisation is not ported yet: ROADMAP item 4")
         if n_cameras > 0 and cfg.app_opt and scene.features is not None:
             raise NotImplementedError("appearance optimisation is not ported yet: "
-                                      "ROADMAP item 11")
+                                      "ROADMAP item 4")
         unread = unread_settings(cfg)
         if unread:
-            raise NotImplementedError("not read by the port yet (ROADMAP item 11): " + ", ".join(
+            raise NotImplementedError("not read by the port yet (ROADMAP item 4): " + ", ".join(
                 f"TrainConfig.{k} ({NOT_READ[k]})" for k in unread))
         self.cfg = cfg
         self.scene = GaussianScene(**{
@@ -224,6 +224,10 @@ class Trainer:
         self.proj_config = ProjectionConfig(near_plane=cfg.near_plane,
                                             far_plane=cfg.far_plane,
                                             antialiased=cfg.antialiased)
+        # "auto" and "pallas": the kernels at pallas_trans_eps and the Pallas
+        # tile; "tiled": render_tiled (no early exit) at tile_config's tile
+        self.engine = "tiled" if cfg.raster_engine == "tiled" else "pallas"
+        self.tile_config = TileConfig()
         self.tile_size = cfg.pallas_tile_size or (32 if width * height >= (1 << 20) else 16)
         self.contrib_dtype = getattr(torch, cfg.pallas_contrib_dtype)
         self._rng = np.random.default_rng(cfg.seed + 7)
@@ -279,14 +283,20 @@ class Trainer:
     def _loss_from_projected(self, proj, opac, allc, abs_probe, image, teacher_feats,
                              points, point_depths, bkgd, feature_proj, feat_dim):
         cfg = self.cfg
+        tiled = self.engine == "tiled"
         with torch.no_grad():
-            plan = build_plan(Projected(*(t.detach() for t in proj)), self.width,
-                              self.height, self.tile_size)
+            plan = build_plan(Projected(*(t.detach() for t in proj)), self.width, self.height,
+                              self.tile_config.tile_size if tiled else self.tile_size)
         self._mark("plan")
-        img, alpha = render_plan_train(
-            proj.means2d, proj.conics, opac, allc, plan, trans_eps=cfg.pallas_trans_eps,
-            abs_probe=abs_probe, contrib_dtype=self.contrib_dtype, on_stage=self.on_stage,
-            record=self.record)
+        if tiled:
+            img, alpha = render_tiled(proj.means2d, proj.conics, opac, allc, plan,
+                                      self.tile_config, abs_probe=abs_probe,
+                                      on_stage=self.on_stage, record=self.record)
+        else:
+            img, alpha = render_plan_train(
+                proj.means2d, proj.conics, opac, allc, plan, trans_eps=cfg.pallas_trans_eps,
+                abs_probe=abs_probe, contrib_dtype=self.contrib_dtype, on_stage=self.on_stage,
+                record=self.record)
         if self.on_stage is not None:
             img, alpha = _StageAtGrad.apply(self.on_stage, "loss backward", img, alpha)
         rgb = img[..., :3]
@@ -369,7 +379,7 @@ class Trainer:
                     and self.step < self.cfg.refine_stop_iter):
                 # gsplat's opacity reset and the zeroing of the opacities
                 # group's Adam moments come with the strategies
-                raise NotImplementedError("opacity reset: ROADMAP item 11")
+                raise NotImplementedError("opacity reset: ROADMAP item 4")
         self.step += 1
         return {"loss": loss.detach(), **{k: aux[k].detach() for k in
                                           ("l1", "ssim_loss", "feature_l1", "depth_l")}}
@@ -433,6 +443,17 @@ class Trainer:
 
     # ---------------------------------------------------------------- eval
     def render_eval(self, viewmat, K, sh_degree: Optional[int] = None):
-        """RGB render (image (H, W, 3), alpha (H, W)) through kernel B4."""
-        return render_scene(self.scene, self._tensor(viewmat), self._tensor(K), self.width,
-                            self.height, sh_degree, self.proj_config, self.tile_size)
+        """RGB render (image (H, W, 3), alpha (H, W)) through kernel B4: with
+        the "tiled" engine through ``rasterize_with_plan``, else at the
+        train tile and early exit (``render_scene``)."""
+        viewmat, K = self._tensor(viewmat), self._tensor(K)
+        if self.engine != "tiled":
+            return render_scene(self.scene, viewmat, K, self.width, self.height, sh_degree,
+                                self.proj_config, self.tile_size)
+        deg = self.scene.sh_degree if sh_degree is None else sh_degree
+        s = self.scene
+        with torch.no_grad():
+            plan = plan_render(s.means, s.quats, s.scales, s.opacities, viewmat, K, self.width,
+                               self.height, self.proj_config, self.tile_config)
+            return rasterize_with_plan(s.means, s.quats, s.scales, s.opacities, s.colors_all,
+                                       viewmat, K, plan, sh_degree=deg)
