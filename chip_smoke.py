@@ -53,8 +53,10 @@ Seven phases; the first failure ends the run with a nonzero exit:
              exit (the reference's tiled path): ``create_feature_field``
              (B4 renders, B2 with f32 rows and B3 lift; ms/view, peak
              memory, launches), ``prune_by_gradients`` (B2 on one zero
-             channel, B3) then ``verify_pruning_equivalence`` (B4; max
-             pixel error under 1/510), one ``rasterize`` in RGB+ED with a
+             channel, B3) on the scene plus 10 opaque Gaussians planted
+             outside every view, which must be exactly the ones removed,
+             then ``verify_pruning_equivalence`` (B4; max pixel error under
+             1/510), one ``rasterize`` in RGB+ED with a
              background forward and backward (B4; B5 and B3; ms, peak,
              every gradient finite and nonzero); 64 random tiles hold B4,
              B2 and B3 (view 0) and B5 (the rasterize render) against their
@@ -1078,6 +1080,7 @@ def phase_train():
 # reference's tiled path): B4 renders, B2 with f32 rows and B3 lift, B5 and
 # B3 differentiate ``rasterize``.
 EAGER_TILE = 16
+PLANTED = 10  # opaque Gaussians outside every view, which pruning must remove
 
 
 def phase_eager():
@@ -1175,16 +1178,34 @@ def phase_eager():
     check(within_rows_tol(b2[1], b2[2], torch.float32), "B2 f32 within ROWS_TOL")
     check(b3_equal, "B3 bit-equal on the sampled Gaussians")
 
-    # 2. pruning and the render-equivalence check
+    # 2. pruning and the render-equivalence check. At trans_eps 0 no
+    # Gaussian of the canonical scene has zero weight in every view, so
+    # PLANTED opaque Gaussians far above the orbit (outside every frustum)
+    # join it: exactly those must go, and the renders must agree.
+    planted = scene.replace(**{
+        name: torch.cat([getattr(scene, name), extra]) for name, extra in dict(
+            means=torch.tensor([[0.0, 100.0, 0.0]], device="cuda").expand(PLANTED, 3),
+            quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device="cuda").expand(PLANTED, 4),
+            log_scales=torch.full((PLANTED, 3), -3.0, device="cuda"),
+            logit_opacities=torch.full((PLANTED,), 2.0, device="cuda"),
+            sh0=torch.ones((PLANTED, 1, 3), device="cuda"),
+            shN=torch.zeros((PLANTED, *scene.shN.shape[1:]), device="cuda"),
+        ).items()})
+    n_p = planted.num_gaussians
     K.LAUNCHES.reset()
     t0 = time.perf_counter()
-    pruned = prune_by_gradients(scene, cams, verbose=False)
+    pruned = prune_by_gradients(planted, cams, verbose=False)
     torch.cuda.synchronize()
     prune_s = time.perf_counter() - t0
     launches_p = K.LAUNCHES.snapshot()
+    check(pruned.num_gaussians == n and all(
+        torch.equal(getattr(pruned, f), getattr(scene, f)) for f in (
+            "means", "quats", "log_scales", "logit_opacities", "sh0", "shN")),
+          f"prune_by_gradients removed exactly the {PLANTED} planted Gaussians "
+          f"({n_p - pruned.num_gaussians} removed)")
     K.LAUNCHES.reset()
     t0 = time.perf_counter()
-    max_err, total_err = verify_pruning_equivalence(scene, pruned, cams, verbose=False)
+    max_err, total_err = verify_pruning_equivalence(planted, pruned, cams, verbose=False)
     torch.cuda.synchronize()
     verify_s = time.perf_counter() - t0
     launches_v = K.LAUNCHES.snapshot()
@@ -1192,12 +1213,13 @@ def phase_eager():
           f"prune_by_gradients ran B2 and B3 every view ({launches_p})")
     check(launches_v["train_fwd"] >= 2 * VIEWS,
           f"verify_pruning_equivalence rendered both scenes through B4 ({launches_v})")
-    share = 100 * (n - pruned.num_gaussians) / n
-    print(f"phase 5 prune_by_gradients: {prune_s:.3f} s for {VIEWS} views, {share:.3f}% "
-          f"pruned ({n - pruned.num_gaussians} of {n}); verify_pruning_equivalence: "
+    share = 100 * (n_p - pruned.num_gaussians) / n_p
+    print(f"phase 5 prune_by_gradients on N={n_p} ({n} + {PLANTED} planted outside every "
+          f"view): {prune_s:.3f} s for {VIEWS} views, {share:.4f}% pruned ({n_p - pruned.num_gaussians} "
+          f"of {n_p}, exactly the planted ones); verify_pruning_equivalence: "
           f"{verify_s:.3f} s, max pixel error {max_err:.3e} (< 1/510), total "
           f"{total_err:.3e}; launches {launches_p} then {launches_v}", flush=True)
-    del pruned
+    del pruned, planted
 
     # 3. rasterize RGB+ED forward and backward
     leaves = [t.detach().clone().requires_grad_() for t in (
@@ -1284,8 +1306,12 @@ def phase_eager():
                      pairs * PAIR_OPS + weighted * 2 * d4, PEAK_F32_FLOPS)
     b4_walked = bound(walked * 128 * (8 + d4) * 4 + h * w * (d4 + 1) * 4,
                       pairs * (PAIR_OPS + 2 * d4), PEAK_F32_FLOPS)
-    b2_bytes = walked * 128 * 64 + plan.n_tiles * tspx * D * 4 + plan.T_padded * (D + 1) * 4
-    b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_F32_FLOPS)
+    # B2 walks its own pack over whole tiles: every walked pair needs its
+    # alpha, only those with a nonzero weight need the (D + 1)-column product
+    pairs2, weighted2, _ = walked_pairs(packed, aplan, 0.0)
+    b2_bytes = (pairs2 // tspx) * 64 + plan.n_tiles * tspx * D * 4 + plan.T_padded * (D + 1) * 4
+    b2_bound = bound(b2_bytes, pairs2 * PAIR_OPS + weighted2 * 2 * (D + 1), PEAK_F32_FLOPS)
+    b2_walked = bound(b2_bytes, pairs2 * (PAIR_OPS + 2 * (D + 1)), PEAK_F32_FLOPS)
     b3_bound = bound(plan.n_isects * ((D + 1) * 4 + 4) + n * ((D + 1) * 4 + 4),
                      plan.n_isects * (D + 1), PEAK_F32_FLOPS)
     # rasterize rendered view 0 of the same scene: B5 replays B4's walk
@@ -1298,18 +1324,24 @@ def phase_eager():
           f"({pairs} pixel-Gaussian pairs, {weighted} with a nonzero weight, {kept} with a "
           f"nonzero alpha); B4 D={d4} {b4_ms:.3f} ms (twin {b4_plain:.1f}; bound "
           f"{b4_bound[0]:.4f} ms by {b4_bound[1]}, {b4_walked[0]:.4f} on the walked pairs' "
-          f"products); B2 f32 D={D} {b2_ms:.3f} ms (twin {b2_plain:.1f}; bound "
-          f"{b2_bound[0]:.4f} ms by {b2_bound[1]} on the walked pairs); B3 {b3_ms:.3f} ms "
+          f"products); B2 f32 D={D} {b2_ms:.3f} ms (twin {b2_plain:.1f}; {pairs2} pairs "
+          f"walked, {weighted2} with a nonzero weight; bound {b2_bound[0]:.4f} ms by "
+          f"{b2_bound[1]}, share {b2_bound[0] / b2_ms:.3f}; {b2_walked[0]:.4f} on the walked "
+          f"pairs' products, share {b2_walked[0] / b2_ms:.3f}); B3 {b3_ms:.3f} ms "
           f"(twin {b3_plain:.1f}, library {b3_lib:.3f}, {lib_err[1]:.3e} of max from the "
           f"kernel); B5 D={d5} {b5_ms:.3f} ms (twin {b5_plain:.1f}; bound {b5_bound[0]:.4f} "
           f"ms by {b5_bound[1]})", flush=True)
+    b4_rec = rec("B4-tiled", "train_fwd (render_tiled, trans_eps 0)",
+                 "tpugs_torch/csrc/train_fwd.cu", "tpugs/raster/pallas_train.py:250",
+                 launches["train_fwd"], b4, b4_ms, b4_plain, b4_bound)
+    b4_rec.update(bound_walked_ms=b4_walked[0])
+    b2_rec = rec("B2-tiled", "adjoint (backproject_tiled, f32, trans_eps 0)",
+                 "tpugs_torch/csrc/adjoint.cu", "tpugs/raster/pallas_tiled.py:1623",
+                 launches["adjoint"], b2, b2_ms, b2_plain, b2_bound)
+    b2_rec.update(bound_walked_ms=b2_walked[0])
     return [
-        rec("B4-tiled", "train_fwd (render_tiled, trans_eps 0)", "tpugs_torch/csrc/train_fwd.cu",
-            "tpugs/raster/pallas_train.py:250", launches["train_fwd"], b4, b4_ms, b4_plain,
-            b4_bound),
-        rec("B2-tiled", "adjoint (backproject_tiled, f32, trans_eps 0)",
-            "tpugs_torch/csrc/adjoint.cu", "tpugs/raster/pallas_tiled.py:1623",
-            launches["adjoint"], b2, b2_ms, b2_plain, b2_bound),
+        b4_rec,
+        b2_rec,
         rec("B3-tiled", "reduce (backproject_tiled rows)", "tpugs_torch/csrc/reduce.cu",
             "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms, b3_plain,
             b3_bound, b3_lib),

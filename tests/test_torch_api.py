@@ -7,6 +7,9 @@ scenes at 64x48, 3 orbit cameras.
   images and alphas (tpugs' tiled-against-naive limit), ED channels 2e-5
   relative to their max; ``means2d``/``depths`` 1e-4 absolute, ``radii``
   equal;
+* at 72x44 (partial edge tiles), 2 cameras, RGB+ED with (C, 3)
+  backgrounds: the same limits, and the gradients of one camera's render
+  against ``jax.grad`` of tpugs', 5e-5 of each max;
 * the empty scene renders the background (1e-6); ``pad_to`` changes no
   pixel (1e-6), as tpugs' ``tests/test_rasterizer.py`` holds;
 * gradients of ``rasterize_with_plan`` by means, quats, scales, opacities
@@ -17,6 +20,9 @@ scenes at 64x48, 3 orbit cameras.
   (means2d, conics, opacities, colours, background) 5e-5 of its max; the
   absgrad probe against tpugs' ``render_tiled`` probe, 5e-5 of its max;
   at D = 515 (two channel chunks, one ``hterm``) the same limits;
+* ``render_tiled`` at D = 4 and 515 against ``jax.grad`` of tpugs'
+  ``render_tiled`` on the binning of the same projection: image and alpha
+  2e-5, every gradient 5e-5 of its max;
 * ``render_tiled_autodiff``'s block size and tiles per chunk change no
   pixel beyond 1e-5 (tpugs' ``test_tiled_block_boundary_invariance``);
 * the binning: ``tile_cut_mask``, ``culled_covers`` and
@@ -104,6 +110,44 @@ def test_rasterize_matches_tpugs_in_every_mode(setup, mode):
     assert len(meta["plans"]) == 3 and meta["plans"][0].tile_size == 16
     np.testing.assert_array_equal(meta["plans"][1].order.numpy(),
                                   np.asarray(meta_j["plans"][1].order))
+
+
+def test_rasterize_with_partial_edge_tiles_matches_tpugs(setup):
+    js, _, ts = setup
+    ew, eh = 72, 44
+    jc = orbit_cameras(2, ew, eh, radius=2.5)
+    bgs = np.array([[0.2, 0.4, 0.6], [1.0, 0.0, 0.5]], np.float32)
+    kw = dict(sh_degree=3, render_mode="RGB+ED", backgrounds=bgs)
+    imgs_j, alphas_j, meta_j = ja.rasterize(*_jargs(js), js.colors_all, jc.viewmats, jc.Ks,
+                                            ew, eh, **kw)
+    leaves = [x.detach().clone().requires_grad_() for x in (*_targs(ts), ts.colors_all)]
+    imgs, alphas, meta = rasterize(*leaves, np.array(jc.viewmats), np.array(jc.Ks), ew, eh,
+                                   **kw)
+    assert imgs.shape == (2, eh, ew, 4)
+    imgs_j = np.asarray(imgs_j)
+    ed, ed_j = imgs[..., -1].detach().numpy(), imgs_j[..., -1]
+    _close(ed / np.abs(ed_j).max(), ed_j / np.abs(ed_j).max(), 2e-5, "ED channel")
+    _close(imgs[..., :3].detach().numpy(), imgs_j[..., :3], 2e-5, "images")
+    _close(alphas.detach().numpy(), alphas_j, 2e-5, "alphas")
+    _close(meta["means2d"].numpy(), meta_j["means2d"], 1e-4, "means2d")
+    np.testing.assert_array_equal(meta["radii"].numpy(), np.asarray(meta_j["radii"]))
+    target = np.random.default_rng(6).normal(size=(eh, ew, 4)).astype(np.float32)
+
+    plan_j = ja.plan_render(*_jargs(js), jc.viewmats[1], jc.Ks[1], ew, eh)
+
+    def loss_j(*a):
+        img, _ = ja.rasterize_with_plan(*a, jc.viewmats[1], jc.Ks[1], plan_j, 3, "RGB+ED",
+                                        bgs[1])
+        return jnp.sum(img[..., :3] * target[..., :3])
+
+    g_ref = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3, 4)))(*_jargs(js), js.colors_all)
+    grads = torch.autograd.grad((imgs[1, ..., :3] * torch.from_numpy(target[..., :3])).sum(),
+                                leaves)
+    for name, g, r in zip(("means", "quats", "scales", "opacities", "colors"), grads, g_ref):
+        r = np.asarray(r)
+        scale = float(np.abs(r).max())
+        assert scale > 0, name
+        _close(g.numpy() / scale, r / scale, 5e-5, name)
 
 
 def test_rasterize_one_background_and_direct_colours(setup):
@@ -208,6 +252,34 @@ def test_render_tiled_matches_autodiff(setup, d):
     _close(alpha, alpha_r, 2e-5, "alpha")
     for name, a, b in zip(NAMES, grads, grads_r):
         scale = float(b.abs().max())
+        assert scale > 0, name
+        _close(a / scale, b / scale, 5e-5, name)
+
+
+@pytest.mark.parametrize("d", [4, MAX_CHANNELS + 3])
+def test_render_tiled_matches_tpugs(setup, d):
+    _, jc, ts = setup
+    proj, plan, inputs, g, s = _view_inputs(ts, jc, 1, d, d)
+    img, alpha, grads = _grads(render_tiled, inputs, plan, g, s)
+    binning = _j_binning(JProjected(*(jnp.asarray(x.numpy()) for x in proj)), 16, W, H, 64)
+    assert int(binning.max_cover_req) <= 64
+    order = binning.order
+    nblk = max(1, -(-int(binning.max_span) // 128))
+
+    def loss_j(m2d, con, opa, cols, bg):
+        img, alpha = j_render_tiled(m2d[order], con[order], opa[order], cols[order],
+                                    binning.sorted_gid, binning.tile_starts, W, H, nblk,
+                                    background=bg)
+        return jnp.sum(img * g.numpy()) + jnp.sum(alpha * s.numpy()), (img, alpha)
+
+    jin = [jnp.asarray(x.numpy()) for x in inputs]
+    grads_j, (img_j, alpha_j) = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2, 3, 4),
+                                                 has_aux=True))(*jin)
+    _close(img, img_j, 2e-5, "image")
+    _close(alpha, alpha_j, 2e-5, "alpha")
+    for name, a, b in zip(NAMES, grads, grads_j):
+        b = np.asarray(b)
+        scale = float(np.abs(b).max())
         assert scale > 0, name
         _close(a / scale, b / scale, 5e-5, name)
 

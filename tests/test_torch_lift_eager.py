@@ -15,7 +15,15 @@ pure-JAX tiled path), f32, on numpy-seeded scenes of 150 Gaussians (plus
   ``verify_pruning_equivalence`` passes with tpugs' max pixel error to
   1e-6;
 * ``estimate_sizes``: tpugs' buckets; ``select``/``replace`` of the
-  scene: exact.
+  scene: exact;
+* partial edge tiles (72x44 at tile 16, 2 views): ``accumulate_view``,
+  ``compute_visibility_weights`` and ``create_feature_field`` as above
+  (their weights count every pixel of an edge tile, as tpugs' do);
+  ``create_feature_field_batch``'s field 1e-6 where lit, and its weight
+  sums (pixels inside W x H only) 1e-4 of max against tpugs'
+  ``accumulate_view`` of an all-ones feature image, which sums the same
+  pixels; tpugs' own weight sums exceed them where a Gaussian reaches
+  past the image.
 """
 
 import jax.numpy as jnp
@@ -45,6 +53,7 @@ from tpugs_torch.lift import ops as tops
 from tpugs_torch.lift import prune as tprune
 
 W, H, D, VIEWS = 64, 48, 8, 3
+EW, EH = 72, 44  # not multiples of the tile: partial edge tiles
 
 
 def _planted(js):
@@ -74,6 +83,14 @@ def setup():
     tc = cameras_from_numpy(np.array(jc.viewmats), np.array(jc.Ks), W, H, device="cpu")
     tenc = linear_encoder_from_numpy(np.array(jenc._proj), device="cpu")
     return js, jc, jenc, _port_scene(js), tc, tenc
+
+
+@pytest.fixture(scope="module")
+def edge(setup):
+    js, _, jenc, ts, _, tenc = setup
+    jc = orbit_cameras(2, EW, EH, radius=2.5)
+    tc = cameras_from_numpy(np.array(jc.viewmats), np.array(jc.Ks), EW, EH, device="cpu")
+    return js, jc, jenc, ts, tc, tenc
 
 
 def _within(got, ref, frac, what):
@@ -214,3 +231,56 @@ def test_select_and_replace(setup):
                       feature_proj=torch.ones((4, 2)))
     sel = feat.select(torch.from_numpy(idx))
     assert sel.features.shape == (len(idx), 4) and sel.feature_proj is feat.feature_proj
+
+
+def test_edge_tiles_accumulate_and_visibility_match_tpugs(edge):
+    js, jc, _, ts, tc, _ = edge
+    feats = np.random.default_rng(4).normal(size=(EH, EW, 5)).astype(np.float32)
+    f_j, w_j = jops.accumulate_view(js, jc.viewmats[0], jc.Ks[0], EW, EH,
+                                    feat_image=jnp.asarray(feats))
+    f, w = tops.accumulate_view(ts, tc.viewmats[0], tc.Ks[0], EW, EH,
+                                feat_image=torch.from_numpy(feats), device="cpu")
+    _within(w.numpy(), w_j, 1e-4, "weight sums")
+    _within(f.numpy(), f_j, 1e-4, "feature sums")
+    v_j = np.asarray(jprune.compute_visibility_weights(js, jc))
+    v = tprune.compute_visibility_weights(ts, tc, device="cpu").numpy()
+    _within(v, v_j, 1e-4, "visibility weights")
+    np.testing.assert_array_equal(v > 0, v_j > 0)
+
+
+def test_edge_tiles_create_feature_field_matches_tpugs(edge):
+    js, jc, jenc, ts, tc, tenc = edge
+    ref = np.asarray(jbp.create_feature_field(js, jc, jenc, verbose=False))
+    field = tbp.create_feature_field(ts, tc, tenc, verbose=False, device="cpu").numpy()
+    w = tprune.compute_visibility_weights(ts, tc, device="cpu").numpy()
+    lit = w > 1e-3 * w.max()
+    assert lit.mean() > 0.3
+    np.testing.assert_allclose(field[lit], ref[lit], atol=1e-6)
+    np.testing.assert_array_equal(field[w == 0], 0.0)
+
+
+def test_edge_tiles_batch_weight_sums_count_the_image_only(edge):
+    js, jc, jenc, ts, tc, tenc = edge
+    cw = np.array([1.0, 0.5], np.float32)
+    sizes_j = jbatch.estimate_sizes(js, jc)
+    ref = np.asarray(jbatch.create_feature_field_batch(
+        js, jc.viewmats, jc.Ks, EW, EH, jenc, sizes_j, cam_weights=jnp.asarray(cw)))
+    field = tbatch.create_feature_field_batch(ts, tc.viewmats, tc.Ks, EW, EH, tenc,
+                                              cam_weights=torch.from_numpy(cw),
+                                              device="cpu").numpy()
+    _, den = tbatch.backproject_views(ts, tc.viewmats, tc.Ks, EW, EH, tenc, tile_size=16,
+                                      contrib_dtype=torch.float32, trans_eps=0.0,
+                                      device="cpu", cam_weights=torch.from_numpy(cw))
+    _, den_j = jbatch.backproject_views(js, jc.viewmats, jc.Ks, EW, EH, jenc, sizes_j,
+                                        cam_weights=jnp.asarray(cw))
+    den, den_j = den.numpy(), np.asarray(den_j)
+    ones = jnp.ones((EH, EW, 1))
+    inside = sum(c * np.asarray(jops.accumulate_view(js, jc.viewmats[i], jc.Ks[i], EW, EH,
+                                                     feat_image=ones)[0][:, 0])
+                 for i, c in enumerate(cw))
+    _within(den, inside, 1e-4, "weight sums inside W x H")
+    assert float((den_j - den).max()) > 1e-3 * float(den_j.max())
+    assert float((den_j - den).min()) >= -1e-4 * float(den_j.max())
+    lit = den_j > 1e-3 * den_j.max()
+    np.testing.assert_allclose(field[lit], ref[lit], atol=1e-6)
+    np.testing.assert_array_equal(field[den == 0], 0.0)

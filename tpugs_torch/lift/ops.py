@@ -31,7 +31,8 @@ def accumulate_view(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """One view's fused adjoint pass on ``device``: (sum_p w(g, p) F(p) or
     None, sum_p w(g, p)) per Gaussian, in original order. ``plan``
-    defaults to ``plan_render``'s; ``record`` as in ``backproject_tiled``."""
+    defaults to ``plan_render``'s; its projection is reused where it holds
+    one. ``record`` as in ``backproject_tiled``."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     viewmat, K = viewmat.to(dev), K.to(dev)
@@ -39,8 +40,10 @@ def accumulate_view(
         if plan is None:
             plan = plan_render(scene.means, scene.quats, scene.scales, scene.opacities,
                                viewmat, K, width, height, proj_config)
-        proj = project(scene.means, scene.quats, scene.scales, scene.opacities, viewmat, K,
-                       plan.width, plan.height, proj_config)
+        proj = plan.proj
+        if proj is None:
+            proj = project(scene.means, scene.quats, scene.scales, scene.opacities, viewmat, K,
+                           plan.width, plan.height, proj_config)
         opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
         feats = None if feat_image is None else feat_image.to(dev)
         return backproject_tiled(proj.means2d, proj.conics, opac, feats, plan.plan, record)

@@ -22,7 +22,7 @@ import torch
 
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.plan import Plan, build_plan
-from tpugs_torch.raster.projection import ProjectionConfig, project
+from tpugs_torch.raster.projection import Projected, ProjectionConfig, project
 from tpugs_torch.raster.tiled import TileConfig, check_tile_config, render_tiled
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
@@ -30,11 +30,13 @@ RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
 @dataclasses.dataclass(frozen=True)
 class RasterPlan:
-    """The tile plan of one camera: the exact ``Plan`` and the tile
-    configuration it was built for."""
+    """The tile plan of one camera: the exact ``Plan``, the tile
+    configuration it was built for and the projection (no gradient) it was
+    built from, which ``rasterize``'s meta and ``accumulate_view`` reuse."""
 
     plan: Plan
     tile_config: TileConfig = TileConfig()
+    proj: Optional[Projected] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def order(self) -> torch.Tensor:  # (N,) depth rank -> original index
@@ -64,7 +66,7 @@ def plan_render(
     with torch.no_grad():
         proj = project(means, quats, scales, opacities, viewmat, K, width, height, proj_config)
         plan = build_plan(proj, width, height, tile_config.tile_size)
-    return RasterPlan(plan, tile_config)
+    return RasterPlan(plan, tile_config, proj)
 
 
 def rasterize_with_plan(
@@ -145,11 +147,9 @@ def rasterize(
         images.append(img)
         alphas.append(alpha[..., None])
         plans.append(plan)
-        with torch.no_grad():
-            proj = project(means, quats, scales, opacities, vm, K, width, height, proj_config)
-        means2d.append(proj.means2d)
-        radii.append(proj.radii)
-        depths.append(proj.depths)
+        means2d.append(plan.proj.means2d)
+        radii.append(plan.proj.radii)
+        depths.append(plan.proj.depths)
     meta = {"means2d": torch.stack(means2d), "radii": torch.stack(radii),
             "depths": torch.stack(depths), "plans": plans}
     return torch.stack(images), torch.stack(alphas), meta
