@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Seven phases; the first failure ends the run with a nonzero exit:
+Eight phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -25,7 +25,10 @@ Seven phases; the first failure ends the run with a nonzero exit:
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
              300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs), tiles 16
-             and 32, f32 and bf16 (B2 against its twin, B6 bit-equal).
+             and 32, f32 and bf16 (B2 against its twin, B6 bit-equal); B5's
+             geometry-only launch (``train_geom_rows``) at D = 515 and 1030
+             against its twin, and its columns 0:6 against the sums of the
+             chunked B5 launches' geometry.
 3. full width — the canonical back-projection shape (N = 2^19 Gaussians,
              1296 x 840, D = 512, tile 32, linear encoder, 8 orbit views
              after one warm-up view) through ``backproject_views``, with the
@@ -61,13 +64,27 @@ Seven phases; the first failure ends the run with a nonzero exit:
              every gradient finite and nonzero); 64 random tiles hold B4,
              B2 and B3 (view 0) and B5 (the rasterize render) against their
              twins at trans_eps 0; the kernels' times and bounds on this
-             path's walked pairs.
-6. kernels line — one JSON object per kernel with its launches, errors,
+             path's walked pairs. Then ``render_tiled`` at D = 515 with a
+             background and the absgrad probe at view 0, forward and
+             backward (ms, peak; B5's geometry-only launch once, rebuilt
+             from the render's inputs it gives the probe's gradient bit for
+             bit, 64 tiles against the twin, its time against its bound).
+6. app     — ``tpugs_torch.apps.backproject.main`` from files on disk: the
+             canonical scene plus 10 opaque Gaussians outside every view
+             as a gsplat ``.pt``, a COLMAP model of the 8 orbit views whose
+             points3D.bin holds the scene's 2^19 points, ``linear:512``, the
+             ``pallas`` engine; seconds of load, prune, verify, lift and
+             save (each wrapped and timed) and the rest, peak memory, exactly the 10 planted Gaussians pruned with
+             max pixel error 0, the saved features bit-equal to
+             ``backproject_views`` + ``normalize_field`` on the pruned scene
+             and loaded cameras, the native reader used and equal to the
+             pure one (both timed), the loaded poses within 1e-5.
+7. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
-             B5-tiled.
+             B5-tiled, and B5's geometry-only launch as B5-geom.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -479,6 +496,74 @@ def phase_train_kernels():
     print(f"phase 2 render_plan_train (background, absgrad) on the kernels against the "
           f"twins on the CPU: every gradient column within {worst:.3e} of its max", flush=True)
     check(worst <= 3e-4, "render_plan_train gradients within 3e-4 of each column's max")
+
+
+# (tile, D, view) of phase 2's geometry-only B5: above the colour kernels'
+# 512 channels, two and three channel chunks
+TRAIN_GEOM_SHAPES = ((16, 515, 0), (32, 1030, 1))
+
+
+def phase_train_geom():
+    """B5's geometry-only launch (``train_geom_rows``, 8 columns, any D)
+    against its twin at mid shapes, rows and B3's sums by
+    ``grad_rows_error`` against GRAD_ROWS_TOL[float32]; its columns 0:6
+    summed per Gaussian against the sums of the chunked ``train_rows``
+    launches' geometry (chunks of MAX_CHANNELS, ``hterm`` in the first),
+    within the same limits; two launches bit-equal. Only its own launch
+    counter is checked."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    W, H = 300, 200
+    scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
+    cams = orbit_cameras(2, W, H, radius=3.0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tol = T.GRAD_ROWS_TOL[torch.float32]
+    for ts, D, view in TRAIN_GEOM_SHAPES:
+        vm, Km = cams.viewmats[view], cams.Ks[view]
+        proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
+        plan = build_plan(proj, W, H, ts)
+        opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
+        colors = torch.rand((scene.num_gaussians, D), device="cuda", generator=gen)
+        geom, cols = T.pack_train(proj.means2d, proj.conics, opac, colors, plan)
+        img, alpha, done = T.train_forward(geom, cols, plan)
+        g = torch.randn((H, W, D), device="cuda", generator=gen)
+        hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha)
+        args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+        K.LAUNCHES.reset()
+        rows = T.train_geom_rows(*args)
+        torch.cuda.synchronize()
+        launched = K.LAUNCHES.train_bwd_geom
+        check(launched == 1, f"train_geom_rows launched its kernel once ({launched})")
+        same = torch.equal(T.train_geom_rows(*args), rows)
+        sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
+        rows_t, mags = T.train_rows_plain(*args, magnitudes=True, geometry_only=True)
+        sums_m = K.reduce_rows_plain(mags, plan, T.GEOM_GRADS)
+        a, g_rows, e_rows = T.grad_rows_error(rows, rows_t, 0, mags)
+        _, g_sums, e_sums = T.grad_rows_error(
+            sums, K.reduce_rows_plain(rows_t, plan, T.GEOM_GRADS), 0, sums_m)
+        chunked = torch.zeros_like(sums)
+        for i, (c0, c1) in enumerate(T.channel_chunks(D)):
+            g_c = g[..., c0:c1].contiguous()
+            rows_c = T.train_rows(geom, cols[:, c0:c1].contiguous(), g_c,
+                                  hterm if i == 0 else torch.zeros_like(hterm),
+                                  (g_c * img[..., c0:c1]).sum(-1), done, plan)
+            chunked += K.reduce_rows(rows_c, plan, c1 - c0 + T.GEOM_GRADS)[:, c1 - c0:]
+        chunked[:, 6:] = sums[:, 6:]  # the absolute columns do not add over chunks
+        _, g_chunk, e_chunk = T.grad_rows_error(sums, chunked, 0, sums_m)
+        print(f"phase 2 ts={ts} D={D} B5 train_geom_rows f32 ({len(T.channel_chunks(D))} "
+              f"channel chunks): rows max abs {a:.3e}, {g_rows:.3e} of column-group max, "
+              f"{e_rows:.3e} of the entry's magnitude; B3 sums {g_sums:.3e} and {e_sums:.3e}; "
+              f"columns 0:6 against the chunked launches' geometry {g_chunk:.3e} and "
+              f"{e_chunk:.3e}; a second launch bit-equal {same}", flush=True)
+        check(g_rows <= tol[0] and e_rows <= tol[1] and g_sums <= tol[0] and e_sums <= tol[1],
+              "B5's geometry rows and their sums within GRAD_ROWS_TOL of the twins")
+        check(g_chunk <= tol[0] and e_chunk <= tol[1],
+              "the geometry columns 0:6 equal the chunked launches' sums within GRAD_ROWS_TOL")
+        check(same, "two geometry launches give the same rows")
 
 
 def walked_pairs(geom, plan, trans_eps):
@@ -1182,15 +1267,7 @@ def phase_eager():
     # Gaussian of the canonical scene has zero weight in every view, so
     # PLANTED opaque Gaussians far above the orbit (outside every frustum)
     # join it: exactly those must go, and the renders must agree.
-    planted = scene.replace(**{
-        name: torch.cat([getattr(scene, name), extra]) for name, extra in dict(
-            means=torch.tensor([[0.0, 100.0, 0.0]], device="cuda").expand(PLANTED, 3),
-            quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device="cuda").expand(PLANTED, 4),
-            log_scales=torch.full((PLANTED, 3), -3.0, device="cuda"),
-            logit_opacities=torch.full((PLANTED,), 2.0, device="cuda"),
-            sh0=torch.ones((PLANTED, 1, 3), device="cuda"),
-            shN=torch.zeros((PLANTED, *scene.shN.shape[1:]), device="cuda"),
-        ).items()})
+    planted = plant_outside(scene, PLANTED)
     n_p = planted.num_gaussians
     K.LAUNCHES.reset()
     t0 = time.perf_counter()
@@ -1351,6 +1428,272 @@ def phase_eager():
     ]
 
 
+ABS_D = 515  # above B5's 512-channel rows: two channel chunks and the geometry-only launch
+
+
+def phase_absgrad():
+    """``render_tiled`` (tile 16, trans_eps 0) at the canonical view with
+    D = 515 random colours, a background and the absgrad probe, forward and
+    backward: ms, peak memory, the geometry-only B5 launch's time against
+    its bound; the launch rebuilt from the render's own inputs reproduces
+    the probe's gradient, and 64 random tiles of its rows hold against the
+    twin. Returns B5-geom's kernel record."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.raster.tiled import TileConfig, render_tiled
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+
+    n, w, h, D, ts = N_FULL, W_FULL, H_FULL, ABS_D, EAGER_TILE
+    scene = random_scene(n, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    with torch.no_grad():
+        proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
+                       cams.viewmats[0], cams.Ks[0], w, h)
+        plan = build_plan(proj, w, h, ts)
+    del scene
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
+    colors = torch.rand((n, D), device="cuda", generator=gen)
+    bg = torch.rand((D,), device="cuda", generator=gen)
+    g = torch.randn((h, w, D), device="cuda", generator=gen)
+    inputs = (proj.means2d, proj.conics, opac, colors, bg)
+
+    def step():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        probe = torch.zeros((n, 2), device="cuda", requires_grad=True)
+        ev[0].record()
+        img, _ = render_tiled(*leaves[:4], plan, TileConfig(ts), background=leaves[4],
+                              abs_probe=probe)
+        ev[1].record()
+        grads = torch.autograd.grad((img * g).sum(), leaves + [probe])
+        ev[2].record()
+        return img.detach(), grads
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    step()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.LAUNCHES.reset()
+    image, grads = step()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = K.LAUNCHES.snapshot()
+    check(launches["train_bwd_geom"] == 1,
+          f"the backward launched the geometry-only B5 once ({launches})")
+    d_abs = grads[5]
+    check(all(bool(torch.isfinite(x).all()) for x in grads) and bool((d_abs != 0).any()),
+          "every gradient finite, the absgrad probe's nonzero")
+    print(f"phase 5 absgrad render_tiled N={n} {w}x{h} D={D} tile={ts} trans_eps=0, a "
+          f"background and the absgrad probe: forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} "
+          f"ms (CUDA events), peak {peak:.2f} GB; launches {launches}", flush=True)
+    del grads
+
+    # the geometry launch again, from the render's own inputs (RenderTrain.backward)
+    geom, cols = T.pack_train(*inputs[:4], plan)
+    alpha, done = T.train_forward(geom, cols[:, :T.MAX_CHANNELS].contiguous(), plan, 0.0)[1:]
+    transs = 1.0 - alpha
+    hterm = ((g @ bg) * transs).contiguous()
+    grem0 = (g * (image - transs[..., None] * bg)).sum(-1).contiguous()
+    args = (geom, cols, g, hterm, grem0, done, plan)
+    rows = T.train_geom_rows(*args)
+    same = torch.equal(K.reduce_rows(rows, plan, T.GEOM_GRADS)[:, 6:8], d_abs)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    span = span_rows(plan, tiles)
+    rows_t, mags = T.train_rows_plain(*args, tiles=tiles, magnitudes=True, geometry_only=True)
+    err = T.grad_rows_error(rows[span], rows_t[span], 0, mags[span])
+    del rows_t, mags, rows
+    print(f"phase 5 absgrad check: the geometry launch rebuilt from the render's inputs gives "
+          f"the probe's gradient bit for bit {same}; 64 tiles: rows max abs {err[0]:.3e}, "
+          f"{err[1]:.3e} of column-group max, {err[2]:.3e} of the entry's magnitude",
+          flush=True)
+    check(same, "the rebuilt geometry launch reproduces the absgrad gradient")
+    check(within_grad_tol(err[1], err[2], torch.float32), "B5-geom within GRAD_ROWS_TOL")
+
+    ms = time_cuda(lambda: T.train_geom_rows(*args), 3)
+    plain = time_cuda(lambda: T.train_rows_plain(*args, geometry_only=True), 1, warmup=0)
+    walked = int(done.sum())
+    pairs, _, kept = walked_pairs(geom, plan, 0.0)
+    check(pairs == walked * 128 * ts * ts, "the twin's walk takes the kernel's blocks")
+    # the least work: the walked blocks' geometry and colour rows, g, hterm
+    # and grem0 read once per image (as the other B5 bounds count them),
+    # blocks_done, the 8-column rows written
+    ops = pairs * PAIR_OPS + kept * (2 * D + PAIR_OPS)
+    b = bound(walked * 128 * (8 + D) * 4 + h * w * (D + 2) * 4 + 4 * plan.n_tiles
+              + plan.T_padded * T.GEOM_GRADS * 4, ops, PEAK_F32_FLOPS)
+    # a diagnostic beside it: the kernel stages g once per walked block
+    restaged = bound(walked * 128 * (8 + D) * 4 + walked * ts * ts * D * 4 + h * w * 2 * 4
+                     + 4 * plan.n_tiles + plan.T_padded * T.GEOM_GRADS * 4, ops,
+                     PEAK_F32_FLOPS)
+    print(f"phase 5 absgrad B5 train_geom_rows D={D}: {ms:.3f} ms (twin {plain:.1f}); "
+          f"{walked} blocks walked, {pairs} pairs, {kept} with a nonzero alpha; bound "
+          f"{b[0]:.4f} ms by {b[1]}, share {b[0] / ms:.3f}; with g read once per walked "
+          f"block (bound_restaged) {restaged[0]:.4f} ms by {restaged[1]}", flush=True)
+    return [rec("B5-geom", "train_bwd geometry-only (render_tiled absgrad, D=515, trans_eps 0)",
+                "tpugs_torch/csrc/train_bwd.cu", "tpugs/raster/pallas_train.py:557",
+                launches["train_bwd_geom"], err, ms, plain, b)]
+
+
+APP_FEATURE = "linear:512"
+
+
+def plant_outside(scene, count: int):
+    """``scene`` with ``count`` opaque Gaussians appended far above the
+    orbit, outside every view."""
+    dev = scene.means.device
+    return scene.replace(**{
+        name: torch.cat([getattr(scene, name), extra]) for name, extra in dict(
+            means=torch.tensor([[0.0, 100.0, 0.0]], device=dev).expand(count, 3),
+            quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).expand(count, 4),
+            log_scales=torch.full((count, 3), -3.0, device=dev),
+            logit_opacities=torch.full((count,), 2.0, device=dev),
+            sh0=torch.ones((count, 1, 3), device=dev),
+            shN=torch.zeros((count, *scene.shN.shape[1:]), device=dev),
+        ).items()})
+
+
+def phase_app():
+    """The back-projection app from files on disk at full width: the
+    canonical scene plus PLANTED Gaussians outside every view, saved as a
+    gsplat ``.pt`` beside a COLMAP model of the 8 orbit cameras whose
+    points3D.bin holds the scene's 2^19 means and colours; then
+    ``tpugs_torch.apps.backproject.main`` with ``linear:512`` and the
+    ``pallas`` engine. Stage times, peak memory, exactly the planted
+    Gaussians pruned with max pixel error 0, the saved features bit-equal
+    to ``backproject_views`` + ``normalize_field`` on the pruned scene and
+    the loaded cameras, the native reader used and equal to the pure one,
+    the loaded poses within 1e-5 of the orbit's."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    import tpugs_torch.native as native
+    from tpugs_torch.apps import backproject as app
+    from tpugs_torch.encoders import get_encoder
+    from tpugs_torch.io import checkpoints, colmap
+    from tpugs_torch.lift import batch, prune
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene, write_synthetic_colmap
+
+    n, w, h = N_FULL, W_FULL, H_FULL
+    scene = random_scene(n, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    planted = plant_outside(scene, PLANTED)
+    xyz = scene.means.cpu().numpy()
+    rgb = (255 * (0.5 + 0.28209479177387814 * scene.sh0[:, 0]).clamp(0, 1)).byte().cpu().numpy()
+    del scene
+    times, results = {}, {}
+    originals = {}
+
+    def timed(module, name, stage):
+        fn = getattr(module, name)
+        originals[(module, name)] = fn
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[stage] = times.get(stage, 0.0) + time.perf_counter() - t0
+            results[stage] = out
+            return out
+
+        setattr(module, name, wrapper)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, res = os.path.join(tmp, "data"), os.path.join(tmp, "results")
+        ckpt = os.path.join(data, "ckpt.pt")
+        t0 = time.perf_counter()
+        write_synthetic_colmap(data, cams, points=xyz, point_rgbs=rgb)
+        checkpoints.save_scene_pt(planted, ckpt)
+        write_s = time.perf_counter() - t0
+        pts_path = os.path.join(data, "sparse/0/points3D.bin")
+        for module, name, stage in ((checkpoints, "load_checkpoint", "load"),
+                                    (prune, "prune_by_gradients", "prune"),
+                                    (prune, "verify_pruning_equivalence", "verify"),
+                                    (batch, "backproject_views", "lift"),
+                                    (batch, "normalize_field", "lift"),
+                                    (app, "save_features", "save")):
+            timed(module, name, stage)
+        out = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                features = app.main(data_dir=data, checkpoint=ckpt, results_dir=res,
+                                    data_factor=1, feature=APP_FEATURE, engine="pallas",
+                                    device="cuda")
+            total_s = time.perf_counter() - t0
+        finally:
+            for (module, name), fn in originals.items():
+                setattr(module, name, fn)
+        launches = K.LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log = out.getvalue()
+        print("\n".join(f"phase 6 app | {line}" for line in log.strip().splitlines()), flush=True)
+        saved = np.load(os.path.join(res, f"features_{APP_FEATURE}.npz"))["features"]
+        t0 = time.perf_counter()
+        cols_native = colmap.read_points3d_bin_columnar(pts_path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pure = colmap.read_points3d_bin_plain(pts_path)
+        pure_s = time.perf_counter() - t0
+
+    times["rest"] = total_s - sum(times.values())  # the encoder, the app's own steps
+    loaded, lcams, manager = results["load"]
+    pruned = results["prune"]
+    max_err, _ = results["verify"]
+    n_pruned = planted.num_gaussians - pruned.num_gaussians
+    m = re.search(r"Pruned (\d+) splats", log)
+    check(m is not None and int(m.group(1)) == PLANTED and n_pruned == PLANTED,
+          f"the app pruned exactly the {PLANTED} planted Gaussians ({n_pruned})")
+    check(max_err == 0.0 and "max pixel error = 0.0," in log, f"max pixel error 0 ({max_err})")
+    for name in ("render", "adjoint", "reduce", "train_fwd"):
+        check(launches[name] >= VIEWS, f"the app launched {name} every view ({launches})")
+    stages = " ".join(f"{k}={v:.3f}" for k, v in times.items())
+    print(f"phase 6 app N={planted.num_gaussians} ({n} + {PLANTED} planted) {w}x{h} "
+          f"feature={APP_FEATURE} engine=pallas views={VIEWS}: {total_s:.3f} s in all, stages "
+          f"(s) {stages}; peak {peak:.2f} GB; pruned {n_pruned}, max pixel error {max_err}; "
+          f"writing the files {write_s:.3f} s; launches {launches}", flush=True)
+
+    check(all(torch.equal(getattr(loaded, f), getattr(planted, f)) for f in (
+        "means", "quats", "log_scales", "logit_opacities", "sh0", "shN")),
+          "the loaded scene equals the saved one")
+    vm_err = float((lcams.viewmats - cams.viewmats).abs().max())
+    check(vm_err <= 1e-5 and (lcams.width, lcams.height) == (w, h)
+          and torch.equal(lcams.Ks, cams.Ks), "the loaded cameras are the orbit's")
+    check(native.available() and manager._pts_cols is not None,
+          "load_checkpoint parsed points3D.bin with the native reader")
+    ids = np.sort(np.fromiter(pure.keys(), np.int64, len(pure)))
+    same_pts = (np.array_equal(cols_native["pid"], ids) and all(
+        np.array_equal(cols_native[k], np.stack([getattr(pure[int(i)], f) for i in ids]))
+        for k, f in (("xyz", "xyz"), ("rgb", "rgb"))) and np.array_equal(
+        cols_native["err"], np.array([pure[int(i)].error for i in ids])))
+    check(same_pts and len(ids) == n, "the native parse of points3D.bin equals the pure reader's")
+    print(f"phase 6 points3D.bin of {len(ids)} points: native parse {native_s:.3f} s, pure "
+          f"reader {pure_s:.3f} s, equal {same_pts}; loaded viewmats within {vm_err:.2e} of "
+          f"the orbit cameras", flush=True)
+
+    enc = get_encoder(APP_FEATURE, device="cuda")
+    num, den = batch.backproject_views(pruned, lcams.viewmats, lcams.Ks, lcams.width,
+                                       lcams.height, enc, device="cuda")
+    direct = batch.normalize_field(num, den).cpu().numpy()
+    equal = np.array_equal(saved, direct) and np.array_equal(saved, np.asarray(features))
+    print(f"phase 6 saved features {saved.shape} bit-equal to backproject_views + "
+          f"normalize_field on the pruned scene and the loaded cameras: {equal}", flush=True)
+    check(saved.shape == (n, 512) and bool(np.isfinite(saved).all()), "the features finite")
+    check(equal, "the app's features equal the direct lift's bit for bit")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -1368,11 +1711,14 @@ def main() -> int:
     phase_kernels()
     phase_clusters()
     phase_train_kernels()
+    phase_train_geom()
     records, view = phase_full_width()
     records += phase_experiments(view)
     del view
     records += phase_train()
     records += phase_eager()
+    records += phase_absgrad()
+    phase_app()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

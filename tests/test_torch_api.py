@@ -17,12 +17,13 @@ scenes at 64x48, 3 orbit cameras.
   gradient's max (``tests/test_rasterizer.py``'s limit);
 * ``render_tiled`` (``RenderTrain`` on the twins) against
   ``render_tiled_autodiff``: image and alpha 2e-5, every gradient
-  (means2d, conics, opacities, colours, background) 5e-5 of its max; the
-  absgrad probe against tpugs' ``render_tiled`` probe, 5e-5 of its max;
+  (means2d, conics, opacities, colours, background) 5e-5 of its max;
   at D = 515 (two channel chunks, one ``hterm``) the same limits;
 * ``render_tiled`` at D = 4 and 515 against ``jax.grad`` of tpugs'
   ``render_tiled`` on the binning of the same projection: image and alpha
-  2e-5, every gradient 5e-5 of its max;
+  2e-5, every gradient 5e-5 of its max; the absgrad probe at D = 4 and
+  515 (B5's geometry-only launch over all channels) against ``jax.grad``
+  of tpugs' probe, 5e-5 of its max;
 * ``render_tiled_autodiff``'s block size and tiles per chunk change no
   pixel beyond 1e-5 (tpugs' ``test_tiled_block_boundary_invariance``);
 * the binning: ``tile_cut_mask``, ``culled_covers`` and
@@ -284,9 +285,10 @@ def test_render_tiled_matches_tpugs(setup, d):
         _close(a / scale, b / scale, 5e-5, name)
 
 
-def test_render_tiled_absgrad_matches_tpugs(setup):
+@pytest.mark.parametrize("d", [4, MAX_CHANNELS + 3])
+def test_render_tiled_absgrad_matches_tpugs(setup, d):
     js, jc, ts = setup
-    proj, plan, inputs, g, s = _view_inputs(ts, jc, 2, 4, 7)
+    proj, plan, inputs, g, s = _view_inputs(ts, jc, 2, d, 7)
     img, _, grads = _grads(render_tiled, inputs, plan, g, s, probe=True)
     jp = j_project(*_jargs(js), jc.viewmats[2], jc.Ks[2], W, H)
     binning = _j_binning(jp, 16, W, H, 64)

@@ -22,7 +22,9 @@ B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
 bf16 unit of the twin's (they are expected bit-equal) and scattered to
 ``pos``; its probe reads 19. The tiled path's regime, ``trans_eps`` = 0
 (every block walked): B4 and B5 at D = 3 and 4, and B2 with one zero
-channel, held by the same limits.
+channel, held by the same limits. B5's geometry-only launch at D = 5, 515
+and 1030 against its twin by ``GRAD_ROWS_TOL`` (f32), and its columns
+0:6 against the sums of the chunked B5 launches' geometry.
 """
 
 import pytest
@@ -315,6 +317,52 @@ def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
     second = T.train_rows(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# B5's geometry-only launch: above the colour kernels' 512 channels, and at
+# trans_eps 0 (render_tiled's regime) and the default
+@pytest.mark.parametrize("d, trans_eps", [(5, 0.0), (515, 0.0), (1030, T.TRANS_EPS)])
+def test_train_geom_rows_match_twin_and_the_chunked_geometry(view, d, trans_eps):
+    """``train_geom_rows`` (8 geometry columns, any D) within GRAD_ROWS_TOL
+    (f32) of ``train_rows_plain(..., geometry_only=True)``, rows and B3's
+    sums, counting only its own launches; its columns 0:6 summed per
+    Gaussian equal the sums of the chunked ``train_rows`` launches'
+    geometry (chunks of MAX_CHANNELS, ``hterm`` in the first only) within
+    the same limits; two launches bit-equal."""
+    plan, pack, _ = view
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), device="cuda", generator=gen)
+    img, alpha, done = T.train_forward(geom, cols, plan, trans_eps)
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+    K.LAUNCHES.reset()
+    rows = T.train_geom_rows(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES.snapshot() == {**{k: 0 for k in K.LAUNCHES.snapshot()},
+                                     "train_bwd_geom": 1}
+    assert rows.shape == (plan.T_padded, T.GEOM_GRADS) and rows.dtype == torch.float32
+    assert torch.equal(rows, T.train_geom_rows(*args))
+    sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
+    rows_t, mags = T.train_rows_plain(*args, magnitudes=True, geometry_only=True)
+    sums_m = K.reduce_rows_plain(mags, plan, T.GEOM_GRADS)
+    group_tol, entry_tol = T.GRAD_ROWS_TOL[torch.float32]
+    _, of_group, of_entry = T.grad_rows_error(rows, rows_t, 0, mags)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+    _, of_group, of_entry = T.grad_rows_error(
+        sums, K.reduce_rows_plain(rows_t, plan, T.GEOM_GRADS), 0, sums_m)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+    chunked = 0.0
+    for i, (a, b) in enumerate(T.channel_chunks(d)):
+        g_c = g[..., a:b].contiguous()
+        rows_c = T.train_rows(geom, cols[:, a:b].contiguous(), g_c,
+                              hterm if i == 0 else torch.zeros_like(hterm),
+                              (g_c * img[..., a:b]).sum(-1), done, plan)
+        chunked = chunked + K.reduce_rows(rows_c, plan, b - a + T.GEOM_GRADS)[:, b - a:]
+    chunked[:, 6:] = sums[:, 6:]  # the absolute columns do not add over chunks
+    _, of_group, of_entry = T.grad_rows_error(sums, chunked, 0, sums_m)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
 
 
 # The tiled path's regime (render_tiled, backproject_tiled): no early exit,

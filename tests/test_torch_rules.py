@@ -14,9 +14,11 @@ import torch
 
 from tpugs_torch.convert import cameras_from_numpy, linear_encoder_from_numpy, scene_from_numpy
 from tpugs_torch.core.device import resolve_device
+from tpugs_torch.apps.backproject import main as backproject_main
 from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
 from tpugs_torch.experiments import scatter_write
+from tpugs_torch.io.checkpoints import load_checkpoint
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.backproject import create_feature_field
 from tpugs_torch.lift.batch import backproject_views, create_feature_field_batch, estimate_sizes
@@ -119,6 +121,8 @@ ENTRY_POINTS = {
                                              _cpu_cams()),
     "prune_by_gradients": lambda: prune_by_gradients(
         synthetic.random_scene(10, device="cpu"), _cpu_cams(), verbose=False),
+    "load_checkpoint": lambda: load_checkpoint("ckpt.pt", "data"),
+    "backproject app": lambda: backproject_main(data_dir="data", checkpoint="ckpt.pt"),
     "verify_pruning_equivalence": lambda: verify_pruning_equivalence(
         synthetic.random_scene(10, device="cpu"), synthetic.random_scene(10, device="cpu"),
         _cpu_cams(), verbose=False),
@@ -270,7 +274,7 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     assert set(K.LAUNCHES.snapshot()) == {"render", "render_unculled", "adjoint", "reduce",
                                           "train_fwd",
                                           "train_fwd_wide", "train_bwd", "train_bwd_wide",
-                                          "adjoint_scatter", "stripe_sum"}
+                                          "train_bwd_geom", "adjoint_scatter", "stripe_sum"}
 
 
 UNPORTED = {

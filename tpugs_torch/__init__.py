@@ -10,7 +10,11 @@ plain PyTorch twin that the CPU tests use.
 Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
 
   core/      scene (raw parameterisation + activations), cameras, devices
-  utils/     synthetic scenes and orbit rigs (bit-identical to tpugs')
+  io/        COLMAP, PLY, checkpoint and compression readers and writers
+  native/    the C++ COLMAP parser (g++, ctypes) beside the pure readers
+  apps/      the back-projection CLI (load, prune, verify, lift, save)
+  utils/     synthetic scenes, orbit rigs and COLMAP models (bit-identical
+             to tpugs'), Morton order, the function-signature CLI
   raster/    projection, SH, binning, per-view plan and pack, the lift
              kernels (render, adjoint, reduce; the opt-in scatter engine's
              adjoint_scatter and stripe_sum), the per-view calls of them,

@@ -68,6 +68,19 @@
 // Widths D > 256 (CLUSTER_MAX_CHANNELS) take the one-CTA kernel below
 // (tpugs_train_bwd_wide_*), chosen by width alone: there g and the
 // partials of a cluster of 8 no longer fit one CTA's shared memory.
+//
+// The geometry-only instantiation of the one-CTA kernel
+// (tpugs_train_bwd_geom_f32) writes rows of the 8 geometry columns alone
+// and drops the colour gradients (Dcol, its zeroing and step (4)). Its
+// shared memory no longer grows with D, so it takes any D >= 1: the u
+// product still reads every colour column and every channel of g, in
+// kDK-channel slices. A render wider than the colour kernels' 512
+// channels runs in channel chunks, whose geometry sums add; the absgrad
+// columns |dmx| |dmy| are absolute values of per-pixel sums over all
+// channels and do not, so they come from one such launch over all D.
+// Bound: walked pairs * 30 + nonzero-alpha pairs * (2D + 30) f32
+// operations, against the colour rows and g read once per walked block and
+// the 8-column rows written (chip_smoke.py, phase 5).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -584,7 +597,9 @@ __device__ __forceinline__ void stage_g(float* Gs, const float* __restrict__ gim
   }
 }
 
-template <typename OutT>
+// kGeomOnly: rows of the kGeomGrads geometry columns alone (RW = kGeomGrads),
+// no colour gradients; any D.
+template <typename OutT, bool kGeomOnly>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                  const float* __restrict__ gimg, const float* __restrict__ hterm,
@@ -603,7 +618,7 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
   float* Tx = Tr + kMaxPixels;            //   texc within the block
   float* Cs = Tx + kMaxPixels;            //   prefix of w*u within the block
   float* Gr = Cs + kMaxPixels;            //   grem carried into the block
-  float* Dcol = Gr + kMaxPixels;          // [kSub][Dpad]
+  float* Dcol = Gr + kMaxPixels;          // [kSub][Dpad]; absent with kGeomOnly
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
@@ -634,7 +649,8 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
     for (int s = 0; s < kBlock / kSub; ++s) {
       const int gbase = s * kSub;
       __syncthreads();  // the previous sub-block's rows are written
-      for (int idx = tid; idx < kSub * Dpad; idx += kThreads) Dcol[idx] = 0.0f;
+      if constexpr (!kGeomOnly)
+        for (int idx = tid; idx < kSub * Dpad; idx += kThreads) Dcol[idx] = 0.0f;
       for (int idx = tid; idx < kSub * kGeomGrads; idx += kThreads) Geo[idx] = 0.0f;
       for (int c = 0; c < n_chunks; ++c) {
         const int p = c * kThreads + tid;
@@ -740,7 +756,7 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
         }
 
         // (4) d col(gbase + 4 ig + j, d0 + k) += sum_q w(q, .) g(q, d0 + k)
-        {
+        if constexpr (!kGeomOnly) {
           const int ig = tid / 32;
           const int k = tid % 32;
           for (int d0 = 0; d0 < D; d0 += kDK) {
@@ -768,11 +784,12 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
       for (int idx = tid; idx < kSub * RW; idx += kThreads) {
         const int i = idx / RW;
         const int col = idx % RW;
+        const int lead = kGeomOnly ? 0 : D;  // colour columns before the geometry
         float v = 0.0f;
-        if (col < D)
+        if (col < lead)
           v = Dcol[i * Dpad + col];
-        else if (col < D + kGeomGrads)
-          v = Geo[i * kGeomGrads + col - D];
+        else if (col < lead + kGeomGrads)
+          v = Geo[i * kGeomGrads + col - lead];
         store(out + (row0 + gbase + i) * RW + col, v);
       }
     }
@@ -793,20 +810,21 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
     *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
 }
 
-template <typename OutT>
+template <typename OutT, bool kGeomOnly = false>
 int launch_wide(const float* geom, const float* cols, const float* gimg, const float* hterm,
            const float* grem0, const int* tile_starts, const int* tile_ends,
            const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles, int ntx,
            int ts, int width, int height, int D, int RW, cudaStream_t stream) {
   const int Dpad = (D + kDK - 1) / kDK * kDK;
-  if (D < 1 || RW < D + kGeomGrads || (ts != 16 && ts != 32))
+  const bool rw_ok = kGeomOnly ? RW == kGeomGrads : RW >= D + kGeomGrads;
+  if (D < 1 || !rw_ok || (ts != 16 && ts != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = (kFixedFloats + size_t(kSub) * Dpad) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_wide_kernel<OutT>,
+  const size_t bytes = (kFixedFloats + (kGeomOnly ? 0 : size_t(kSub) * Dpad)) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_wide_kernel<OutT, kGeomOnly>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  train_bwd_wide_kernel<OutT><<<n_tiles, kThreads, bytes, stream>>>(
+  train_bwd_wide_kernel<OutT, kGeomOnly><<<n_tiles, kThreads, bytes, stream>>>(
       geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done, out,
       ntx, ts, width, height, D, Dpad, RW);
   return static_cast<int>(cudaGetLastError());
@@ -850,6 +868,15 @@ extern "C" int tpugs_train_bwd_wide_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* ou
                                          int D, int RW, cudaStream_t stream) {
   return tpugs::launch_wide<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
                                            height, D, RW, stream);
+}
+
+// The one-CTA kernel's geometry-only instantiation: f32 rows of the 8
+// geometry columns (RW = 8), for any D >= 1.
+extern "C" int tpugs_train_bwd_geom_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
+                                        int ts, int width, int height, int D, int RW,
+                                        cudaStream_t stream) {
+  return tpugs::launch_wide<float, true>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
+                                         height, D, RW, stream);
 }
 
 // Resident clusters of the cluster kernel at tile ts and D channels (bf16

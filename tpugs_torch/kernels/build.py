@@ -58,6 +58,8 @@ SIGNATURES = {
     # the same without the cluster geometry: the one-CTA kernel of wide rows
     "tpugs_train_bwd_wide_f32": [_P] * 10 + [_I] * 7 + [_P],
     "tpugs_train_bwd_wide_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    # the one-CTA kernel's geometry-only rows (row width 8, any D)
+    "tpugs_train_bwd_geom_f32": [_P] * 10 + [_I] * 7 + [_P],
     # bf16 (0/1), tile size, D -> resident clusters
     "tpugs_train_bwd_max_clusters": [_I, _I, _I],
     # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,

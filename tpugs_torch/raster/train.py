@@ -6,7 +6,9 @@ twins and the ``torch.autograd.Function`` around them. Counterparts in
   B4 ``train_forward``  <- ``_forward_tiles`` (:229, kernel :134, ``pallas_call``
                            :250) and
                            ``_forward_impl`` (:258)
-  B5 ``train_rows``     <- ``_backward_impl`` (:496, kernel :275)
+  B5 ``train_rows``     <- ``_backward_impl`` (:496, kernel :275); its
+                           geometry-only launch ``train_geom_rows`` gives the
+                           absgrad columns of renders wider than B5's rows
   ``RenderTrain``       <- ``_train_core`` and its VJP (:586-637)
   ``render_plan_train`` <- ``render_plan_train`` (:692)
   ``render_scene``      <- ``render_scene_pallas`` (:661)
@@ -202,9 +204,11 @@ def train_rows_plain(
     contrib_dtype: torch.dtype = torch.float32,
     tiles: Optional[torch.Tensor] = None,
     magnitudes: bool = False,
+    geometry_only: bool = False,
 ):
-    """B5's twin: as ``train_rows``; with ``tiles`` only those tiles'
-    spans are filled. Per block, with u = g . colour (a product over
+    """B5's twin: as ``train_rows``, or with ``geometry_only`` as
+    ``train_geom_rows`` (rows of the GEOM_GRADS columns alone, at any D);
+    with ``tiles`` only those tiles' spans are filled. Per block, with u = g . colour (a product over
     channels), an inclusive prefix of w*u along the block (``cumsum``, not
     the reference's doubling scan) and the per-pixel carry ``grem``:
 
@@ -221,7 +225,9 @@ def train_rows_plain(
         tiles = _all_tiles(plan, dev)
     d = cols.shape[1]
     ts = plan.tile_size
-    out = torch.zeros((plan.T_padded, grad_row_width(d)), dtype=contrib_dtype, device=dev)
+    lead = 0 if geometry_only else d  # colour columns before the geometry
+    width = GEOM_GRADS if geometry_only else grad_row_width(d)
+    out = torch.zeros((plan.T_padded, width), dtype=contrib_dtype, device=dev)
     g_t = image_to_tiles(g_image, ts)[tiles]
     h_t = image_to_tiles(hterm[..., None], ts)[tiles][..., 0]
     grem = image_to_tiles(grem0[..., None], ts)[tiles][..., 0].clone()
@@ -251,8 +257,9 @@ def train_rows_plain(
             dm_x, dm_y, d_sig * (0.5 * dx * dx), d_sig * (dx * dy), d_sig * (0.5 * dy * dy),
             d_araw * t["e"], dm_x.abs(), dm_y.abs(),
         ], dim=-1).sum(1)  # (ka, BLOCK, 8)
-        d_col = torch.bmm(st.w.transpose(1, 2), g_a)  # (ka, BLOCK, D)
-        out[st.rows, : d + GEOM_GRADS] = torch.cat([d_col, geo_grads], -1).to(contrib_dtype)
+        parts = [geo_grads] if geometry_only else [
+            torch.bmm(st.w.transpose(1, 2), g_a), geo_grads]  # d col (ka, BLOCK, D)
+        out[st.rows, : lead + GEOM_GRADS] = torch.cat(parts, -1).to(contrib_dtype)
         grem[st.active] = grem[st.active] - cs[..., -1]
         if mags is None:
             return
@@ -270,12 +277,36 @@ def train_rows_plain(
             mx_m, my_m, sig_m * (0.5 * dx * dx), sig_m * (dx * dy).abs(),
             sig_m * (0.5 * dy * dy), da_m * t["e"], mx_m, my_m,
         ], dim=-1).sum(1)
-        mags[st.rows, : d + GEOM_GRADS] = torch.cat(
-            [torch.bmm(st.w.transpose(1, 2), g_m), geo_m], -1)
+        parts = [geo_m] if geometry_only else [torch.bmm(st.w.transpose(1, 2), g_m), geo_m]
+        mags[st.rows, : lead + GEOM_GRADS] = torch.cat(parts, -1)
         grem_m[st.active] = grem_m[st.active] + cs_m[..., -1]
 
     _walk_blocks(geom, plan, tiles, 0.0, visit, n_blocks=blocks_done[tiles])
     return (out, mags) if magnitudes else out
+
+
+def _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan) -> int:
+    d = _check_packs(geom, cols, plan)
+    dev = geom.device
+    h, w = plan.height, plan.width
+    _check(g_image, "g_image", (torch.float32,), (h, w, d), dev)
+    _check(hterm, "hterm", (torch.float32,), (h, w), dev)
+    _check(grem0, "grem0", (torch.float32,), (h, w), dev)
+    _check(blocks_done, "blocks_done", (torch.int32,), (plan.n_tiles,), dev)
+    return d
+
+
+def _launch_train_bwd(fn, geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan,
+                      out: torch.Tensor, cluster=None) -> int:
+    """One B5 launch of ``fn`` into ``out`` (T_padded, row width); the
+    CUDA error code."""
+    ntx, _ = plan.grid
+    return fn(
+        _ptr(geom), _ptr(cols), _ptr(g_image), _ptr(hterm), _ptr(grem0),
+        _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
+        _ptr(blocks_done), _ptr(out), plan.n_tiles, ntx, plan.tile_size, plan.width,
+        plan.height, cols.shape[1], out.shape[1], *(cluster or ()), _stream(),
+    )
 
 
 def train_rows(
@@ -295,13 +326,8 @@ def train_rows(
     ``blocks_done``. Rows of blocks the forward skipped are zero. Up to
     CLUSTER_MAX_CHANNELS channels the cluster kernel runs, above it the
     one-CTA kernel: chosen by width alone (``train_cluster``)."""
-    d = _check_packs(geom, cols, plan)
+    d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
-    h, w, nt = plan.height, plan.width, plan.n_tiles
-    _check(g_image, "g_image", (torch.float32,), (h, w, d), dev)
-    _check(hterm, "hterm", (torch.float32,), (h, w), dev)
-    _check(grem0, "grem0", (torch.float32,), (h, w), dev)
-    _check(blocks_done, "blocks_done", (torch.int32,), (nt,), dev)
     if contrib_dtype not in CONTRIB_DTYPES:
         raise TypeError(f"contrib_dtype {contrib_dtype} not in {CONTRIB_DTYPES}")
     if d > MAX_CHANNELS:
@@ -312,9 +338,8 @@ def train_rows(
     from tpugs_torch.kernels.build import load_library
 
     lib = load_library()
-    width = grad_row_width(d)
-    out = torch.empty((plan.T_padded, width), dtype=contrib_dtype, device=dev)
-    if nt == 0 or plan.T_padded == 0:
+    out = torch.empty((plan.T_padded, grad_row_width(d)), dtype=contrib_dtype, device=dev)
+    if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
     bf16 = contrib_dtype == torch.bfloat16
     cluster = train_cluster(plan.tile_size, d)
@@ -322,19 +347,49 @@ def train_rows(
         fn = lib.tpugs_train_bwd_wide_bf16 if bf16 else lib.tpugs_train_bwd_wide_f32
     else:
         fn = lib.tpugs_train_bwd_bf16 if bf16 else lib.tpugs_train_bwd_f32
-    ntx, _ = plan.grid
-    rc = fn(
-        _ptr(geom), _ptr(cols), _ptr(g_image), _ptr(hterm), _ptr(grem0),
-        _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
-        _ptr(blocks_done), _ptr(out), nt, ntx, plan.tile_size, w, h, d, width,
-        *(cluster or ()), _stream(),
-    )
+    rc = _launch_train_bwd(fn, geom, cols, g_image, hterm, grem0, blocks_done, plan, out,
+                           cluster)
     if cluster is None:
         _launched(rc, "train_bwd_wide")
         LAUNCHES.train_bwd_wide += 1
     else:
         _launched(rc, "train_bwd")
         LAUNCHES.train_bwd += 1
+    return out
+
+
+def train_geom_rows(
+    geom: torch.Tensor,
+    cols: torch.Tensor,
+    g_image: torch.Tensor,
+    hterm: torch.Tensor,
+    grem0: torch.Tensor,
+    blocks_done: torch.Tensor,
+    plan: Plan,
+) -> torch.Tensor:
+    """B5's geometry-only launch: f32 rows (T_padded, GEOM_GRADS) of
+    ``train_rows``' geometry columns (dmx dmy dca dcb dcc dop |dmx| |dmy|),
+    with the same inputs, at any number of channels D (the one-CTA kernel
+    without its colour gradients, whose shared memory caps ``train_rows``
+    at MAX_CHANNELS). Its twin is ``train_rows_plain(...,
+    geometry_only=True)``. ``RenderTrain`` takes the absgrad columns of a
+    render wider than MAX_CHANNELS from it."""
+    _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
+    dev = geom.device
+    if not _dispatch(dev):
+        return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
+                                geometry_only=True)
+    if plan.tile_size not in (16, 32):
+        raise ValueError(f"tile_size {plan.tile_size}: the kernels take 16 or 32")
+    from tpugs_torch.kernels.build import load_library
+
+    out = torch.empty((plan.T_padded, GEOM_GRADS), dtype=torch.float32, device=dev)
+    if plan.n_tiles == 0 or plan.T_padded == 0:
+        return out
+    rc = _launch_train_bwd(load_library().tpugs_train_bwd_geom_f32, geom, cols, g_image, hterm,
+                           grem0, blocks_done, plan, out)
+    _launched(rc, "train_bwd_geom")
+    LAUNCHES.train_bwd_geom += 1
     return out
 
 
@@ -368,7 +423,8 @@ def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int,
     diff = (got - ref).abs()
     mag = torch.maximum(got.abs(), ref.abs())
     worst = 0.0
-    for cols in [slice(0, d)] + [slice(d + j, d + j + 1) for j in range(GEOM_GRADS)]:
+    colour = [slice(0, d)] if d else []  # 0 channels: train_geom_rows' rows
+    for cols in colour + [slice(d + j, d + j + 1) for j in range(GEOM_GRADS)]:
         scale = float(mag[:, cols].max())
         if scale > 0:
             worst = max(worst, float(diff[:, cols].max()) / scale)
@@ -400,17 +456,19 @@ class RenderTrain(torch.autograd.Function):
     colours (the first chunk's are kept), and the alpha adjoint is linear in
     the per-channel terms u and V, so each chunk's B5 gets its own channels'
     ``grem0``, only the first gets the background/alpha term ``hterm``, and
-    the chunks' geometry gradients are summed. The absgrad columns, sums of
-    absolute values per pixel, are not linear in the chunks: a probe with
-    more than MAX_CHANNELS channels raises."""
+    the chunks' geometry gradients are summed. The absgrad columns, sums
+    over pixels of the absolute per-pixel screen gradient, are not linear
+    in the chunks: when the probe needs a gradient, B5's geometry-only
+    launch (``train_geom_rows``) runs once over all channels and B3 sums
+    its columns 6:8. ``record`` takes at most MAX_CHANNELS channels."""
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, background, abs_probe,
                 plan, trans_eps, contrib_dtype, mark, record):
         chunks = channel_chunks(colors.shape[1])
-        if len(chunks) > 1 and (abs_probe is not None or record is not None):
+        if len(chunks) > 1 and record is not None:
             raise ValueError(f"{colors.shape[1]} channels render in chunks of {MAX_CHANNELS}: "
-                             "abs_probe and record take at most that many")
+                             "record takes at most that many")
         geom, cols = pack_train(means2d, conics, opacities, colors, plan)
         mark("pack")
         outs = [train_forward(geom, cols[:, a:b].contiguous(), plan, trans_eps)
@@ -460,7 +518,15 @@ class RenderTrain(torch.autograd.Function):
             geo_grads = gg if geo_grads is None else geo_grads + gg
         d_col = torch.cat(col_grads, 1) if len(col_grads) > 1 else col_grads[0]
         gg = geo_grads
-        d_abs = gg[:, 6:8] if ctx.needs_input_grad[5] else None
+        d_abs = None
+        if ctx.needs_input_grad[5]:
+            d_abs = gg[:, 6:8]
+            if len(chunks) > 1:  # |per-pixel sum over all channels|, not a sum over chunks
+                grem0 = (g_image * img_nobg).sum(-1).contiguous()
+                rows = train_geom_rows(geom, cols, g_image, hterm, grem0, done, plan)
+                mark("B5 rows")
+                d_abs = reduce_rows(rows, plan, GEOM_GRADS)[:, 6:8]
+                mark("B3 reduce")
         return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], d_col, d_bg, d_abs,
                 None, None, None, None, None)
 

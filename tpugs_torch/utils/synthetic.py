@@ -1,13 +1,14 @@
-"""Synthetic scenes and orbit rigs. Counterpart:
-``tpugs/utils/synthetic.py:18-70, 143-167`` (``random_scene``,
-``lookat_viewmat``, ``orbit_cameras``).
+"""Synthetic scenes, orbit rigs and on-disk COLMAP models. Counterpart:
+``tpugs/utils/synthetic.py:18-167`` (``random_scene``, ``lookat_viewmat``,
+``write_synthetic_colmap``, ``orbit_cameras``).
 
 The numpy draws are the reference's, in the same order, so both packages
-get bit-identical inputs from one seed. ``write_synthetic_colmap`` waits
-for the I/O slice.
+get bit-identical inputs from one seed.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -78,6 +79,58 @@ def lookat_viewmat(eye, target=(0.0, 0.0, 0.0), up=(0.0, -1.0, 0.0)):
     vm[:3, :3] = R_w2c
     vm[:3, 3] = t
     return vm
+
+
+def write_synthetic_colmap(
+    data_dir: str,
+    cams: Camera,
+    n_points: int = 100,
+    seed: int = 0,
+    points: "np.ndarray | None" = None,
+    point_rgbs: "np.ndarray | None" = None,
+) -> None:
+    """Write a COLMAP ``sparse/0`` model of a Camera batch (one PINHOLE
+    camera from ``cams.Ks[0]``, images ``frame_0000.jpg``...). ``points``
+    (P, 3) world xyz and ``point_rgbs`` (P, 3) uint8 give the point cloud;
+    otherwise ``n_points`` random points are drawn from ``seed``."""
+    from tpugs_torch.io.colmap import (
+        ColmapCamera,
+        ColmapImage,
+        ColmapPoint3D,
+        rotmat_to_qvec,
+        write_sparse_model,
+    )
+
+    K = cams.Ks[0].detach().cpu().numpy()
+    cameras = {
+        1: ColmapCamera(1, "PINHOLE", cams.width, cams.height,
+                        np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float64))
+    }
+    viewmats = cams.viewmats.detach().cpu().numpy()
+    images = {}
+    for i in range(cams.num_cameras):
+        vm = viewmats[i]
+        images[i + 1] = ColmapImage(
+            i + 1, rotmat_to_qvec(vm[:3, :3]), vm[:3, 3].astype(np.float64), 1,
+            f"frame_{i:04d}.jpg", np.zeros((0, 2)), np.zeros((0,), np.int64),
+        )
+    rng = np.random.default_rng(seed)
+    if points is None:
+        xyz = rng.uniform(-1, 1, (n_points, 3))
+        rgb = rng.integers(0, 255, (n_points, 3)).astype(np.uint8)
+    else:
+        xyz = np.asarray(points, np.float64)
+        rgb = (
+            np.asarray(point_rgbs, np.uint8)
+            if point_rgbs is not None
+            else rng.integers(0, 255, (len(xyz), 3)).astype(np.uint8)
+        )
+    pts3d = {
+        int(j + 1): ColmapPoint3D(int(j + 1), xyz[j], rgb[j], 0.5, np.array([1], np.int64),
+                                  np.array([0], np.int64))
+        for j in range(len(xyz))
+    }
+    write_sparse_model(os.path.join(data_dir, "sparse/0"), cameras, images, pts3d)
 
 
 def orbit_arrays(
