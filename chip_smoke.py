@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Eight phases; the first failure ends the run with a nonzero exit:
+Nine phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -79,12 +79,30 @@ Eight phases; the first failure ends the run with a nonzero exit:
              ``backproject_views`` + ``normalize_field`` on the pruned scene
              and loaded cameras, the native reader used and equal to the
              pure one (both timed), the loaded poses within 1e-5.
-7. kernels line — one JSON object per kernel with its launches, errors,
+7. LSeg lift — the paper's lift at the canonical shape: ``LSegEncoder``
+             (ViT-L/16, 24 blocks, width 1024, 901 tokens, + the DPT head,
+             512-d) in bf16 with seeded random weights (build time,
+             parameters); the encoder alone on view 0's render (median
+             pre-resize, network and post times, peak, its bound from the
+             FLOPs its layers count, and its bf16 output against the same
+             weights in f32: per-pixel cosine and max abs error, held to
+             stated bounds); ``backproject_views_split`` in groups of 2 with
+             both engines (ms/view, views/s, render / encode / adjoint+reduce,
+             peak, launches): ``den`` bit-equal to phase 3's, "scatter"
+             bit-equal to "pallas", ``num`` against ``backproject_views``
+             with the same encoder; B2 and B3 on the LSeg features held on
+             64 tiles with their times and bounds; ``DinoEncoder`` (ViT-L/14
+             with registers, 896^2, D = 1024) on 2 views: its times, ``den``
+             bit-equal to phase 3's path on those views, B2 and B3 at
+             D = 1024 on 64 tiles; the CLIP text tower (width 512, 12
+             layers, context 77) on random ids: time, finite (P, 512).
+8. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
-             B5-tiled, and B5's geometry-only launch as B5-geom.
+             B5-tiled, B5's geometry-only launch as B5-geom, and phase 7's
+             as B2-lseg, B3-lseg, B2-dino and B3-dino.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -608,10 +626,10 @@ def _plan_to(plan, device):
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
-def timed_lift(args, engine: str):
-    """The 8 views through ``backproject_views`` with ``engine``: (num,
-    den, ms/view, launches, peak GB, stage ms/view, peak GB within each
-    stage)."""
+def timed_lift(args, engine: str, lift=None, **kw):
+    """The 8 views through ``lift`` (default ``backproject_views``) with
+    ``engine`` and keywords ``kw``: (num, den, ms/view, launches, peak GB,
+    stage ms/view, peak GB within each stage)."""
     from tpugs_torch.lift.batch import STAGES, backproject_views
     from tpugs_torch.raster import kernels as K
 
@@ -631,8 +649,8 @@ def timed_lift(args, engine: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    num, den = backproject_views(*args, tile_size=TILE, on_stage=on_stage,
-                                 reduce_engine=engine)
+    num, den = (lift or backproject_views)(*args, tile_size=TILE, on_stage=on_stage,
+                                           reduce_engine=engine, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.LAUNCHES.snapshot()
@@ -658,8 +676,9 @@ def csr_select(offsets, columns, n_cols):
 
 def phase_full_width():
     """The canonical shape through the entry point, with both reduce
-    engines. Returns the kernel records for the kernels line and one view's
-    result for the experiments phase."""
+    engines. Returns the kernel records for the kernels line, one view's
+    result for the experiments phase and the default engine's den (CPU)
+    for phase 7."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.kernels.build import load_library
     from tpugs_torch.lift.batch import backproject_views, run_view
@@ -699,6 +718,7 @@ def phase_full_width():
               f"peak GB within each stage: {peaks}; launches {launches}", flush=True)
         del num, den  # the next engine's peak memory is its own
     (num, den, launches), (num_s, den_s, launches_s) = results["pallas"], results["scatter"]
+    den3 = den
     same = torch.equal(num_s, num) and torch.equal(den_s, den)
     print(f"phase 3 reduce_engine=scatter num and den bit-equal to the default engine's: "
           f"{same}", flush=True)
@@ -843,7 +863,7 @@ def phase_full_width():
             "tpugs/raster/pallas_tiled.py:1987", launches_s["stripe_sum"], b7, b7_ms,
             b7_plain, b7_bound, b7_lib),
     ]
-    return records, r
+    return records, r, den3
 
 
 S1_ITERS = 5  # timed launches of each S1 variant
@@ -1694,6 +1714,325 @@ def phase_app():
     check(equal, "the app's features equal the direct lift's bit for bit")
 
 
+# Phase 7: the paper's lift. LSeg (ViT-L/16 + the DPT head, 512-d) in bf16
+# with seeded random weights, as bench.py's ``--encoder lseg-random``,
+# through the split-encoder lift at the canonical shape; DINOv2 ViT-L/14
+# (1024-d) on 2 views; the CLIP text tower.
+LSEG_GROUP = 2
+DINO_VIEWS = 2
+TEXT_PROMPTS = 8
+# bf16 network against the same weights in f32, per pixel of the unit-norm
+# features: the least cosine and the largest absolute error allowed
+LSEG_BF16_MIN_COS, LSEG_BF16_MAX_ABS = 0.99, 0.05
+
+
+def median_ms(fn, iters: int) -> float:
+    """Median over ``iters`` calls of ``fn``, each between its own CUDA
+    events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[len(times) // 2]
+
+
+def network_flops(net, x) -> int:
+    """Multiply-add FLOPs (2 per MAC) of one forward of ``net`` on ``x``,
+    from the shapes its layers see: every Linear, Conv2d and
+    ConvTranspose2d, and both attention products. Elementwise work,
+    norms and softmax are not counted."""
+    import torch.nn as nn
+
+    from tpugs_torch.encoders.vit import Attention
+
+    total = [0]
+
+    def hook(m, inp, out):
+        x = inp[0]
+        if isinstance(m, nn.Linear):
+            total[0] += 2 * (x.numel() // x.shape[-1]) * m.in_features * m.out_features
+        elif isinstance(m, nn.ConvTranspose2d):
+            total[0] += 2 * x.numel() * m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+        elif isinstance(m, nn.Conv2d):
+            total[0] += (2 * out.numel() * m.in_channels * m.kernel_size[0]
+                         * m.kernel_size[1] // m.groups)
+        elif isinstance(m, Attention):
+            B, T, C = x.shape
+            total[0] += 2 * 2 * B * T * T * C
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, Attention))]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def lift_records(tag, r, D, launches, replaces_b2, replaces_b3):
+    """64 random tiles of one view (``run_view``'s result ``r``) against
+    the twins; B2's and B3's times at this view's shapes, their twins',
+    B3's library call, and their bounds. Returns (records, B2's errors)."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.timing import time_cuda
+
+    plan = r.plan
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    rows = span_rows(plan, tiles)
+    rows_t = K.adjoint_rows_plain(r.packed, r.feat_tiles, plan, tiles=tiles)
+    b2 = K.rows_error(r.rows[rows], rows_t[rows], D)
+    del rows_t
+    gids = gaussians_of(plan, rows)
+    b3_equal = torch.equal(r.sums[gids], K.reduce_rows_plain(r.rows, plan, D + 1,
+                                                             gaussians=gids))
+    b3 = rel_err(r.sums[gids], K.reduce_rows_plain(r.rows, plan, D + 1, gaussians=gids))
+    b2_ms = time_cuda(lambda: K.adjoint_rows(r.packed, r.feat_tiles, plan), 3)
+    b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
+    b3_ms = time_cuda(lambda: K.reduce_rows(r.rows, plan, D + 1), 5)
+    b3_plain = time_cuda(lambda: K.reduce_rows_plain(r.rows, plan, D + 1), 1)
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, plan.T_padded)
+    rows32 = r.rows[:, : D + 1].float()
+    lib_err = rel_err(select @ rows32, r.sums)
+    b3_lib = time_cuda(lambda: select @ rows32, 5)
+    del select, rows32
+    walked, weighted, _ = walked_pairs(r.packed, plan, K.TRANS_EPS)
+    tspx = plan.tile_size**2
+    block_bytes = int(r.blocks_done.sum()) * 128 * 64
+    b2_bound = bound(block_bytes + plan.n_tiles * tspx * D * 2 + plan.T_padded * (D + 1) * 2,
+                     2 * weighted * (D + 1), PEAK_BF16_FLOPS)
+    n = plan.num_gaussians
+    b3_bound = bound(plan.n_isects * ((D + 1) * 2 + 4) + n * ((D + 1) * 4 + 4),
+                     plan.n_isects * (D + 1), PEAK_F32_FLOPS)
+    print(f"phase 7 {tag} D={D}: check on 64 tiles ({len(gids)} Gaussians): B2 bf16 "
+          f"{b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max; B3 bit-equal {b3_equal}; "
+          f"{walked} pairs walked, {weighted} with a nonzero weight; B2 {b2_ms:.3f} ms (twin "
+          f"{b2_plain:.1f}; bound {b2_bound[0]:.4f} ms by {b2_bound[1]}, share "
+          f"{b2_bound[0] / b2_ms:.3f}); B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}; bound "
+          f"{b3_bound[0]:.4f} ms by {b3_bound[1]}, share {b3_bound[0] / b3_ms:.3f}; sparse "
+          f"CSR @ f32 rows {b3_lib:.3f} ms, {lib_err[1]:.3e} of max)", flush=True)
+    check(within_rows_tol(b2[1], b2[2], torch.bfloat16),
+          f"B2 on the {tag} features within ROWS_TOL on the sampled tiles")
+    check(b3_equal, f"B3 bit-equal on the {tag} rows of the sampled Gaussians")
+    check(lib_err[1] <= 1e-5, "the library call computes the sums")
+    return [
+        rec(f"B2-{tag}", "adjoint", "tpugs_torch/csrc/adjoint.cu", replaces_b2,
+            launches["adjoint"], b2, b2_ms, b2_plain, b2_bound),
+        rec(f"B3-{tag}", "reduce", "tpugs_torch/csrc/reduce.cu", replaces_b3,
+            launches["reduce"], b3, b3_ms, b3_plain, b3_bound, b3_lib),
+    ]
+
+
+@torch.no_grad()
+def phase_lseg(den3):
+    """LSeg in bf16 at full width through ``backproject_views_split`` (group
+    2, both engines), the encoder alone against its bound and against
+    itself in f32, DINO on 2 views, the CLIP text tower. ``den3`` is phase
+    3's weight sums (CPU), which the split lift must reproduce bit for bit.
+    Returns the kernel records."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.encoders.clip_text import CLIPTextTower
+    from tpugs_torch.encoders.dino import DinoEncoder
+    from tpugs_torch.encoders.lseg import LSegEncoder
+    from tpugs_torch.encoders.vit import init_flax_like_, parameter_count
+    from tpugs_torch.lift.batch import (
+        backproject_views,
+        backproject_views_split,
+        render_and_pack,
+        run_view,
+    )
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.tiles import tiles_to_image
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    w, h = W_FULL, H_FULL
+    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "RANDOM weights": seeded, on purpose
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = LSegEncoder(dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        enc32 = LSegEncoder(dtype=None, device="cuda")
+    n_params = parameter_count(enc.net)
+    print(f"phase 7 LSegEncoder(dtype=bf16): ViT-L/16 (24 blocks, width 1024, 16 heads, "
+          f"{(enc.crop_size // 16) ** 2 + 1} tokens at the {enc.crop_size}^2 crop) + DPT head "
+          f"(256 features, {enc.feature_dim} out), seeded random weights: built in "
+          f"{build_s:.2f} s, {n_params} parameters", flush=True)
+
+    # the encoder alone, on view 0's render
+    r0 = render_and_pack(scene, cams.viewmats[0], cams.Ks[0], w, h, TILE)
+    rgb = tiles_to_image(r0.tiles, w, h, TILE)[..., :3][None].contiguous()
+    del r0
+    x = enc.pre(rgb)
+    feats = enc.network(x)
+    pre_ms = median_ms(lambda: enc.pre(rgb), 10)
+    net_ms = median_ms(lambda: enc.network(x), 10)
+    host = []  # the host's time to enqueue the network, from an idle card
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.network(x)
+        host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = sorted(host)[len(host) // 2]
+    post_ms = median_ms(lambda: enc.post(feats, (h, w), torch.bfloat16), 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    enc.staged_apply(rgb)
+    torch.cuda.synchronize()
+    enc_peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = network_flops(enc.net, x)
+    cs, d = enc.crop_size, enc.feature_dim
+    net_bound = bound(2 * n_params + x.numel() * 2 + feats.numel() * 2, flops, PEAK_BF16_FLOPS)
+    pre_bound = bound(rgb.numel() * 4 + x.numel() * 2, 0, PEAK_F32_FLOPS)
+    post_bound = bound(feats.numel() * 2 + h * w * d * 2, 0, PEAK_F32_FLOPS)
+    enc_bound = net_bound[0] + pre_bound[0] + post_bound[0]
+    enc_ms = pre_ms + net_ms + post_ms
+    f16 = enc(rgb[0])
+    f32 = enc32(rgb[0])
+    cos = torch.nn.functional.cosine_similarity(f16, f32, dim=-1)
+    max_abs = float((f16 - f32).abs().max())
+    print(f"phase 7 LSeg encoder alone on view 0's render ({w}x{h} -> {cs}^2 -> "
+          f"{cs // 2}^2 x {d} -> {w}x{h}), median of 10 by CUDA events: pre-resize "
+          f"{pre_ms:.3f} ms, network {net_ms:.3f} ms, post (norm + resize back, bf16) "
+          f"{post_ms:.3f} ms, total {enc_ms:.3f} ms (the host enqueues the network in "
+          f"{host_ms:.3f} ms); peak {enc_peak:.2f} GB ({base_gb:.2f} "
+          f"before); network {flops / 1e12:.4f} TFLOP (linear, conv and attention products), "
+          f"bound {net_bound[0]:.4f} ms by {net_bound[1]} (share {net_bound[0] / net_ms:.3f}); "
+          f"pre bound {pre_bound[0]:.4f} ms, post bound {post_bound[0]:.4f} ms by bytes; "
+          f"encoder bound {enc_bound:.4f} ms, share {enc_bound / enc_ms:.3f}; bf16 against "
+          f"f32 (same weights): per-pixel cosine min {float(cos.min()):.6f} mean "
+          f"{float(cos.mean()):.6f}, max abs error {max_abs:.3e} (bounds: cosine >= "
+          f"{LSEG_BF16_MIN_COS}, max abs <= {LSEG_BF16_MAX_ABS})", flush=True)
+    check(f16.shape == (h, w, d) and bool(torch.isfinite(f16).all()), "LSeg features finite")
+    check(float(cos.min()) >= LSEG_BF16_MIN_COS and max_abs <= LSEG_BF16_MAX_ABS,
+          "the bf16 encoder within its bounds of the f32 encoder")
+    del enc32, f16, f32, cos, feats, x
+
+    # the split lift, group 2, after one warm-up group
+    args = (scene, cams.viewmats, cams.Ks, w, h, enc)
+    backproject_views_split(scene, cams.viewmats[:LSEG_GROUP], cams.Ks[:LSEG_GROUP], w, h,
+                            enc, group_size=LSEG_GROUP, tile_size=TILE)
+    results = {}
+    for engine, kernels in (("pallas", ("render", "adjoint", "reduce")),
+                            ("scatter", ("render", "adjoint_scatter", "stripe_sum"))):
+        num, den, ms_view, launches, peak_gb, stage_ms, _ = timed_lift(
+            args, engine, backproject_views_split, group_size=LSEG_GROUP)
+        results[engine] = (num.cpu(), den.cpu(), launches)
+        del num, den
+        for name in kernels:
+            check(launches[name] >= VIEWS,
+                  f"{name} kernel launched at least once per view ({launches[name]})")
+        render = sum(stage_ms[k] for k in ("project+sh", "plan", "pack", "render"))
+        stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
+        print(f"phase 7 backproject_views_split LSeg bf16 group={LSEG_GROUP} "
+              f"reduce_engine={engine} N={N_FULL} {w}x{h} D={d} tile={TILE} views={VIEWS}: "
+              f"{ms_view:.2f} ms/view, {1e3 / ms_view:.3f} views/s, peak {peak_gb:.2f} GB; "
+              f"ms/view: render {render:.2f}, encode {stage_ms['encode']:.2f}, adjoint+reduce "
+              f"{stage_ms['adjoint'] + stage_ms['reduce']:.2f} (CUDA events: {stages}); "
+              f"launches {launches}", flush=True)
+    (num, den, launches), (num_s, den_s, _) = results["pallas"], results["scatter"]
+    check(bool(torch.isfinite(num).all()) and bool((den > 0).any()), "num finite, den > 0")
+    den_equal = torch.equal(den, den3)
+    scatter_equal = torch.equal(num_s, num) and torch.equal(den_s, den)
+    num_1, den_1 = backproject_views(*args, tile_size=TILE)
+    num_1, den_1 = num_1.cpu(), den_1.cpu()
+    one_equal = torch.equal(num_1, num) and torch.equal(den_1, den)
+    one_err = rel_err(num, num_1)
+    # where the two differ, the features must: staged (batched) against per image
+    views2 = [render_and_pack(scene, cams.viewmats[c], cams.Ks[c], w, h, TILE) for c in (0, 1)]
+    rgbs = torch.stack([tiles_to_image(v.tiles, w, h, TILE)[..., :3] for v in views2])
+    del views2
+    staged = enc.staged_apply(rgbs)
+    feats_equal = all(torch.equal(staged[i], enc(rgbs[i]).to(torch.bfloat16)) for i in (0, 1))
+    del staged, rgbs
+    print(f"phase 7 split lift: den bit-equal to phase 3's (the ones-channel never sees the "
+          f"features) {den_equal}; reduce_engine=scatter num and den bit-equal to pallas "
+          f"{scatter_equal}; against backproject_views with the same encoder: num and den "
+          f"bit-equal {one_equal} (num {one_err[1]:.3e} of max); staged_apply's features "
+          f"bit-equal to the per-image call's on views 0-1 {feats_equal}", flush=True)
+    check(den_equal, "the split lift's den equals phase 3's bit for bit")
+    check(scatter_equal, "the scatter engine's num and den equal pallas' bit for bit")
+    check(torch.equal(den_1, den), "the one-pass lift's den equals the split lift's")
+    check(one_equal or (not feats_equal and one_err[1] <= 1e-2),
+          "num bit-equal to backproject_views', or differing only through the features")
+    del num, den, num_s, den_s, num_1, den_1, results
+
+    r = run_view(scene, cams.viewmats[0], cams.Ks[0], w, h, enc, TILE)
+    records = lift_records("lseg", r, d, launches, "tpugs/raster/pallas_tiled.py:1623",
+                           "tpugs/raster/pallas_tiled.py:2233")
+    del r, enc, args
+
+    # DINO: 2 views at D = 1024
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t0 = time.perf_counter()
+        dino = DinoEncoder(dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        dino_build = time.perf_counter() - t0
+    img = rgb[0]
+    dino_ms = median_ms(lambda: dino(img), 5)
+    xd = torch.zeros((1, 3, dino.image_size, dino.image_size), device="cuda",
+                     dtype=torch.bfloat16)
+    dino_net = median_ms(lambda: dino.vit(xd), 5)
+    dino_flops = network_flops(dino.vit, xd)
+    vms, ks = cams.viewmats[:DINO_VIEWS], cams.Ks[:DINO_VIEWS]
+    K.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    num_d, den_d = backproject_views_split(scene, vms, ks, w, h, dino, group_size=LSEG_GROUP,
+                                           tile_size=TILE)
+    torch.cuda.synchronize()
+    dino_lift = 1e3 * (time.perf_counter() - t0) / DINO_VIEWS
+    launches_d = K.LAUNCHES.snapshot()
+    for name in ("render", "adjoint", "reduce"):
+        check(launches_d[name] >= DINO_VIEWS, f"{name} launched on every DINO view")
+    _, den_lin = backproject_views(scene, vms, ks, w, h, LinearRGBEncoder(D_FULL),
+                                   tile_size=TILE)
+    dino_den_equal = torch.equal(den_d, den_lin)
+    print(f"phase 7 DinoEncoder(dtype=bf16): ViT-L/14 with 4 registers at "
+          f"{dino.image_size}^2 ({(dino.image_size // 14) ** 2 + 5} tokens), built in "
+          f"{dino_build:.2f} s, {parameter_count(dino.vit)} parameters; encoder {dino_ms:.2f} ms "
+          f"per image (network {dino_net:.2f} ms, {dino_flops / 1e12:.4f} TFLOP, bound "
+          f"{1e3 * dino_flops / PEAK_BF16_FLOPS:.4f} ms by operations); split lift of "
+          f"{DINO_VIEWS} views at D={dino.feature_dim}: {dino_lift:.2f} ms/view; den bit-equal "
+          f"to phase 3's path on those views {dino_den_equal}; launches {launches_d}", flush=True)
+    check(bool(torch.isfinite(num_d).all()) and num_d.shape[1] == 1024, "DINO num finite")
+    check(dino_den_equal, "DINO's den equals phase 3's path's bit for bit on its views")
+    del num_d, den_d, den_lin
+    r = run_view(scene, cams.viewmats[0], cams.Ks[0], w, h, dino, TILE)
+    records += lift_records("dino", r, dino.feature_dim, launches_d,
+                            "tpugs/raster/pallas_tiled.py:1623",
+                            "tpugs/raster/pallas_tiled.py:2233")
+    del r, dino
+
+    # the CLIP text tower (ViT-B/32's: width 512, 12 layers, context 77)
+    tower = init_flax_like_(CLIPTextTower(device="cuda"), seed=0).eval()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(1, 49406, (TEXT_PROMPTS, 77), device="cuda", generator=gen)
+    tokens[:, 20] = 49407  # EOT
+    with torch.no_grad():
+        emb = tower(tokens)
+        text_ms = median_ms(lambda: tower(tokens), 10)
+    print(f"phase 7 CLIPTextTower (width 512, 12 layers, context 77, random weights): "
+          f"{TEXT_PROMPTS} prompts of random ids in {text_ms:.3f} ms, output "
+          f"{tuple(emb.shape)} finite {bool(torch.isfinite(emb).all())}", flush=True)
+    check(emb.shape == (TEXT_PROMPTS, 512) and bool(torch.isfinite(emb).all()),
+          "text embeddings finite, (P, 512)")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -1712,13 +2051,14 @@ def main() -> int:
     phase_clusters()
     phase_train_kernels()
     phase_train_geom()
-    records, view = phase_full_width()
+    records, view, den3 = phase_full_width()
     records += phase_experiments(view)
     del view
     records += phase_train()
     records += phase_eager()
     records += phase_absgrad()
     phase_app()
+    records += phase_lseg(den3)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

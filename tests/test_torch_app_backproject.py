@@ -117,12 +117,36 @@ def test_no_batch_is_eager(dataset):
 
 
 def test_unknown_engine_and_unported_encoders_raise(dataset):
+    """Every encoder of tpugs' registry is ported now: an unknown engine or
+    encoder name raises ValueError."""
     with pytest.raises(ValueError, match="unknown engine"):
         _run(t_main, dataset, "bad", engine="fast", skip_prune=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+    with pytest.raises(ValueError, match="unknown encoder"):
         t_main(data_dir=str(dataset / "data"), checkpoint=str(dataset / "data" / "ckpt.pt"),
-               results_dir=str(dataset / "lseg"), data_factor=1, feature="lseg",
+               results_dir=str(dataset / "clip"), data_factor=1, feature="clip",
                skip_prune=True, device="cpu")
+
+
+@pytest.mark.parametrize("feature", ["lseg", "dino"])
+def test_encoder_ckpt_and_device_reach_get_encoder(dataset, monkeypatch, feature):
+    """``--feature lseg|dino --encoder-ckpt FILE``: the app hands the file
+    and its device to ``get_encoder`` ("" means random weights: None)."""
+    import tpugs_torch.encoders as registry
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+
+    calls = []
+
+    def fake(name, ckpt=None, device="cuda", dtype=None):
+        calls.append((name, ckpt, str(device)))
+        return LinearRGBEncoder(8, device=device)
+
+    monkeypatch.setattr(registry, "get_encoder", fake)
+    for ckpt in ("weights.ckpt", ""):
+        t_main(data_dir=str(dataset / "data"), checkpoint=str(dataset / "data" / "ckpt.pt"),
+               results_dir=str(dataset / f"enc-{feature}"), data_factor=1, feature=feature,
+               encoder_ckpt=ckpt, skip_prune=True, engine="scan", device="cpu")
+    assert calls == [(feature, "weights.ckpt", "cpu"), (feature, None, "cpu")]
+    assert (dataset / f"enc-{feature}" / f"features_{feature}.npz").exists()
 
 
 def test_strict_sizes_says_there_is_nothing_to_audit(dataset):

@@ -8,6 +8,9 @@
 * S2 (``experiments/reduce_tail.py``): on one small view's real rows, the
   gather puts every live row where B6 would, and stripe + unpermute and
   scatter-acc are bit-equal to B3's twin, in f32 and bf16.
+* The encoder's post step (``experiments/encoder_post.py``): its two
+  variants, antialiased and plain upsample, agree to one bf16 unit, and
+  the plain one is ``LSegEncoder.post``.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from tpugs_torch.encoders.base import LinearRGBEncoder
+from tpugs_torch.experiments import encoder_post
 from tpugs_torch.experiments import reduce_tail as S2
 from tpugs_torch.experiments import scatter_write as S1
 from tpugs_torch.lift.batch import run_view
@@ -129,7 +133,16 @@ def test_s2_accounts_for_every_pass(view):
     assert set(S2.NOT_APPLICABLE) == {"bf16-unperm"}
 
 
-@pytest.mark.parametrize("module", [S1, S2])
+def test_encoder_post_variants_agree():
+    feats = torch.randn((1, 16, 12, 15), generator=torch.Generator().manual_seed(0))
+    fns = encoder_post.variants((40, 44))
+    a, b = fns["antialiased"](feats), fns["plain"](feats)
+    assert a.shape == b.shape == (1, 40, 44, 16) and b.dtype == torch.bfloat16
+    assert b.is_contiguous()
+    np.testing.assert_allclose(b.float().numpy(), a.float().numpy(), rtol=2.0**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("module", [S1, S2, encoder_post])
 def test_experiments_need_a_card(module):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")

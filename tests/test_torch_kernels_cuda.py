@@ -24,7 +24,16 @@ bf16 unit of the twin's (they are expected bit-equal) and scattered to
 (every block walked): B4 and B5 at D = 3 and 4, and B2 with one zero
 channel, held by the same limits. B5's geometry-only launch at D = 5, 515
 and 1030 against its twin by ``GRAD_ROWS_TOL`` (f32), and its columns
-0:6 against the sums of the chunked B5 launches' geometry.
+0:6 against the sums of the chunked B5 launches' geometry. B2 at
+D = 1024 (DINO's width) in f32 and bf16 by ``ROWS_TOL``, B6 bit-equal.
+
+The encoders have no kernel of their own; they are held on the card
+against the CPU in f32 (TF32 off): a reduced LSeg network through
+``LSegEncoder.__call__`` and ``staged_apply``, a reduced DINO ViT, a
+reduced CLIP text tower (1e-4 of the output's max), and ``resize`` in each
+method and direction the encoders use on inputs in [0, 1] (3e-5: the
+card's antialiased kernel differs from the CPU's by 1.24e-5 on the
+840x1296 -> 480^2 case).
 """
 
 import pytest
@@ -429,3 +438,93 @@ def test_adjoint_kernel_one_zero_channel_without_early_exit(view):
     torch.cuda.synchronize()
     assert torch.equal(sums, K.reduce_rows_plain(rows, plan, 2))
     assert bool((sums[:, 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adjoint_kernel_at_dino_width(view, dtype):
+    plan, pack, _ = view
+    img, _ = K.render_tiles(pack, plan)
+    f = LinearRGBEncoder(1024, seed=6, device="cuda")(img[..., :3]).to(dtype).contiguous()
+    got = K.adjoint_rows(pack, f, plan)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, f, splan)
+    torch.cuda.synchronize()
+    _, of_group, of_row = K.rows_error(got, K.adjoint_rows_plain(pack, f, plan), 1024)
+    group_tol, row_tol = K.ROWS_TOL[dtype]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    real = splan.gauss_pos.long()
+    assert torch.equal(striped[splan.slot_pos.long()[real]], got[real])
+
+
+def _card_and_cpu(build):
+    """(module on the card, the same module on the CPU), seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpugs_torch.encoders.vit import init_flax_like_
+
+    cpu = init_flax_like_(build("cpu"), seed=5)
+    card = build("cuda")
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _close(got, ref, frac=1e-4):
+    ref = ref.float()
+    err = float((got.float().cpu() - ref).abs().max())
+    assert err <= frac * float(ref.abs().max()), err
+
+
+def test_lseg_encoder_on_the_card_matches_the_cpu():
+    from tpugs_torch.encoders.lseg import LSegEncoder, LSegNet
+    from tpugs_torch.encoders.vit import ViTConfig
+
+    cfg = ViTConfig(image_size=64, patch_size=16, width=64, layers=4, heads=4)
+    card, cpu = _card_and_cpu(lambda dev: LSegNet(
+        features=32, out_dim=48, vit_cfg=cfg, hooks=(0, 1, 2, 3),
+        layer_channels=(16, 32, 64, 64), device=dev))
+    enc_card = LSegEncoder.from_net(card, crop_size=64)
+    enc_cpu = LSegEncoder.from_net(cpu, crop_size=64)
+    rgbs = torch.rand((2, 70, 90, 3), generator=torch.Generator().manual_seed(0))
+    _close(enc_card(rgbs[0].cuda()), enc_cpu(rgbs[0]))
+    staged = enc_card.staged_apply(rgbs.cuda())
+    assert staged.dtype == torch.bfloat16 and staged.shape == (2, 70, 90, 48)
+    _close(staged, enc_cpu.staged_apply(rgbs).float(), 2.0**-7)
+
+
+def test_dino_vit_on_the_card_matches_the_cpu():
+    from tpugs_torch.encoders.dino import DinoEncoder
+    from tpugs_torch.encoders.vit import DINOV2_VIT_L14_REG, VisionTransformer
+    import dataclasses
+
+    cfg = dataclasses.replace(DINOV2_VIT_L14_REG, image_size=56, width=64, heads=4, layers=3)
+    card, cpu = _card_and_cpu(lambda dev: VisionTransformer(cfg, device=dev))
+    img = torch.rand((50, 60, 3), generator=torch.Generator().manual_seed(1))
+    _close(DinoEncoder.from_vit(card, 70)(img.cuda()), DinoEncoder.from_vit(cpu, 70)(img))
+
+
+def test_clip_text_tower_on_the_card_matches_the_cpu():
+    from tpugs_torch.encoders.clip_text import CLIPTextTower
+
+    card, cpu = _card_and_cpu(lambda dev: CLIPTextTower(
+        vocab_size=300, context_length=77, width=64, heads=4, layers=3, embed_dim=32,
+        device=dev))
+    tokens = torch.randint(1, 299, (3, 77), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        _close(card(tokens.cuda()), cpu(tokens))
+
+
+@pytest.mark.parametrize("method, size, out", [
+    ("bilinear", (840, 1296), (480, 480)), ("bilinear", (240, 240), (840, 1296)),
+    ("cubic", (37, 37), (64, 64)), ("cubic", (64, 64), (37, 37)),
+    ("nearest", (64, 64), (840, 1296))])
+def test_resize_on_the_card_matches_the_cpu(method, size, out):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpugs_torch.encoders.resize import resize
+
+    x = torch.rand((1, 8, *size), generator=torch.Generator().manual_seed(3))
+    got = resize(x.cuda(), out, method)
+    ref = resize(x, out, method)
+    assert float((got.cpu() - ref).abs().max()) <= 3e-5

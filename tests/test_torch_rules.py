@@ -17,11 +17,20 @@ from tpugs_torch.core.device import resolve_device
 from tpugs_torch.apps.backproject import main as backproject_main
 from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
+from tpugs_torch.encoders.clip_text import CLIPTextTower
+from tpugs_torch.encoders.dino import DinoEncoder
+from tpugs_torch.encoders.lseg import LSegEncoder, LSegHead, LSegNet, TextEncoder, encode_text
+from tpugs_torch.encoders.vit import VisionTransformer, ViTConfig
 from tpugs_torch.experiments import scatter_write
 from tpugs_torch.io.checkpoints import load_checkpoint
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.backproject import create_feature_field
-from tpugs_torch.lift.batch import backproject_views, create_feature_field_batch, estimate_sizes
+from tpugs_torch.lift.batch import (
+    backproject_views,
+    backproject_views_split,
+    create_feature_field_batch,
+    estimate_sizes,
+)
 from tpugs_torch.lift.ops import accumulate_view
 from tpugs_torch.lift.prune import prune_by_gradients, verify_pruning_equivalence
 from tpugs_torch.raster import kernels as K
@@ -102,6 +111,20 @@ ENTRY_POINTS = {
         synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None],
         32, 32, LinearRGBEncoder(4, device="cpu")),
     "get_encoder": lambda: get_encoder("linear:4"),
+    "get_encoder lseg": lambda: get_encoder("lseg"),
+    "get_encoder dino": lambda: get_encoder("dino"),
+    "LSegEncoder": lambda: LSegEncoder(),
+    "DinoEncoder": lambda: DinoEncoder(),
+    "VisionTransformer": lambda: VisionTransformer(
+        ViTConfig(image_size=32, patch_size=16, width=16, layers=1, heads=4)),
+    "LSegNet": lambda: LSegNet(),
+    "LSegHead": lambda: LSegHead(),
+    "CLIPTextTower": lambda: CLIPTextTower(),
+    "TextEncoder": lambda: TextEncoder("x.ckpt", "bpe.txt.gz"),
+    "encode_text": lambda: encode_text(["a chair"], "x.ckpt", "bpe.txt.gz"),
+    "backproject_views_split": lambda: backproject_views_split(
+        synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None],
+        32, 32, LinearRGBEncoder(4, device="cpu")),
     "init_scene_from_points": lambda: init_scene_from_points(
         np.zeros((5, 3)), np.zeros((5, 3)), TrainConfig(feature_dim=0)),
     "Trainer": lambda: Trainer(TrainConfig(strategy="none", feature_dim=0),

@@ -21,13 +21,18 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              the XLA reduce engine, the differentiable train render (kernels
              train_fwd, train_bwd), the tiled render and adjoint on them, the
              dense oracle and the gsplat-shaped ``rasterize`` API
-  encoders/  synthetic pixelwise encoders and their registry
-  lift/      the fused multi-view back-projection loop, the eager lift
-             (``create_feature_field``) and gradient pruning
+  encoders/  synthetic pixelwise encoders, the ViT encoders (LSeg, DINOv2,
+             the CLIP text tower; ``jax.image.resize``'s semantics in
+             ``resize.py``), their checkpoint loaders and the registry
+  lift/      the fused multi-view back-projection loop, the split-encoder
+             lift, the eager lift (``create_feature_field``) and gradient
+             pruning
   train/     config, metrics, strategy "none" and the trainer's step
-  experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail)
+  experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
+             the phases tools, the LSeg encoder's post step
   kernels/   the nvcc build of ``csrc/*.cu``
-  convert.py numpy state in, port state out
+  convert.py numpy state in, port state out (scenes, cameras, the Flax
+             encoders' params)
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 """

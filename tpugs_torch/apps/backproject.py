@@ -9,7 +9,9 @@ verify render equivalence -> back-project features -> save
         --results-dir OUT --data-factor 1 --feature linear:8 [--device cpu]
 
 Encoders: ``grayscale`` / ``linear[:D]`` run out of the box; ``lseg`` /
-``dino`` raise NotImplementedError until ROADMAP item 2 ports them.
+``dino`` load their weights from ``--encoder-ckpt FILE`` (a lang-seg
+``.ckpt`` or a DINOv2 state dict) and run with random weights, with a
+warning, without one.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ def main(
     port's plans are exact and have no size buckets to overflow, so it
     prints that there is nothing to audit and changes no result. ``morton``:
     Z-curve-sort the scene before lifting; the features are unpermuted
-    before saving. ``encoder_ckpt`` is for the ViT encoders, not ported
-    yet. ``device``: where everything runs, "cuda" or "cpu"."""
+    before saving. ``encoder_ckpt``: the ViT encoders' checkpoint ("" for
+    random weights). ``device``: where everything runs, "cuda" or "cpu"."""
     from tpugs_torch.core.device import resolve_device
     from tpugs_torch.encoders import get_encoder
     from tpugs_torch.io.checkpoints import load_checkpoint
@@ -62,7 +64,7 @@ def main(
         verify_pruning_equivalence(scene, pruned, cams, device=dev)
         scene = pruned
 
-    encoder = get_encoder(feature, device=dev)
+    encoder = get_encoder(feature, encoder_ckpt or None, device=dev)
 
     inv_perm = None
     if morton:

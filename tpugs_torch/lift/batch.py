@@ -1,6 +1,7 @@
 """Fused multi-view feature back-projection on the three kernels.
 Counterparts: ``tpugs/lift/pallas_batch.py:69-154``
-(``backproject_one_view_pallas``), ``:443`` (``backproject_views_grouped``)
+(``backproject_one_view_pallas``), ``:443`` (``backproject_views_grouped``),
+``:373`` (``backproject_views_grouped_split``)
 and ``tpugs/lift/batch.py`` (``StaticSizes``, ``estimate_sizes`` :38-72,
 ``normalize_field`` :182, ``create_feature_field_batch`` :186).
 
@@ -12,7 +13,9 @@ the scatter-write adjoint (B6) and the stripe sum (B7) on a plan built with
 engine. ``backproject_views`` is a plain loop
 over views that accumulates ``num``/``den``; the reference's dispatch
 groups and optimisation barriers amortise TPU transport latency and have
-no counterpart here.
+no counterpart here. ``backproject_views_split`` runs the same per-view
+stages (``render_and_pack``, then ``contribution_sums``) around one encoder
+call per group of views, for the ViT encoders.
 """
 
 from __future__ import annotations
@@ -59,6 +62,43 @@ class ViewResult:
         return split_sums(self.sums)[1]
 
 
+class Rendered(NamedTuple):
+    """One view's render: its plan, pack, tiles and exit blocks."""
+
+    plan: Plan
+    packed: torch.Tensor
+    tiles: torch.Tensor
+    blocks_done: torch.Tensor
+
+
+def render_and_pack(
+    scene: GaussianScene,
+    viewmat: torch.Tensor,
+    K: torch.Tensor,
+    width: int,
+    height: int,
+    tile_size: int = DEFAULT_TILE,
+    proj_config: ProjectionConfig = ProjectionConfig(),
+    trans_eps: float = TRANS_EPS,
+    on_stage: Optional[Callable[[str], None]] = None,
+    scatter: bool = False,
+) -> Rendered:
+    """Projection + SH colours, the plan (with the scatter engine's extras
+    when ``scatter``), the pack and B1: the stages up to "render"."""
+    mark = on_stage or (lambda name: None)
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
+                   viewmat, K, width, height, proj_config)
+    cols3 = prepare_colors(scene.means, scene.colors_all, viewmat, scene.sh_degree)
+    mark("project+sh")
+    plan = build_plan(proj, width, height, tile_size, scatter=scatter)
+    mark("plan")
+    packed = pack_isect_all(proj, cols3, plan)
+    mark("pack")
+    tiles, blocks_done = render_tiles(packed, plan, trans_eps)
+    mark("render")
+    return Rendered(plan, packed, tiles, blocks_done)
+
+
 def run_view(
     scene: GaussianScene,
     viewmat: torch.Tensor,
@@ -77,25 +117,17 @@ def run_view(
     called after each of ``STAGES`` (for timing). ``reduce_engine`` is
     "pallas" (B2 + B3) or "scatter" (B6 + B7); see ``contribution_sums``."""
     mark = on_stage or (lambda name: None)
-    proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
-                   viewmat, K, width, height, proj_config)
-    cols3 = prepare_colors(scene.means, scene.colors_all, viewmat, scene.sh_degree)
-    mark("project+sh")
-    plan = build_plan(proj, width, height, tile_size, scatter=(reduce_engine == "scatter"))
-    mark("plan")
-    packed = pack_isect_all(proj, cols3, plan)
-    mark("pack")
-    tiles, blocks_done = render_tiles(packed, plan, trans_eps)
-    mark("render")
+    r = render_and_pack(scene, viewmat, K, width, height, tile_size, proj_config,
+                        trans_eps, mark, scatter=(reduce_engine == "scatter"))
     if getattr(encoder, "pixelwise", False):
-        feats = encoder(tiles[..., :3])
+        feats = encoder(r.tiles[..., :3])
     else:
-        rgb = tiles_to_image(tiles, width, height, tile_size)[..., :3]
+        rgb = tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
         feats = image_to_tiles(encoder(rgb), tile_size)
     feats = feats.to(contrib_dtype).contiguous()
     mark("encode")
-    rows, sums = contribution_sums(packed, feats, plan, trans_eps, mark, reduce_engine)
-    return ViewResult(plan, packed, tiles, blocks_done, feats, rows, sums)
+    rows, sums = contribution_sums(r.packed, feats, r.plan, trans_eps, mark, reduce_engine)
+    return ViewResult(r.plan, r.packed, r.tiles, r.blocks_done, feats, rows, sums)
 
 
 def backproject_one_view(
@@ -160,6 +192,72 @@ def backproject_views(
             fs, ws = cam_weights[c] * fs, cam_weights[c] * ws
         num += fs
         den += ws
+    return num, den
+
+
+def backproject_views_split(
+    scene: GaussianScene,
+    viewmats: torch.Tensor,  # (C, 4, 4)
+    Ks: torch.Tensor,  # (C, 3, 3)
+    width: int,
+    height: int,
+    encoder,
+    group_size: int = 2,
+    tile_size: int = DEFAULT_TILE,
+    contrib_dtype: torch.dtype = torch.bfloat16,
+    proj_config: ProjectionConfig = ProjectionConfig(),
+    trans_eps: float = TRANS_EPS,
+    device: DeviceLike = "cuda",
+    on_stage: Optional[Callable[[str], None]] = None,
+    reduce_engine: str = "pallas",
+    cam_weights: Optional[torch.Tensor] = None,  # (C,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-encoder lift for heavyweight encoders (LSeg, DINO):
+    (num (N, D), den (N,)) float32 on ``device``, like ``backproject_views``.
+    Per group of ``group_size`` views: render each view with B1, keeping its
+    plan and pack; encode the group's stacked RGBs at once, through the
+    encoder's ``staged_apply`` where it has one, else per image; then the
+    adjoint and reduce of each view on its kept plan. Features are
+    materialised in bfloat16 (as tpugs does) and cast to ``contrib_dtype``
+    for the adjoint. ``reduce_engine`` is honoured ("pallas", "scatter" or
+    "xla"); ``cam_weights`` multiplies each view's sums. The last group may
+    be short: tpugs pads it with a zero-weighted view only because its
+    shapes are static, which changes no sum. ``on_stage`` is called after
+    each view's render stages, once per group after "encode", and after
+    each view's "adjoint" and "reduce"."""
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    viewmats = viewmats.to(dev)
+    Ks = Ks.to(dev)
+    if cam_weights is not None:
+        cam_weights = torch.as_tensor(cam_weights, dtype=torch.float32).tolist()
+    mark = on_stage or (lambda name: None)
+    g = max(1, group_size)
+    n, C = scene.num_gaussians, viewmats.shape[0]
+    num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
+    den = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for c0 in range(0, C, g):
+        views = range(c0, min(c0 + g, C))
+        rendered = [render_and_pack(scene, viewmats[c], Ks[c], width, height, tile_size,
+                                    proj_config, trans_eps, mark,
+                                    scatter=(reduce_engine == "scatter")) for c in views]
+        rgbs = torch.stack([tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
+                            for r in rendered])
+        stage = getattr(encoder, "staged_apply", None)
+        if stage is not None:
+            feats = stage(rgbs)
+        else:
+            feats = torch.stack([encoder(rgb).to(torch.bfloat16) for rgb in rgbs])
+        feat_tiles = [image_to_tiles(f, tile_size).to(contrib_dtype).contiguous() for f in feats]
+        del feats, rgbs
+        mark("encode")
+        for c, r, f in zip(views, rendered, feat_tiles):
+            _, sums = contribution_sums(r.packed, f, r.plan, trans_eps, mark, reduce_engine)
+            fs, ws = split_sums(sums)
+            if cam_weights is not None:
+                fs, ws = cam_weights[c] * fs, cam_weights[c] * ws
+            num += fs
+            den += ws
     return num, den
 
 
