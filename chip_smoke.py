@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Nine phases; the first failure ends the run with a nonzero exit:
+Ten phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -96,13 +96,37 @@ Nine phases; the first failure ends the run with a nonzero exit:
              bit-equal to phase 3's path on those views, B2 and B3 at
              D = 1024 on 64 tiles; the CLIP text tower (width 512, 12
              layers, context 77) on random ids: time, finite (P, 512).
-8. kernels line — one JSON object per kernel with its launches, errors,
+8. queries and edits — on phase 7's LSeg-512 field (normalised) at the
+             canonical shape: segmentation with 2 + 1 positive queries (the
+             random-weight CLIP tower on seeded ids, one exemplar Gaussian)
+             and 3 negative ones, 10 field rows planted on each side that
+             must be selected and left out exactly, ``get_mask3d`` against
+             float64 on the host outside ties (margin 1e-5, the count
+             printed), ``apply_mask3d``, ``render_to_gif`` of the extracted
+             (checkerboard) and deleted scenes and ``render_mask_2d_to_gif``
+             (B4 at D = 3 and 512; ms/view, peaks, launches), view 0's
+             pixel mask against float64, ``segment_by_opacity(~mask)``
+             rendering the deleted scene within 1/510; the D = 512 feature
+             render (B4-viz) against its twin on 64 tiles, timed, with its
+             bound; ``train_codec`` on the card (steps/s, the loss falls);
+             the compressed lift (``CompressedEncoder`` over ``linear:512``,
+             pallas engine: ms/view, peak, ``den`` against phase 3's, ``num``
+             against phase 3's ``num @ encoder`` within its bf16 bound);
+             ``render_pca`` in both modes (ms/view, colours in [0, 1]; the
+             fit on a 65,536-row subset against numpy's up to sign);
+             ``transfer_affordance`` with a 64-exemplar bank (time, labels
+             against float64 outside ties, k = 1 keeps each exemplar's
+             label), ``colorize_by_labels``, ``render_label_masks`` (B4 at
+             D = 8) and ``evaluate_iou``; ``vote_gradient`` with all-ones
+             and all-zeros masks on view 0.
+9. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
-             B5-tiled, B5's geometry-only launch as B5-geom, and phase 7's
-             as B2-lseg, B3-lseg, B2-dino and B3-dino.
+             B5-tiled, B5's geometry-only launch as B5-geom, phase 7's
+             as B2-lseg, B3-lseg, B2-dino and B3-dino, and phase 8's
+             feature render as B4-viz.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -117,6 +141,7 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bounds below.
@@ -677,8 +702,8 @@ def csr_select(offsets, columns, n_cols):
 def phase_full_width():
     """The canonical shape through the entry point, with both reduce
     engines. Returns the kernel records for the kernels line, one view's
-    result for the experiments phase and the default engine's den (CPU)
-    for phase 7."""
+    result for the experiments phase and the default engine's num and den
+    (CPU), ms/view and peak GB for phases 7 and 8."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.kernels.build import load_library
     from tpugs_torch.lift.batch import backproject_views, run_view
@@ -697,11 +722,12 @@ def phase_full_width():
                           tile_size=TILE, reduce_engine=engine)
     torch.cuda.synchronize()
 
-    results = {}
+    results, stats = {}, {}
     for engine, kernels in (("pallas", ("render", "adjoint", "reduce")),
                             ("scatter", ("render", "adjoint_scatter", "stripe_sum"))):
         num, den, ms_view, launches, peak_gb, stage_ms, stage_peak = timed_lift(args, engine)
         results[engine] = (num.cpu(), den.cpu(), launches)
+        stats[engine] = (ms_view, peak_gb)
         check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all()),
               "num and den finite")
         lit = float((den > 0).float().mean())
@@ -718,7 +744,8 @@ def phase_full_width():
               f"peak GB within each stage: {peaks}; launches {launches}", flush=True)
         del num, den  # the next engine's peak memory is its own
     (num, den, launches), (num_s, den_s, launches_s) = results["pallas"], results["scatter"]
-    den3 = den
+    ref3 = {"num": num, "den": den, "ms_view": stats["pallas"][0],
+            "peak_gb": stats["pallas"][1]}
     same = torch.equal(num_s, num) and torch.equal(den_s, den)
     print(f"phase 3 reduce_engine=scatter num and den bit-equal to the default engine's: "
           f"{same}", flush=True)
@@ -863,7 +890,7 @@ def phase_full_width():
             "tpugs/raster/pallas_tiled.py:1987", launches_s["stripe_sum"], b7, b7_ms,
             b7_plain, b7_bound, b7_lib),
     ]
-    return records, r, den3
+    return records, r, ref3
 
 
 S1_ITERS = 5  # timed launches of each S1 variant
@@ -1837,7 +1864,8 @@ def phase_lseg(den3):
     2, both engines), the encoder alone against its bound and against
     itself in f32, DINO on 2 views, the CLIP text tower. ``den3`` is phase
     3's weight sums (CPU), which the split lift must reproduce bit for bit.
-    Returns the kernel records."""
+    Returns the kernel records and the LSeg-512 field (CPU) of the default
+    engine's lift, normalised, for phase 8."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.encoders.clip_text import CLIPTextTower
     from tpugs_torch.encoders.dino import DinoEncoder
@@ -1846,6 +1874,7 @@ def phase_lseg(den3):
     from tpugs_torch.lift.batch import (
         backproject_views,
         backproject_views_split,
+        normalize_field,
         render_and_pack,
         run_view,
     )
@@ -1967,6 +1996,7 @@ def phase_lseg(den3):
     check(torch.equal(den_1, den), "the one-pass lift's den equals the split lift's")
     check(one_equal or (not feats_equal and one_err[1] <= 1e-2),
           "num bit-equal to backproject_views', or differing only through the features")
+    field = normalize_field(num.cuda(), den.cuda()).cpu()
     del num, den, num_s, den_s, num_1, den_1, results
 
     r = run_view(scene, cams.viewmats[0], cams.Ks[0], w, h, enc, TILE)
@@ -2030,7 +2060,482 @@ def phase_lseg(den3):
           f"{tuple(emb.shape)} finite {bool(torch.isfinite(emb).all())}", flush=True)
     check(emb.shape == (TEXT_PROMPTS, 512) and bool(torch.isfinite(emb).all()),
           "text embeddings finite, (P, 512)")
-    return records
+    return records, field
+
+
+# Phase 8: queries and edits on phase 7's LSeg-512 field at the canonical
+# shape (N = 2^19, 1296 x 840, 8 orbit views): segmentation and its edits,
+# the compressed lift, PCA and affordance transfer, each through the
+# functions the apps call (files are written only by the apps, with
+# imageio, which the card's machine lacks: output_path None here).
+TEXT_POS, TEXT_NEG = 2, 3  # CLIP-tower query rows; one --pos-idx row joins the positives
+PLANTED_ROWS = 10  # field rows set to the positive query, and as many to the negative
+TIE_MARGIN = 1e-5  # decisions this close to a tie are left out of the float64 checks
+CODEC_ROWS, CODEC_LAT, CODEC_STEPS = 150, 16, 2000
+BANK_ROWS, BANK_NOISE, KNN = 64, 1e-4, 5
+PCA_SUBSET = 65536
+U_BF16 = 2.0**-8  # unit roundoff of bfloat16
+# |num - num3 @ E| per Gaussian g and latent column j, over U_BF16 * den_g *
+# ||E[:, j]||: four bf16 roundings of unit-norm features and of rows (two
+# on each side), second-order terms and the f32 sums
+NUM_BOUND = 4.1
+
+
+def _timed(fn):
+    """(fn(), seconds, peak GB) on the card, synchronised on both sides."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def mask_f64(feats, queries, p):
+    """get_mask3d in float64 on the host: (mask, |max positive - max
+    negative score|) of (M, D) ``feats`` against (P, D) ``queries``, the
+    first ``p`` positive."""
+    f = feats.double().numpy()
+    q = queries.double().numpy()
+    f = f / (np.linalg.norm(f, axis=1, keepdims=True) + 1e-12)
+    q = q / (np.linalg.norm(q, axis=1, keepdims=True) + 1e-12)
+    s = f @ q.T
+    a, b = s[:, :p].max(1), s[:, p:].max(1)
+    return a > b, np.abs(a - b)
+
+
+def labels_f64(field, bank, k, n_classes):
+    """transfer_affordance in float64 on the host, with jax.lax.top_k's tie
+    rule (stable order): (labels, gap between the k-th and (k+1)-th score)."""
+    f = field.double().numpy()
+    f = f / (np.linalg.norm(f, axis=1, keepdims=True) + 1e-8)
+    b = bank.features.astype(np.float64)
+    b = b / (np.linalg.norm(b, axis=1, keepdims=True) + 1e-8)
+    s = f @ b.T
+    order = np.argsort(-s, axis=1, kind="stable")
+    ranked = np.take_along_axis(s, order, 1)
+    gap = ranked[:, k - 1] - ranked[:, k] if k < s.shape[1] else np.full(len(s), np.inf)
+    votes = bank.labels[order[:, :k]]
+    counts = (votes[..., None] == np.arange(n_classes)).sum(1)
+    return counts.argmax(1), gap
+
+
+def phase_queries(field_cpu, ref3):
+    """Segmentation (queries from the random-weight CLIP tower and one
+    exemplar Gaussian, planted rows, masks against float64, the edits and
+    their renders), the compressed lift through a codec trained on the
+    card (``den`` against phase 3's, ``num`` against phase 3's ``num``
+    times the codec's encoder), PCA in both modes, and affordance transfer
+    with its label renders, evaluation and votes, on ``field_cpu`` (phase
+    7's normalised LSeg-512 field) at the canonical shape. ``ref3`` holds
+    phase 3's num, den (CPU), ms/view and peak. Returns the B4-viz record."""
+    from tpugs_torch.apps.backproject_compressed import CompressedEncoder
+    from tpugs_torch.codec.linear import LinearCodec, codec_loss, train_codec
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.encoders.clip_text import CLIPTextTower
+    from tpugs_torch.encoders.vit import init_flax_like_
+    from tpugs_torch.lift.batch import backproject_views
+    from tpugs_torch.lift.ops import accumulate_view
+    from tpugs_torch.query.affordance import (
+        AFFORDANCE_CLASSES,
+        ExemplarBank,
+        colorize_by_labels,
+        evaluate_iou,
+        render_label_masks,
+        transfer_affordance,
+        vote_gradient,
+    )
+    from tpugs_torch.query.masks import apply_mask3d, segment_by_opacity
+    from tpugs_torch.query.text import get_mask2d, get_mask3d, highest_precision
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.api import rasterize_with_plan
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.raster.tiles import image_to_tiles
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+    from tpugs_torch.viz.common import uint8_image
+    from tpugs_torch.viz.gif import (
+        overlay_mask_red,
+        render_colors,
+        render_mask_2d_to_gif,
+        render_to_gif,
+        view_plan,
+    )
+    from tpugs_torch.viz.pca import feature_pca, pca_colors, render_pca
+
+    w, h, n, d = W_FULL, H_FULL, N_FULL, field_cpu.shape[1]
+    scene = random_scene(n, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    field = field_cpu.cuda()
+    lit = torch.nonzero(field_cpu.abs().sum(1) > 0).flatten()
+    gen = torch.Generator().manual_seed(13)
+    pick = lit[torch.randperm(len(lit), generator=gen)[:2 * PLANTED_ROWS + 1 + BANK_ROWS]]
+    plant_pos, plant_neg = pick[:PLANTED_ROWS], pick[PLANTED_ROWS:2 * PLANTED_ROWS]
+    pos_idx, bank_rows = int(pick[2 * PLANTED_ROWS]), pick[2 * PLANTED_ROWS + 1:]
+    print(f"phase 8 field: phase 7's LSeg-512 lift, normalised, N={n}, {len(lit)} Gaussians "
+          f"with a feature", flush=True)
+
+    # (a) segment: 2 + 1 positive and 3 negative queries; plant 10 rows on
+    # each side, which must be selected and left out exactly
+    tower = init_flax_like_(CLIPTextTower(device="cuda"), seed=0).eval()
+    tgen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(1, 49406, (TEXT_POS + TEXT_NEG, 77), device="cuda", generator=tgen)
+    tokens[:, 20] = 49407  # EOT
+    with torch.no_grad():
+        emb = tower(tokens).float()
+    del tower
+    pos_q = torch.cat([emb[:TEXT_POS], field[pos_idx][None]])
+    neg_q = emb[TEXT_POS:]
+    planted = field.clone()
+    planted[plant_pos.cuda()] = pos_q[0] / torch.linalg.vector_norm(pos_q[0])
+    planted[plant_neg.cuda()] = neg_q[0] / torch.linalg.vector_norm(neg_q[0])
+    queries = torch.cat([pos_q, neg_q]).cpu()
+    p = pos_q.shape[0]
+    (mask, inv), mask_s, _ = _timed(lambda: get_mask3d(planted, pos_q, neg_q))
+    got = mask.cpu().numpy()
+    ref, margin = mask_f64(planted.cpu(), queries, p)
+    featureless = (planted.abs().sum(1) == 0).cpu().numpy()  # every score 0: never selected
+    clear = (margin > TIE_MARGIN) | featureless
+    mask_equal = bool((got[clear] == ref[clear]).all()) and not bool(got[featureless].any())
+    plants_ok = bool(got[plant_pos.numpy()].all()) and not bool(got[plant_neg.numpy()].any())
+    extracted, deleted, _ = apply_mask3d(scene, mask, inv)
+    sel = int(mask.sum())
+    print(f"phase 8 get_mask3d on N={n} x D={d} against {p} positive ({TEXT_POS} CLIP-tower rows "
+          f"+ Gaussian {pos_idx}) and {TEXT_NEG} negative queries: {mask_s * 1e3:.3f} ms, "
+          f"{sel} selected; the {PLANTED_ROWS} rows planted on the positive query selected and "
+          f"the {PLANTED_ROWS} on the negative not: {plants_ok}; equal to float64 on the host "
+          f"{mask_equal} outside {int((~clear).sum())} Gaussians within {TIE_MARGIN} of a tie "
+          f"({int(featureless.sum())} without a feature, none selected; smallest margin of "
+          f"the rest {margin[~featureless].min():.3e}); apply_mask3d: extracted "
+          f"{extracted.num_gaussians} + deleted {deleted.num_gaussians}", flush=True)
+    check(plants_ok, "the planted rows selected and left out exactly")
+    check(mask_equal, "get_mask3d on the card equals float64 outside the ties")
+    check(extracted.num_gaussians == sel and extracted.num_gaussians + deleted.num_gaussians == n,
+          "extracted + deleted = N")
+
+    K.LAUNCHES.reset()
+    frames_e, ext_s, ext_peak = _timed(lambda: render_to_gif(
+        None, extracted, cams, use_checkerboard_background=True))
+    launches_e = K.LAUNCHES.snapshot()
+    K.LAUNCHES.reset()
+    frames_d, del_s, del_peak = _timed(lambda: render_to_gif(None, deleted, cams))
+    launches_d = K.LAUNCHES.snapshot()
+    K.LAUNCHES.reset()
+    frames_m, m2d_s, m2d_peak = _timed(lambda: render_mask_2d_to_gif(
+        scene, planted, pos_q, neg_q, cams, None))
+    launches_m = K.LAUNCHES.snapshot()
+    for name, frames, launches in (("extracted", frames_e, launches_e),
+                                   ("deleted", frames_d, launches_d),
+                                   ("mask2d", frames_m, launches_m)):
+        check(len(frames) == VIEWS and all(f.shape == (h, w, 3) and f.dtype == np.uint8
+                                           for f in frames), f"{name}: {VIEWS} uint8 frames")
+        check(launches["train_fwd"] >= VIEWS, f"{name}: B4 at D = 3 on every view ({launches})")
+    check(launches_e["train_fwd_wide"] == 0 and launches_d["train_fwd_wide"] == 0,
+          "the RGB frames take B4's cluster kernel")
+    check(launches_m["train_fwd_wide"] >= VIEWS,
+          f"mask2d: B4's wide kernel at D = {d} on every view ({launches_m})")
+
+    # view 0's mask: the feature image again (B4 is deterministic), scored
+    # on the card and in float64; the function's frame from the same mask
+    # (and the time of each piece of that view: the host clock, synchronised)
+    seen = {}
+    with torch.inference_mode():
+        plan0, plan_s, _ = _timed(lambda: view_plan(scene, cams, 0))
+        (img0, _), rgb_s, _ = _timed(lambda: render_colors(scene, cams, 0, plan0))
+        (feat0, _), feat_s, _ = _timed(lambda: rasterize_with_plan(
+            scene.means, scene.quats, scene.scales, scene.opacities, planted, cams.viewmats[0],
+            cams.Ks[0], plan0, record=seen))
+        m2d, score_s, _ = _timed(lambda: get_mask2d(feat0, pos_q, neg_q))
+        frame0, over_s, _ = _timed(lambda: overlay_mask_red(uint8_image(img0), m2d))
+    m2d = m2d.cpu().numpy()
+    feat0_cpu = feat0.reshape(-1, d).cpu()
+    ref2d, margin2d = mask_f64(feat0_cpu, queries, p)
+    empty = (feat0_cpu.abs().sum(1) == 0).numpy()  # every score 0 on both sides: not masked
+    clear2d = (margin2d > TIE_MARGIN) | empty
+    mask2d_equal = bool((m2d.reshape(-1)[clear2d] == ref2d[clear2d]).all())
+    empty_out = not bool(m2d.reshape(-1)[empty].any())
+    frame0_equal = np.array_equal(frames_m[0], frame0)
+    del feat0, feat0_cpu
+    print(f"phase 8 view 0 mask: {int(m2d.sum())} of {h * w} pixels; equal to float64 on the "
+          f"host {mask2d_equal} outside {int((~clear2d).sum())} pixels within {TIE_MARGIN} of "
+          f"a tie ({int(empty.sum())} pixels without a feature, none masked: {empty_out}); "
+          f"render_mask_2d_to_gif's frame 0 is this mask overlaid: {frame0_equal}; view 0's "
+          f"pieces: plan {1e3 * plan_s:.2f} ms, RGB render {1e3 * rgb_s:.2f} ms, D={d} "
+          f"feature render {1e3 * feat_s:.2f} ms, get_mask2d {1e3 * score_s:.2f} ms, "
+          f"overlay_mask_red (float64 on the card) + the frame to the host "
+          f"{1e3 * over_s:.2f} ms", flush=True)
+    check(mask2d_equal and empty_out, "view 0's mask equals float64 outside the ties")
+    check(frame0_equal, "render_mask_2d_to_gif overlays get_mask2d's mask")
+
+    # the same edit by a second route: opacity logit -30 outside ~mask
+    hidden = segment_by_opacity(scene, inv)
+    K.LAUNCHES.reset()
+    frames_h, hid_s, _ = _timed(lambda: render_to_gif(None, hidden, cams))
+    launches_h = K.LAUNCHES.snapshot()
+    check(launches_h["train_fwd"] >= VIEWS, "the opacity-hidden renders ran B4")
+    worst = 0.0
+    with torch.inference_mode():
+        for c in range(VIEWS):
+            a, _ = render_colors(deleted, cams, c, view_plan(deleted, cams, c))
+            b, _ = render_colors(hidden, cams, c, view_plan(hidden, cams, c))
+            worst = max(worst, float((a - b).abs().max()))
+    frames_close = max(int(np.abs(x.astype(int) - y.astype(int)).max())
+                       for x, y in zip(frames_h, frames_d))
+    seg_ms = {k: 1e3 * v / VIEWS for k, v in (("extracted", ext_s), ("deleted", del_s),
+                                              ("mask2d", m2d_s), ("opacity", hid_s))}
+    print(f"phase 8 renders, ms/view (host clock, synchronised; uint8 frames on the host): "
+          f"extracted + checkerboard {seg_ms['extracted']:.2f} (peak {ext_peak:.2f} GB), "
+          f"deleted {seg_ms['deleted']:.2f} (peak {del_peak:.2f} GB), render_mask_2d_to_gif "
+          f"(RGB + D={d} feature image + per-pixel mask) {seg_ms['mask2d']:.2f} (peak "
+          f"{m2d_peak:.2f} GB), opacity-hidden {seg_ms['opacity']:.2f}; B4 launches: D=3 "
+          f"{launches_e['train_fwd']} + {launches_d['train_fwd']} + {launches_m['train_fwd']}, "
+          f"D={d} {launches_m['train_fwd_wide']}; segment_by_opacity(~mask) against the deleted "
+          f"scene: max abs {worst:.3e} per pixel (bound 1/510), frames within {frames_close}",
+          flush=True)
+    check(worst <= 1 / 510, "the opacity-hidden render equals the deleted scene's within 1/510")
+
+    # B4-viz: the D = 512 feature render of view 0 against its twin, its
+    # time and its bound on the pairs with a nonzero weight
+    geom, cols, plan, done = (seen[k] for k in ("geom", "cols", "plan", "blocks_done"))
+    ts = plan.tile_size
+    vgen = torch.Generator(device="cuda").manual_seed(8)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=vgen)[:64]
+    inside = tile_inside(h, w, ts, tiles)
+    img_t, alpha_t, _ = T.train_tiles_plain(geom, cols, plan, 0.0, tiles)
+    b4v = rel_err(torch.where(inside, image_to_tiles(seen["image"], ts)[tiles], 0.0),
+                  torch.where(inside, img_t, 0.0))
+    alpha_tiles = image_to_tiles(seen["alpha"][..., None], ts)[..., 0]
+    b4v_alpha = rel_err(torch.where(inside[..., 0], alpha_tiles[tiles], 0.0),
+                        torch.where(inside[..., 0], alpha_t, 0.0))
+    del img_t, alpha_t
+    b4v_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, 0.0), 3)
+    b4v_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, 0.0), 1)
+    pairs, weighted, _ = walked_pairs(geom, plan, 0.0)
+    walked = int(done.sum())
+    b4v_bound = bound(walked * 128 * (8 + d) * 4 + h * w * (d + 1) * 4,
+                      pairs * PAIR_OPS + weighted * 2 * d, PEAK_F32_FLOPS)
+    b4v_walked = bound(walked * 128 * (8 + d) * 4 + h * w * (d + 1) * 4,
+                       pairs * (PAIR_OPS + 2 * d), PEAK_F32_FLOPS)
+    print(f"phase 8 B4-viz (wide kernel, D={d}, tile {ts}, trans_eps=0) on view 0's feature "
+          f"image: 64 tiles against the twin, image rel {b4v[1]:.3e}, alpha rel "
+          f"{b4v_alpha[1]:.3e}; {b4v_ms:.3f} ms (twin {b4v_plain:.1f}); {pairs} pairs walked, "
+          f"{weighted} with a nonzero weight; bound {b4v_bound[0]:.4f} ms by {b4v_bound[1]}, "
+          f"share {b4v_bound[0] / b4v_ms:.3f} ({b4v_walked[0]:.4f} on the walked pairs' "
+          f"products)", flush=True)
+    check(b4v[1] <= 1e-4 and b4v_alpha[1] <= 1e-4, "B4 at D = 512 within 1e-4 of its twin")
+    b4v_rec = rec("B4-viz", "train_fwd_wide (feature image, trans_eps 0)",
+                  "tpugs_torch/csrc/train_fwd.cu", "tpugs/raster/pallas_train.py:250",
+                  launches_m["train_fwd_wide"], b4v, b4v_ms, b4v_plain, b4v_bound)
+    b4v_rec.update(bound_walked_ms=b4v_walked[0])
+    del seen, geom, cols, plan, done, frames_e, frames_d, frames_m, frames_h, hidden
+    del extracted, deleted, planted
+
+    # (b) the codec, trained on the card, then the compressed lift
+    emb512 = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(CODEC_ROWS, 512)).astype(np.float32))
+    init = LinearCodec.init(512, CODEC_LAT, torch.Generator().manual_seed(0), "cuda")
+    x = emb512.cuda()
+    x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+    loss0 = float(codec_loss(init, x))  # train_codec's start: the same seed-0 draw
+    (codec, loss), codec_s, _ = _timed(lambda: train_codec(
+        emb512, d_lat=CODEC_LAT, steps=CODEC_STEPS, seed=0, device="cuda"))
+    print(f"phase 8 train_codec ({CODEC_ROWS} seeded 512-d embeddings, d_lat {CODEC_LAT}, "
+          f"Adam lr 1e-4, {CODEC_STEPS} steps): {codec_s:.3f} s, {CODEC_STEPS / codec_s:.1f} "
+          f"steps/s; loss {loss0:.6f} at the init, {loss:.6f} at the last step", flush=True)
+    check(np.isfinite(loss) and loss < loss0, "the codec's loss falls")
+
+    enc = CompressedEncoder(LinearRGBEncoder(D_FULL, device="cuda"), codec)
+    check(enc.pixelwise, "CompressedEncoder keeps the linear encoder's tile layout")
+    backproject_views(scene, cams.viewmats[:1], cams.Ks[:1], w, h, enc, tile_size=TILE)
+    num_c, den_c, ms_c, launches_c, peak_c, stage_c, _ = timed_lift(
+        (scene, cams.viewmats, cams.Ks, w, h, enc), "pallas")
+    for name in ("render", "adjoint", "reduce"):
+        check(launches_c[name] >= VIEWS, f"compressed lift: {name} on every view ({launches_c})")
+    den3 = ref3["den"]
+    den_c = den_c.cpu()
+    den_equal = torch.equal(den_c, den3)
+    den_rel = float(((den_c - den3).abs() / den3.clamp(min=1e-30)).max())
+    E = codec.encoder
+    with highest_precision():
+        ref_num = ref3["num"].cuda() @ E
+    scale = U_BF16 * den3.cuda()[:, None] * torch.linalg.vector_norm(E, dim=0)[None, :]
+    err = (num_c - ref_num).abs()
+    num_ratio = float(torch.where(scale > 0, err / scale.clamp(min=1e-30), err * 1e30).max())
+    stages = " ".join(f"{k}={v:.2f}" for k, v in stage_c.items())
+    print(f"phase 8 compressed lift (CompressedEncoder(linear:512, codec 512->{CODEC_LAT}), "
+          f"pallas, tile {TILE}, {VIEWS} views): {ms_c:.2f} ms/view, {1e3 / ms_c:.3f} views/s, "
+          f"peak {peak_c:.2f} GB (phase 3's linear:512 lift {ref3['ms_view']:.2f} ms/view, peak "
+          f"{ref3['peak_gb']:.2f} GB); stages {stages}; launches {launches_c}; den bit-equal to "
+          f"phase 3's {den_equal} (largest relative difference {den_rel:.3e}); |num - num3 @ E| "
+          f"at most {num_ratio:.3f} x 2^-8 den ||E[:, j]|| (bound {NUM_BOUND})", flush=True)
+    check(den_equal, "den bit-equal to phase 3's")
+    check(num_ratio <= NUM_BOUND, "num within its bf16 bound of phase 3's num @ E")
+    del num_c, ref_num, scale, err, enc
+
+    # (c) PCA in both modes
+    K.LAUNCHES.reset()
+    frames_g, g_s, g_peak = _timed(lambda: render_pca(scene, field, cams, None, "gaussian"))
+    launches_g = K.LAUNCHES.snapshot()
+    K.LAUNCHES.reset()
+    frames_f, f_s, f_peak = _timed(lambda: render_pca(scene, field, cams, None, "frame"))
+    launches_f = K.LAUNCHES.snapshot()
+    check(launches_g["train_fwd"] >= VIEWS, "PCA gaussian mode renders through B4")
+    check(launches_f["train_fwd_wide"] >= VIEWS, "PCA frame mode renders D = 512 through B4")
+    mean, comps = feature_pca(field)
+    colors, _, _ = pca_colors(field, mean, comps)
+    colors_ok = bool(torch.isfinite(colors).all()) and float(colors.min()) >= 0 and float(
+        colors.max()) <= 1
+    varied = all(len(np.unique(f)) > 1 for f in frames_g + frames_f)
+    sub = torch.randperm(n, generator=torch.Generator().manual_seed(5))[:PCA_SUBSET]
+    _, comps_sub = feature_pca(field[sub.cuda()])
+    x = field_cpu[sub].double().numpy()
+    xc = x - x.mean(axis=0)
+    _, vecs = np.linalg.eigh(xc.T @ xc / (len(x) - 1))
+    comps_np = vecs[:, ::-1][:, :3]
+    comps_sub = comps_sub.cpu().numpy()
+    signs = np.sign(np.sum(comps_sub * comps_np, axis=0))
+    pca_err = float(np.abs(comps_sub * signs - comps_np).max())
+    del colors, x, xc
+    print(f"phase 8 render_pca: gaussian mode {1e3 * g_s / VIEWS:.2f} ms/view (peak "
+          f"{g_peak:.2f} GB), frame mode (D={d} feature image per view, float64 projections) "
+          f"{1e3 * f_s / VIEWS:.2f} ms/view (peak {f_peak:.2f} GB); colours finite in [0, 1] "
+          f"{colors_ok}, frames not constant {varied}; components of a {PCA_SUBSET}-row subset "
+          f"against numpy's float64 fit, up to sign: max abs {pca_err:.3e} (bound 1e-6)",
+          flush=True)
+    check(colors_ok and varied, "PCA colours in [0, 1], frames not constant")
+    check(pca_err <= 1e-6, "PCA components equal numpy's up to sign")
+    del frames_g, frames_f, mean, comps
+
+    # (d) affordance: 64 exemplars from seeded rows plus noise, labels 1-7
+    rng = np.random.default_rng(2)
+    bank_feats = field_cpu[bank_rows].numpy() + BANK_NOISE * rng.normal(size=(BANK_ROWS, d))
+    bank = ExemplarBank(bank_feats.astype(np.float32),
+                        (1 + np.arange(BANK_ROWS) % 7).astype(np.int64))
+    labels, knn_s, knn_peak = _timed(lambda: transfer_affordance(field, bank, k=KNN))
+    ref_labels, gap = labels_f64(field_cpu, bank, KNN, len(AFFORDANCE_CLASSES))
+    featureless = (field_cpu.abs().sum(1) == 0).numpy()  # ties with the whole bank, both sides
+    clear = (gap > TIE_MARGIN) | featureless
+    labels_equal = bool((labels[clear] == ref_labels[clear]).all())
+    own = transfer_affordance(field, bank, k=1)[bank_rows.numpy()]
+    own_ok = bool((own == bank.labels).all())
+    print(f"phase 8 transfer_affordance (N={n}, bank {BANK_ROWS} x {d}, k={KNN}): "
+          f"{1e3 * knn_s:.3f} ms (peak {knn_peak:.2f} GB); labels equal to float64 on the host "
+          f"{labels_equal} outside {int((~clear).sum())} Gaussians whose {KNN}th and "
+          f"{KNN + 1}th scores are within {TIE_MARGIN} (the {int(featureless.sum())} without "
+          f"a feature tie with the whole bank and are compared: bank rows 0-{KNN - 1} vote "
+          f"on both sides); class counts "
+          f"{np.bincount(labels, minlength=8).tolist()}; with k=1 each exemplar's source "
+          f"Gaussian keeps its label: {own_ok}", flush=True)
+    check(labels_equal, "kNN labels equal float64 outside the ties")
+    check(own_ok, "k = 1 gives each exemplar's source Gaussian its label")
+
+    colored = colorize_by_labels(scene, labels)
+    K.LAUNCHES.reset()
+    frames_a, col_s, _ = _timed(lambda: render_to_gif(None, colored, cams))
+    check(K.LAUNCHES.snapshot()["train_fwd"] >= VIEWS, "the labelled scene renders through B4")
+    K.LAUNCHES.reset()
+    preds, lab_s, lab_peak = _timed(lambda: [render_label_masks(
+        scene, labels, cams.viewmats[c], cams.Ks[c], w, h) for c in range(VIEWS)])
+    launches_l = K.LAUNCHES.snapshot()
+    check(launches_l["train_fwd"] >= VIEWS and launches_l["train_fwd_wide"] == 0,
+          f"label masks: B4 at D = 8 on every view ({launches_l})")
+    # view 0's label map against B4's twin: the one-hot render of the same
+    # labels (the kernel's inputs recorded), argmax and alpha >= 0.5 on 64
+    # tiles that hold labels, pixels within TIE_MARGIN of a tie left out
+    seen = {}
+    onehot = torch.eye(len(AFFORDANCE_CLASSES), device="cuda")[torch.from_numpy(labels).cuda()]
+    with torch.inference_mode():
+        rasterize_with_plan(scene.means, scene.quats, scene.scales, scene.opacities, onehot,
+                            cams.viewmats[0], cams.Ks[0], view_plan(scene, cams, 0),
+                            record=seen)
+    geom, cols, plan = (seen[k] for k in ("geom", "cols", "plan"))
+    ts = plan.tile_size
+    pred_tiles = image_to_tiles(torch.from_numpy(preds[0]).cuda()[..., None], ts)[..., 0]
+    busy = torch.nonzero((pred_tiles > 0).any(1)).flatten()
+    lgen = torch.Generator(device="cuda").manual_seed(9)
+    tiles = busy[torch.randperm(len(busy), device="cuda", generator=lgen)[:64]]
+    img_t, alpha_t, _ = T.train_tiles_plain(geom, cols, plan, 0.0, tiles)
+    top2 = img_t.topk(2, dim=-1).values
+    twin = torch.where(alpha_t < 0.5, 0, img_t.argmax(-1))
+    inside = tile_inside(h, w, ts, tiles)[..., 0]
+    decided = (inside & ((alpha_t - 0.5).abs() > TIE_MARGIN)
+               & ((alpha_t < 0.5) | ((top2[..., 0] - top2[..., 1]) > TIE_MARGIN)))
+    map_ties = int((inside & ~decided).sum())
+    got_t = pred_tiles[tiles]
+    map_equal = bool((got_t[decided] == twin[decided]).all())
+    map_labelled = int((twin[decided] > 0).sum())
+    del seen, geom, cols, plan, onehot, img_t, alpha_t, top2, twin, inside, decided, got_t
+    del pred_tiles
+
+    # evaluate_iou against a plain confusion-matrix IoU, on the predicted
+    # maps and copies with a seeded 5% of their pixels relabelled
+    prng = np.random.default_rng(4)
+    gts = []
+    for pred in preds:
+        gt = pred.copy()
+        hit = prng.random(gt.shape) < 0.05
+        gt[hit] = prng.integers(0, len(AFFORDANCE_CLASSES), int(hit.sum()))
+        gts.append(gt)
+    metrics = evaluate_iou(preds, gts)
+    c = len(AFFORDANCE_CLASSES)
+    conf = sum(np.bincount((g * c + q).ravel(), minlength=c * c) for g, q in zip(gts, preds))
+    conf = conf.reshape(c, c).astype(np.float64)  # rows: ground truth, columns: prediction
+    diag = np.diag(conf)
+    union = conf.sum(0) + conf.sum(1) - diag
+    cls = [k for k in range(1, c) if union[k] > 0]
+    gt_count = conf.sum(1)
+    plain = {AFFORDANCE_CLASSES[k]: (diag[k] / union[k],
+                                     diag[k] / gt_count[k] if gt_count[k] else 0.0)
+             for k in cls}
+    plain["mean"] = tuple(np.mean([v[i] for v in plain.values()]) for i in (0, 1))
+    iou_err = max(abs(metrics[name]["iou"] - v[0]) + abs(metrics[name]["recall"] - v[1])
+                  for name, v in plain.items() if name in metrics)
+    iou_ok = set(metrics) == set(plain) and iou_err <= 1e-12
+    print(f"phase 8 affordance renders: colorize_by_labels + render_to_gif "
+          f"{1e3 * col_s / VIEWS:.2f} ms/view; render_label_masks {1e3 * lab_s / VIEWS:.2f} "
+          f"ms/view (peak {lab_peak:.2f} GB), launches {launches_l}; view 0's map equal to the "
+          f"twin's D=8 render on 64 labelled tiles {map_equal} ({map_labelled} labelled "
+          f"pixels compared, {map_ties} within {TIE_MARGIN} of a tie left out); evaluate_iou against a plain confusion-matrix IoU with 5% of the "
+          f"pixels relabelled: mean IoU {metrics['mean']['iou']:.6f}, recall "
+          f"{metrics['mean']['recall']:.6f} over {len(metrics) - 1} classes, largest "
+          f"difference {iou_err:.3e}", flush=True)
+    check(map_equal and map_labelled > 0, "render_label_masks equals B4's twin on view 0")
+    check(iou_ok and metrics["mean"]["iou"] < 1.0, "evaluate_iou equals the plain IoU")
+    del frames_a, preds, gts, colored
+
+    # vote_gradient on view 0: an all-ones mask votes num / den = 1 wherever
+    # the weight lies inside the image, an all-zeros mask 0
+    vm0, K0 = cams.viewmats[0], cams.Ks[0]
+    K.LAUNCHES.reset()
+    ones_vote, vote_s, _ = _timed(lambda: vote_gradient(scene, vm0, K0, w, h,
+                                                        np.ones((h, w), bool)))
+    launches_v = K.LAUNCHES.snapshot()
+    check(launches_v["adjoint"] >= 1 and launches_v["reduce"] >= 1,
+          f"vote_gradient ran B2 and B3 ({launches_v})")
+    zero_vote = vote_gradient(scene, vm0, K0, w, h, np.zeros((h, w), bool))
+    num1, den1 = accumulate_view(scene, vm0, K0, w, h,
+                                 feat_image=torch.ones((h, w, 1), device="cuda"))
+    with torch.no_grad():
+        proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm0, K0, w, h)
+    # the eager adjoint counts an edge tile's pixels below H in den (tpugs'
+    # tiled semantics, ROADMAP C.2): only Gaussians above the last tile row
+    # have num = den
+    last_row = (h // plan0.tile_size) * plan0.tile_size
+    above = ((proj.means2d[:, 1] + proj.radii) < last_row).cpu().numpy()
+    den1 = den1.cpu().numpy()
+    num_eq_den = bool((num1[:, 0].cpu().numpy() == den1)[above].all())
+    strong = above & (den1 > 1e-4)
+    ones_ok = bool((ones_vote[strong] == 1.0).all()) and bool((ones_vote <= 1.0).all())
+    zero_ok = bool((zero_vote == 0).all()) and bool((ones_vote[den1 == 0] == 0).all())
+    print(f"phase 8 vote_gradient on view 0: {1e3 * vote_s:.2f} ms; {int((den1 > 0).sum())} "
+          f"Gaussians with weight, {int(above.sum())} above the last tile row: num = den bit "
+          f"for bit {num_eq_den}, vote 1 where den > 1e-4 ({int(strong.sum())}) and at most 1 "
+          f"everywhere {ones_ok}; all-zeros mask votes 0 {zero_ok}; launches {launches_v}",
+          flush=True)
+    check(num_eq_den and ones_ok, "an all-ones mask votes 1 where num = den")
+    check(zero_ok, "an all-zeros mask votes 0")
+    return [b4v_rec]
 
 
 def main() -> int:
@@ -2051,14 +2556,17 @@ def main() -> int:
     phase_clusters()
     phase_train_kernels()
     phase_train_geom()
-    records, view, den3 = phase_full_width()
+    records, view, ref3 = phase_full_width()
     records += phase_experiments(view)
     del view
     records += phase_train()
     records += phase_eager()
     records += phase_absgrad()
     phase_app()
-    records += phase_lseg(den3)
+    lseg_records, field = phase_lseg(ref3["den"])
+    records += lseg_records
+    records += phase_queries(field, ref3)
+    del field, ref3
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -12,9 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from tpugs_torch.convert import cameras_from_numpy, linear_encoder_from_numpy, scene_from_numpy
+from tpugs_torch.convert import (
+    cameras_from_numpy,
+    codec_from_numpy,
+    linear_encoder_from_numpy,
+    scene_from_numpy,
+)
 from tpugs_torch.core.device import resolve_device
+from tpugs_torch.apps.affordance import main as affordance_main
 from tpugs_torch.apps.backproject import main as backproject_main
+from tpugs_torch.apps.backproject_compressed import main as compressed_main
+from tpugs_torch.apps.segment import main as segment_main
+from tpugs_torch.apps.train_codec import main as train_codec_main
+from tpugs_torch.apps.visualize_pca import main as pca_main
+from tpugs_torch.codec.linear import LinearCodec, load_codec, train_codec
 from tpugs_torch.encoders import get_encoder
 from tpugs_torch.encoders.base import LinearRGBEncoder
 from tpugs_torch.encoders.clip_text import CLIPTextTower
@@ -33,6 +44,7 @@ from tpugs_torch.lift.batch import (
 )
 from tpugs_torch.lift.ops import accumulate_view
 from tpugs_torch.lift.prune import prune_by_gradients, verify_pruning_equivalence
+from tpugs_torch.query.affordance import load_exemplars
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
@@ -149,6 +161,16 @@ ENTRY_POINTS = {
     "verify_pruning_equivalence": lambda: verify_pruning_equivalence(
         synthetic.random_scene(10, device="cpu"), synthetic.random_scene(10, device="cpu"),
         _cpu_cams(), verbose=False),
+    "LinearCodec.init": lambda: LinearCodec.init(8, 2),
+    "train_codec": lambda: train_codec(np.ones((3, 8)), d_lat=2, steps=1),
+    "load_codec": lambda: load_codec("codec.npz"),
+    "codec_from_numpy": lambda: codec_from_numpy(np.ones((8, 2)), np.ones((2, 8))),
+    "load_exemplars": lambda: load_exemplars("exemplars", LinearRGBEncoder(4, device="cpu")),
+    "segment app": lambda: segment_main(data_dir="data", checkpoint="ckpt.pt"),
+    "backproject_compressed app": lambda: compressed_main(data_dir="data", checkpoint="ckpt.pt"),
+    "train_codec app": lambda: train_codec_main(embeddings_npz="emb.npz"),
+    "visualize_pca app": lambda: pca_main(data_dir="data", checkpoint="ckpt.pt"),
+    "affordance app": lambda: affordance_main(data_dir="data", checkpoint="ckpt.pt"),
 }
 
 

@@ -12,7 +12,9 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   core/      scene (raw parameterisation + activations), cameras, devices
   io/        COLMAP, PLY, checkpoint and compression readers and writers
   native/    the C++ COLMAP parser (g++, ctypes) beside the pure readers
-  apps/      the back-projection CLI (load, prune, verify, lift, save)
+  apps/      the CLIs: back-projection (load, prune, verify, lift, save),
+             segmentation and edits, the compressed lift, the codec's
+             training, PCA renders, affordance transfer
   utils/     synthetic scenes, orbit rigs and COLMAP models (bit-identical
              to tpugs'), Morton order, the function-signature CLI
   raster/    projection, SH, binning, per-view plan and pack, the lift
@@ -27,12 +29,16 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   lift/      the fused multi-view back-projection loop, the split-encoder
              lift, the eager lift (``create_feature_field``) and gradient
              pruning
+  query/     text and exemplar queries, 3D masks and edits, exact k-NN,
+             affordance transfer and its evaluation
+  codec/     the linear 512 -> 16 feature codec and its Adam training
+  viz/       GIF frames, mask overlays and PCA renders (imageio for files)
   train/     config, metrics, strategy "none" and the trainer's step
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
              the phases tools, the LSeg encoder's post step
   kernels/   the nvcc build of ``csrc/*.cu``
-  convert.py numpy state in, port state out (scenes, cameras, the Flax
-             encoders' params)
+  convert.py numpy state in, port state out (scenes, cameras, codecs, the
+             Flax encoders' params)
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 """

@@ -5,7 +5,9 @@ The tests hand one numpy-seeded input to both packages through these:
 ``tpugs`` ``GaussianScene`` (the trainer's ``features`` and ``feature_proj``
 where present and not None); ``cameras_from_numpy`` a rig's viewmats and
 intrinsics; ``linear_encoder_from_numpy`` a ``LinearRGBEncoder``'s
-``(3, D)`` projection; ``vit_from_flax``, ``lseg_from_flax``,
+``(3, D)`` projection; ``codec_from_numpy`` a ``LinearCodec``'s encoder and
+decoder (tpugs draws its init from ``jax.random``, which the port cannot
+reproduce); ``vit_from_flax``, ``lseg_from_flax``,
 ``dino_from_flax`` and ``clip_text_from_flax`` a Flax param tree of the
 encoders (numpy leaves, ``block{i}`` or stacked ``blocks`` layout), giving
 the port's state dict: tpugs' checkpoint key maps
@@ -19,6 +21,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from tpugs_torch.codec.linear import LinearCodec
 from tpugs_torch.core.camera import Camera
 from tpugs_torch.core.device import DeviceLike, resolve_device
 from tpugs_torch.core.scene import GaussianScene
@@ -74,6 +77,17 @@ def linear_encoder_from_numpy(
     if p.ndim != 2 or p.shape[0] != 3:
         raise ValueError(f"projection (3, D) expected, got {tuple(p.shape)}")
     return LinearRGBEncoder.from_projection(p, normalize=normalize)
+
+
+def codec_from_numpy(encoder, decoder, device: DeviceLike = "cuda") -> LinearCodec:
+    """A ``LinearCodec`` from its (D_in, D_lat) encoder and (D_lat, D_in)
+    decoder."""
+    dev = resolve_device(device)
+    enc, dec = _f32(encoder, dev), _f32(decoder, dev)
+    if enc.ndim != 2 or dec.shape != enc.shape[::-1]:
+        raise ValueError(f"encoder (D_in, D_lat) and decoder (D_lat, D_in) expected, got "
+                         f"{tuple(enc.shape)} and {tuple(dec.shape)}")
+    return LinearCodec(enc, dec)
 
 
 # ---------------------------------------------- Flax params -> state dicts
