@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Ten phases; the first failure ends the run with a nonzero exit:
+Eleven phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -119,14 +119,42 @@ Ten phases; the first failure ends the run with a nonzero exit:
              label), ``colorize_by_labels``, ``render_label_masks`` (B4 at
              D = 8) and ``evaluate_iou``; ``vote_gradient`` with all-ones
              and all-zeros masks on view 0.
-9. kernels line — one JSON object per kernel with its launches, errors,
+9. training loop — the port's train loop (``apps.train.run``) at the
+             garden train shape: phase 4's initial scene (2^19 Gaussians,
+             1296 x 840, features 128 against ``linear:512`` in bf16, SH 3,
+             tile 32), 10 orbit views at radius 3 (8 to train, 2 to
+             validate) with targets rendered from the canonical seed-0
+             scene. Leg A, chunked, 40 steps: strategy "default"
+             (capacity 16384; refines at steps 10 and 20, the opacity
+             reset at 20), pose and appearance optimisation, a random
+             background, evals with LPIPS (random AlexNet weights) and
+             checkpoints at 20 and at the end. After each refine: N is
+             the refined count padded to 16384, that count is kept +
+             duplicated + 2 x split, no padded row is valid in
+             ``project`` in any view, ``GradState`` is zero, the optimizer
+             state empty, and the same refine on CPU copies (scene,
+             statistics, a copy of the generator) gives the same counts
+             and masks, rows within 1e-6; after the reset the opacities'
+             state is empty and every logit at most logit(0.01); the step
+             after the second refine is recorded and B4, B5 and B3 held on
+             64 tiles and timed against their bounds at the grown N;
+             ms/step per chunk, each refine's ms (host draws and the
+             rest), N before and after, peak memory; a full checkpoint
+             saved, loaded into a fresh trainer bit for bit (seconds of
+             each) and stepped; each validation image's render, PSNR+SSIM
+             and LPIPS ms; ``render_traj`` with no path. Leg B: strategy
+             "mcmc" through the per-step path, 21 steps, refines at 10 and
+             20 with 4096 planted dead Gaussians: N stays 2^19, the
+             relocated count is the dead count, the state empty; ms/step.
+10. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
              B5-tiled, B5's geometry-only launch as B5-geom, phase 7's
-             as B2-lseg, B3-lseg, B2-dino and B3-dino, and phase 8's
-             feature render as B4-viz.
+             as B2-lseg, B3-lseg, B2-dino and B3-dino, phase 8's
+             feature render as B4-viz, and phase 9's as B4-, B5- and
+             B3-refined.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -1028,24 +1056,122 @@ def phase_experiments(r):
 TRAIN_CAMS, TRAIN_WARMUP, TRAIN_STEPS = 8, 3, 10
 
 
+def train_step_records(seen, w, h, launches, tag, ids):
+    """The kernels of one recorded train step (``Trainer.record``): B4, B5
+    and B3 on 64 random tiles against their twins (phase 4's tolerances),
+    then their times, their twins' and B3's library call's, against the
+    bounds of this step's work. Returns the three kernel records under
+    ``ids``."""
+    from tpugs_torch.kernels.build import load_library
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.tiles import image_to_tiles
+    from tpugs_torch.utils.timing import time_cuda
+
+    geom, cols, plan, eps, img, alpha, done, g, hterm, grem0, dtype, rows = (seen[k] for k in (
+        "geom", "cols", "plan", "trans_eps", "image", "alpha", "blocks_done", "g_image",
+        "hterm", "grem0", "contrib_dtype", "rows"))
+    D = cols.shape[1]
+    sums = K.reduce_rows(rows, plan, D + T.GEOM_GRADS)
+
+    # 64 random tiles against the twins
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    img_t, alpha_t, done_t = T.train_tiles_plain(geom, cols, plan, eps, tiles)
+    inside = tile_inside(h, w, plan.tile_size, tiles)
+    b4 = rel_err(torch.where(inside, image_to_tiles(img, plan.tile_size)[tiles], 0.0),
+                 torch.where(inside, img_t, 0.0))
+    b4_alpha = rel_err(torch.where(inside[..., 0], image_to_tiles(
+        alpha[..., None], plan.tile_size)[tiles][..., 0], 0.0),
+        torch.where(inside[..., 0], alpha_t, 0.0))
+    span = span_rows(plan, tiles)
+    rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype, tiles,
+                                      magnitudes=True)
+    b5 = T.grad_rows_error(rows[span], rows_t[span], D, mags[span])
+    gids = gaussians_of(plan, span)
+    red_t = K.reduce_rows_plain(rows, plan, D + 8, gaussians=gids)
+    b3 = rel_err(sums[gids], red_t)
+    b3_equal = torch.equal(sums[gids], red_t)
+    same_exit = torch.equal(done[tiles], done_t)
+    print(f"{tag} check on 64 tiles ({len(gids)} Gaussians): B4 image rel {b4[1]:.3e}, "
+          f"alpha rel {b4_alpha[1]:.3e}, exit blocks equal {same_exit}; B5 {dtype} rows "
+          f"{b5[1]:.3e} of column-group max, {b5[2]:.3e} of the entry's magnitude; "
+          f"B3 bit-equal {b3_equal}", flush=True)
+    check(b4[1] <= 1e-4 and b4_alpha[1] <= 1e-4 and same_exit,
+          "B4 within 1e-4 of its twin on the sampled tiles")
+    check(within_grad_tol(b5[1], b5[2], dtype),
+          "B5 rows within GRAD_ROWS_TOL on the sampled tiles")
+    check(b3_equal, "B3 bit-equal on the sampled Gaussians")
+    del rows_t, mags, img_t
+
+    # times at the main path's shapes, and the bounds of this step's work
+    walked = int(done.sum())
+    pairs, weighted, kept = walked_pairs(geom, plan, eps)
+    check(pairs == walked * 128 * plan.tile_size**2, "the twin's walk takes the kernel's blocks")
+    n_isects, t_padded, width = plan.n_isects, plan.T_padded, rows.shape[1]
+    b4_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, eps), 5)
+    b4_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, eps), 1)
+    lib = load_library()
+    b4_wide = time_cuda(lambda: T._launch_train_fwd(lib, geom, cols, plan, eps, None), 3)
+    b5_ms = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan, dtype),
+                      3)
+    b5_plain = time_cuda(
+        lambda: T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype), 1)
+    b5_bf16 = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan,
+                                             torch.bfloat16), 3)
+    b3_ms = time_cuda(lambda: K.reduce_rows(rows, plan, D + 8), 5)
+    b3_plain = time_cuda(lambda: K.reduce_rows_plain(rows, plan, D + 8), 1)
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, t_padded)
+    rows_d = rows[:, : D + 8].float().contiguous()
+    lib_err = rel_err(select @ rows_d, sums)
+    b3_lib = time_cuda(lambda: select @ rows_d, 5)
+    check(lib_err[1] <= 1e-5, "the library call computes B3's sums of the train rows")
+    del select, rows_d
+    walk_bytes = walked * 128 * (8 + D) * 4  # geometry and colour rows the walk reads
+    # Every walked pair needs its alpha; only pairs with a nonzero weight
+    # (B4) or alpha (B5) need the colour products, and B5's geometry adjoint.
+    b4_bound = bound(walk_bytes + h * w * (D + 1) * 4,
+                     pairs * PAIR_OPS + weighted * 2 * D, PEAK_F32_FLOPS)
+    b5_bound = bound(walk_bytes + h * w * (D + 2) * 4 + 4 * plan.n_tiles
+                     + t_padded * width * rows.element_size(),
+                     pairs * PAIR_OPS + kept * (4 * D + PAIR_OPS), PEAK_F32_FLOPS)
+    b3_bound = bound(n_isects * ((D + 8) * rows.element_size() + 4)
+                     + plan.num_gaussians * ((D + 8) * 4 + 4),
+                     n_isects * (D + 8), PEAK_F32_FLOPS)
+    print(f"{tag} work of one step: {plan.n_tiles} tiles, {n_isects} intersections, "
+          f"T_padded {t_padded}, {walked} blocks walked ({pairs} pixel-Gaussian pairs, "
+          f"{weighted} with a nonzero weight, {kept} with a nonzero alpha); "
+          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}; the wide kernel {b4_wide:.3f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
+          f"with bf16 rows {b5_bf16:.3f} ms), "
+          f"B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}, library {b3_lib:.3f} ms, "
+          f"{lib_err[1]:.3e} of max from the kernel)", flush=True)
+    return [
+        rec(ids[0], "train_fwd", "tpugs_torch/csrc/train_fwd.cu",
+            "tpugs/raster/pallas_train.py:229", launches["train_fwd"], b4, b4_ms, b4_plain,
+            b4_bound),
+        rec(ids[1], "train_bwd", "tpugs_torch/csrc/train_bwd.cu",
+            "tpugs/raster/pallas_train.py:496", launches["train_bwd"], b5, b5_ms, b5_plain,
+            b5_bound),
+        rec(ids[2], "reduce (train rows)", "tpugs_torch/csrc/reduce.cu",
+            "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
+            b3_plain, b3_bound, b3_lib),
+    ]
+
+
 def phase_train():
     """The train step at full width through ``Trainer.train_chunk``: 3
     warm-up steps (SH degrees 0-2, sh_degree_interval 1), then 10 timed
     steps at degree 3. Returns the kernel records of B4, B5 and B3 on the
-    train rows."""
+    train rows, and the initial scene on the host (phase 9 starts there)."""
     import dataclasses
 
     import numpy as np
 
     from tpugs_torch.encoders import get_encoder
-    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
-    from tpugs_torch.raster import train as T
-    from tpugs_torch.raster.tiles import image_to_tiles
     from tpugs_torch.train.config import TrainConfig
     from tpugs_torch.train.trainer import STAGES, Trainer, init_scene_from_points
     from tpugs_torch.utils.synthetic import orbit_cameras
-    from tpugs_torch.utils.timing import time_cuda
 
     n, w, h = N_FULL, W_FULL, H_FULL
     t0 = time.perf_counter()
@@ -1058,7 +1184,8 @@ def phase_train():
     cam_idx = rng.integers(0, TRAIN_CAMS, TRAIN_WARMUP + TRAIN_STEPS + 1)
     cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=128, feature_out_dim=512,
                       strategy="none", random_bkgd=False, sh_degree_interval=1)
-    tr = Trainer(cfg, init_scene_from_points(pts, rgbs, cfg), 1.0,
+    scene0 = init_scene_from_points(pts, rgbs, cfg)
+    tr = Trainer(cfg, scene0, 1.0,
                  teacher=get_encoder("linear:512"), width=w, height=h, n_cameras=TRAIN_CAMS)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
     initial = {f.name: getattr(tr.scene, f.name).detach().clone()
@@ -1118,93 +1245,8 @@ def phase_train():
     tr.train_chunk(staged, 1, cam_idx[-1:])
     tr.record = None
     torch.cuda.synchronize()
-    geom, cols, plan, eps, img, alpha, done, g, hterm, grem0, dtype, rows = (seen[k] for k in (
-        "geom", "cols", "plan", "trans_eps", "image", "alpha", "blocks_done", "g_image",
-        "hterm", "grem0", "contrib_dtype", "rows"))
-    D = cols.shape[1]
-    sums = K.reduce_rows(rows, plan, D + T.GEOM_GRADS)
-
-    # 64 random tiles against the twins
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
-    img_t, alpha_t, done_t = T.train_tiles_plain(geom, cols, plan, eps, tiles)
-    inside = tile_inside(h, w, plan.tile_size, tiles)
-    b4 = rel_err(torch.where(inside, image_to_tiles(img, plan.tile_size)[tiles], 0.0),
-                 torch.where(inside, img_t, 0.0))
-    b4_alpha = rel_err(torch.where(inside[..., 0], image_to_tiles(
-        alpha[..., None], plan.tile_size)[tiles][..., 0], 0.0),
-        torch.where(inside[..., 0], alpha_t, 0.0))
-    span = span_rows(plan, tiles)
-    rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype, tiles,
-                                      magnitudes=True)
-    b5 = T.grad_rows_error(rows[span], rows_t[span], D, mags[span])
-    gids = gaussians_of(plan, span)
-    red_t = K.reduce_rows_plain(rows, plan, D + 8, gaussians=gids)
-    b3 = rel_err(sums[gids], red_t)
-    b3_equal = torch.equal(sums[gids], red_t)
-    same_exit = torch.equal(done[tiles], done_t)
-    print(f"phase 4 check on 64 tiles ({len(gids)} Gaussians): B4 image rel {b4[1]:.3e}, "
-          f"alpha rel {b4_alpha[1]:.3e}, exit blocks equal {same_exit}; B5 {dtype} rows "
-          f"{b5[1]:.3e} of column-group max, {b5[2]:.3e} of the entry's magnitude; "
-          f"B3 bit-equal {b3_equal}", flush=True)
-    check(b4[1] <= 1e-4 and b4_alpha[1] <= 1e-4 and same_exit,
-          "B4 within 1e-4 of its twin on the sampled tiles")
-    check(within_grad_tol(b5[1], b5[2], dtype),
-          "B5 rows within GRAD_ROWS_TOL on the sampled tiles")
-    check(b3_equal, "B3 bit-equal on the sampled Gaussians")
-    del rows_t, mags, img_t
-
-    # times at the main path's shapes, and the bounds of this step's work
-    walked = int(done.sum())
-    pairs, weighted, kept = walked_pairs(geom, plan, eps)
-    check(pairs == walked * 128 * plan.tile_size**2, "the twin's walk takes the kernel's blocks")
-    n_isects, t_padded, width = plan.n_isects, plan.T_padded, rows.shape[1]
-    b4_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, eps), 5)
-    b4_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, eps), 1)
-    lib = load_library()
-    b4_wide = time_cuda(lambda: T._launch_train_fwd(lib, geom, cols, plan, eps, None), 3)
-    b5_ms = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan, dtype),
-                      3)
-    b5_plain = time_cuda(
-        lambda: T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype), 1)
-    b5_bf16 = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan,
-                                             torch.bfloat16), 3)
-    b3_ms = time_cuda(lambda: K.reduce_rows(rows, plan, D + 8), 5)
-    b3_plain = time_cuda(lambda: K.reduce_rows_plain(rows, plan, D + 8), 1)
-    select = csr_select(plan.gauss_offsets, plan.gauss_pos, t_padded)
-    rows_d = rows[:, : D + 8].float().contiguous()
-    lib_err = rel_err(select @ rows_d, sums)
-    b3_lib = time_cuda(lambda: select @ rows_d, 5)
-    check(lib_err[1] <= 1e-5, "the library call computes B3's sums of the train rows")
-    del select, rows_d
-    walk_bytes = walked * 128 * (8 + D) * 4  # geometry and colour rows the walk reads
-    # Every walked pair needs its alpha; only pairs with a nonzero weight
-    # (B4) or alpha (B5) need the colour products, and B5's geometry adjoint.
-    b4_bound = bound(walk_bytes + h * w * (D + 1) * 4,
-                     pairs * PAIR_OPS + weighted * 2 * D, PEAK_F32_FLOPS)
-    b5_bound = bound(walk_bytes + h * w * (D + 2) * 4 + 4 * plan.n_tiles
-                     + t_padded * width * rows.element_size(),
-                     pairs * PAIR_OPS + kept * (4 * D + PAIR_OPS), PEAK_F32_FLOPS)
-    b3_bound = bound(n_isects * ((D + 8) * rows.element_size() + 4) + n * ((D + 8) * 4 + 4),
-                     n_isects * (D + 8), PEAK_F32_FLOPS)
-    print(f"phase 4 work of one step: {plan.n_tiles} tiles, {n_isects} intersections, "
-          f"T_padded {t_padded}, {walked} blocks walked ({pairs} pixel-Gaussian pairs, "
-          f"{weighted} with a nonzero weight, {kept} with a nonzero alpha); "
-          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}; the wide kernel {b4_wide:.3f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
-          f"with bf16 rows {b5_bf16:.3f} ms), "
-          f"B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}, library {b3_lib:.3f} ms, "
-          f"{lib_err[1]:.3e} of max from the kernel)", flush=True)
-    return [
-        rec("B4", "train_fwd", "tpugs_torch/csrc/train_fwd.cu",
-            "tpugs/raster/pallas_train.py:229", launches["train_fwd"], b4, b4_ms, b4_plain,
-            b4_bound),
-        rec("B5", "train_bwd", "tpugs_torch/csrc/train_bwd.cu",
-            "tpugs/raster/pallas_train.py:496", launches["train_bwd"], b5, b5_ms, b5_plain,
-            b5_bound),
-        rec("B3-train", "reduce (train rows)", "tpugs_torch/csrc/reduce.cu",
-            "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
-            b3_plain, b3_bound, b3_lib),
-    ]
+    return (train_step_records(seen, w, h, launches, "phase 4", ("B4", "B5", "B3-train")),
+            scene0.to("cpu"))
 
 
 # Phase 5: the raster API and the eager lift at the canonical lift shape,
@@ -2538,6 +2580,307 @@ def phase_queries(field_cpu, ref3):
     return [b4v_rec]
 
 
+# Phase 9: the port's train loop at the garden train shape (phase 4's scene,
+# 10 orbit views: 8 to train, 2 to validate, targets rendered from the
+# canonical seed-0 scene), through ``apps.train.run``.
+LOOP_CAMS, LOOP_VAL, LOOP_CAPACITY, LOOP_DEAD = 10, 2, 16384, 4096
+
+
+class TimedRng:
+    """A numpy Generator whose method calls add their host seconds to
+    ``seconds`` (the refine's draws)."""
+
+    def __init__(self, rng):
+        self.rng, self.seconds = rng, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self.rng, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        return timed
+
+
+def state_tensors(tr) -> dict:
+    """Every tensor of a trainer's state by name, on the host."""
+    import dataclasses
+
+    out = {f"scene.{f.name}": getattr(tr.scene, f.name).detach().cpu()
+           for f in dataclasses.fields(tr.scene) if getattr(tr.scene, f.name) is not None}
+    for name, opt in (("opt", tr.optimizer), ("pose_opt", tr.pose_optimizer),
+                      ("app_opt", tr.app_optimizer)):
+        if opt is not None:
+            for idx, st in opt.state_dict()["state"].items():
+                out.update({f"{name}.{idx}.{k}": torch.as_tensor(v).detach().cpu()
+                            for k, v in st.items()})
+    if tr.pose_params is not None:
+        out["pose"] = tr.pose_params.detach().cpu()
+    if tr.app_module is not None:
+        out.update({f"app.{k}": v.cpu() for k, v in tr.app_module.state_dict().items()})
+    return out
+
+
+def synced_ms(fn):
+    """(result, ms) of ``fn()`` on the host clock, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_training_loop(scene0):
+    """Leg A: ``apps.train.run(chunked=True)`` for 40 steps with strategy
+    "default" (refines at steps 10 and 20, capacity 16384, the opacity
+    reset at 20), pose and appearance optimisation, a random background,
+    evaluation with LPIPS at step 20 and at the end, checkpoints at 20 and
+    at the end; each refine checked (counts, padding, state, the same
+    refine on the CPU), the first step after the second refine recorded
+    and its kernels held and timed (B4-, B5-, B3-refined); a full
+    checkpoint round trip; ``render_traj``. Leg B: strategy "mcmc" through
+    the per-step path, 21 steps, refines at 10 and 20, with 4096 planted
+    dead Gaussians. Returns the three kernel records."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+
+    from tpugs_torch.apps.train import run
+    from tpugs_torch.core.scene import pad_count
+    from tpugs_torch.encoders import get_encoder
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.raster.train import render_scene
+    from tpugs_torch.train.config import TrainConfig
+    from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
+    from tpugs_torch.train.metrics import psnr, ssim
+    from tpugs_torch.train.strategy import PER_GAUSSIAN, DefaultStrategy, GradState
+    from tpugs_torch.train.trainer import Trainer
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    w, h = W_FULL, H_FULL
+    t_phase = t0 = time.perf_counter()
+    cams = orbit_cameras(LOOP_CAMS, w, h, radius=3.0, device="cuda")
+    target = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    views = [{"image": render_scene(target, cams.viewmats[c], cams.Ks[c], w, h,
+                                    tile_size=TILE)[0],
+              "viewmat": cams.viewmats[c], "K": cams.Ks[c], "image_id": c}
+             for c in range(LOOP_CAMS)]
+    del target
+    trainset, valset = views[:LOOP_CAMS - LOOP_VAL], views[LOOP_CAMS - LOOP_VAL:]
+    teacher = get_encoder("linear:512")
+    cfg = TrainConfig(max_steps=40, sh_degree=3, feature_dim=128, feature_out_dim=512,
+                      strategy="default", capacity_multiple=LOOP_CAPACITY, pose_opt=True,
+                      app_opt=True, random_bkgd=True, sh_degree_interval=10,
+                      refine_start_iter=10, refine_every=10, refine_stop_iter=30,
+                      reset_every=20)
+
+    def trainer(c, scene):
+        return Trainer(c, scene, 1.0, teacher=teacher, width=w, height=h, n_cameras=LOOP_CAMS,
+                       lpips_params=random_lpips_params("alex", 0))
+
+    tr = trainer(cfg, scene0.to("cuda"))
+    print(f"phase 9 set-up (targets rendered from the seed-0 scene, Trainer with pose and "
+          f"appearance): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rng = tr.strategy.rng = TimedRng(tr.strategy.rng)
+    refines, resets, chunks, losses, records = [], [], [], [], []
+    held = {"check_ms": 0.0, "armed": False, "peak": 0}
+    orig = {k: getattr(tr, k) for k in ("refine", "reset_opacities", "_step_on", "train_chunk")}
+    logit_cap = float(np.log(0.01 / 0.99))
+
+    def refine():
+        n_before = tr.scene.num_gaussians
+        cpu_scene = tr._detached().to("cpu")
+        cpu_state = GradState(tr.grad_state.grad2d_sum.cpu(), tr.grad_state.count.cpu())
+        cpu_strategy = DefaultStrategy(cfg, tr.scene_scale)
+        cpu_strategy.rng = copy.deepcopy(rng.rng)
+        masks = {k: v.cpu() for k, v in tr.strategy.masks(tr._detached(), tr.grad_state).items()}
+        drawn = rng.seconds
+        info, ms = synced_ms(orig["refine"])
+        draw_ms = 1e3 * (rng.seconds - drawn)
+        alive, n = info["alive"], tr.scene.num_gaussians
+        kept = int(masks["keep"].sum())
+        check(n == pad_count(alive, LOOP_CAPACITY), f"N {n} is alive {alive} padded to 16384")
+        check(alive == kept + info["duplicated"] + 2 * info["split"],
+              "alive = kept + duplicated + 2 x split")
+        s = tr._detached()
+        for c in range(LOOP_CAMS):
+            proj = project(s.means, s.quats, s.scales, s.opacities, cams.viewmats[c],
+                           cams.Ks[c], w, h)
+            check(not bool(proj.valid[alive:].any()), f"no padded row valid in view {c}")
+        check(tr.grad_state.count.shape == (n,) and not bool(tr.grad_state.count.any())
+              and not bool(tr.grad_state.grad2d_sum.any()), "GradState zero")
+        check(len(tr.optimizer.state) == 0, "every optimizer state empty after a refine")
+        new_cpu, _, info_cpu = cpu_strategy.refine(cpu_scene, cpu_state)
+        masks_cpu = cpu_strategy.masks(cpu_scene, cpu_state)
+        check(info_cpu == {k: info[k] for k in info_cpu}, f"CPU refine counts {info_cpu}")
+        check(all(torch.equal(masks[k], masks_cpu[k]) for k in masks), "CPU refine masks")
+        row_err = max(float((getattr(s, f)[:alive].cpu() - getattr(new_cpu, f)).abs().max())
+                      for f in PER_GAUSSIAN)
+        check(row_err <= 1e-6, f"CPU refine rows within 1e-6 ({row_err:.3e})")
+        refines.append(dict(info, step=tr.step, n_before=n_before, n=n, ms=ms, draw_ms=draw_ms,
+                            cpu_row_err=row_err))
+        held["armed"] = len(refines) == 2
+        return info
+
+    def reset_opacities():
+        orig["reset_opacities"]()
+        group = next(g for g in tr.optimizer.param_groups if g["name"] == "opacities")
+        check(not tr.optimizer.state.get(group["params"][0]), "opacities' state empty")
+        check(float(tr.scene.logit_opacities.detach().max()) <= logit_cap + 1e-6,
+              "every logit at most logit(0.01) after the reset")
+        resets.append(tr.step)
+
+    def step_on(*args, **kw):
+        if not held["armed"]:
+            return orig["_step_on"](*args, **kw)
+        held["armed"] = False
+        tr.record = seen = {}
+        out = orig["_step_on"](*args, **kw)
+        tr.record = None
+        torch.cuda.synchronize()
+        held["peak"] = max(held["peak"], torch.cuda.max_memory_allocated())
+        saved = K.LAUNCHES.snapshot()
+        t = time.perf_counter()
+        records.extend(train_step_records(seen, w, h, saved, "phase 9 after the second refine",
+                                          ("B4-refined", "B5-refined", "B3-refined")))
+        del seen
+        torch.cuda.synchronize()
+        held["check_ms"] += 1e3 * (time.perf_counter() - t)
+        for k, v in saved.items():
+            setattr(K.LAUNCHES, k, v)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def train_chunk(staged, n_steps, cam_idx=None):
+        step0, before = tr.step, held["check_ms"]
+        out, ms = synced_ms(lambda: orig["train_chunk"](staged, n_steps, cam_idx))
+        chunks.append((step0, tr.step, tr.scene.num_gaussians,
+                       (ms - (held["check_ms"] - before)) / n_steps))
+        losses.extend(out["loss"].tolist())
+        return out
+
+    tr.refine, tr.reset_opacities, tr._step_on, tr.train_chunk = (
+        refine, reset_opacities, step_on, train_chunk)
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.reset()
+        metrics, wall_ms = synced_ms(lambda: run(
+            tr, trainset, valset, out_dir, eval_every=20, save_every=20, chunked=True,
+            seed=cfg.seed, encoder=teacher))
+        launches = K.LAUNCHES.snapshot()
+        peak_gb = max(held["peak"], torch.cuda.max_memory_allocated()) / 1e9
+        files = {os.path.relpath(os.path.join(d, f), out_dir)
+                 for d, _, fs in os.walk(out_dir) for f in fs}
+        check({"ckpts/ckpt_20.npz", "ckpts/full_20.npz", "ckpts/ckpt_39.npz",
+               "ckpts/full_39.npz", "stats/val_step20.json", "stats/val_final.json"} <= files,
+              f"the app's files {sorted(files)}")
+        check(len(refines) == 2 and [r["step"] for r in refines] == [10, 20] and resets == [20],
+              f"refines at 10 and 20, the reset at 20 ({refines}, {resets})")
+        check(len(records) == 3, "the step after the second refine was recorded")
+        check(len(losses) == cfg.max_steps and bool(np.isfinite(losses).all()),
+              "every loss finite")
+        for k in ("train_fwd", "train_bwd", "reduce"):
+            check(launches[k] >= cfg.max_steps, f"{k} launched every step ({launches[k]})")
+        for r, k in zip(records, ("train_fwd", "train_bwd", "reduce")):
+            r["launches"] = launches[k]
+        for k in ("psnr", "ssim", "lpips"):
+            check(bool(np.isfinite(metrics[k])), f"final {k} finite")
+        print(f"phase 9 leg A: run(chunked) {cfg.max_steps} steps in {wall_ms / 1e3:.1f} s "
+              f"(with evals, checkpoints and checks); peak {peak_gb:.2f} GB; ms/step by chunk "
+              f"[steps) N: " + ", ".join(f"[{a},{b}) {n} {ms:.2f}" for a, b, n, ms in chunks)
+              + f"; losses {' '.join(f'{x:.4f}' for x in losses)}; launches {launches}",
+              flush=True)
+        for r in refines:
+            print(f"phase 9 refine @ {r['step']}: N {r['n_before']} -> alive {r['alive']} "
+                  f"(duplicated {r['duplicated']}, split {r['split']}, pruned {r['pruned']}) "
+                  f"-> N {r['n']}; {r['ms']:.1f} ms ({r['draw_ms']:.1f} ms host draws, "
+                  f"{r['ms'] - r['draw_ms']:.1f} ms the rest: the card's masks, gathers and "
+                  f"concatenations and the host's syncs); the CPU refine: same counts and "
+                  f"masks, rows within {r['cpu_row_err']:.3e}", flush=True)
+
+        # the full checkpoint: save, load into a fresh trainer, bit for bit
+        path = os.path.join(out_dir, "full_round_trip.npz")
+        _, save_ms = synced_ms(lambda: tr.save_checkpoint_full(path))
+        size_gb = os.path.getsize(path) / 1e9
+        fresh = trainer(cfg, scene0.to("cuda"))
+        _, load_ms = synced_ms(lambda: fresh.load_checkpoint_full(path))
+        want, got = state_tensors(tr), state_tensors(fresh)
+        check(fresh.step == tr.step == cfg.max_steps, "the step restored")
+        check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+              "every tensor restored bit for bit")
+        out = fresh.train_chunk(fresh.stage_dataset(trainset), 1)
+        check(bool(np.isfinite(out["loss"]).all()), "the restored trainer takes a finite step")
+        del fresh, want, got
+
+    # evaluation, piece by piece, on the validation views
+    parts = {"render": [], "psnr+ssim": [], "lpips": []}
+    for v in valset:
+        img, ms = synced_ms(lambda: tr.render_eval(v["viewmat"], v["K"])[0].clamp(0, 1))
+        parts["render"].append(ms)
+        parts["psnr+ssim"].append(synced_ms(lambda: (psnr(img, v["image"]),
+                                                     ssim(img, v["image"])))[1])
+        parts["lpips"].append(synced_ms(lambda: lpips_distance(tr.lpips_params, img, v["image"],
+                                                               "cuda"))[1])
+    frames = tr.render_traj(cams.Ks[0], "", n_frames=8)
+    check(len(frames) == 8 and all(f.shape == (h, w, 3) and f.dtype == np.uint8 for f in frames),
+          "render_traj: 8 uint8 frames")
+    print(f"phase 9 eval (2 views, N {tr.scene.num_gaussians}): PSNR {metrics['psnr']:.3f}, "
+          f"SSIM {metrics['ssim']:.4f}, LPIPS {metrics['lpips']:.4f} (random alex weights); "
+          f"ms per image: " + ", ".join(f"{k} {np.mean(v):.2f}" for k, v in parts.items())
+          + f"; full checkpoint {size_gb:.2f} GB: save {save_ms / 1e3:.2f} s, load "
+          f"{load_ms / 1e3:.2f} s, restored bit for bit; render_traj 8 frames, "
+          f"{sum(int(f.any()) for f in frames)} not black", flush=True)
+    del tr
+
+    # Leg B: MCMC through the per-step path, with planted dead Gaussians
+    cfg_b = dataclasses.replace(cfg, strategy="mcmc", max_steps=21, pose_opt=False,
+                                app_opt=False, reset_every=0)
+    s0 = scene0.to("cuda")
+    logits = s0.logit_opacities.clone()
+    logits[:LOOP_DEAD] = -10.0
+    trb = trainer(cfg_b, s0.replace(logit_opacities=logits))
+    del s0, logits
+    relocations, step_ms = [], []
+    orig_b = {k: getattr(trb, k) for k in ("refine", "train_step")}
+
+    def refine_b():
+        dead = int((torch.sigmoid(trb.scene.logit_opacities) < cfg_b.prune_opa).sum())
+        info, ms = synced_ms(orig_b["refine"])
+        check(trb.scene.num_gaussians == N_FULL, "MCMC keeps N")
+        check(info["relocated"] == dead, f"relocated {info['relocated']} = dead {dead}")
+        check(len(trb.optimizer.state) == 0, "every optimizer state empty after a refine")
+        relocations.append((trb.step, dead, ms))
+        return info
+
+    def train_step_b(batch, teacher_feats=None):
+        n_refines = len(relocations)
+        out, ms = synced_ms(lambda: orig_b["train_step"](batch, teacher_feats))
+        if len(relocations) == n_refines:
+            step_ms.append(ms)
+        check(bool(np.isfinite(out["loss"])), "every loss finite")
+        return out
+
+    trb.refine, trb.train_step = refine_b, train_step_b
+    with tempfile.TemporaryDirectory() as out_dir:
+        run(trb, trainset, valset, out_dir, eval_every=0, save_every=0, seed=cfg.seed,
+            encoder=teacher)
+    check([r[0] for r in relocations] == [10, 20] and relocations[0][1] >= LOOP_DEAD,
+          f"MCMC refines at 10 and 20, the planted dead relocated ({relocations})")
+    print(f"phase 9 leg B (mcmc, per step): {np.mean(step_ms):.2f} ms/step over the "
+          f"{len(step_ms)} steps without a refine (the teacher per step); refines " + ", ".join(
+              f"@ {s}: {d} dead relocated, N {N_FULL}, {ms:.1f} ms" for s, d, ms in relocations),
+          flush=True)
+    print(f"phase 9 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -2559,7 +2902,8 @@ def main() -> int:
     records, view, ref3 = phase_full_width()
     records += phase_experiments(view)
     del view
-    records += phase_train()
+    train_records, scene0 = phase_train()
+    records += train_records
     records += phase_eager()
     records += phase_absgrad()
     phase_app()
@@ -2567,6 +2911,8 @@ def main() -> int:
     records += lseg_records
     records += phase_queries(field, ref3)
     del field, ref3
+    records += phase_training_loop(scene0)
+    del scene0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

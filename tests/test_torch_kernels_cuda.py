@@ -528,3 +528,57 @@ def test_resize_on_the_card_matches_the_cpu(method, size, out):
     got = resize(x.cuda(), out, method)
     ref = resize(x, out, method)
     assert float((got.cpu() - ref).abs().max()) <= 3e-5
+
+
+def test_train_step_after_a_refine_matches_twins():
+    """The trainer refines a small scene on the card (strategy "default",
+    every Gaussian grows, N padded to a multiple of 256); no padded row is
+    valid in ``project``; the next step's recorded B4, B5 and B3 inputs
+    give the kernels' outputs within the limits above (B3 bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tpugs_torch.train.config import TrainConfig
+    from tpugs_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(strategy="default", feature_dim=8, feature_out_dim=4, sh_degree=1,
+                      random_bkgd=False, grow_grad2d=1e-12, refine_start_iter=1,
+                      refine_every=1, capacity_multiple=256)
+    scene = random_scene(1500, seed=3, extent=0.8, scale_range=(0.01, 0.05), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scene = scene.replace(features=torch.randn((1500, 8), device="cuda", generator=gen) * 0.1,
+                          feature_proj=torch.randn((8, 4), device="cuda", generator=gen))
+    cams = orbit_cameras(2, W, H, radius=2.5, device="cuda")
+    staged = {"images": torch.rand((2, H, W, 3), device="cuda", generator=gen),
+              "viewmats": cams.viewmats, "Ks": cams.Ks}
+    tr = Trainer(cfg, scene, 1.0, teacher=LinearRGBEncoder(4, device="cuda"), width=W,
+                 height=H, device="cuda")
+    tr.train_chunk(staged, 2, [0, 1])
+    info = tr.refine()
+    n = tr.scene.num_gaussians
+    assert info["alive"] > 1500 and n % 256 == 0 and n - 256 < info["alive"] <= n
+    s = tr.scene
+    proj = project(s.means.detach(), s.quats.detach(), s.scales.detach(), s.opacities.detach(),
+                   cams.viewmats[0], cams.Ks[0], W, H)
+    assert not bool(proj.valid[info["alive"]:].any()) and bool(proj.valid.any())
+    tr.record = seen = {}
+    K.LAUNCHES.reset()
+    out = tr.train_chunk(staged, 1, [0])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(torch.as_tensor(out["loss"])).all())
+    assert min(K.LAUNCHES.train_fwd, K.LAUNCHES.train_bwd, K.LAUNCHES.reduce) >= 1
+    geom, cols, plan, eps, img, alpha, done, g, hterm, grem0, dtype, rows = (seen[k] for k in (
+        "geom", "cols", "plan", "trans_eps", "image", "alpha", "blocks_done", "g_image",
+        "hterm", "grem0", "contrib_dtype", "rows"))
+    assert plan.num_gaussians == n
+    img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan, eps)
+    assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
+    assert torch.equal(done, done_t)
+    d = cols.shape[1]
+    rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype,
+                                      magnitudes=True)
+    group_tol, entry_tol = T.GRAD_ROWS_TOL[dtype]
+    _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+    assert torch.equal(K.reduce_rows(rows, plan, d + T.GEOM_GRADS),
+                       K.reduce_rows_plain(rows, plan, d + T.GEOM_GRADS))

@@ -23,6 +23,7 @@ from tpugs_torch.apps.affordance import main as affordance_main
 from tpugs_torch.apps.backproject import main as backproject_main
 from tpugs_torch.apps.backproject_compressed import main as compressed_main
 from tpugs_torch.apps.segment import main as segment_main
+from tpugs_torch.apps.train import main as train_main
 from tpugs_torch.apps.train_codec import main as train_codec_main
 from tpugs_torch.apps.visualize_pca import main as pca_main
 from tpugs_torch.codec.linear import LinearCodec, load_codec, train_codec
@@ -52,6 +53,8 @@ from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
 from tpugs_torch.raster.train import pack_train, train_forward, train_rows
 from tpugs_torch.train.config import TrainConfig
+from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
+from tpugs_torch.train.modules import AppearanceOptModule, CameraOptModule
 from tpugs_torch.train.trainer import Trainer, init_scene_from_points
 from tpugs_torch.utils import synthetic
 
@@ -171,6 +174,13 @@ ENTRY_POINTS = {
     "train_codec app": lambda: train_codec_main(embeddings_npz="emb.npz"),
     "visualize_pca app": lambda: pca_main(data_dir="data", checkpoint="ckpt.pt"),
     "affordance app": lambda: affordance_main(data_dir="data", checkpoint="ckpt.pt"),
+    "train app": lambda: train_main(data_dir="data"),
+    "Trainer default strategy": lambda: Trainer(
+        TrainConfig(feature_dim=0), synthetic.random_scene(10, device="cpu"), width=32, height=32),
+    "CameraOptModule": lambda: CameraOptModule(2),
+    "AppearanceOptModule": lambda: AppearanceOptModule(2, 4),
+    "lpips_distance": lambda: lpips_distance(random_lpips_params("alex"), np.zeros((32, 32, 3)),
+                                             np.zeros((32, 32, 3))),
 }
 
 
@@ -323,13 +333,8 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
 
 
 UNPORTED = {
-    "unread compression": (dict(compression="png"), NotImplementedError),
-    "default strategy": (dict(strategy="default"), NotImplementedError),
-    "mcmc strategy": (dict(strategy="mcmc"), NotImplementedError),
-    "pose optimisation": (dict(pose_opt=True), NotImplementedError),
     "unknown engine": (dict(raster_engine="fast"), ValueError),
-    "unread data_dir": (dict(data_dir="./data/bicycle"), NotImplementedError),
-    "unread lpips_net": (dict(lpips_net="vgg"), NotImplementedError),
+    "unknown strategy": (dict(strategy="adc"), ValueError),
     "unread pallas_size_margin": (dict(pallas_size_margin=2.0), NotImplementedError),
 }
 
@@ -341,6 +346,35 @@ def test_trainer_raises_on_what_is_not_ported(case):
     with pytest.raises(exc):
         Trainer(cfg, synthetic.random_scene(10, device="cpu"), width=32, height=32,
                 n_cameras=2, device="cpu")
+
+
+# Settings that raised until the rest of training was ported, and
+# TrainConfig()'s own defaults.
+PORTED = {
+    "unread compression": dict(compression="png"),
+    "default strategy": dict(strategy="default"),
+    "mcmc strategy": dict(strategy="mcmc"),
+    "pose optimisation": dict(pose_opt=True, pose_noise=0.01),
+    "appearance optimisation": dict(app_opt=True, feature_dim=4),
+    "unread data_dir": dict(data_dir="./data/bicycle"),
+    "unread lpips_net": dict(lpips_net="vgg"),
+    "TrainConfig defaults": None,
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_trainer_builds_what_was_ported(case):
+    kw = PORTED[case]
+    cfg = TrainConfig() if kw is None else TrainConfig(**{"strategy": "none", "feature_dim": 0,
+                                                          **kw})
+    scene = synthetic.random_scene(10, device="cpu")
+    if cfg.feature_dim:
+        scene = scene.replace(features=torch.zeros((10, cfg.feature_dim)),
+                              feature_proj=torch.zeros((cfg.feature_dim, 4)))
+    tr = Trainer(cfg, scene, width=32, height=32, n_cameras=2, device="cpu")
+    assert (tr.strategy is None) == (cfg.strategy == "none")
+    assert (tr.pose_params is not None) == cfg.pose_opt
+    assert (tr.app_module is not None) == cfg.app_opt
 
 
 def test_build_is_keyed_on_sources_and_targets_sm90a(tmp_path, monkeypatch):

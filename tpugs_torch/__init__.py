@@ -14,7 +14,8 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   native/    the C++ COLMAP parser (g++, ctypes) beside the pure readers
   apps/      the CLIs: back-projection (load, prune, verify, lift, save),
              segmentation and edits, the compressed lift, the codec's
-             training, PCA renders, affordance transfer
+             training, PCA renders, affordance transfer, training and its
+             supervisor
   utils/     synthetic scenes, orbit rigs and COLMAP models (bit-identical
              to tpugs'), Morton order, the function-signature CLI
   raster/    projection, SH, binning, per-view plan and pack, the lift
@@ -33,7 +34,10 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              affordance transfer and its evaluation
   codec/     the linear 512 -> 16 feature codec and its Adam training
   viz/       GIF frames, mask overlays and PCA renders (imageio for files)
-  train/     config, metrics, strategy "none" and the trainer's step
+  train/     config, metrics, the strategies (Default, MCMC), the trainer
+             (step, refine, pose and appearance, eval, checkpoints), the
+             modules, LPIPS, the COLMAP dataset, normalisation,
+             trajectories and the live viewer
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
              the phases tools, the LSeg encoder's post step
   kernels/   the nvcc build of ``csrc/*.cu``
@@ -41,6 +45,10 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              Flax encoders' params)
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
+
+Not ported yet: the profiling utilities (ROADMAP queue A item 5), the
+distribution over several devices (ROADMAP item 6) and the interactive apps
+(ROADMAP item 7).
 """
 
 from tpugs_torch.core.camera import Camera  # noqa: F401

@@ -11,7 +11,8 @@ reproduce); ``vit_from_flax``, ``lseg_from_flax``,
 ``dino_from_flax`` and ``clip_text_from_flax`` a Flax param tree of the
 encoders (numpy leaves, ``block{i}`` or stacked ``blocks`` layout), giving
 the port's state dict: tpugs' checkpoint key maps
-(``tpugs/encoders/convert.py``) run in reverse.
+(``tpugs/encoders/convert.py``) run in reverse; ``appearance_from_flax``
+the trainer's appearance module's params.
 """
 
 from __future__ import annotations
@@ -223,4 +224,14 @@ def clip_text_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         sd.update(_norm(p[f"ln2_{i}"], b + "ln_2"))
         sd.update(_dense(p[f"mlp_fc_{i}"], b + "mlp.c_fc"))
         sd.update(_dense(p[f"mlp_proj_{i}"], b + "mlp.c_proj"))
+    return sd
+
+
+def appearance_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """tpugs ``AppearanceOptModule`` params (``embeds``, ``hidden{i}``,
+    ``out``) -> the port's module's state dict; Dense kernels transposed."""
+    p = _unwrap(params)
+    sd = {"embeds": _t(p["embeds"]), **_dense(p["out"], "out")}
+    for i in range(sum(1 for k in p if k.startswith("hidden"))):
+        sd.update(_dense(p[f"hidden{i}"], f"hidden.{i}"))
     return sd

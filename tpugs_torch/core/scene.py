@@ -1,4 +1,5 @@
-"""3DGS scene state. Counterpart: ``tpugs/core/scene.py:37-120``.
+"""3DGS scene state. Counterpart: ``tpugs/core/scene.py:37-137`` (with
+``pad_count``).
 
 Raw (pre-activation) parameterisation as in gsplat checkpoints:
 ``quats`` (N, 4) wxyz, not necessarily normalised; ``log_scales`` (N, 3);
@@ -97,3 +98,8 @@ class GaussianScene:
                 for f in dataclasses.fields(self)
             }
         )
+
+
+def pad_count(n: int, multiple: int = 256) -> int:
+    """Round N up to a multiple (the trainer's capacity after a refine)."""
+    return ((n + multiple - 1) // multiple) * multiple

@@ -2,13 +2,13 @@
 (``TrainConfig``, the reference's ``Config`` dataclass), with the same
 fields, defaults and ``adjust_steps``.
 
-Fields the port does not run yet are kept so that one configuration
-drives both packages. ``Trainer`` raises on the values that need an
-unported part (``strategy`` "default"/"mcmc", pose and appearance
-optimisation) and on any field of ``NOT_READ``
-set away from its default, so that such a setting is not ignored. The
-``pallas_*`` fields keep their names and configure the port's train
-kernels (B4/B5): tile size, gradient-row dtype and early-exit threshold.
+``Trainer`` raises on any field of ``NOT_READ`` set away from its default,
+so that such a setting is not ignored. The ``pallas_*`` fields keep their
+names and configure the port's train kernels (B4/B5): tile size,
+gradient-row dtype and early-exit threshold. As in tpugs, ``data_factor``,
+``result_dir``, ``test_every``, ``patch_size``, ``lpips_net`` and
+``disable_viewer`` are read by nothing: the app takes the first three as
+its own arguments.
 """
 
 from __future__ import annotations
@@ -132,16 +132,8 @@ class TrainConfig:
         )
 
 
-# Fields the port's Trainer never reads -> what reads them in tpugs. Left
-# out: fields read only under a setting that raises (the strategies'
-# refine_*/grow_*/prune_*/capacity_multiple, the pose_opt_* and app_*
-# options) and the schedules that ``adjust_steps`` rescales (eval_steps,
-# save_steps).
+# Fields the port's Trainer never reads -> what reads them in tpugs.
 NOT_READ = {
-    **dict.fromkeys(("data_dir", "data_factor", "result_dir", "test_every", "patch_size",
-                     "normalize_world_space", "init_type", "tb_every", "disable_viewer"),
-                    "the dataset and apps/train.py"),
-    **dict.fromkeys(("lpips_net", "compression"), "evaluate"),
     "pallas_size_margin": "the static size buckets (the port's plans are exact)",
 }
 
