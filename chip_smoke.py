@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Eleven phases; the first failure ends the run with a nonzero exit:
+Thirteen phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -146,15 +146,54 @@ Eleven phases; the first failure ends the run with a nonzero exit:
              "mcmc" through the per-step path, 21 steps, refines at 10 and
              20 with 4096 planted dead Gaussians: N stays 2^19, the
              relocated count is the dead count, the state empty; ms/step.
-10. kernels line — one JSON object per kernel with its launches, errors,
+10. profiling — ``experiments/profile_stages.py`` at the canonical lift
+             shape (view 0 of the 4-view rig, tile 32, 3 iterations, the
+             plan's sub-stages, a ``torch.profiler`` trace of the full view):
+             its stages' CUDA-event and host times, the roofline table at
+             the H100's peaks and ``sol_estimate``; the full view's num and
+             den bit-equal to phase 3's view 0, the write-back and gather
+             unpermutes bit-equal to the XLA reduce, which is within f32
+             rounding of B3; B1, B2 and B3 found in the trace by name, each
+             within 10% of phase 3's CUDA-event time on the same inputs
+             (B1-prof, B2-prof, B3-prof: phase 3's records with this
+             phase's launches). The device idle share
+             (``device_idle_share`` of a trace) of 2 lift views after a
+             warm-up and of 2 train steps at phase 4's shape; the eager
+             lift's stage split (``eager_lift_split``, 2 views, each stage
+             synchronised), its field bit-equal to ``create_feature_field``'s;
+             ``device_memory_stats`` after each.
+11. interactive — on phase 7's LSeg-512 field: the viewer (``apps/viewer.py``)
+             over the canonical scene for 8 scripted frames (w, d, 1, 2, 3,
+             a drag of (40, -20) px, g for anaglyph, the axes overlay)
+             through B4 with early exit: ms per frame, frames/s, B4's
+             launches per frame, each frame within 1 LSB of the same frame
+             through ``plan_render`` + ``rasterize_with_plan``, the 8 frames' idle share from a trace, the first
+             frame's stage split (project, plan, SH+pack, B4, the uint8
+             frame to the host; composed of ``render_scene``'s calls and
+             bit-equal to ``render_frame``'s frame), B4-frame against its
+             twin; a click session (``apps/click_and_segment.py``)
+             on the scene plus 256 planted Gaussians whose field rows are a
+             direction no scene row shares: the RGB+ED render (D = 4) and
+             the 512-wide field render (B4's wide kernel) on the card, a
+             positive click on the cluster and a negative one on the scene,
+             ``mask3d`` equal to float64 outside ties with all 256 planted
+             selected, the extracted pane black outside the cluster's
+             footprint, ``remove_nearest`` removing the negative prompt, ms
+             per piece and the peak (< 30 GB); the scene editor
+             (``apps/viewer_llm.py``): three phrases parsed, then segment,
+             change_color (256 each), the two resets (tensors restored bit
+             for bit) and exit through an exemplar lookup; the tiny random
+             GPT-2 backend where ``transformers`` imports.
+12. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
              B5-tiled, B5's geometry-only launch as B5-geom, phase 7's
              as B2-lseg, B3-lseg, B2-dino and B3-dino, phase 8's
-             feature render as B4-viz, and phase 9's as B4-, B5- and
-             B3-refined.
+             feature render as B4-viz, phase 9's as B4-, B5- and
+             B3-refined, phase 10's as B1-, B2- and B3-prof and phase 11's
+             viewer frame as B4-frame.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -164,6 +203,7 @@ result. Nothing here imports JAX or the ``tpugs`` package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -172,10 +212,14 @@ import warnings
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): the bounds below.
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+try:  # the package beside this script; main() stops with a message without it
+    from tpugs_torch.utils.profiling import PEAKS_H100
+except ImportError:
+    PEAKS_H100 = None
+else:  # published H100 SXM peaks (NVIDIA data sheet, dense): the bounds below
+    PEAK_BYTES_S = PEAKS_H100["hbm_gbps"] * 1e9
+    PEAK_BF16_FLOPS = PEAKS_H100["tflops_bf16"] * 1e12
+    PEAK_F32_FLOPS = PEAKS_H100["tflops_f32"] * 1e12
 PAIR_OPS = 30  # f32 operations per evaluated (pixel, Gaussian) pair, incl. exp
 
 N_FULL, W_FULL, H_FULL, D_FULL, TILE, VIEWS = 2**19, 1296, 840, 512, 32, 8
@@ -899,23 +943,23 @@ def phase_full_width():
           f"B7 {b7_ms:.3f} ms (twin {b7_plain:.1f})", flush=True)
 
     b1_rec = rec("B1", "render", "tpugs_torch/csrc/render.cu",
-                 "tpugs/raster/pallas_tiled.py:1328", launches["render"], b1, b1_ms,
+                 "tpugs/raster/pallas_tiled.py:1370", launches["render"], b1, b1_ms,
                  b1_plain, b1_bound)
     b1_rec.update(bound_walked_ms=b1_walked[0], unculled_ms=b1_unculled,
                   resident_clusters=load_library().tpugs_render_max_clusters(TILE, 1))
     records = [
         b1_rec,
         rec("B2", "adjoint", "tpugs_torch/csrc/adjoint.cu",
-            "tpugs/raster/pallas_tiled.py:1573", launches["adjoint"], b2, b2_ms,
+            "tpugs/raster/pallas_tiled.py:1623", launches["adjoint"], b2, b2_ms,
             b2_plain, b2_bound),
         rec("B3", "reduce", "tpugs_torch/csrc/reduce.cu",
-            "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
+            "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms,
             b3_plain, b3_bound, b3_lib),
         rec("B6", "adjoint_scatter", "tpugs_torch/csrc/adjoint.cu",
-            "tpugs/raster/pallas_tiled.py:1870", launches_s["adjoint_scatter"], b6, b6_ms,
+            "tpugs/raster/pallas_tiled.py:1927", launches_s["adjoint_scatter"], b6, b6_ms,
             b6_plain, b6_bound),
         rec("B7", "stripe_sum", "tpugs_torch/csrc/stripe_sum.cu",
-            "tpugs/raster/pallas_tiled.py:1987", launches_s["stripe_sum"], b7, b7_ms,
+            "tpugs/raster/pallas_tiled.py:2007", launches_s["stripe_sum"], b7, b7_ms,
             b7_plain, b7_bound, b7_lib),
     ]
     return records, r, ref3
@@ -1038,13 +1082,13 @@ def phase_experiments(r):
     s2_bound = (1e3 * nbytes["stripe"] / PEAK_BYTES_S, "bytes")
     return [
         rec("S1", "scatter_write (scatter, compute_iters 0)",
-            "tpugs_torch/csrc/exp_scatter_write.cu", "scripts/exp_scatter_write.py:120",
+            "tpugs_torch/csrc/exp_scatter_write.cu", "scripts/exp_scatter_write.py:124",
             s1_launches, worst, s1["scatter", 0], s1_plain, s1_bound, s1_lib),
         rec("S1-probe", "async_copy_probe", "tpugs_torch/csrc/exp_scatter_write.cu",
-            "scripts/exp_scatter_write.py:143", probe_launches, probe_err, probe_ms,
+            "scripts/exp_scatter_write.py:158", probe_launches, probe_err, probe_ms,
             probe_plain, bound(32 + 4, 0, PEAK_F32_FLOPS)),
         rec("S2", "reduce_tail stripe (gather + stripe_sum in column order)",
-            "tpugs_torch/csrc/stripe_sum.cu", "scripts/exp_reduce_tail.py:53",
+            "tpugs_torch/csrc/stripe_sum.cu", "scripts/exp_reduce_tail.py:85",
             s2_launches, s2_err, s2_ms["stripe"], s2_plain, s2_bound, s2_lib),
     ]
 
@@ -1147,13 +1191,13 @@ def train_step_records(seen, w, h, launches, tag, ids):
           f"{lib_err[1]:.3e} of max from the kernel)", flush=True)
     return [
         rec(ids[0], "train_fwd", "tpugs_torch/csrc/train_fwd.cu",
-            "tpugs/raster/pallas_train.py:229", launches["train_fwd"], b4, b4_ms, b4_plain,
+            "tpugs/raster/pallas_train.py:250", launches["train_fwd"], b4, b4_ms, b4_plain,
             b4_bound),
         rec(ids[1], "train_bwd", "tpugs_torch/csrc/train_bwd.cu",
-            "tpugs/raster/pallas_train.py:496", launches["train_bwd"], b5, b5_ms, b5_plain,
+            "tpugs/raster/pallas_train.py:557", launches["train_bwd"], b5, b5_ms, b5_plain,
             b5_bound),
         rec(ids[2], "reduce (train rows)", "tpugs_torch/csrc/reduce.cu",
-            "tpugs/raster/pallas_tiled.py:2178", launches["reduce"], b3, b3_ms,
+            "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms,
             b3_plain, b3_bound, b3_lib),
     ]
 
@@ -1846,7 +1890,7 @@ def network_flops(net, x) -> int:
     return total[0]
 
 
-def lift_records(tag, r, D, launches, replaces_b2, replaces_b3):
+def lift_records(tag, r, D, launches, replaces_b2, replaces_b3, phase="phase 7"):
     """64 random tiles of one view (``run_view``'s result ``r``) against
     the twins; B2's and B3's times at this view's shapes, their twins',
     B3's library call, and their bounds. Returns (records, B2's errors)."""
@@ -1881,7 +1925,7 @@ def lift_records(tag, r, D, launches, replaces_b2, replaces_b3):
     n = plan.num_gaussians
     b3_bound = bound(plan.n_isects * ((D + 1) * 2 + 4) + n * ((D + 1) * 4 + 4),
                      plan.n_isects * (D + 1), PEAK_F32_FLOPS)
-    print(f"phase 7 {tag} D={D}: check on 64 tiles ({len(gids)} Gaussians): B2 bf16 "
+    print(f"{phase} {tag} D={D}: check on 64 tiles ({len(gids)} Gaussians): B2 bf16 "
           f"{b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max; B3 bit-equal {b3_equal}; "
           f"{walked} pairs walked, {weighted} with a nonzero weight; B2 {b2_ms:.3f} ms (twin "
           f"{b2_plain:.1f}; bound {b2_bound[0]:.4f} ms by {b2_bound[1]}, share "
@@ -2881,14 +2925,517 @@ def phase_training_loop(scene0):
     return records
 
 
+# Phase 10: the profiling tools at the canonical lift shape. Kernel names
+# as the profiler's trace shows them (demangled, in namespace tpugs).
+KERNEL_PATTERNS = {"B1": r"tpugs::.*\brender_kernel\b", "B2": r"tpugs::.*\badjoint_kernel\b",
+                   "B3": r"tpugs::.*\breduce_kernel\b"}
+TRACE_TOL = 0.10  # a kernel's mean ms in the trace against its CUDA-event ms
+XLA_REDUCE_TOL = 1e-5  # the XLA reduce's sums against B3's, of the max
+EAGER_VIEWS, IDLE_VIEWS, IDLE_STEPS = 2, 2, 2
+
+
+def mem_line(tag):
+    from tpugs_torch.utils.profiling import device_memory_stats
+
+    m = device_memory_stats()
+    return (f"{tag}: device_memory_stats in use {m['bytes_in_use'] / 1e9:.2f} GB, peak "
+            f"{m['peak_bytes_in_use'] / 1e9:.2f} GB of {m['bytes_limit'] / 1e9:.2f} GB")
+
+
+def traced_idle(tag, fn):
+    """``fn()`` under ``torch.profiler`` inside one annotation, synchronised
+    before the annotation closes; returns ``device_idle_share`` of that
+    window. The trace is deleted after it is read."""
+    import shutil
+    import tempfile
+
+    from tpugs_torch.utils.profiling import annotation, device_idle_share, trace
+
+    tmp = tempfile.mkdtemp(prefix="tpugs_trace_")
+    try:
+        with trace(tmp) as path:
+            with annotation(tag):
+                fn()
+                torch.cuda.synchronize()
+        idle = device_idle_share(path)
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp)
+    check(idle["events"] > 0, f"the {tag} trace holds device work (CUPTI traced the card)")
+    return idle, size
+
+
+def train_for_idle(scene0):
+    """A trainer at phase 4's shape on its initial scene, with its staged
+    images and camera indices."""
+    from tpugs_torch.encoders import get_encoder
+    from tpugs_torch.train.config import TrainConfig
+    from tpugs_torch.train.trainer import Trainer
+    from tpugs_torch.utils.synthetic import orbit_cameras
+
+    w, h = W_FULL, H_FULL
+    rng = np.random.default_rng(1)
+    cams = orbit_cameras(TRAIN_CAMS, w, h, radius=3.0, device="cuda")
+    images = torch.from_numpy(rng.uniform(0, 1, (TRAIN_CAMS, h, w, 3)).astype(np.float32)).cuda()
+    cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=128, feature_out_dim=512,
+                      strategy="none", random_bkgd=False, sh_degree_interval=1)
+    tr = Trainer(cfg, scene0, 1.0, teacher=get_encoder("linear:512"), width=w, height=h,
+                 n_cameras=TRAIN_CAMS)
+    staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
+    return tr, staged, rng.integers(0, TRAIN_CAMS, 1 + IDLE_STEPS)
+
+
+def phase_profiling(view0, scene0, ref3):
+    """``profile_stages.main`` at the canonical shape with its plan
+    breakdown and a trace; the three idle shares' first two (the lift, the
+    train step); the eager lift's stage split. ``view0`` is phase 3's view
+    0 (num, den) on the host, ``scene0`` phase 4's initial scene, ``ref3``
+    phase 3's records B1, B2 and B3 by id. Returns the records B1-prof,
+    B2-prof, B3-prof: the profiled view is phase 3's view 0 (the same
+    inputs, its num and den checked bit-equal), so each is phase 3's record
+    (errors, times, twin times, bounds) with this phase's launches."""
+    import shutil
+    import tempfile
+
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.experiments import profile_stages
+    from tpugs_torch.experiments.profile_stages import eager_lift_split
+    from tpugs_torch.lift.backproject import create_feature_field
+    from tpugs_torch.lift.batch import backproject_views
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.profiling import StageTimer, kernel_times
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    t_phase = time.perf_counter()
+    # 1. the stage profiler, its trace held to the profiled kernels
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="tpugs_profile_")
+    try:
+        K.LAUNCHES.reset()
+        out = profile_stages.main([
+            "--num-gaussians", str(N_FULL), "--width", str(W_FULL), "--height", str(H_FULL),
+            "--feature-dim", str(D_FULL), "--tile", str(TILE), "--iters", "3",
+            "--plan-breakdown", "--profile-dir", tmp, "--device", "cuda"])
+        launches = K.LAUNCHES.snapshot()
+        in_trace = {k: kernel_times(out["trace"], p) for k, p in KERNEL_PATTERNS.items()}
+        trace_mb = os.path.getsize(out["trace"]) / 1e6
+    finally:
+        shutil.rmtree(tmp)
+    print(mem_line("phase 10 profile_stages"), flush=True)
+    for name in ("render", "adjoint", "reduce"):
+        check(launches[name] > 0, f"profile_stages launched {name}")
+    same_view = (torch.equal(out["num"].cpu(), view0[0])
+                 and torch.equal(out["den"].cpu(), view0[1]))
+    sums = out["sums"]
+    unperm_equal = (torch.equal(sums["gather"], sums["write-back"])
+                    and torch.equal(sums["gather"], sums["xla"]))
+    xla_err = rel_err(sums["xla"], sums["pallas"])
+    print(f"phase 10 profile_stages: the full view's num and den bit-equal to phase 3's view 0 "
+          f"{same_view}; the two unpermutes bit-equal to the XLA reduce {unperm_equal}, which "
+          f"is against B3 {xla_err[0]:.3e} abs, {xla_err[1]:.3e} of max; launches {launches}",
+          flush=True)
+    check(same_view, "the profiled view's num and den equal phase 3's view 0 bit for bit")
+    check(unperm_equal, "the write-back and gather unpermutes bit-equal to the XLA reduce")
+    check(xla_err[1] <= XLA_REDUCE_TOL, "the XLA reduce within f32 rounding of B3")
+    del out["num"], out["den"], out["sums"], sums
+
+    # the trace's kernels against phase 3's back-to-back CUDA-event times of
+    # the same kernels on the same inputs; profile_stages' own time of one
+    # call from an idle card (printed beside them) also holds the launch's
+    # latency
+    records, lines = [], []
+    for kid, name, label in (("B1", "render", "render kernel (B1)"),
+                             ("B2", "adjoint", "adjoint kernel (B2, bf16)"),
+                             ("B3", "reduce", "reduce (B3)")):
+        ref = ref3[kid]
+        records.append(dict(ref, id=f"{kid}-prof", launches=launches[name]))
+        n, total = in_trace[kid]
+        mean = total / max(n, 1)
+        lines.append(f"{kid} {n} launches, {mean:.4f} ms each (CUDA events back to back "
+                     f"{ref['ms']:.4f}, one call from idle {out['ms'][label]:.4f})")
+        check(n > 0, f"the trace holds {kid}'s kernel by name")
+        check(abs(mean - ref["ms"]) <= TRACE_TOL * ref["ms"],
+              f"{kid}'s trace time within {TRACE_TOL:.0%} of its CUDA-event time")
+    print(f"phase 10 trace of the full view ({trace_mb:.1f} MB): " + "; ".join(lines),
+          flush=True)
+
+    # 2. idle shares: the lift (2 views after a warm-up), the train step
+    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
+    enc = LinearRGBEncoder(D_FULL, device="cuda")
+    backproject_views(scene, cams.viewmats[:1], cams.Ks[:1], W_FULL, H_FULL, enc,
+                      tile_size=TILE)
+    K.LAUNCHES.reset()
+    idle_lift, size = traced_idle("lift", lambda: backproject_views(
+        scene, cams.viewmats[:IDLE_VIEWS], cams.Ks[:IDLE_VIEWS], W_FULL, H_FULL, enc,
+        tile_size=TILE))
+    n_lift = K.LAUNCHES.snapshot()
+    check(n_lift["render"] == IDLE_VIEWS and n_lift["adjoint"] == IDLE_VIEWS,
+          "the traced lift ran B1 and B2 once per view")
+    print(f"phase 10 device idle share, lift ({IDLE_VIEWS} views, default engine): "
+          f"{idle_lift['idle_share']:.4f} ({idle_lift['busy_ms']:.2f} ms busy of "
+          f"{idle_lift['window_ms']:.2f}, {idle_lift['events']} device intervals, trace "
+          f"{size / 1e6:.1f} MB)", flush=True)
+    print(mem_line("phase 10 lift"), flush=True)
+    tr, staged, idx = train_for_idle(scene0)
+    tr.train_chunk(staged, 1, idx[:1])
+    K.LAUNCHES.reset()
+    idle_train, size = traced_idle("train", lambda: tr.train_chunk(staged, IDLE_STEPS, idx[1:]))
+    n_train = K.LAUNCHES.snapshot()
+    check(n_train["train_fwd"] >= IDLE_STEPS and n_train["train_bwd"] >= IDLE_STEPS,
+          "the traced train steps ran B4 and B5")
+    print(f"phase 10 device idle share, train step ({IDLE_STEPS} steps at phase 4's shape): "
+          f"{idle_train['idle_share']:.4f} ({idle_train['busy_ms']:.2f} ms busy of "
+          f"{idle_train['window_ms']:.2f}, {idle_train['events']} device intervals, trace "
+          f"{size / 1e6:.1f} MB)", flush=True)
+    print(mem_line("phase 10 train"), flush=True)
+    del tr, staged
+
+    # 3. the eager lift's stage split, composed of create_feature_field's calls
+    sub = cams[:EAGER_VIEWS]
+    ref, ref_ms = synced_ms(lambda: create_feature_field(scene, sub, enc, verbose=False))
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer(device="cuda")
+    field = eager_lift_split(scene, sub, enc, timer)
+    same = torch.equal(field, ref)
+    del field, ref
+    totals = {k: 1e3 * v / EAGER_VIEWS for k, v in timer.totals().items()}
+    total = sum(totals.values())
+    glue = total - sum(totals[k] for k in ("B4", "encode", "B2", "B3"))
+    print(f"phase 10 eager lift split ({EAGER_VIEWS} views, tile 16, trans_eps 0, StageTimer "
+          f"synchronised at each stage): field bit-equal to create_feature_field's {same}; "
+          f"ms/view " + " ".join(f"{k}={v:.2f}" for k, v in totals.items())
+          + f"; total {total:.2f} (create_feature_field {ref_ms / EAGER_VIEWS:.2f}), glue "
+          f"(all but B4, encode, B2, B3) {glue:.2f}", flush=True)
+    check(same, "the composed eager lift equals create_feature_field bit for bit")
+    print(mem_line("phase 10 eager split"), flush=True)
+    print(f"phase 10 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
+# Phase 11: the interactive apps on phase 7's LSeg-512 field.
+PLANTED_CLICK = 256  # Gaussians of one known field row, in front of the scene at view 0
+PLANT_DEPTH = 1.6  # their distance from camera 0 along its axis
+VIEWER_KEYS = ("w", "d", "1", "2", "3", "drag", "g", "axes")
+FRAME_STAGES = ("project", "plan", "sh+pack", "B4", "uint8 to host")
+FRAME_SPLIT_ITERS = 5
+SESSION_PEAK_GB = 30.0
+
+
+def plant_cluster(scene, field_cpu, cams):
+    """The scene and field with ``PLANTED_CLICK`` opaque red Gaussians at
+    ``PLANT_DEPTH`` on camera 0's axis, each with the field row u, the
+    negated mean direction of the field's rows (a direction no row
+    shares). Returns (scene, field on the card, u on the host, the
+    cluster's world centre)."""
+    from tpugs_torch.core.scene import GaussianScene
+    from tpugs_torch.query.masks import C0
+
+    vm = cams.viewmats[0].double().cpu().numpy()
+    centre = vm[:3, :3].T @ (np.array([0.0, 0.0, PLANT_DEPTH]) - vm[:3, 3])
+    rng = np.random.default_rng(11)
+    k = PLANTED_CLICK
+    means = centre + 0.02 * rng.normal(size=(k, 3))
+    lit = field_cpu[field_cpu.abs().sum(1) > 0]
+    u = -lit.double().mean(0)
+    u = (u / u.norm()).float()
+    sh_deg = scene.shN.shape[1]
+    extra = GaussianScene(
+        means=torch.from_numpy(means.astype(np.float32)),
+        quats=torch.tensor([[1.0, 0.0, 0.0, 0.0]]).repeat(k, 1),
+        log_scales=torch.full((k, 3), float(np.log(0.01))),
+        logit_opacities=torch.full((k,), 4.0),
+        sh0=((torch.tensor([0.9, 0.1, 0.1]) - 0.5) / C0).repeat(k, 1, 1),
+        shN=torch.zeros((k, sh_deg, 3)),
+    ).to("cuda")
+    planted = GaussianScene(**{f: torch.cat([getattr(scene, f), getattr(extra, f)])
+                               for f in ("means", "quats", "log_scales", "logit_opacities",
+                                         "sh0", "shN")})
+    return planted, torch.cat([field_cpu, u.repeat(k, 1)]).cuda(), u, centre
+
+
+def viewer_step(v, K0, key):
+    """One action of the scripted viewer sequence (a key of ``VIEWER_KEYS``:
+    a key press, a mouse drag of (40, -20) px, or the axes overlay), then
+    its frame through ``render_frame`` (B4 with early exit)."""
+    from tpugs_torch.apps.viewer import render_frame
+
+    if key == "drag":
+        v.handle_mouse("down", 600, 400)
+        v.handle_mouse("move", 640, 380)
+        v.handle_mouse("up", 640, 380)
+    elif key != "axes":
+        v.handle_key(key)
+    return render_frame(v.scene, v.state.viewmat(), K0, v.width, v.height,
+                        anaglyph=v.anaglyph, axes_overlay=key == "axes")
+
+
+def tiled_frame(scene, vm, K0, w, h, anaglyph, axes):
+    """The same viewer frame through ``plan_render`` + ``rasterize_with_plan``
+    (B4 with no early exit; the reference's "tiled" engine), composed as
+    ``render_frame`` composes it."""
+    from tpugs_torch.apps.viewer import draw_axes
+    from tpugs_torch.raster.api import plan_render, rasterize_with_plan
+    from tpugs_torch.viz.common import to_uint8
+
+    Kt = torch.from_numpy(K0).cuda()
+
+    def render(vm):
+        vm = torch.from_numpy(vm).cuda()
+        with torch.no_grad():
+            plan = plan_render(scene.means, scene.quats, scene.scales, scene.opacities,
+                               vm, Kt, w, h)
+            img, _ = rasterize_with_plan(scene.means, scene.quats, scene.scales,
+                                         scene.opacities, scene.colors_all, vm, Kt, plan,
+                                         sh_degree=scene.sh_degree)
+        return to_uint8(img)
+
+    frame = render(vm)
+    if anaglyph:
+        right = vm.copy()
+        right[0, 3] += 0.05  # render_frame's default eye offset
+        r = render(right)
+        frame = np.stack([frame[..., 0], r[..., 1], r[..., 2]], axis=-1)
+    return draw_axes(frame, vm, K0) if axes else frame
+
+
+def phase_interactive(field_cpu):
+    """The viewer's scripted frames, a click-and-segment session and the
+    scene editor on phase 7's LSeg-512 field (``field_cpu``, normalised,
+    on the host). Returns the record B4-frame."""
+    from tpugs_torch.apps import llm_backend
+    from tpugs_torch.apps.click_and_segment import PromptSession, project_point
+    from tpugs_torch.apps.viewer import Viewer, render_frame
+    from tpugs_torch.apps.viewer_llm import Assistant, SceneEditor, parse_rule_based
+    from tpugs_torch.experiments.profile_stages import split
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.api import rasterize_with_plan
+    from tpugs_torch.raster.colors import prepare_colors
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.raster.tiles import image_to_tiles
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+    from tpugs_torch.viz.common import to_uint8
+
+    t_phase = time.perf_counter()
+    w, h = W_FULL, H_FULL
+    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(VIEWS, w, h, radius=3.0, device="cuda")
+    vm0 = cams.viewmats[0].cpu().numpy()
+    K0 = cams.Ks[0].cpu().numpy()
+
+    # 1. the viewer: 8 scripted frames through B4 with early exit, each
+    #    within 1 LSB of the same frame through the tiled API, then the same
+    #    8 traced
+    v = Viewer(scene, K0, w, h, viewmats=cams.viewmats.cpu().numpy())
+    render_frame(scene, vm0, K0, w, h, axes_overlay=True)  # warm-up, cv2's import
+    torch.cuda.synchronize()
+    frame_ms, worst, frames_launches, vms = [], 0, 0, []
+    for key in VIEWER_KEYS:
+        K.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        frame = viewer_step(v, K0, key)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        n = K.LAUNCHES.snapshot()
+        want = 2 if v.anaglyph else 1
+        check(n["train_fwd"] == want and n["train_fwd_wide"] == 0,
+              f"frame '{key}' ran B4 {want} time(s) ({n['train_fwd']})")
+        frames_launches += n["train_fwd"]
+        vms.append(v.state.viewmat())
+        tiled = tiled_frame(v.scene, vms[-1], K0, w, h, v.anaglyph, key == "axes")
+        worst = max(worst, int(np.abs(frame.astype(int) - tiled.astype(int)).max()))
+    check(worst <= 1, f"every viewer frame within 1 LSB of the tiled API's ({worst})")
+    print(f"phase 11 viewer ({w}x{h}, N={N_FULL}, B4 with early exit, tile 16; "
+          f"frames after {', '.join(VIEWER_KEYS)}): ms per frame "
+          + " ".join(f"{x:.2f}" for x in frame_ms)
+          + f" (host clock, the uint8 frame on the host); {len(frame_ms) / sum(frame_ms) * 1e3:.2f}"
+          f" frames/s; B4 launched {frames_launches} times (1 per frame, 2 per anaglyph frame); "
+          f"against the tiled API (plan_render + rasterize_with_plan) max {worst} LSB",
+          flush=True)
+    v2 = Viewer(scene, K0, w, h, viewmats=cams.viewmats.cpu().numpy())
+    idle_view, size = traced_idle("viewer", lambda: [viewer_step(v2, K0, k)
+                                                      for k in VIEWER_KEYS])
+    print(f"phase 11 device idle share, viewer ({len(VIEWER_KEYS)} frames, taken for phase 10): "
+          f"{idle_view['idle_share']:.4f} ({idle_view['busy_ms']:.2f} ms busy of "
+          f"{idle_view['window_ms']:.2f}, {idle_view['events']} device intervals, trace "
+          f"{size / 1e6:.1f} MB)", flush=True)
+    del v2
+
+    # the first frame (after "w") stage by stage: render_scene's own calls
+    # and the uint8 frame to the host, CUDA events at each stage's end
+    vm, Kt, last = torch.from_numpy(vms[0]).cuda(), cams.Ks[0], {}
+
+    def frame_stages(mark):
+        with torch.no_grad():
+            proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Kt, w, h)
+            mark("project")
+            plan = build_plan(proj, w, h, 16)
+            mark("plan")
+            opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
+            cols = prepare_colors(scene.means, scene.colors_all, vm, scene.sh_degree)
+            geom, colp = T.pack_train(proj.means2d, proj.conics, opac, cols, plan)
+            mark("sh+pack")
+            image, _, done = T.train_forward(geom, colp, plan, K.TRANS_EPS)
+            mark("B4")
+            last.update(frame=to_uint8(image), plan=plan, geom=geom, colp=colp, image=image,
+                        done=done)
+            mark("uint8 to host")
+
+    split_ms = split(frame_stages, FRAME_STAGES, FRAME_SPLIT_ITERS, torch.device("cuda"))
+    same_frame = np.array_equal(last["frame"], render_frame(scene, vms[0], K0, w, h))
+    print(f"phase 11 viewer frame split (the first frame, after 'w'; CUDA events at each "
+          f"stage's end, mean of {FRAME_SPLIT_ITERS}): "
+          + " ".join(f"{k}={v:.2f}" for k, v in split_ms.items())
+          + f" ms; total {sum(split_ms.values()):.2f} ms; the composed frame bit-equal to "
+          f"render_frame's {same_frame}", flush=True)
+    check(same_frame, "the viewer frame composed of render_scene's calls equals render_frame's")
+
+    # B4-frame: the first frame's B4 against its twin, its time, its bound
+    plan, geom, colp, image, done = (last[k] for k in ("plan", "geom", "colp", "image", "done"))
+    del last
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    inside = tile_inside(h, w, 16, tiles)
+    img_t, alpha_t, done_t = T.train_tiles_plain(geom, colp, plan, K.TRANS_EPS, tiles)
+    b4 = rel_err(torch.where(inside, image_to_tiles(image, 16)[tiles], 0.0),
+                 torch.where(inside, img_t, 0.0))
+    check(b4[1] <= 1e-4 and torch.equal(done[tiles], done_t),
+          "B4 (viewer frame) within 1e-4 of its twin, exit blocks equal")
+    b4_ms = time_cuda(lambda: T.train_forward(geom, colp, plan, K.TRANS_EPS), 10)
+    b4_plain = time_cuda(lambda: T.train_forward_plain(geom, colp, plan, K.TRANS_EPS), 1)
+    pairs, weighted, _ = walked_pairs(geom, plan, K.TRANS_EPS)
+    b4_bound = bound(int(done.sum()) * 128 * (8 + 3) * 4 + h * w * 4 * 4,
+                     pairs * PAIR_OPS + weighted * 2 * 3, PEAK_F32_FLOPS)
+    print(f"phase 11 B4-frame (D=3, tile 16, early exit) on the first frame: 64 tiles against "
+          f"the twin, image rel {b4[1]:.3e}; {b4_ms:.4f} ms (twin {b4_plain:.1f}); {pairs} "
+          f"pairs walked, {weighted} with a nonzero weight; bound {b4_bound[0]:.4f} ms by "
+          f"{b4_bound[1]}, share {b4_bound[0] / b4_ms:.3f}", flush=True)
+    records = [rec("B4-frame", "train_fwd (viewer frame)", "tpugs_torch/csrc/train_fwd.cu",
+                   "tpugs/raster/pallas_train.py:250", frames_launches, b4, b4_ms, b4_plain,
+                   b4_bound)]
+    del geom, colp, image, done, img_t, alpha_t, plan, v
+
+    # 2. the click session on the planted scene and field
+    pscene, pfield, u, centre = plant_cluster(scene, field_cpu, cams)
+    del scene
+    n = pscene.num_gaussians
+    planted = torch.arange(N_FULL, n, device="cuda")
+    lit = field_cpu[field_cpu.abs().sum(1) > 0]
+    u_max = float((lit @ u).max())
+    check(u_max < 0, f"no scene row shares the planted direction (max cosine {u_max:.3f})")
+    foot_alpha = T.render_scene(pscene.select(planted), torch.from_numpy(vm0).cuda(),
+                                cams.Ks[0], w, h)[1]
+    full_alpha = T.render_scene(pscene, torch.from_numpy(vm0).cuda(), cams.Ks[0], w, h)[1]
+    cx, cy = project_point(centre, vm0, K0)
+    # the negative click: the most opaque pixel of a coarse grid outside the
+    # cluster's footprint (the scene's own features there)
+    grid = torch.where(foot_alpha == 0, full_alpha, -1.0)[::37, ::37]
+    at = int(torch.argmax(grid))
+    bx, by = at % grid.shape[1] * 37, at // grid.shape[1] * 37
+    check(float(full_alpha[by, bx]) > 0.5, "the negative click shows the scene")
+    torch.cuda.reset_peak_memory_stats()
+    session = PromptSession(pscene, pfield)
+    K.LAUNCHES.reset()
+    (rgbd, feat_img), rf_ms = synced_ms(lambda: session.render_rgbd_features(vm0, K0, w, h))
+    n_rf = K.LAUNCHES.snapshot()
+    check(n_rf["train_fwd"] == 1 and n_rf["train_fwd_wide"] == 1,
+          "the RGB+ED render ran B4's cluster kernel and the 512-wide field its wide kernel")
+    s = session.scene
+    with torch.no_grad():
+        (vm_t, K_t, plan_s), plan_ms = synced_ms(lambda: session._plan(s, vm0, K0, w, h))
+        _, rgbd_ms = synced_ms(lambda: rasterize_with_plan(
+            s.means, s.quats, s.scales, s.opacities, s.colors_all, vm_t, K_t, plan_s,
+            sh_degree=s.sh_degree, render_mode="RGB+ED"))
+        _, feat_ms = synced_ms(lambda: rasterize_with_plan(
+            s.means, s.quats, s.scales, s.opacities, session.features, vm_t, K_t, plan_s))
+    check(rgbd.device.type == "cuda" and feat_img.device.type == "cuda",
+          "the session's renders stay on the card")
+    (_, add_ms) = synced_ms(lambda: session.add_click(cx, cy, rgbd, feat_img, vm0, K0, True))
+    session.add_click(bx, by, rgbd, feat_img, vm0, K0, False)
+    mask, mask_ms = synced_ms(session.mask3d)
+    queries = torch.from_numpy(np.stack([p.feature for p in session.prompts]))
+    m64, margin = mask_f64(pfield.cpu(), queries, 1)
+    clear = margin > TIE_MARGIN
+    m = mask.cpu().numpy()
+    mask_equal = bool(np.array_equal(m[clear], m64[clear]))
+    all_planted = bool(mask[planted].all())
+    pane, pane_ms = synced_ms(lambda: session.three_pane(vm0, K0, w, h))
+    extracted = pane[:, w:2 * w]
+    outside = (foot_alpha == 0).cpu().numpy()
+    clean = bool((extracted[outside] == 0).all())
+    inside_lit = int((extracted[~outside].max(-1) > 0).sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    removed = session.remove_nearest(bx + 3, by - 2, vm0, K0)
+    kept = [p.positive for p in session.prompts]
+    print(f"phase 11 click session (N={n} with {PLANTED_CLICK} planted at depth "
+          f"{PLANT_DEPTH} on view 0's axis, field D={pfield.shape[1]}; positive click "
+          f"({cx}, {cy}), negative ({bx}, {by})): mask {int(mask.sum())} selected, all "
+          f"{PLANTED_CLICK} planted {all_planted}; equal to float64 on the host {mask_equal} "
+          f"outside {int((~clear).sum())} Gaussians within {TIE_MARGIN} of a tie; extracted "
+          f"pane background outside the cluster's footprint {clean} ({inside_lit} pixels lit "
+          f"inside); remove_nearest removed prompt {removed}, left {kept}; ms per click "
+          f"(host clock, synchronised): render_rgbd_features {rf_ms:.2f} (plan {plan_ms:.2f}, "
+          f"RGB+ED {rgbd_ms:.2f}, the {pfield.shape[1]}-wide field {feat_ms:.2f}), add_click "
+          f"{add_ms:.2f}, mask3d {mask_ms:.2f}, three_pane {pane_ms:.2f}; peak {peak:.2f} GB",
+          flush=True)
+    check(all_planted and mask_equal, "the planted Gaussians selected; mask equal to float64")
+    check(clean and inside_lit > 0, "the extracted pane shows only the planted cluster")
+    check(removed == 1 and kept == [True], "remove_nearest removed the negative prompt")
+    check(peak < SESSION_PEAK_GB, f"the session's peak below {SESSION_PEAK_GB} GB")
+    del rgbd, feat_img, session, pane, extracted
+
+    # 3. the scene editor: three phrases, then each command on the planted object
+    phrases = {"segment the planted object": "segment",
+               "make the planted object blue": "change_color",
+               "undo the segmentation": "reset_segmentation"}
+    parsed = {p: parse_rule_based(p) for p in phrases}
+    check(all(parsed[p]["command"] == c for p, c in phrases.items()),
+          f"parse_rule_based on the phrases ({parsed})")
+    editor = SceneEditor(pscene, pfield, exemplar_lookup=lambda name: u.numpy())
+    orig = {f: getattr(pscene, f).clone() for f in ("logit_opacities", "sh0", "shN")}
+    steps = [parsed["segment the planted object"], parsed["make the planted object blue"],
+             {"command": "reset_color"}, {"command": "reset_segmentation"},
+             {"command": "exit"}]
+    results, ms = [], []
+    for cmd in steps:
+        out, t = synced_ms(lambda cmd=cmd: editor.apply(cmd))
+        results.append(out)
+        ms.append(t)
+        if cmd["command"] == "reset_color":
+            check(torch.equal(editor.scene.sh0, orig["sh0"])
+                  and torch.equal(editor.scene.shN, orig["shN"]), "reset_color restores SH")
+        if cmd["command"] == "reset_segmentation":
+            check(torch.equal(editor.scene.logit_opacities, orig["logit_opacities"]),
+                  "reset_segmentation restores the opacities")
+    check(results[0] == {"status": "ok", "selected": PLANTED_CLICK}
+          and results[1] == {"status": "ok", "recolored": PLANTED_CLICK}
+          and results[-1] == {"status": "exit"}, f"the editor's answers ({results})")
+    print(f"phase 11 scene editor: parse_rule_based {list(parsed.values())}; apply "
+          + "; ".join(f"{c['command']} -> {r} ({t:.2f} ms)" for c, r, t in zip(steps, results, ms)),
+          flush=True)
+    try:
+        import transformers  # noqa: F401
+    except ImportError as e:
+        print(f"phase 11 LLM backend: transformers does not import here ({e}); the grammar "
+              f"parser serves alone", flush=True)
+    else:
+        llm = llm_backend.make_backend("tiny-random")
+        answer = Assistant(llm=llm).ask("show me the top view")
+        check(answer == {"command": "change_view", "view": "top"},
+              f"the tiny random GPT-2 answers through the grammar fallback ({answer})")
+        print(f"phase 11 LLM backend: tiny-random GPT-2 on the card -> {answer}", flush=True)
+    print(f"phase 11 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
         return 1
-    try:
-        import tpugs_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the tpugs_torch package is not beside this script ({e})",
+    if PEAKS_H100 is None:
+        print("chip_smoke: the tpugs_torch package is not beside this script",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2901,6 +3448,7 @@ def main() -> int:
     phase_train_geom()
     records, view, ref3 = phase_full_width()
     records += phase_experiments(view)
+    view0 = (view.num.cpu(), view.den.cpu())
     del view
     train_records, scene0 = phase_train()
     records += train_records
@@ -2910,9 +3458,12 @@ def main() -> int:
     lseg_records, field = phase_lseg(ref3["den"])
     records += lseg_records
     records += phase_queries(field, ref3)
-    del field, ref3
+    del ref3
     records += phase_training_loop(scene0)
-    del scene0
+    records += phase_profiling(view0, scene0, {r["id"]: r for r in records})
+    del scene0, view0
+    records += phase_interactive(field)
+    del field
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

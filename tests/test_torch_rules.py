@@ -20,11 +20,17 @@ from tpugs_torch.convert import (
 )
 from tpugs_torch.core.device import resolve_device
 from tpugs_torch.apps.affordance import main as affordance_main
+from tpugs_torch.apps.click_and_segment import PromptSession
+from tpugs_torch.apps.click_and_segment import main as click_main
+from tpugs_torch.apps.llm_backend import make_hf_backend
 from tpugs_torch.apps.backproject import main as backproject_main
 from tpugs_torch.apps.backproject_compressed import main as compressed_main
 from tpugs_torch.apps.segment import main as segment_main
 from tpugs_torch.apps.train import main as train_main
 from tpugs_torch.apps.train_codec import main as train_codec_main
+from tpugs_torch.apps.viewer import main as viewer_main
+from tpugs_torch.apps.viewer import render_frame
+from tpugs_torch.apps.viewer_llm import main as viewer_llm_main
 from tpugs_torch.apps.visualize_pca import main as pca_main
 from tpugs_torch.codec.linear import LinearCodec, load_codec, train_codec
 from tpugs_torch.encoders import get_encoder
@@ -33,7 +39,7 @@ from tpugs_torch.encoders.clip_text import CLIPTextTower
 from tpugs_torch.encoders.dino import DinoEncoder
 from tpugs_torch.encoders.lseg import LSegEncoder, LSegHead, LSegNet, TextEncoder, encode_text
 from tpugs_torch.encoders.vit import VisionTransformer, ViTConfig
-from tpugs_torch.experiments import scatter_write
+from tpugs_torch.experiments import profile_stages, scatter_write
 from tpugs_torch.io.checkpoints import load_checkpoint
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.backproject import create_feature_field
@@ -57,6 +63,7 @@ from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
 from tpugs_torch.train.modules import AppearanceOptModule, CameraOptModule
 from tpugs_torch.train.trainer import Trainer, init_scene_from_points
 from tpugs_torch.utils import synthetic
+from tpugs_torch.utils.profiling import StageTimer, device_memory_stats
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpugs")
@@ -181,6 +188,18 @@ ENTRY_POINTS = {
     "AppearanceOptModule": lambda: AppearanceOptModule(2, 4),
     "lpips_distance": lambda: lpips_distance(random_lpips_params("alex"), np.zeros((32, 32, 3)),
                                              np.zeros((32, 32, 3))),
+    "render_frame": lambda: render_frame(synthetic.random_scene(10, device="cpu"), np.eye(4),
+                                         np.eye(3), 32, 32),
+    "PromptSession.render_rgbd_features": lambda: PromptSession(
+        synthetic.random_scene(10, device="cpu"), torch.zeros((10, 4))).render_rgbd_features(
+        np.eye(4), np.eye(3), 32, 32),
+    "profile_stages.main": lambda: profile_stages.main(["--num-gaussians", "10"]),
+    "device_memory_stats": lambda: device_memory_stats(),
+    "StageTimer": lambda: StageTimer(),
+    "make_hf_backend": lambda: make_hf_backend("model-dir"),
+    "viewer app": lambda: viewer_main(data_dir="data", checkpoint="ckpt.pt"),
+    "click_and_segment app": lambda: click_main(data_dir="data", checkpoint="ckpt.pt"),
+    "viewer_llm app": lambda: viewer_llm_main(data_dir="data", checkpoint="ckpt.pt"),
 }
 
 

@@ -15,9 +15,13 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   apps/      the CLIs: back-projection (load, prune, verify, lift, save),
              segmentation and edits, the compressed lift, the codec's
              training, PCA renders, affordance transfer, training and its
-             supervisor
+             supervisor, the dataset downloader; the interactive apps: the
+             viewer, click-and-segment, the language-driven editor and its
+             LLM backends
   utils/     synthetic scenes, orbit rigs and COLMAP models (bit-identical
-             to tpugs'), Morton order, the function-signature CLI
+             to tpugs'), Morton order, the function-signature CLI, CUDA-event
+             timing, profiling (roofline models at the H100's peaks, the
+             stage timer, torch.profiler traces and their idle share)
   raster/    projection, SH, binning, per-view plan and pack, the lift
              kernels (render, adjoint, reduce; the opt-in scatter engine's
              adjoint_scatter and stripe_sum), the per-view calls of them,
@@ -39,16 +43,17 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              modules, LPIPS, the COLMAP dataset, normalisation,
              trajectories and the live viewer
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
-             the phases tools, the LSeg encoder's post step
+             the phases tools, the LSeg encoder's post step, the lift's
+             stage profiler
   kernels/   the nvcc build of ``csrc/*.cu``
   convert.py numpy state in, port state out (scenes, cameras, codecs, the
              Flax encoders' params)
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 
-Not ported yet: the profiling utilities (ROADMAP queue A item 5), the
-distribution over several devices (ROADMAP item 6) and the interactive apps
-(ROADMAP item 7).
+Not ported yet: the distribution over several devices (ROADMAP queue A
+item 6) and the scripts under ``scripts/`` without a counterpart
+(ROADMAP queue A item 8).
 """
 
 from tpugs_torch.core.camera import Camera  # noqa: F401

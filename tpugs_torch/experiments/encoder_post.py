@@ -29,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from tpugs_torch.encoders.lseg import LSegEncoder
+from tpugs_torch.utils.profiling import PEAKS_H100
 
-PEAK_BYTES_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_BYTES_S = PEAKS_H100["hbm_gbps"] * 1e9  # H100 SXM, NVIDIA data sheet
 
 
 def post_antialiased(feats: torch.Tensor, size: Tuple[int, int],

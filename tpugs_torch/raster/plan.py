@@ -30,7 +30,7 @@ CSR lists above: nothing new is binned.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -84,11 +84,18 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
     return c - x
 
 
+PLAN_STAGES = ("plan/bboxes+cull", "plan/sort", "plan/slot table", "plan/csr")
+
+
 def build_plan(
-    proj: Projected, width: int, height: int, tile_size: int, scatter: bool = False
+    proj: Projected, width: int, height: int, tile_size: int, scatter: bool = False,
+    on_stage: Optional[Callable[[str], None]] = None,
 ) -> Plan:
     """The exact plan of one view; ``scatter=True`` adds the striped
-    layout of the scatter reduce engine (``with_scatter_extras``)."""
+    layout of the scatter reduce engine (``with_scatter_extras``).
+    ``on_stage(name)`` is called after each of ``PLAN_STAGES``: steps 1-3,
+    4, 5 and 6 (for timing)."""
+    mark = on_stage or (lambda name: None)
     dev = proj.means2d.device
     n = proj.means2d.shape[0]
     ntx, nty = tile_grid(width, height, tile_size)
@@ -128,10 +135,12 @@ def build_plan(
     rank = rank[keep]
     tid = (gy * ntx + gx)[keep]
     n_isects = rank.shape[0]
+    mark("plan/bboxes+cull")
 
     # 4. sort by (tile, depth rank); keys are unique
     perm = torch.sort(tid * max(n, 1) + rank).indices
     tid_s = tid[perm]
+    mark("plan/sort")
 
     # 5. spans, block padding, padded_gid
     spans = torch.bincount(tid_s, minlength=n_tiles)
@@ -150,6 +159,7 @@ def build_plan(
     )
     padded_gid = torch.full((T_padded,), n, dtype=torch.int32, device=dev)
     padded_gid[pos_sorted] = rank[perm].to(torch.int32)
+    mark("plan/slot table")
 
     # 6. per-Gaussian positions, CSR by original index. Kept entries are
     #    rank-major and in increasing tile order within a rank.
@@ -165,6 +175,7 @@ def build_plan(
     )
     gauss_pos = torch.empty(n_isects, dtype=torch.int32, device=dev)
     gauss_pos[dest] = pos_entry.to(torch.int32)
+    mark("plan/csr")
 
     i32 = torch.int32
     plan = Plan(
