@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Thirteen phases; the first failure ends the run with a nonzero exit:
+Fourteen phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -184,7 +184,28 @@ Thirteen phases; the first failure ends the run with a nonzero exit:
              change_color (256 each), the two resets (tensors restored bit
              for bit) and exit through an exemplar lookup; the tiny random
              GPT-2 backend where ``transformers`` imports.
-12. kernels line — one JSON object per kernel with its launches, errors,
+12. dist    — the distribution (``tpugs_torch/dist``) on a world-size-1
+             NCCL group started in this process (``file://`` store) and
+             destroyed at the phase's end; a CPU mesh over it is refused.
+             ``backproject_views_sharded`` on the (1, 1) mesh at phase 3's
+             shape (its ``num`` and ``den`` bit-equal to phase 3's; ms/view
+             beside phase 3's, the collectives' CUDA-event ms, the peak,
+             the kernels launched every view); the sharded train step at
+             phase 4's shape and batch 1 with the trainer's Adam against
+             ``Trainer._step_on`` from the same initial scene (loss within
+             1e-6, each leaf within 2e-5 of its max and ``feature_proj``
+             within 1e-7, bit-equal leaves listed, vis equal to the view's
+             valid rows), then 10 steps through
+             ``make_trainer_chunk_sharded`` on 2 staged cameras (ms/step
+             beside phase 4's, peak, launches every step); the exchange cap
+             at view 0's survivor count (bit-equal to the uncapped step) and
+             at half of it (``xover`` = survivors - cap exactly); one
+             ``refine_sharded`` against ``Trainer.refine`` on the same state
+             (phase 4's scene after one step, strategy "default", capacity
+             16384: N, info and leaves equal); the dry run
+             (``dist/dryrun.py``) and ``experiments/sharded_singlechip.py``
+             at its defaults; ``torch.cuda.nccl.version()``.
+13. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
@@ -723,13 +744,15 @@ def _plan_to(plan, device):
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
-def timed_lift(args, engine: str, lift=None, **kw):
+def timed_lift(args, engine: str, lift=None, extra_stages=(), **kw):
     """The 8 views through ``lift`` (default ``backproject_views``) with
     ``engine`` and keywords ``kw``: (num, den, ms/view, launches, peak GB,
-    stage ms/view, peak GB within each stage)."""
+    stage ms/view, peak GB within each stage). ``extra_stages`` names the
+    stages that ``lift`` reports beyond the per-view ones."""
     from tpugs_torch.lift.batch import STAGES, backproject_views
     from tpugs_torch.raster import kernels as K
 
+    STAGES = STAGES + tuple(extra_stages)
     events = []
     stage_peak = dict.fromkeys(STAGES, 0.0)
 
@@ -1206,7 +1229,8 @@ def phase_train():
     """The train step at full width through ``Trainer.train_chunk``: 3
     warm-up steps (SH degrees 0-2, sh_degree_interval 1), then 10 timed
     steps at degree 3. Returns the kernel records of B4, B5 and B3 on the
-    train rows, and the initial scene on the host (phase 9 starts there)."""
+    train rows, the initial scene on the host (phases 9 and 12 start there) and
+    the timed steps' ms/step and peak GB (phase 12 compares)."""
     import dataclasses
 
     import numpy as np
@@ -1290,7 +1314,7 @@ def phase_train():
     tr.record = None
     torch.cuda.synchronize()
     return (train_step_records(seen, w, h, launches, "phase 4", ("B4", "B5", "B3-train")),
-            scene0.to("cpu"))
+            scene0.to("cpu"), {"ms_step": 1e3 * wall / TRAIN_STEPS, "peak_gb": peak_gb})
 
 
 # Phase 5: the raster API and the eager lift at the canonical lift shape,
@@ -3430,6 +3454,228 @@ def phase_interactive(field_cpu):
     return records
 
 
+# Phase 12: the distribution on one card. NCCL refuses two ranks on one GPU,
+# so the sharded programs run on a group of one rank (file:// store): each
+# collective is then a copy, and the sharded results must equal the
+# unsharded ones; the times say what sharding costs on one card, nothing of
+# traffic between cards.
+DIST_STEPS = 10  # timed steps of the sharded chunk
+DIST_STAGED = 2  # staged cameras (with their 512-d teachers) for the chunk
+LEAF_TOL, HEAD_TOL = 2e-5, 1e-7  # tests/test_dist.py: of each leaf's max; feature_proj absolute
+
+
+def phase_dist(ref3, ref4, scene0):
+    """The sharded lift at phase 3's shape (``num``/``den`` bit-equal to
+    phase 3's), the sharded train step at phase 4's shape against
+    ``Trainer._step_on``, the chunk's ms/step, the exchange cap, one
+    ``refine_sharded`` against ``Trainer.refine``, the dry run and
+    ``experiments/sharded_singlechip.py``, on a world-size-1 NCCL group."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tpugs_torch.dist.dryrun import dryrun_ranks
+    from tpugs_torch.dist.mesh import make_mesh, single_rank_group
+    from tpugs_torch.dist.shard import (
+        backproject_views_sharded,
+        make_trainer_chunk_sharded,
+        make_trainer_step_sharded,
+        refine_sharded,
+        shard_trainer,
+    )
+    from tpugs_torch.encoders import get_encoder
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.experiments import sharded_singlechip
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.train.config import TrainConfig
+    from tpugs_torch.train.strategy import GradState
+    from tpugs_torch.train.trainer import Trainer, _leaves
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    t_phase = time.perf_counter()
+    print(f"phase 12 NCCL {torch.cuda.nccl.version()}", flush=True)
+    with single_rank_group("cuda"):
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "phase 12 runs on a world-size-1 NCCL group")
+        mesh = make_mesh((1, 1), device="cuda")
+        try:
+            make_mesh((1, 1), device="cpu")
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, "a CPU mesh over the NCCL group is refused")
+
+        # the sharded lift at phase 3's shape
+        scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02),
+                             device="cuda")
+        cams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
+        enc = LinearRGBEncoder(D_FULL, device="cuda")
+        ones = torch.ones(VIEWS, device="cuda")
+        backproject_views_sharded(scene, cams.viewmats[:1], cams.Ks[:1], ones[:1], W_FULL,
+                                  H_FULL, enc, mesh, tile_size=TILE)  # warm-up view
+        torch.cuda.synchronize()
+        num, den, ms_view, launches, peak_gb, stage_ms, _ = timed_lift(
+            (scene, cams.viewmats, cams.Ks, ones, W_FULL, H_FULL, enc, mesh), "pallas",
+            backproject_views_sharded, extra_stages=("collectives",))
+        same = torch.equal(num.cpu(), ref3["num"]) and torch.equal(den.cpu(), ref3["den"])
+        for name in ("render", "adjoint", "reduce"):
+            check(launches[name] >= VIEWS,
+                  f"{name} kernel launched at least once per view ({launches[name]})")
+        stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items() if k != "collectives")
+        print(f"phase 12 sharded lift (1, 1) N={N_FULL} {W_FULL}x{H_FULL} D={D_FULL} "
+              f"tile={TILE} views={VIEWS}: {ms_view:.2f} ms/view (phase 3 "
+              f"{ref3['ms_view']:.2f}), {1e3 / ms_view:.3f} views/s, peak {peak_gb:.2f} GB "
+              f"(phase 3 {ref3['peak_gb']:.2f}); the collectives (cat + all_reduce over cam "
+              f"+ reduce_scatter over gauss, CUDA events) {VIEWS * stage_ms['collectives']:.3f} "
+              f"ms per call; stage ms/view {stages}; launches {launches}; num and den "
+              f"bit-equal to phase 3's: {same}", flush=True)
+        check(same, "the sharded lift's num and den equal phase 3's bit for bit")
+        del num, den, scene, enc
+
+        # the sharded train step at phase 4's shape, batch 1, the trainer's Adam
+        w, h = W_FULL, H_FULL
+        cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=128, feature_out_dim=512,
+                          strategy="none", random_bkgd=False, sh_degree_interval=1)
+        teacher = get_encoder("linear:512")
+        cams = orbit_cameras(TRAIN_CAMS, w, h, radius=3.0, device="cuda")
+        rng = np.random.default_rng(12)
+        images = torch.from_numpy(
+            rng.uniform(0, 1, (DIST_STAGED, h, w, 3)).astype(np.float32)).cuda()
+
+        def trainer(c=cfg):
+            return Trainer(c, scene0, 1.0, teacher=teacher, width=w, height=h,
+                           n_cameras=TRAIN_CAMS)
+
+        ref = trainer()
+        feats = torch.stack([teacher(im).to(ref.teacher_dtype) for im in images])
+        zero_bg, ids = torch.zeros((DIST_STAGED, 3), device="cuda"), torch.arange(DIST_STAGED,
+                                                                                  device="cuda")
+        one = (cams.viewmats[:1], cams.Ks[:1], images[:1], feats[:1], zero_bg[:1], ids[:1])
+        loss_ref = ref._step_on(cams.viewmats[0], cams.Ks[0], images[0], feats[0], None, None,
+                                zero_bg[0], cfg.sh_degree, 0)["loss"]
+        s0 = scene0.to("cuda")
+        valid = project(s0.means, s0.quats, s0.scales, s0.opacities, cams.viewmats[0],
+                        cams.Ks[0], w, h, ref.proj_config).valid
+        survivors = int(valid.sum())
+        del s0
+
+        def sharded_step(rows=0, c=cfg):
+            tr = trainer(c)
+            shard_trainer(tr, mesh)
+            out = make_trainer_step_sharded(tr, mesh, 1, rows)(
+                tr.scene, tr.optimizer, tr.module_state(), *one)
+            return tr, out
+
+        tr, (_, _, _, loss, grad2d, vis, xover) = sharded_step()
+        rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+        errs, equal = {}, []
+        for f in dataclasses.fields(tr.scene):
+            a, b = getattr(tr.scene, f.name).detach(), getattr(ref.scene, f.name).detach()
+            errs[f.name] = float((a - b).abs().max()) / (
+                1.0 if f.name == "feature_proj" else float(b.abs().max()))
+            if torch.equal(a, b):
+                equal.append(f.name)
+        print(f"phase 12 sharded step (1, 1) N={N_FULL} {w}x{h} D=131 batch 1, Adam: loss "
+              f"{float(loss):.7f} against _step_on's {float(loss_ref):.7f} (rel {rel:.2e}); "
+              f"leaves' max error of their max (feature_proj absolute) "
+              f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; bit-equal: {equal}; vis equal "
+              f"to the view's valid rows: {torch.equal(vis, valid.float())}; xover "
+              f"{float(xover)}", flush=True)
+        check(rel <= 1e-6, "the sharded step's loss within 1e-6 of _step_on's")
+        check(all(v <= (HEAD_TOL if k == "feature_proj" else LEAF_TOL) for k, v in errs.items()),
+              "each leaf within tpugs' test_dist tolerances of _step_on's")
+        check(torch.equal(vis, valid.float()) and float(xover) == 0, "vis equal, no xover")
+        first = {"loss": loss, "grad2d": grad2d.clone(),
+                 "leaves": {f.name: getattr(tr.scene, f.name).detach().clone()
+                            for f in dataclasses.fields(tr.scene)}}
+        del ref
+
+        # 10 timed steps through the chunk, on its staged cameras
+        staged = {"images": images, "viewmats": cams.viewmats[:DIST_STAGED],
+                  "Ks": cams.Ks[:DIST_STAGED], "teachers": feats, "image_ids": ids}
+        sel = (np.arange(DIST_STEPS) % DIST_STAGED)[:, None]
+        chunk = make_trainer_chunk_sharded(tr, mesh, 1, DIST_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = chunk(tr.scene, tr.optimizer, tr.module_state(), staged, sel)[3]
+        torch.cuda.synchronize()
+        ms_step = 1e3 * (time.perf_counter() - t0) / DIST_STEPS
+        launches = K.LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for name in ("train_fwd", "train_bwd", "reduce"):
+            check(launches[name] >= DIST_STEPS,
+                  f"{name} kernel launched at least once per sharded step ({launches[name]})")
+        check(bool(torch.isfinite(stats["loss"]).all()), "the chunk's losses finite")
+        print(f"phase 12 sharded chunk (1, 1): {DIST_STEPS} steps {ms_step:.2f} ms/step (phase 4 "
+              f"{ref4['ms_step']:.2f}, which also runs the teacher each step; the chunk reads "
+              f"staged teachers), peak {peak:.2f} GB (phase 4 {ref4['peak_gb']:.2f}); losses "
+              f"{' '.join(f'{x:.4f}' for x in stats['loss'].tolist())}; launches {launches}",
+              flush=True)
+        del tr, chunk, staged
+
+        # the exchange cap: at view 0's survivors lossless, at half of them xover exact
+        tr, (_, _, _, loss_c, g2d_c, _, xover_c) = sharded_step(survivors)
+        capped_equal = (torch.equal(loss_c, first["loss"]) and torch.equal(g2d_c, first["grad2d"])
+                        and all(torch.equal(getattr(tr.scene, k).detach(), v)
+                                for k, v in first["leaves"].items()))
+        del tr
+        half = survivors // 2
+        tr, (_, _, _, _, _, _, xover_h) = sharded_step(half)
+        del tr
+        print(f"phase 12 exchange cap: view 0 has {survivors} survivors of {N_FULL}; capped at "
+              f"{survivors}: xover {float(xover_c)}, bit-equal to the uncapped step "
+              f"{capped_equal}; capped at {half}: xover {float(xover_h)} (expected "
+              f"{survivors - half})", flush=True)
+        check(capped_equal and float(xover_c) == 0,
+              "the step capped at the survivors equals the uncapped step bit for bit")
+        check(float(xover_h) == survivors - half, "xover = survivors - cap, exactly")
+
+        # one refine_sharded against Trainer.refine on the same state (phase 9's
+        # strategy and capacity, cut to one step of phase 4's set-up)
+        cfg_r = dataclasses.replace(cfg, strategy="default", capacity_multiple=LOOP_CAPACITY)
+        ref = trainer(cfg_r)
+        ref._step_on(cams.viewmats[0], cams.Ks[0], images[0], feats[0], None, None, zero_bg[0],
+                     cfg.sh_degree, 0)
+        tr = trainer(cfg_r)
+        tr.scene = _leaves(ref._detached(), tr.device)
+        shard_trainer(tr, mesh)
+        tr.grad_state = GradState(ref.grad_state.grad2d_sum.clone(), ref.grad_state.count.clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info_ref = ref.refine()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        info = refine_sharded(tr, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same_leaves = all(torch.equal(getattr(tr.scene, f.name).detach(),
+                                      getattr(ref.scene, f.name).detach())
+                          for f in dataclasses.fields(tr.scene))
+        print(f"phase 12 refine_sharded (1, 1) after one step of phase 4's set-up with "
+              f"strategy 'default', capacity {LOOP_CAPACITY}: N {N_FULL} -> "
+              f"{tr.scene.num_gaussians} (Trainer.refine {ref.scene.num_gaussians}); info "
+              f"{info} (Trainer.refine {info_ref}); leaves bit-equal {same_leaves}; "
+              f"{1e3 * (t2 - t1):.1f} ms (Trainer.refine {1e3 * (t1 - t0):.1f} ms)", flush=True)
+        check(info == info_ref and tr.scene.num_gaussians == ref.scene.num_gaussians
+              and same_leaves, "refine_sharded equals Trainer.refine")
+        del tr, ref, images, feats
+
+        # the dry run and the single-device tool
+        t0 = time.perf_counter()
+        dry = dryrun_ranks("cuda")
+        print(f"phase 12 dry run (1, 1) on the card: {dry} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        tool = sharded_singlechip.main([])
+        check(tool["backproject"]["bit_equal"] and tool["train"]["ok"],
+              "experiments/sharded_singlechip.py: parity")
+    check(not dist.is_initialized(), "the phase's group destroyed")
+    torch.cuda.empty_cache()
+    print(f"phase 12 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -3450,7 +3696,7 @@ def main() -> int:
     records += phase_experiments(view)
     view0 = (view.num.cpu(), view.den.cpu())
     del view
-    train_records, scene0 = phase_train()
+    train_records, scene0, ref4 = phase_train()
     records += train_records
     records += phase_eager()
     records += phase_absgrad()
@@ -3458,12 +3704,13 @@ def main() -> int:
     lseg_records, field = phase_lseg(ref3["den"])
     records += lseg_records
     records += phase_queries(field, ref3)
-    del ref3
     records += phase_training_loop(scene0)
     records += phase_profiling(view0, scene0, {r["id"]: r for r in records})
-    del scene0, view0
+    del view0
     records += phase_interactive(field)
     del field
+    phase_dist(ref3, ref4, scene0)
+    del ref3, scene0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

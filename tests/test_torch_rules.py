@@ -19,6 +19,9 @@ from tpugs_torch.convert import (
     scene_from_numpy,
 )
 from tpugs_torch.core.device import resolve_device
+from tpugs_torch.dist.dryrun import dryrun_multichip
+from tpugs_torch.dist.mesh import init_ranks, make_mesh
+from tpugs_torch.dist.shard import backproject_views_sharded, make_trainer_step_sharded
 from tpugs_torch.apps.affordance import main as affordance_main
 from tpugs_torch.apps.click_and_segment import PromptSession
 from tpugs_torch.apps.click_and_segment import main as click_main
@@ -39,7 +42,7 @@ from tpugs_torch.encoders.clip_text import CLIPTextTower
 from tpugs_torch.encoders.dino import DinoEncoder
 from tpugs_torch.encoders.lseg import LSegEncoder, LSegHead, LSegNet, TextEncoder, encode_text
 from tpugs_torch.encoders.vit import VisionTransformer, ViTConfig
-from tpugs_torch.experiments import profile_stages, scatter_write
+from tpugs_torch.experiments import profile_stages, scatter_write, sharded_singlechip
 from tpugs_torch.io.checkpoints import load_checkpoint
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.backproject import create_feature_field
@@ -200,6 +203,16 @@ ENTRY_POINTS = {
     "viewer app": lambda: viewer_main(data_dir="data", checkpoint="ckpt.pt"),
     "click_and_segment app": lambda: click_main(data_dir="data", checkpoint="ckpt.pt"),
     "viewer_llm app": lambda: viewer_llm_main(data_dir="data", checkpoint="ckpt.pt"),
+    "init_ranks": lambda: init_ranks(),
+    "make_mesh": lambda: make_mesh(),
+    "backproject_views_sharded": lambda: backproject_views_sharded(
+        synthetic.random_scene(10, device="cpu"), torch.eye(4)[None], torch.eye(3)[None],
+        torch.ones(1), 32, 32, LinearRGBEncoder(4, device="cpu")),
+    "make_trainer_step_sharded": lambda: make_trainer_step_sharded(Trainer(
+        TrainConfig(strategy="none", feature_dim=0), synthetic.random_scene(10, device="cpu"),
+        width=32, height=32, device="cpu")),
+    "dryrun_multichip": lambda: dryrun_multichip(1),
+    "sharded_singlechip.main": lambda: sharded_singlechip.main([]),
 }
 
 

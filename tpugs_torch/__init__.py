@@ -44,15 +44,18 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              trajectories and the live viewer
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
              the phases tools, the LSeg encoder's post step, the lift's
-             stage profiler
+             stage profiler, the sharded programs on one device
+  dist/      runs over several devices on ``torch.distributed`` (NCCL on
+             CUDA, gloo on the CPU): meshes, the sharded lift, the sharded
+             train step, its chunk and refine, CPU ranks for tests, the dry
+             run
   kernels/   the nvcc build of ``csrc/*.cu``
   convert.py numpy state in, port state out (scenes, cameras, codecs, the
              Flax encoders' params)
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 
-Not ported yet: the distribution over several devices (ROADMAP queue A
-item 6) and the scripts under ``scripts/`` without a counterpart
+Not ported yet: the scripts under ``scripts/`` without a counterpart
 (ROADMAP queue A item 8).
 """
 

@@ -24,8 +24,11 @@ def random_scene_arrays(
     extent: float = 1.0,
     scale_range=(0.01, 0.05),
     sh_degree: int = 3,
+    feature_dim: int | None = None,
 ) -> dict:
-    """The reference's draws as numpy arrays (``random_scene`` fields)."""
+    """The reference's draws as numpy arrays (``random_scene`` fields).
+    With ``feature_dim``, a standard-normal (n, feature_dim) "features"
+    field is drawn after every other array, so those stay the same."""
     rng = np.random.default_rng(seed)
     means = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
@@ -39,7 +42,7 @@ def random_scene_arrays(
     k_rest = (sh_degree + 1) ** 2 - 1
     sh0 = rng.uniform(-0.5, 1.5, (n, 1, 3)).astype(np.float32)
     shN = (0.1 * rng.normal(size=(n, k_rest, 3))).astype(np.float32)
-    return dict(
+    arrays = dict(
         means=means,
         quats=quats,
         log_scales=log_scales,
@@ -47,6 +50,9 @@ def random_scene_arrays(
         sh0=sh0,
         shN=shN,
     )
+    if feature_dim:
+        arrays["features"] = rng.normal(size=(n, feature_dim)).astype(np.float32)
+    return arrays
 
 
 def random_scene(
@@ -55,9 +61,10 @@ def random_scene(
     extent: float = 1.0,
     scale_range=(0.01, 0.05),
     sh_degree: int = 3,
+    feature_dim: int | None = None,
     device: DeviceLike = "cuda",
 ) -> GaussianScene:
-    arrays = random_scene_arrays(n, seed, extent, scale_range, sh_degree)
+    arrays = random_scene_arrays(n, seed, extent, scale_range, sh_degree, feature_dim)
     return scene_from_numpy(arrays, device=device)
 
 
