@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Fourteen phases; the first failure ends the run with a nonzero exit:
+Seventeen phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -205,7 +205,51 @@ Fourteen phases; the first failure ends the run with a nonzero exit:
              16384: N, info and leaves equal); the dry run
              (``dist/dryrun.py``) and ``experiments/sharded_singlechip.py``
              at its defaults; ``torch.cuda.nccl.version()``.
-13. kernels line — one JSON object per kernel with its launches, errors,
+13. at-scale training from disk — ``apps/make_atscale_dataset.main`` at
+             the garden shape (2^19 ground-truth Gaussians, 185 orbit views
+             at 1296 x 840, 100,000 SfM points) in a temporary directory:
+             the seconds of the scene, the COLMAP model, the renders, the
+             JPEGs (``cv2``) and ``ckpt.pt``; every decoded JPEG at a
+             PSNR of at least 20 dB against its rendered frame and nearer
+             it than to the frame with R and B swapped, a planted red and
+             blue image kept.
+             Then ``apps/train.main`` on it, chunked, 1100 steps, main's
+             other defaults (features 128 against ``linear:512``, SH 3,
+             strategy "default" at capacity 16384, SfM init, 161 train and
+             24 validation views), its trainer wrapped on the class: parse,
+             image reads and staging timed; the SfM init exactly 100,000
+             Gaussians; ms/step and N per chunk; every refine (500, 600,
+             ..., 1100) checked as phase 9's (the first replayed on the
+             CPU), with its counts and the mean accumulated grad2d against
+             ``grow_grad2d``; no opacity reset; the losses finite, the last
+             chunk's mean below the first's; B4, B5 and B3 launched every
+             step and held on 64 tiles of the first step after the refine
+             at 1000 (B4-, B5-, B3-atscale, timed against their bounds);
+             the final eval's ms per image, PSNR and SSIM; the final
+             checkpoints' seconds and sizes; the peak; whether main's
+             trajectory GIF was written (it needs ``imageio``), and
+             ``render_traj`` with no path.
+14. gather locality — ``experiments/gather_locality.main([])``: the pack-
+             and reduce-shaped gathers by uniform-random, sorted and the
+             two plans' indices (the default scene and its Morton order),
+             the lift's stages per view on both scenes and both engines,
+             the Morton lift against the default lift in scene order
+             (equal to f32 rounding for the Gaussians neither moved in a
+             span, which only a depth tie may explain, the plan ordering
+             ties by index, nor in a tile that renders differently; a
+             weight sum beyond rounding only where moved; the rest within
+             the module's stated limits), each kernel launched every
+             view; the Morton
+             scene's lift alone with the counts set to 0, and its view 0
+             held against the twins and timed as phase 3's (B1-, B2-, B3-,
+             B6-, B7-morton, with that lift's counts).
+15. weight conversion — ``apps/convert_weights.main`` on the card on
+             seeded random LSeg-512 (lang-seg's layout, the dropped
+             families planted) and DINOv2 ViT-L/14-reg checkpoints and a
+             small BPE file: each self-check's output bit-equal to its
+             module's own forward, the report's counts the modules', a
+             planted unknown key raising.
+16. kernels line — one JSON object per kernel with its launches, errors,
              time, the twin's time, its bound on this card and, where one
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
@@ -213,8 +257,9 @@ Fourteen phases; the first failure ends the run with a nonzero exit:
              B5-tiled, B5's geometry-only launch as B5-geom, phase 7's
              as B2-lseg, B3-lseg, B2-dino and B3-dino, phase 8's
              feature render as B4-viz, phase 9's as B4-, B5- and
-             B3-refined, phase 10's as B1-, B2- and B3-prof and phase 11's
-             viewer frame as B4-frame.
+             B3-refined, phase 10's as B1-, B2- and B3-prof, phase 11's
+             viewer frame as B4-frame, phase 13's as B4-, B5- and
+             B3-atscale and phase 14's as B1-, B2-, B3-, B6- and B7-morton.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -794,17 +839,168 @@ def csr_select(offsets, columns, n_cols):
             size=(offsets.shape[0] - 1, n_cols), check_invariants=False)
 
 
+def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix=""):
+    """View 0 of ``cams`` through ``run_view`` with both engines: 64 random
+    tiles against the twins (B1, B2, B3, B6, B7), B1's culled walk against
+    its unculled instantiation on every tile, the kernels' and twins' times,
+    the library calls' and the bounds of the view's work. ``launches`` and
+    ``launches_s`` are each engine's counts from the caller's run. Returns
+    the kernel records (ids with ``suffix``) and the default engine's
+    ``ViewResult``."""
+    from tpugs_torch.kernels.build import load_library
+    from tpugs_torch.lift.batch import run_view
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.timing import time_cuda
+
+    # 64 random tiles of view 0 against the twins
+    r = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE)
+    r_s = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE,
+                   reduce_engine="scatter")
+    torch.cuda.synchronize()
+    plan, plan_s, D = r.plan, r_s.plan, D_FULL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+    img_t, _ = K.render_tiles_plain(r.packed, plan, tiles=tiles)
+    b1 = rel_err(r.tiles[tiles], img_t)
+    rows = span_rows(plan, tiles)
+    rows_t = K.adjoint_rows_plain(r.packed, r.feat_tiles, plan, tiles=tiles)
+    b2 = K.rows_error(r.rows[rows], rows_t[rows], D)
+    del rows_t
+    gids = gaussians_of(plan, rows)
+    red_t = K.reduce_rows_plain(r.rows, plan, D + 1, gaussians=gids)
+    b3 = rel_err(r.sums[gids], red_t)
+    b3_equal = torch.equal(r.sums[gids], red_t)
+    real = rows[plan.padded_gid[rows] < plan.num_gaussians]  # rows with an intersection
+    dest = plan_s.slot_pos.long()[real]
+    striped_t = K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s, tiles=tiles)
+    b6 = K.rows_error(r_s.rows[dest], striped_t[dest], D)
+    del striped_t
+    b6_b2 = torch.equal(r_s.rows[dest], r.rows[real])
+    red7_t = K.reduce_striped_plain(r_s.rows, plan_s, D + 1, gaussians=gids)
+    b7 = rel_err(r_s.sums[gids], red7_t)
+    b7_equal = torch.equal(r_s.sums[gids], red7_t) and torch.equal(r_s.sums[gids], red_t)
+    b7_b3_view = torch.equal(r_s.sums, r.sums)
+    print(f"{tag} check on 64 tiles ({len(gids)} Gaussians): B1 rel {b1[1]:.3e}, "
+          f"B2 bf16 {b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max, "
+          f"B3 bit-equal {b3_equal}; B6 bf16 {b6[1]:.3e} of column-group max, "
+          f"{b6[2]:.3e} of row max, bit-equal to B2 {b6_b2}; B7 bit-equal to its twin and "
+          f"B3 {b7_equal}, on the whole view {b7_b3_view}", flush=True)
+    check(b1[1] <= 1e-4, "B1 within 1e-4 on the sampled tiles")
+    check(within_rows_tol(b2[1], b2[2], torch.bfloat16),
+          "B2 bf16 within ROWS_TOL on the sampled tiles")
+    check(b3_equal, "B3 bit-equal on the sampled Gaussians")
+    check(within_rows_tol(b6[1], b6[2], torch.bfloat16),
+          "B6 bf16 within ROWS_TOL on the sampled tiles")
+    check(b6_b2, "B6 bit-equal to B2 on the sampled tiles")
+    check(b7_equal and b7_b3_view, "B7 bit-equal to its twin and to B3")
+
+    # B1's culled walk against its unculled instantiation on every tile
+    img_u, done_u = K.render_tiles_unculled(r.packed, plan)
+    torch.cuda.synchronize()
+    b1_culled = torch.equal(r.tiles, img_u) and torch.equal(r.blocks_done, done_u)
+    del img_u
+    walked, live, nonzero = render_pairs(r.packed, plan)
+    print(f"{tag} B1 on every tile of view 0: culled bit-equal to unculled (image and "
+          f"exit blocks) {b1_culled}; pairs walked {walked}, with a live 8x4 rectangle "
+          f"{live} ({100 * live / walked:.1f}%), with a nonzero alpha {nonzero} "
+          f"({100 * nonzero / walked:.1f}%)", flush=True)
+    check(b1_culled, "B1's culled walk bit-equal to its unculled instantiation on the view")
+
+    # times at the main path's shapes, and the bounds of this view's work
+    pairs = int(r.blocks_done.sum()) * 128 * TILE * TILE
+    check(pairs == walked, "the twin's walk takes the kernel's blocks")
+    n_tiles, T_padded, n_isects = plan.n_tiles, plan.T_padded, plan.n_isects
+    tspx = TILE * TILE
+    b1_ms = time_cuda(lambda: K.render_tiles(r.packed, plan), 20)
+    b1_unculled = time_cuda(lambda: K.render_tiles_unculled(r.packed, plan), 20)
+    b1_plain = time_cuda(lambda: K.render_tiles_plain(r.packed, plan), 1)
+    b2_ms = time_cuda(lambda: K.adjoint_rows(r.packed, r.feat_tiles, plan), 3)
+    b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
+    b3_ms = time_cuda(lambda: K.reduce_rows(r.rows, plan, D + 1), 5)
+    b3_plain = time_cuda(lambda: K.reduce_rows_plain(r.rows, plan, D + 1), 1)
+    b6_ms = time_cuda(lambda: K.adjoint_scatter_rows(r.packed, r.feat_tiles, plan_s), 3)
+    b6_plain = time_cuda(
+        lambda: K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s), 1)
+    b7_ms = time_cuda(lambda: K.reduce_striped(r_s.rows, plan_s, D + 1), 5)
+    b7_plain = time_cuda(lambda: K.reduce_striped_plain(r_s.rows, plan_s, D + 1), 1)
+    # B3 as one library call: a CSR 0/1 matrix (Gaussian x padded row, the
+    # plan's own lists) times the rows (cuSPARSE SpMM). It has no bf16-in,
+    # f32-out form, so it reads the rows converted to f32 beforehand.
+    select = csr_select(plan.gauss_offsets, plan.gauss_pos, T_padded)
+    rows32 = r.rows[:, : D + 1].float()
+    lib_err = rel_err(select @ rows32, r.sums)
+    b3_lib = time_cuda(lambda: select @ rows32, 5)
+    del select, rows32
+    # B7 likewise, over the striped positions; the rows it never reads are
+    # zeroed in the f32 copy (B6 leaves them unwritten).
+    live = plan_s.slot_pos.long()[plan_s.gauss_pos.long()]
+    select = csr_select(plan_s.gauss_offsets, live.to(torch.int32), plan_s.R_striped + 1)
+    striped32 = torch.zeros((plan_s.R_striped + 1, D + 1), device="cuda")
+    striped32[live] = r_s.rows[live, : D + 1].float()
+    lib7_err = rel_err(select @ striped32, r_s.sums)
+    b7_lib = time_cuda(lambda: select @ striped32, 5)
+    del select, striped32
+    print(f"{tag} library calls (sparse CSR @ f32 rows): B3 {b3_lib:.3f} ms, "
+          f"{lib_err[1]:.3e} of max from the kernel's sums; B7 (striped positions) "
+          f"{b7_lib:.3f} ms, {lib7_err[1]:.3e}", flush=True)
+    check(lib_err[1] <= 1e-5 and lib7_err[1] <= 1e-5, "the library calls compute the sums")
+
+    block_bytes = int(r.blocks_done.sum()) * 128 * 64  # pack rows the walk reads
+    b2_bytes = block_bytes + n_tiles * tspx * D * 2 + T_padded * (D + 1) * 2
+
+    # B1: the least work of any exact design evaluates the pairs with a
+    # nonzero alpha; the walked pairs' bound is the old one, printed beside it
+    b1_bytes = block_bytes + n_tiles * tspx * 5 * 4
+    b1_bound = bound(b1_bytes, PAIR_OPS * nonzero, PEAK_F32_FLOPS)
+    b1_walked = bound(b1_bytes, PAIR_OPS * pairs, PEAK_F32_FLOPS)
+    b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
+    b3_bound = bound(n_isects * ((D + 1) * 2 + 4) + N_FULL * ((D + 1) * 4 + 4),
+                     n_isects * (D + 1), PEAK_F32_FLOPS)
+    b6_bound = bound(b2_bytes + T_padded * 4, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
+    b7_bound = bound(n_isects * (D + 1) * 2 + N_FULL * ((D + 1) * 4 + 4 + 8),
+                     n_isects * (D + 1), PEAK_F32_FLOPS)
+    print(f"{tag} work of one view: {n_tiles} tiles, {n_isects} intersections, "
+          f"T_padded {T_padded}, {int(r.blocks_done.sum())} blocks walked "
+          f"({pairs} pixel-Gaussian pairs); scatter layout R_striped {plan_s.R_striped}, "
+          f"{plan_s.stripe_base.shape[0]} stripes; B1 {b1_ms:.4f} ms (unculled "
+          f"{b1_unculled:.4f}, twin {b1_plain:.1f}; bound {b1_bound[0]:.4f} ms by "
+          f"{b1_bound[1]} on the nonzero-alpha pairs, share {b1_bound[0] / b1_ms:.3f}; "
+          f"{b1_walked[0]:.4f} ms on the walked pairs, share {b1_walked[0] / b1_ms:.3f}); "
+          f"B2 {b2_ms:.3f} ms, B3 {b3_ms:.3f} ms; "
+          f"B6 {b6_ms:.3f} ms (twin {b6_plain:.1f}), "
+          f"B7 {b7_ms:.3f} ms (twin {b7_plain:.1f})", flush=True)
+
+    b1_rec = rec("B1" + suffix, "render", "tpugs_torch/csrc/render.cu",
+                 "tpugs/raster/pallas_tiled.py:1370", launches["render"], b1, b1_ms,
+                 b1_plain, b1_bound)
+    b1_rec.update(bound_walked_ms=b1_walked[0], unculled_ms=b1_unculled,
+                  resident_clusters=load_library().tpugs_render_max_clusters(TILE, 1))
+    records = [
+        b1_rec,
+        rec("B2" + suffix, "adjoint", "tpugs_torch/csrc/adjoint.cu",
+            "tpugs/raster/pallas_tiled.py:1623", launches["adjoint"], b2, b2_ms,
+            b2_plain, b2_bound),
+        rec("B3" + suffix, "reduce", "tpugs_torch/csrc/reduce.cu",
+            "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms,
+            b3_plain, b3_bound, b3_lib),
+        rec("B6" + suffix, "adjoint_scatter", "tpugs_torch/csrc/adjoint.cu",
+            "tpugs/raster/pallas_tiled.py:1927", launches_s["adjoint_scatter"], b6, b6_ms,
+            b6_plain, b6_bound),
+        rec("B7" + suffix, "stripe_sum", "tpugs_torch/csrc/stripe_sum.cu",
+            "tpugs/raster/pallas_tiled.py:2007", launches_s["stripe_sum"], b7, b7_ms,
+            b7_plain, b7_bound, b7_lib),
+    ]
+    return records, r
+
+
 def phase_full_width():
     """The canonical shape through the entry point, with both reduce
     engines. Returns the kernel records for the kernels line, one view's
     result for the experiments phase and the default engine's num and den
     (CPU), ms/view and peak GB for phases 7 and 8."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
-    from tpugs_torch.kernels.build import load_library
-    from tpugs_torch.lift.batch import backproject_views, run_view
-    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.lift.batch import backproject_views
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
-    from tpugs_torch.utils.timing import time_cuda
 
     scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
     cams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
@@ -847,144 +1043,7 @@ def phase_full_width():
     check(same, "the scatter engine's num and den equal the default engine's bit for bit")
     del num, den, num_s, den_s, results
 
-    # 64 random tiles of view 0 against the twins
-    r = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE)
-    r_s = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE,
-                   reduce_engine="scatter")
-    torch.cuda.synchronize()
-    plan, plan_s, D = r.plan, r_s.plan, D_FULL
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
-    img_t, _ = K.render_tiles_plain(r.packed, plan, tiles=tiles)
-    b1 = rel_err(r.tiles[tiles], img_t)
-    rows = span_rows(plan, tiles)
-    rows_t = K.adjoint_rows_plain(r.packed, r.feat_tiles, plan, tiles=tiles)
-    b2 = K.rows_error(r.rows[rows], rows_t[rows], D)
-    del rows_t
-    gids = gaussians_of(plan, rows)
-    red_t = K.reduce_rows_plain(r.rows, plan, D + 1, gaussians=gids)
-    b3 = rel_err(r.sums[gids], red_t)
-    b3_equal = torch.equal(r.sums[gids], red_t)
-    real = rows[plan.padded_gid[rows] < plan.num_gaussians]  # rows with an intersection
-    dest = plan_s.slot_pos.long()[real]
-    striped_t = K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s, tiles=tiles)
-    b6 = K.rows_error(r_s.rows[dest], striped_t[dest], D)
-    del striped_t
-    b6_b2 = torch.equal(r_s.rows[dest], r.rows[real])
-    red7_t = K.reduce_striped_plain(r_s.rows, plan_s, D + 1, gaussians=gids)
-    b7 = rel_err(r_s.sums[gids], red7_t)
-    b7_equal = torch.equal(r_s.sums[gids], red7_t) and torch.equal(r_s.sums[gids], red_t)
-    b7_b3_view = torch.equal(r_s.sums, r.sums)
-    print(f"phase 3 check on 64 tiles ({len(gids)} Gaussians): B1 rel {b1[1]:.3e}, "
-          f"B2 bf16 {b2[1]:.3e} of column-group max, {b2[2]:.3e} of row max, "
-          f"B3 bit-equal {b3_equal}; B6 bf16 {b6[1]:.3e} of column-group max, "
-          f"{b6[2]:.3e} of row max, bit-equal to B2 {b6_b2}; B7 bit-equal to its twin and "
-          f"B3 {b7_equal}, on the whole view {b7_b3_view}", flush=True)
-    check(b1[1] <= 1e-4, "B1 within 1e-4 on the sampled tiles")
-    check(within_rows_tol(b2[1], b2[2], torch.bfloat16),
-          "B2 bf16 within ROWS_TOL on the sampled tiles")
-    check(b3_equal, "B3 bit-equal on the sampled Gaussians")
-    check(within_rows_tol(b6[1], b6[2], torch.bfloat16),
-          "B6 bf16 within ROWS_TOL on the sampled tiles")
-    check(b6_b2, "B6 bit-equal to B2 on the sampled tiles")
-    check(b7_equal and b7_b3_view, "B7 bit-equal to its twin and to B3")
-
-    # B1's culled walk against its unculled instantiation on every tile
-    img_u, done_u = K.render_tiles_unculled(r.packed, plan)
-    torch.cuda.synchronize()
-    b1_culled = torch.equal(r.tiles, img_u) and torch.equal(r.blocks_done, done_u)
-    del img_u
-    walked, live, nonzero = render_pairs(r.packed, plan)
-    print(f"phase 3 B1 on every tile of view 0: culled bit-equal to unculled (image and "
-          f"exit blocks) {b1_culled}; pairs walked {walked}, with a live 8x4 rectangle "
-          f"{live} ({100 * live / walked:.1f}%), with a nonzero alpha {nonzero} "
-          f"({100 * nonzero / walked:.1f}%)", flush=True)
-    check(b1_culled, "B1's culled walk bit-equal to its unculled instantiation on the view")
-
-    # times at the main path's shapes, and the bounds of this view's work
-    pairs = int(r.blocks_done.sum()) * 128 * TILE * TILE
-    check(pairs == walked, "the twin's walk takes the kernel's blocks")
-    n_tiles, T_padded, n_isects = plan.n_tiles, plan.T_padded, plan.n_isects
-    tspx = TILE * TILE
-    b1_ms = time_cuda(lambda: K.render_tiles(r.packed, plan), 20)
-    b1_unculled = time_cuda(lambda: K.render_tiles_unculled(r.packed, plan), 20)
-    b1_plain = time_cuda(lambda: K.render_tiles_plain(r.packed, plan), 1)
-    b2_ms = time_cuda(lambda: K.adjoint_rows(r.packed, r.feat_tiles, plan), 3)
-    b2_plain = time_cuda(lambda: K.adjoint_rows_plain(r.packed, r.feat_tiles, plan), 1)
-    b3_ms = time_cuda(lambda: K.reduce_rows(r.rows, plan, D + 1), 5)
-    b3_plain = time_cuda(lambda: K.reduce_rows_plain(r.rows, plan, D + 1), 1)
-    b6_ms = time_cuda(lambda: K.adjoint_scatter_rows(r.packed, r.feat_tiles, plan_s), 3)
-    b6_plain = time_cuda(
-        lambda: K.adjoint_scatter_rows_plain(r.packed, r.feat_tiles, plan_s), 1)
-    b7_ms = time_cuda(lambda: K.reduce_striped(r_s.rows, plan_s, D + 1), 5)
-    b7_plain = time_cuda(lambda: K.reduce_striped_plain(r_s.rows, plan_s, D + 1), 1)
-    # B3 as one library call: a CSR 0/1 matrix (Gaussian x padded row, the
-    # plan's own lists) times the rows (cuSPARSE SpMM). It has no bf16-in,
-    # f32-out form, so it reads the rows converted to f32 beforehand.
-    select = csr_select(plan.gauss_offsets, plan.gauss_pos, T_padded)
-    rows32 = r.rows[:, : D + 1].float()
-    lib_err = rel_err(select @ rows32, r.sums)
-    b3_lib = time_cuda(lambda: select @ rows32, 5)
-    del select, rows32
-    # B7 likewise, over the striped positions; the rows it never reads are
-    # zeroed in the f32 copy (B6 leaves them unwritten).
-    live = plan_s.slot_pos.long()[plan_s.gauss_pos.long()]
-    select = csr_select(plan_s.gauss_offsets, live.to(torch.int32), plan_s.R_striped + 1)
-    striped32 = torch.zeros((plan_s.R_striped + 1, D + 1), device="cuda")
-    striped32[live] = r_s.rows[live, : D + 1].float()
-    lib7_err = rel_err(select @ striped32, r_s.sums)
-    b7_lib = time_cuda(lambda: select @ striped32, 5)
-    del select, striped32
-    print(f"phase 3 library calls (sparse CSR @ f32 rows): B3 {b3_lib:.3f} ms, "
-          f"{lib_err[1]:.3e} of max from the kernel's sums; B7 (striped positions) "
-          f"{b7_lib:.3f} ms, {lib7_err[1]:.3e}", flush=True)
-    check(lib_err[1] <= 1e-5 and lib7_err[1] <= 1e-5, "the library calls compute the sums")
-
-    block_bytes = int(r.blocks_done.sum()) * 128 * 64  # pack rows the walk reads
-    b2_bytes = block_bytes + n_tiles * tspx * D * 2 + T_padded * (D + 1) * 2
-
-    # B1: the least work of any exact design evaluates the pairs with a
-    # nonzero alpha; the walked pairs' bound is the old one, printed beside it
-    b1_bytes = block_bytes + n_tiles * tspx * 5 * 4
-    b1_bound = bound(b1_bytes, PAIR_OPS * nonzero, PEAK_F32_FLOPS)
-    b1_walked = bound(b1_bytes, PAIR_OPS * pairs, PEAK_F32_FLOPS)
-    b2_bound = bound(b2_bytes, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
-    b3_bound = bound(n_isects * ((D + 1) * 2 + 4) + N_FULL * ((D + 1) * 4 + 4),
-                     n_isects * (D + 1), PEAK_F32_FLOPS)
-    b6_bound = bound(b2_bytes + T_padded * 4, 2 * pairs * (D + 1), PEAK_BF16_FLOPS)
-    b7_bound = bound(n_isects * (D + 1) * 2 + N_FULL * ((D + 1) * 4 + 4 + 8),
-                     n_isects * (D + 1), PEAK_F32_FLOPS)
-    print(f"phase 3 work of one view: {n_tiles} tiles, {n_isects} intersections, "
-          f"T_padded {T_padded}, {int(r.blocks_done.sum())} blocks walked "
-          f"({pairs} pixel-Gaussian pairs); scatter layout R_striped {plan_s.R_striped}, "
-          f"{plan_s.stripe_base.shape[0]} stripes; B1 {b1_ms:.4f} ms (unculled "
-          f"{b1_unculled:.4f}, twin {b1_plain:.1f}; bound {b1_bound[0]:.4f} ms by "
-          f"{b1_bound[1]} on the nonzero-alpha pairs, share {b1_bound[0] / b1_ms:.3f}; "
-          f"{b1_walked[0]:.4f} ms on the walked pairs, share {b1_walked[0] / b1_ms:.3f}); "
-          f"B2 {b2_ms:.3f} ms, B3 {b3_ms:.3f} ms; "
-          f"B6 {b6_ms:.3f} ms (twin {b6_plain:.1f}), "
-          f"B7 {b7_ms:.3f} ms (twin {b7_plain:.1f})", flush=True)
-
-    b1_rec = rec("B1", "render", "tpugs_torch/csrc/render.cu",
-                 "tpugs/raster/pallas_tiled.py:1370", launches["render"], b1, b1_ms,
-                 b1_plain, b1_bound)
-    b1_rec.update(bound_walked_ms=b1_walked[0], unculled_ms=b1_unculled,
-                  resident_clusters=load_library().tpugs_render_max_clusters(TILE, 1))
-    records = [
-        b1_rec,
-        rec("B2", "adjoint", "tpugs_torch/csrc/adjoint.cu",
-            "tpugs/raster/pallas_tiled.py:1623", launches["adjoint"], b2, b2_ms,
-            b2_plain, b2_bound),
-        rec("B3", "reduce", "tpugs_torch/csrc/reduce.cu",
-            "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms,
-            b3_plain, b3_bound, b3_lib),
-        rec("B6", "adjoint_scatter", "tpugs_torch/csrc/adjoint.cu",
-            "tpugs/raster/pallas_tiled.py:1927", launches_s["adjoint_scatter"], b6, b6_ms,
-            b6_plain, b6_bound),
-        rec("B7", "stripe_sum", "tpugs_torch/csrc/stripe_sum.cu",
-            "tpugs/raster/pallas_tiled.py:2007", launches_s["stripe_sum"], b7, b7_ms,
-            b7_plain, b7_bound, b7_lib),
-    ]
+    records, r = lift_view_records(scene, cams, enc, launches, launches_s, "phase 3")
     return records, r, ref3
 
 
@@ -2702,6 +2761,63 @@ def synced_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def refine_checked(tr, orig_refine, rng, views, w, h, capacity, replay_cpu=True):
+    """One "default" refine of ``tr`` through ``orig_refine``, checked: N is
+    the refined count padded to ``capacity``, that count is kept +
+    duplicated + 2 x split, no padded row is valid in ``project`` in any of
+    ``views`` ((viewmat, K) pairs), ``GradState`` is zero and the optimizer
+    state empty; with ``replay_cpu``, the same refine on CPU copies (scene,
+    statistics, a copy of the generator ``rng``, a ``TimedRng``) gives the
+    same counts and masks, rows within 1e-6. Returns (info, the record: info
+    with the step, N before and after, ms, host draw ms, the CPU rows'
+    error or None, the mean accumulated grad2d of the visible Gaussians and
+    their share above ``grow_grad2d``)."""
+    import copy
+
+    from tpugs_torch.core.scene import pad_count
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.train.strategy import PER_GAUSSIAN, DefaultStrategy, GradState
+
+    cfg = tr.cfg
+    n_before = tr.scene.num_gaussians
+    seen = tr.grad_state.count > 0
+    avg = tr.grad_state.grad2d_sum[seen] / tr.grad_state.count[seen]
+    grad_mean = float(avg.mean()) if avg.numel() else 0.0
+    grad_high = float((avg > cfg.grow_grad2d).float().mean()) if avg.numel() else 0.0
+    if replay_cpu:
+        cpu_scene = tr._detached().to("cpu")
+        cpu_state = GradState(tr.grad_state.grad2d_sum.cpu(), tr.grad_state.count.cpu())
+        cpu_strategy = DefaultStrategy(cfg, tr.scene_scale)
+        cpu_strategy.rng = copy.deepcopy(rng.rng)
+    masks = {k: v.cpu() for k, v in tr.strategy.masks(tr._detached(), tr.grad_state).items()}
+    drawn = rng.seconds
+    info, ms = synced_ms(orig_refine)
+    draw_ms = 1e3 * (rng.seconds - drawn)
+    alive, n = info["alive"], tr.scene.num_gaussians
+    kept = int(masks["keep"].sum())
+    check(n == pad_count(alive, capacity), f"N {n} is alive {alive} padded to {capacity}")
+    check(alive == kept + info["duplicated"] + 2 * info["split"],
+          "alive = kept + duplicated + 2 x split")
+    s = tr._detached()
+    for c, (vm, K) in enumerate(views):
+        proj = project(s.means, s.quats, s.scales, s.opacities, vm, K, w, h)
+        check(not bool(proj.valid[alive:].any()), f"no padded row valid in view {c}")
+    check(tr.grad_state.count.shape == (n,) and not bool(tr.grad_state.count.any())
+          and not bool(tr.grad_state.grad2d_sum.any()), "GradState zero")
+    check(len(tr.optimizer.state) == 0, "every optimizer state empty after a refine")
+    row_err = None
+    if replay_cpu:
+        new_cpu, _, info_cpu = cpu_strategy.refine(cpu_scene, cpu_state)
+        masks_cpu = cpu_strategy.masks(cpu_scene, cpu_state)
+        check(info_cpu == {k: info[k] for k in info_cpu}, f"CPU refine counts {info_cpu}")
+        check(all(torch.equal(masks[k], masks_cpu[k]) for k in masks), "CPU refine masks")
+        row_err = max(float((getattr(s, f)[:alive].cpu() - getattr(new_cpu, f)).abs().max())
+                      for f in PER_GAUSSIAN)
+        check(row_err <= 1e-6, f"CPU refine rows within 1e-6 ({row_err:.3e})")
+    return info, dict(info, step=tr.step, n_before=n_before, n=n, ms=ms, draw_ms=draw_ms,
+                      cpu_row_err=row_err, kept=kept, grad_mean=grad_mean, grad_high=grad_high)
+
+
 def phase_training_loop(scene0):
     """Leg A: ``apps.train.run(chunked=True)`` for 40 steps with strategy
     "default" (refines at steps 10 and 20, capacity 16384, the opacity
@@ -2713,21 +2829,17 @@ def phase_training_loop(scene0):
     checkpoint round trip; ``render_traj``. Leg B: strategy "mcmc" through
     the per-step path, 21 steps, refines at 10 and 20, with 4096 planted
     dead Gaussians. Returns the three kernel records."""
-    import copy
     import dataclasses
     import os
     import tempfile
 
     from tpugs_torch.apps.train import run
-    from tpugs_torch.core.scene import pad_count
     from tpugs_torch.encoders import get_encoder
     from tpugs_torch.raster import kernels as K
-    from tpugs_torch.raster.projection import project
     from tpugs_torch.raster.train import render_scene
     from tpugs_torch.train.config import TrainConfig
     from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
     from tpugs_torch.train.metrics import psnr, ssim
-    from tpugs_torch.train.strategy import PER_GAUSSIAN, DefaultStrategy, GradState
     from tpugs_torch.train.trainer import Trainer
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
 
@@ -2763,37 +2875,9 @@ def phase_training_loop(scene0):
     logit_cap = float(np.log(0.01 / 0.99))
 
     def refine():
-        n_before = tr.scene.num_gaussians
-        cpu_scene = tr._detached().to("cpu")
-        cpu_state = GradState(tr.grad_state.grad2d_sum.cpu(), tr.grad_state.count.cpu())
-        cpu_strategy = DefaultStrategy(cfg, tr.scene_scale)
-        cpu_strategy.rng = copy.deepcopy(rng.rng)
-        masks = {k: v.cpu() for k, v in tr.strategy.masks(tr._detached(), tr.grad_state).items()}
-        drawn = rng.seconds
-        info, ms = synced_ms(orig["refine"])
-        draw_ms = 1e3 * (rng.seconds - drawn)
-        alive, n = info["alive"], tr.scene.num_gaussians
-        kept = int(masks["keep"].sum())
-        check(n == pad_count(alive, LOOP_CAPACITY), f"N {n} is alive {alive} padded to 16384")
-        check(alive == kept + info["duplicated"] + 2 * info["split"],
-              "alive = kept + duplicated + 2 x split")
-        s = tr._detached()
-        for c in range(LOOP_CAMS):
-            proj = project(s.means, s.quats, s.scales, s.opacities, cams.viewmats[c],
-                           cams.Ks[c], w, h)
-            check(not bool(proj.valid[alive:].any()), f"no padded row valid in view {c}")
-        check(tr.grad_state.count.shape == (n,) and not bool(tr.grad_state.count.any())
-              and not bool(tr.grad_state.grad2d_sum.any()), "GradState zero")
-        check(len(tr.optimizer.state) == 0, "every optimizer state empty after a refine")
-        new_cpu, _, info_cpu = cpu_strategy.refine(cpu_scene, cpu_state)
-        masks_cpu = cpu_strategy.masks(cpu_scene, cpu_state)
-        check(info_cpu == {k: info[k] for k in info_cpu}, f"CPU refine counts {info_cpu}")
-        check(all(torch.equal(masks[k], masks_cpu[k]) for k in masks), "CPU refine masks")
-        row_err = max(float((getattr(s, f)[:alive].cpu() - getattr(new_cpu, f)).abs().max())
-                      for f in PER_GAUSSIAN)
-        check(row_err <= 1e-6, f"CPU refine rows within 1e-6 ({row_err:.3e})")
-        refines.append(dict(info, step=tr.step, n_before=n_before, n=n, ms=ms, draw_ms=draw_ms,
-                            cpu_row_err=row_err))
+        info, r = refine_checked(tr, orig["refine"], rng, [
+            (cams.viewmats[c], cams.Ks[c]) for c in range(LOOP_CAMS)], w, h, LOOP_CAPACITY)
+        refines.append(r)
         held["armed"] = len(refines) == 2
         return info
 
@@ -3676,6 +3760,442 @@ def phase_dist(ref3, ref4, scene0):
     print(f"phase 12 total: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# Phase 13: the garden-shaped dataset written to disk by the port's tool,
+# then trained from disk through the train app at tpugs' refine cadence.
+ATSCALE = dict(n_gaussians=2**19, n_cams=185, width=1296, height=840, n_sfm_points=100_000,
+               radius=2.5, seed=0)  # garden's 185 images; tpugs' init_num_pts
+ATSCALE_STEPS = 1100  # refines every 100 steps from step 500 (TrainConfig's defaults)
+JPEG_MIN_PSNR = 40.0  # dB: each decoded JPEG (quality 75) against its rendered frame
+JPEG_CONTROL_QUALITY = 30  # a writer at this quality must fall below JPEG_MIN_PSNR
+REFINE_CHECK_VIEWS = 8  # train views in which no padded row may be valid after a refine
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two uint8 images."""
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return 10 * np.log10(255.0**2 / max(mse, 1e-12))
+
+
+def check_jpegs(data_dir, frames):
+    """Each JPEG ``make_atscale_dataset`` wrote, decoded by ``read_image``, against its
+    rendered frame: PSNR at least ``JPEG_MIN_PSNR``, and nearer than the
+    frame with R and B swapped (the channel order); the worst frame encoded
+    at ``JPEG_CONTROL_QUALITY`` falls below the limit (the control).
+    Returns the worst image's (PSNR, index, mean abs, max abs, mean abs to
+    the swapped frame), the control's PSNR and the seconds of the decodes."""
+    import cv2
+
+    from tpugs_torch.io.images import read_image
+
+    worst, t0 = None, time.perf_counter()
+    for i, frame in enumerate(frames):
+        dec = read_image(os.path.join(data_dir, "images", f"frame_{i:04d}.jpg"))
+        check(dec.shape == frame.shape and dec.dtype == np.uint8, f"frame {i} decodes")
+        err = np.abs(dec.astype(np.int16) - frame)
+        psnr_db = psnr(dec, frame)
+        swapped = float(np.abs(dec.astype(np.int16) - frame[..., ::-1]).mean())
+        item = (psnr_db, i, float(err.mean()), int(err.max()), swapped)
+        worst = item if worst is None or item < worst else worst
+        check(psnr_db >= JPEG_MIN_PSNR, f"frame {i}: the JPEG within {JPEG_MIN_PSNR} dB "
+              f"({psnr_db:.2f})")
+        check(err.mean() < swapped, f"frame {i}: R and B in their order ({err.mean():.2f} "
+              f"against {swapped:.2f} with them swapped)")
+    decode_s = time.perf_counter() - t0
+    frame = frames[worst[1]]
+    ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(frame[..., ::-1]),
+                           [cv2.IMWRITE_JPEG_QUALITY, JPEG_CONTROL_QUALITY])
+    check(ok, "the control frame encodes")
+    control = psnr(read_image(buf.tobytes()), frame)
+    check(control < JPEG_MIN_PSNR, f"frame {worst[1]} at quality {JPEG_CONTROL_QUALITY} "
+          f"falls below {JPEG_MIN_PSNR} dB ({control:.2f})")
+    return worst, control, decode_s
+
+
+def phase_atscale():
+    """The garden-shaped dataset (``apps/make_atscale_dataset.main`` at
+    ``ATSCALE``, each piece timed, the JPEGs held against the frames) in a
+    temporary directory, then ``apps/train.main`` on it: chunked,
+    ``ATSCALE_STEPS`` steps, main's other defaults (features 128 against
+    ``linear:512``, SH 3, strategy "default" at capacity 16384, SfM init,
+    test_every 8). The trainer's methods are wrapped on the class, so the
+    run stays main's own: the SfM init's count, each chunk's ms/step and N,
+    each refine checked as phase 9's (the first replayed on the CPU), the
+    first step after the last refine of the loop recorded and B4, B5 and B3
+    held and timed on it (B4-, B5-, B3-atscale), the final eval, the
+    checkpoints, the staging and the image reads timed. Returns the three
+    kernel records."""
+    import tempfile
+    from unittest import mock
+
+    from tpugs_torch.apps import make_atscale_dataset
+    from tpugs_torch.apps import train as train_app
+    from tpugs_torch.io.images import read_image
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.train.config import TrainConfig
+    from tpugs_torch.train.dataset import Parser
+    from tpugs_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    w, h, steps = ATSCALE["width"], ATSCALE["height"], ATSCALE_STEPS
+    cfg = TrainConfig()
+    refine_steps = [s for s in range(cfg.refine_start_iter, steps + 1, cfg.refine_every)
+                    if s < cfg.refine_stop_iter]
+    last_in_loop = max(s for s in refine_steps if s < steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "result")
+        built, build_ms = synced_ms(lambda: make_atscale_dataset.main(data, device="cuda",
+                                                                      **ATSCALE))
+        worst, control, decode_s = check_jpegs(data, built["frames"])
+        del built["frames"]
+        planted = np.zeros((64, 64, 3), np.uint8)
+        planted[..., 0] = 220
+        planted[:, 32:, 2] = 200
+        path = os.path.join(tmp, "planted.jpg")
+        make_atscale_dataset.write_jpeg(path, planted)
+        back = read_image(path).astype(np.float64)
+        check(abs(back[:, :24, 0].mean() - 220) < 3 and back[:, :24, 2].mean() < 3
+              and abs(back[:, 40:, 2].mean() - 200) < 3,
+              "a planted red and blue image keeps its channels through write_jpeg, read_image")
+        jpeg_mb = sum(os.path.getsize(os.path.join(data, "images", f))
+                      for f in os.listdir(os.path.join(data, "images"))) / 1e6
+        print(f"phase 13 dataset ({ATSCALE}): {build_ms / 1e3:.2f} s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in built["seconds"].items()) + f" s; {jpeg_mb:.1f} MB of "
+            f"JPEGs, ckpt.pt {os.path.getsize(os.path.join(data, 'ckpt.pt')) / 1e6:.1f} MB; "
+            f"decoded ({decode_s:.2f} s) against the rendered frames: worst PSNR "
+            f"{worst[0]:.2f} dB (frame {worst[1]}, mean abs {worst[2]:.3f}, max abs "
+            f"{worst[3]}; {worst[4]:.2f} mean abs with R and B swapped), bound >= "
+            f"{JPEG_MIN_PSNR} dB; the same frame at quality {JPEG_CONTROL_QUALITY} "
+            f"{control:.2f} dB; a planted red and blue image kept its channels", flush=True)
+
+        box = {"init_n": None, "parse_s": 0.0, "load_s": 0.0, "loads": 0, "stage_ms": 0.0,
+               "views": [], "traj_error": None, "reset_steps": []}
+        chunks, losses, refines, records, evals, saves = [], [], [], [], [], []
+        held = {"check_ms": 0.0, "armed": False, "peak": 0}
+        orig_t = {k: getattr(Trainer, k) for k in (
+            "__init__", "refine", "reset_opacities", "_step_on", "train_chunk",
+            "stage_dataset", "evaluate", "save_checkpoint", "save_checkpoint_full",
+            "render_traj")}
+        orig_p = {k: getattr(Parser, k) for k in ("__post_init__", "load_image")}
+
+        def init(self, *a, **kw):
+            orig_t["__init__"](self, *a, **kw)
+            box["tr"] = self
+            box["init_n"] = self.scene.num_gaussians
+            self.strategy.rng = box["rng"] = TimedRng(self.strategy.rng)
+
+        def post_init(self):
+            t0 = time.perf_counter()
+            orig_p["__post_init__"](self)
+            box["parse_s"] += time.perf_counter() - t0
+
+        def load_image(self, idx):
+            t0 = time.perf_counter()
+            out = orig_p["load_image"](self, idx)
+            box["load_s"] += time.perf_counter() - t0
+            box["loads"] += 1
+            return out
+
+        def stage_dataset(self, dataset):
+            out, box["stage_ms"] = synced_ms(lambda: orig_t["stage_dataset"](self, dataset))
+            pick = np.linspace(0, len(dataset) - 1, REFINE_CHECK_VIEWS).astype(int)
+            box["views"] = [(out["viewmats"][c], out["Ks"][c]) for c in pick]
+            return out
+
+        def refine(self):
+            info, r = refine_checked(self, lambda: orig_t["refine"](self), box["rng"],
+                                     box["views"], w, h, self.cfg.capacity_multiple,
+                                     replay_cpu=not refines)
+            refines.append(r)
+            held["armed"] = self.step == last_in_loop
+            return info
+
+        def reset_opacities(self):
+            box["reset_steps"].append(self.step)
+            return orig_t["reset_opacities"](self)
+
+        def step_on(self, *args, **kw):
+            if not held["armed"]:
+                return orig_t["_step_on"](self, *args, **kw)
+            held["armed"] = False
+            self.record = seen = {}
+            out = orig_t["_step_on"](self, *args, **kw)
+            self.record = None
+            torch.cuda.synchronize()
+            held["peak"] = max(held["peak"], torch.cuda.max_memory_allocated())
+            saved = K.LAUNCHES.snapshot()
+            t = time.perf_counter()
+            records.extend(train_step_records(
+                seen, w, h, saved, f"phase 13 at step {self.step}, after the refine at "
+                f"{last_in_loop}", ("B4-atscale", "B5-atscale", "B3-atscale")))
+            del seen
+            torch.cuda.synchronize()
+            held["check_ms"] += 1e3 * (time.perf_counter() - t)
+            for k, v in saved.items():
+                setattr(K.LAUNCHES, k, v)
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        def train_chunk(self, staged, n_steps, cam_idx=None):
+            step0, before = self.step, held["check_ms"]
+            out, ms = synced_ms(lambda: orig_t["train_chunk"](self, staged, n_steps, cam_idx))
+            chunks.append((step0, self.step, self.scene.num_gaussians,
+                           (ms - (held["check_ms"] - before)) / n_steps))
+            losses.append(out["loss"])
+            return out
+
+        def evaluate(self, dataset, max_images=None):
+            out, ms = synced_ms(lambda: orig_t["evaluate"](self, dataset, max_images))
+            evals.append((len(dataset), ms, out))
+            return out
+
+        def saver(name):
+            def save(self, path):
+                _, ms = synced_ms(lambda: orig_t[name](self, path))
+                saves.append((name, ms, os.path.getsize(path)))
+            return save
+
+        def render_traj(self, Ks, output_path, n_frames=60):
+            try:
+                return orig_t["render_traj"](self, Ks, output_path, n_frames)
+            except Exception as e:
+                box["traj_error"] = f"{type(e).__name__}: {e}"
+                raise
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.LAUNCHES.reset()
+        with mock.patch.multiple(
+                Trainer, __init__=init, refine=refine, reset_opacities=reset_opacities,
+                _step_on=step_on, train_chunk=train_chunk, stage_dataset=stage_dataset,
+                evaluate=evaluate, save_checkpoint=saver("save_checkpoint"),
+                save_checkpoint_full=saver("save_checkpoint_full"), render_traj=render_traj), \
+                mock.patch.multiple(Parser, __post_init__=post_init, load_image=load_image):
+            tr, wall_ms = synced_ms(lambda: train_app.main(
+                data, out_dir, data_factor=1, max_steps=steps, chunked=True, save_every=0))
+        launches = K.LAUNCHES.snapshot()
+        peak_gb = max(held["peak"], torch.cuda.max_memory_allocated()) / 1e9
+        gif = os.path.exists(os.path.join(out_dir, "traj.gif"))
+
+    n_train = sum(1 for i in range(ATSCALE["n_cams"]) if i % cfg.test_every)
+    check(tr is box["tr"] and box["init_n"] == ATSCALE["n_sfm_points"],
+          f"the SfM init has {ATSCALE['n_sfm_points']} Gaussians ({box['init_n']})")
+    check([r["step"] for r in refines] == refine_steps and not box["reset_steps"],
+          f"refines at {refine_steps} and no opacity reset ({[r['step'] for r in refines]}, "
+          f"{box['reset_steps']})")
+    check(len(records) == 3, f"the step after the refine at {last_in_loop} was recorded")
+    loss = np.concatenate(losses)
+    check(len(loss) == steps and bool(np.isfinite(loss).all()), "every loss finite")
+    check(float(losses[-1].mean()) < float(losses[0].mean()),
+          "the last chunk's mean loss below the first chunk's")
+    for k in ("train_fwd", "train_bwd", "reduce"):
+        check(launches[k] >= steps, f"{k} launched every step ({launches[k]})")
+    for r, k in zip(records, ("train_fwd", "train_bwd", "reduce")):
+        r["launches"] = launches[k]
+    check(len(evals) == 1 and all(bool(np.isfinite(evals[0][2][k])) for k in ("psnr", "ssim")),
+          "the final eval finite")
+    check({name for name, _, _ in saves} == {"save_checkpoint", "save_checkpoint_full"},
+          "both final checkpoints saved")
+    print(f"phase 13 train app from disk: {wall_ms / 1e3:.1f} s for {steps} chunked steps "
+          f"({n_train} train views staged, {ATSCALE['n_cams'] - n_train} validation); parse "
+          f"{box['parse_s']:.3f} s, {box['loads']} image reads {box['load_s']:.2f} s "
+          f"({1e3 * box['load_s'] / max(box['loads'], 1):.2f} ms each), staging "
+          f"{box['stage_ms'] / 1e3:.2f} s; SfM init N {box['init_n']}; peak {peak_gb:.2f} GB; "
+          f"launches {launches}", flush=True)
+    print("phase 13 ms/step by chunk [steps) N: " + ", ".join(
+        f"[{a},{b}) {n} {ms:.2f}" for a, b, n, ms in chunks) + "; mean loss by chunk "
+        + " ".join(f"{x.mean():.4f}" for x in losses), flush=True)
+    for r in refines:
+        cpu = ("the CPU refine: same counts and masks, rows within "
+               f"{r['cpu_row_err']:.3e}" if r["cpu_row_err"] is not None else "not replayed")
+        print(f"phase 13 refine @ {r['step']}: N {r['n_before']} -> alive {r['alive']} "
+              f"(kept {r['kept']}, duplicated {r['duplicated']}, split {r['split']}, pruned "
+              f"{r['pruned']}) -> N {r['n']}; {r['ms']:.1f} ms ({r['draw_ms']:.1f} ms host "
+              f"draws); mean accumulated grad2d of the visible {r['grad_mean']:.3e} "
+              f"(grow_grad2d {cfg.grow_grad2d}), {100 * r['grad_high']:.2f}% above it; {cpu}",
+              flush=True)
+    n_val, eval_ms, metrics = evals[0]
+    print(f"phase 13 final eval ({n_val} views from disk, N {tr.scene.num_gaussians}): PSNR "
+          f"{metrics['psnr']:.3f}, SSIM {metrics['ssim']:.4f}, {eval_ms / n_val:.2f} ms per "
+          f"image (its read, render and metrics; render {1e3 * metrics['ellipse_time']:.2f} "
+          f"ms); checkpoints " + ", ".join(f"{name} {ms / 1e3:.2f} s {size / 1e9:.3f} GB"
+                                           for name, ms, size in saves), flush=True)
+    K0 = box["views"][0][1]
+    frames = tr.render_traj(K0, "", n_frames=8)
+    check(len(frames) == 8 and all(f.shape == (h, w, 3) and f.dtype == np.uint8
+                                   for f in frames), "render_traj: 8 uint8 frames")
+    print(f"phase 13 trajectory GIF {'written' if gif else 'not written'}"
+          + (f" (main's render_traj: {box['traj_error']})" if box["traj_error"] else "")
+          + f"; render_traj with no path: 8 frames, {sum(int(f.any()) for f in frames)} not "
+          f"black; phase 13 total {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del tr, box
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_gather():
+    """``experiments/gather_locality.main([])`` at its defaults (the seed-0
+    scene of 2^19 Gaussians and its Morton order, the 4-view orbit at
+    1296 x 840, tile 32): its lines, the Morton lift against the default
+    lift in scene order for both engines (``gather_locality``'s ``ok``:
+    equal to f32 rounding for the Gaussians neither moved in a span, which
+    a depth tie explains, nor in a tile that renders differently, which a
+    move or a pack row's rounding explains; a weight sum beyond rounding
+    only where moved; the rest within the module's limits), each kernel
+    launched every view; then the Morton scene's lift
+    alone through each engine with the counts set to 0 just before, and
+    its view 0 held against the twins and timed as phase 3's view 0 (B1-,
+    B2-, B3-, B6-, B7-morton, with the counts of that lift). Returns the
+    five kernel records."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.experiments import gather_locality
+    from tpugs_torch.lift.batch import backproject_views
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.utils.order import morton_permutation, permute_scene
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    t_phase = time.perf_counter()
+    K.LAUNCHES.reset()
+    out, ms = synced_ms(lambda: gather_locality.main([]))
+    launches = K.LAUNCHES.snapshot()
+    runs = 2 * gather_locality.VIEWS  # the two scenes' views, per engine
+    for name in ("render", "adjoint", "reduce", "adjoint_scatter", "stripe_sum"):
+        want = 2 * runs if name == "render" else runs
+        check(launches[name] >= want, f"{name} launched every view ({launches[name]})")
+    for engine, e in out["morton_equal"].items():
+        check(e["ok"], f"the Morton lift ({engine}) equals the default lift in scene order to "
+              f"f32 rounding for the Gaussians neither moved (a depth tie) nor in a tile that "
+              f"renders differently (a move or a pack row's rounding), and within "
+              f"{gather_locality.TIED_MAX_REL} of the row's max and "
+              f"{gather_locality.TIED_MAX_SHARE} of N for the others: {e}")
+    mean = {k: v["mean"] for k, v in out["lift"].items()}
+    print(f"phase 14 gather locality: {ms / 1e3:.1f} s; launches {launches}; mean ms/view by "
+          "stage: " + "; ".join(f"{k} " + ", ".join(f"{s} {v:.3f}" for s, v in m.items())
+                               for k, m in mean.items()), flush=True)
+    print("phase 14 Morton against default (stage mean ms/view): " + "; ".join(
+        f"{e} {s} {mean[f'{e}-morton'][s] / mean[f'{e}-default'][s]:.3f}x"
+        for e in ("pallas", "scatter") for s in ("pack", "render", "adjoint", "reduce")),
+        flush=True)
+    w, h = W_FULL, H_FULL
+    scene = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    scene_m = permute_scene(scene, morton_permutation(scene))
+    del scene
+    cams = orbit_cameras(gather_locality.VIEWS, w, h, radius=3.0, device="cuda")
+    enc = LinearRGBEncoder(D_FULL, device="cuda")
+    counts = {}
+    for engine in ("pallas", "scatter"):
+        torch.cuda.synchronize()
+        K.LAUNCHES.reset()
+        backproject_views(scene_m, cams.viewmats, cams.Ks, w, h, enc, tile_size=TILE,
+                          device="cuda", reduce_engine=engine)
+        torch.cuda.synchronize()
+        counts[engine] = K.LAUNCHES.snapshot()
+    names = {"pallas": ("render", "adjoint", "reduce"),
+             "scatter": ("render", "adjoint_scatter", "stripe_sum")}
+    for engine, kernels in names.items():
+        for name in kernels:
+            check(counts[engine][name] >= gather_locality.VIEWS,
+                  f"the Morton lift ({engine}) launched {name} every view "
+                  f"({counts[engine][name]})")
+    print(f"phase 14 the Morton scene's lift alone: launches {counts}", flush=True)
+    records, r = lift_view_records(scene_m, cams, enc, counts["pallas"], counts["scatter"],
+                                   "phase 14 Morton", "-morton")
+    del r, scene_m
+    torch.cuda.empty_cache()
+    print(f"phase 14 total {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records
+
+
+BPE_PROBE = "#version: 0.2\nt a\nta b\nl e</w>\nv a\nc e</w>\n"  # merges for the text probe
+
+
+def phase_convert():
+    """The weight-conversion self-check (``apps/convert_weights.main``) on
+    the card: LSeg-512 (ViT-L/16 + DPT head) in lang-seg's layout with the
+    families the loader drops planted (the CLIP text tower under
+    ``clip_pretrained.`` with a visual tensor and ``logit_scale``, timm's
+    classifier, ``scratch.refinenet4.resConfUnit1``) and DINOv2
+    ViT-L/14-reg with its ``mask_token``, seeded random weights written to
+    a temporary directory, with a small BPE merges file; each self-check's
+    output equal bit for bit to the module's own forward on the probe, the
+    report's counts to the modules', and a planted unknown key raising."""
+    import tempfile
+
+    from tpugs_torch.apps import convert_weights as CW
+    from tpugs_torch.encoders.clip_text import CLIPTextTower, SimpleTokenizer, tokenize
+    from tpugs_torch.encoders.dino import DinoEncoder
+    from tpugs_torch.encoders.lseg import LSegEncoder, LSegNet
+    from tpugs_torch.encoders.vit import DINOV2_VIT_L14_REG, VisionTransformer
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(0)
+    net = LSegNet(device="cuda")
+    text = CLIPTextTower(device="cuda")
+    with torch.no_grad():  # its projection and positions start at zero
+        for p in text.parameters():
+            p.normal_(0.0, 0.02)
+    vit = VisionTransformer(DINOV2_VIT_L14_REG, act="gelu", device="cuda")
+    gen = torch.Generator().manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    lseg_sd = {k: v.cpu() for k, v in net.state_dict().items()}
+    lseg_sd.update({f"clip_pretrained.{k}": v.cpu() for k, v in text.state_dict().items()})
+    lseg_sd.update({
+        "clip_pretrained.visual.proj": rand(768, 512), "clip_pretrained.logit_scale": rand(),
+        "logit_scale": rand(), "pretrained.model.head.weight": rand(1000, 1024),
+        "pretrained.model.head.bias": rand(1000),
+        **{f"scratch.refinenet4.resConfUnit1.conv{i}.{p}": rand(256, 256, 3, 3)
+           if p == "weight" else rand(256) for i in (1, 2) for p in ("weight", "bias")}})
+    dino_sd = {k: v.cpu() for k, v in vit.state_dict().items()}
+    dino_sd["mask_token"] = rand(1, 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        lseg_path, dino_path = os.path.join(tmp, "lseg.ckpt"), os.path.join(tmp, "dino.pth")
+        bpe = os.path.join(tmp, "bpe.txt")
+        with open(bpe, "w") as fh:
+            fh.write(BPE_PROBE)
+        t0 = time.perf_counter()
+        torch.save({"state_dict": lseg_sd, "epoch": 200}, lseg_path)
+        torch.save(dino_sd, dino_path)
+        write_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(p) / 1e9 for p in (lseg_path, dino_path)]
+        (report, outputs), ms = synced_ms(lambda: CW.main([
+            "--lseg-ckpt", lseg_path, "--dino-ckpt", dino_path, "--bpe-path", bpe,
+            "--out-dir", os.path.join(tmp, "out")]))
+        with open(os.path.join(tmp, "out", "convert_report.json")) as fh:
+            check(json.load(fh) == report, "convert_report.json holds the report")
+        tokens = torch.from_numpy(tokenize(SimpleTokenizer(bpe), CW.TEXT_PROBE)).cuda().long()
+        unknown = dict(lseg_sd, **{"scratch.extra.weight": rand(3)})
+        try:
+            CW.convert_lseg(unknown, os.path.join(tmp, "bad"), "", {}, torch.device("cuda"))
+        except RuntimeError as e:
+            raised = "scratch.extra.weight" in str(e)
+        else:
+            raised = False
+    check(raised, "a planted unknown key raises")
+    with torch.no_grad():
+        own = {"lseg": LSegEncoder.from_net(net)(CW._probe(480, torch.device("cuda"))),
+               "dino": DinoEncoder.from_vit(vit)(CW._probe(224, torch.device("cuda"))),
+               "clip_text": text.eval()(tokens)}
+    for tower, module in (("lseg", net), ("clip_text", text), ("dino", vit)):
+        check(torch.equal(outputs[tower], own[tower]),
+              f"{tower}: the self-check's output equals the module's own forward bit for bit")
+        counted = sum(v.numel() for v in module.state_dict().values())
+        check(report[tower]["converted"]["parameters"] == counted
+              and report[tower]["converted"]["tensors"] == len(module.state_dict()),
+              f"{tower}: the report counts the module's state dict")
+        stats = report[tower]["self_check"]
+        check(stats["finite"] and stats["shape"] == list(own[tower].shape),
+              f"{tower}: the self-check's output finite, of the module's shape")
+    print(f"phase 15 convert_weights on the card: checkpoints written in {write_s:.1f} s "
+          f"(LSeg {sizes[0]:.3f} GB, DINOv2 {sizes[1]:.3f} GB); the tool {ms / 1e3:.1f} s; "
+          + "; ".join(f"{t} {r['converted']} {r['self_check']}" for t, r in report.items())
+          + "; each output bit-equal to its module's forward; a planted unknown key raised; "
+          f"phase 15 total {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del net, text, vit, outputs, own
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -3711,6 +4231,9 @@ def main() -> int:
     del field
     phase_dist(ref3, ref4, scene0)
     del ref3, scene0
+    records += phase_atscale()
+    records += phase_gather()
+    phase_convert()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

@@ -28,6 +28,8 @@ from tpugs_torch.apps.click_and_segment import main as click_main
 from tpugs_torch.apps.llm_backend import make_hf_backend
 from tpugs_torch.apps.backproject import main as backproject_main
 from tpugs_torch.apps.backproject_compressed import main as compressed_main
+from tpugs_torch.apps.convert_weights import main as convert_weights_main
+from tpugs_torch.apps.make_atscale_dataset import main as atscale_main
 from tpugs_torch.apps.segment import main as segment_main
 from tpugs_torch.apps.train import main as train_main
 from tpugs_torch.apps.train_codec import main as train_codec_main
@@ -42,7 +44,12 @@ from tpugs_torch.encoders.clip_text import CLIPTextTower
 from tpugs_torch.encoders.dino import DinoEncoder
 from tpugs_torch.encoders.lseg import LSegEncoder, LSegHead, LSegNet, TextEncoder, encode_text
 from tpugs_torch.encoders.vit import VisionTransformer, ViTConfig
-from tpugs_torch.experiments import profile_stages, scatter_write, sharded_singlechip
+from tpugs_torch.experiments import (
+    gather_locality,
+    profile_stages,
+    scatter_write,
+    sharded_singlechip,
+)
 from tpugs_torch.io.checkpoints import load_checkpoint
 from tpugs_torch.kernels import build
 from tpugs_torch.lift.backproject import create_feature_field
@@ -213,6 +220,9 @@ ENTRY_POINTS = {
         width=32, height=32, device="cpu")),
     "dryrun_multichip": lambda: dryrun_multichip(1),
     "sharded_singlechip.main": lambda: sharded_singlechip.main([]),
+    "make_atscale_dataset app": lambda: atscale_main(out="atscale"),
+    "gather_locality.main": lambda: gather_locality.main([]),
+    "convert_weights app": lambda: convert_weights_main(["--lseg-ckpt", "x.ckpt"]),
 }
 
 

@@ -10,12 +10,14 @@ plain PyTorch twin that the CPU tests use.
 Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
 
   core/      scene (raw parameterisation + activations), cameras, devices
-  io/        COLMAP, PLY, checkpoint and compression readers and writers
+  io/        COLMAP, PLY, checkpoint and compression readers and writers; the
+             ``cv2`` image reader
   native/    the C++ COLMAP parser (g++, ctypes) beside the pure readers
   apps/      the CLIs: back-projection (load, prune, verify, lift, save),
              segmentation and edits, the compressed lift, the codec's
              training, PCA renders, affordance transfer, training and its
-             supervisor, the dataset downloader; the interactive apps: the
+             supervisor, the dataset downloader, the at-scale dataset
+             writer, the weight-conversion report; the interactive apps: the
              viewer, click-and-segment, the language-driven editor and its
              LLM backends
   utils/     synthetic scenes, orbit rigs and COLMAP models (bit-identical
@@ -44,7 +46,8 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
              trajectories and the live viewer
   experiments/ the reduce experiments S1 (scatter writes) and S2 (reduce tail),
              the phases tools, the LSeg encoder's post step, the lift's
-             stage profiler, the sharded programs on one device
+             stage profiler, the sharded programs on one device, gather
+             locality (Morton order against the default)
   dist/      runs over several devices on ``torch.distributed`` (NCCL on
              CUDA, gloo on the CPU): meshes, the sharded lift, the sharded
              train step, its chunk and refine, CPU ranks for tests, the dry
@@ -55,8 +58,11 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
 
 Nothing here imports ``jax`` or ``tpugs``; only the tests import both.
 
-Not ported yet: the scripts under ``scripts/`` without a counterpart
-(ROADMAP queue A item 8).
+The scripts under ``scripts/`` were ported in ROADMAP queue A item 8, the
+last item: the at-scale dataset writer (``apps/make_atscale_dataset.py``),
+the gather-locality experiment (``experiments/gather_locality.py``) and the
+weight-conversion report (``apps/convert_weights.py``); images are read
+with ``cv2`` (``io/images.py``).
 """
 
 from tpugs_torch.core.camera import Camera  # noqa: F401

@@ -93,13 +93,13 @@ def main(
             preds.append(resize_nearest(predict(c), *gt_label.shape[:2]))
             gts.append(gt_label)
     else:
-        import imageio.v2 as imageio
+        from tpugs_torch.io.images import read_image
 
         for c in range(cams.num_cameras):
             gt_path = os.path.join(gt_dir, f"frame_{c:04d}.png")
             if not os.path.exists(gt_path):
                 continue
-            gts.append(imageio.imread(gt_path))
+            gts.append(read_image(gt_path))
             preds.append(predict(c))
     metrics = evaluate_iou(preds, gts)
     print(json.dumps(metrics, indent=2))

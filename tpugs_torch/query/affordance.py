@@ -11,14 +11,13 @@ per-class IoU and recall are scored against ground-truth label maps
 image: B2 with f32 rows and B3), binary voting, and projection voting by
 each Gaussian's projected centre.
 
-``imageio`` (PNG masks and exemplar images) and ``cv2`` (polygons, mask
-resizes) are imported where they are used.
+``cv2`` (PNG masks and exemplar images through ``io/images.py``, polygons,
+mask resizes) is imported where it is used.
 """
 
 from __future__ import annotations
 
 import base64
-import io
 import json
 import os
 from dataclasses import dataclass
@@ -57,9 +56,9 @@ class ExemplarBank:
 
 def decode_labelme_mask(b64png: str) -> np.ndarray:
     """base64 PNG -> bool mask."""
-    import imageio.v2 as imageio
+    from tpugs_torch.io.images import read_image
 
-    img = imageio.imread(io.BytesIO(base64.b64decode(b64png)))
+    img = read_image(base64.b64decode(b64png))
     if img.ndim == 3:
         img = img[..., 0]
     return img > 127
@@ -89,9 +88,9 @@ def load_exemplars(
         if image_loader is not None:
             image = image_loader(img_name)
         else:
-            import imageio.v2 as imageio
+            from tpugs_torch.io.images import read_image
 
-            image = imageio.imread(os.path.join(json_dir, img_name)).astype(np.float32) / 255.0
+            image = read_image(os.path.join(json_dir, img_name)).astype(np.float32) / 255.0
         rgb = torch.from_numpy(np.ascontiguousarray(image[..., :3], np.float32)).to(dev)
         with torch.inference_mode():
             fmap = encoder(rgb).float().cpu().numpy()

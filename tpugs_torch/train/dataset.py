@@ -4,8 +4,9 @@ on the port's COLMAP reader: parser with per-camera intrinsics, undistortion, fa
 suffixed image dirs, 3D points with per-image indices (for the depth
 loss), scene normalization and scale; Dataset with train/val split
 (``index % test_every``), optional patch cropping, and projected-depth
-ground truth. Items are numpy arrays; ``imageio`` and ``cv2`` are imported
-where an image is read or undistorted."""
+ground truth. Items are numpy arrays; images are read with ``cv2``
+(``io/images.py::read_image``), which is imported where an image is read
+or undistorted."""
 
 from __future__ import annotations
 
@@ -186,9 +187,9 @@ class Parser:
     def load_image(self, idx: int) -> np.ndarray:
         """(H, W, 3) float image in [0, 1]; undistorts non-pinhole
         models via the precomputed remap grids."""
-        import imageio.v2 as imageio
+        from tpugs_torch.io.images import read_image
 
-        img = imageio.imread(self.image_paths[idx])[..., :3]
+        img = read_image(self.image_paths[idx])[..., :3]
         cam_id = self.camera_ids[idx]
         if cam_id in self.mapx_dict:
             import cv2
