@@ -18,9 +18,11 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              (B1's culled walk bit-equal, image and exit blocks, to its
              unculled instantiation, each counting its own launches, and
              two launches bit-equal), D = 3, 20 and 131 (B4 and B5 also at 256, their cluster
-             kernels' widest, and 300, their wide kernels; each width's
-             launch counters; B4's alpha and exit blocks bit-equal to its
-             wide kernel's; two launches bit-equal); S1's
+             kernels' widest, 300 and 512: B4's cluster kernel in two
+             channel slices, B5's one-CTA kernel; B4 also at 600, in three
+             slices, where B5 refuses the width; each width's launch
+             counters; B4's alpha and exit blocks bit-equal to its wide
+             kernel's; two launches bit-equal); S1's
              asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
@@ -66,7 +68,8 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              twins at trans_eps 0; the kernels' times and bounds on this
              path's walked pairs. Then ``render_tiled`` at D = 515 with a
              background and the absgrad probe at view 0, forward and
-             backward (ms, peak; B5's geometry-only launch once, rebuilt
+             backward (ms, peak; B4's cluster kernel for both channel
+             chunks, no wide-kernel launch; B5's geometry-only launch once, rebuilt
              from the render's inputs it gives the probe's gradient bit for
              bit, 64 tiles against the twin, its time against its bound).
 6. app     — ``tpugs_torch.apps.backproject.main`` from files on disk: the
@@ -107,8 +110,17 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              (B4 at D = 3 and 512; ms/view, peaks, launches), view 0's
              pixel mask against float64, ``segment_by_opacity(~mask)``
              rendering the deleted scene within 1/510; the D = 512 feature
-             render (B4-viz) against its twin on 64 tiles, timed, with its
-             bound; ``train_codec`` on the card (steps/s, the loss falls);
+             render (B4-viz: the cluster kernel in two channel slices)
+             against its twin on 64 tiles, its alpha and exit blocks
+             bit-equal to the wide kernel's, timed beside the wide kernel,
+             with its bound; the segment app's three GIFs and two scenes'
+             per-frame PNGs written to a temporary directory and read back
+             with cv2 (each GIF frame its encoder's palette of the frame,
+             100-ms delays, endless loop; each PNG the frame), the
+             compression round trip of the canonical scene on the card
+             bit-equal to the CPU copies', the viewer's PNG of a frame and
+             ``apply_float_colormap`` against its table; ``train_codec`` on
+             the card (steps/s, the loss falls);
              the compressed lift (``CompressedEncoder`` over ``linear:512``,
              pallas engine: ms/view, peak, ``den`` against phase 3's, ``num``
              against phase 3's ``num @ encoder`` within its bf16 bound);
@@ -174,7 +186,8 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              twin; a click session (``apps/click_and_segment.py``)
              on the scene plus 256 planted Gaussians whose field rows are a
              direction no scene row shares: the RGB+ED render (D = 4) and
-             the 512-wide field render (B4's wide kernel) on the card, a
+             the 512-wide field render (B4's cluster kernel in channel
+             slices) on the card, a
              positive click on the cluster and a negative one on the scene,
              ``mask3d`` equal to float64 outside ties with all 256 planted
              selected, the extracted pane black outside the cluster's
@@ -226,9 +239,9 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              step and held on 64 tiles of the first step after the refine
              at 1000 (B4-, B5-, B3-atscale, timed against their bounds);
              the final eval's ms per image, PSNR and SSIM; the final
-             checkpoints' seconds and sizes; the peak; whether main's
-             trajectory GIF was written (it needs ``imageio``), and
-             ``render_traj`` with no path.
+             checkpoints' seconds and sizes; the peak; main's trajectory
+             GIF (30 frames, read back with cv2; a failed write fails the
+             phase), and ``render_traj`` with no path.
 14. gather locality — ``experiments/gather_locality.main([])``: the pack-
              and reduce-shaped gathers by uniform-random, sorted and the
              two plans' indices (the default scene and its Morton order),
@@ -553,10 +566,12 @@ def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
 
 
 # (tile, D, view) of phase 2's train kernels: B4's and B5's cluster kernels
-# in clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256, their wide
-# kernels above (train_fwd_cluster, train_cluster)
+# in clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256; above it
+# B4's cluster kernel in 2 (300, 512) or 3 (600) channel slices and B5's
+# one-CTA kernel up to its 512 channels (train_fwd_cluster, train_cluster)
 TRAIN_KERNEL_SHAPES = ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0), (32, 256, 0),
-                       (16, 300, 1), (32, 300, 1))
+                       (16, 300, 1), (32, 300, 1), (16, 512, 0), (32, 512, 1), (16, 600, 1),
+                       (32, 600, 0))
 
 
 def phase_train_kernels():
@@ -592,8 +607,9 @@ def phase_train_kernels():
         torch.cuda.synchronize()
         fwd_cluster = T.train_fwd_cluster(ts, D)
         launched = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide)
-        check(launched == ((0, 1) if fwd_cluster is None else (1, 0)),
-              f"B4 at D = {D} launched the kernel its width selects ({launched})")
+        check(launched == (1, 0) and fwd_cluster[2] == -(-D // T.SLICE_CHANNELS),
+              f"B4 at D = {D} launched its cluster kernel in {fwd_cluster[2]} channel slices "
+              f"({launched})")
         again = T.train_forward(geom, cols, plan)
         img_w, alpha_w, done_w = T._launch_train_fwd(lib, geom, cols, plan, K.TRANS_EPS, None)
         torch.cuda.synchronize()
@@ -605,7 +621,7 @@ def phase_train_kernels():
         seen_empty |= bool((spans == 0).any())
         _, r_img = rel_err(img_k, img_t)
         _, r_alpha = rel_err(alpha_k, alpha_t)
-        kind = "wide kernel" if fwd_cluster is None else "cluster (C, P) = {}".format(fwd_cluster)
+        kind = "cluster (C, P, S, Ns) = {}".format(fwd_cluster)
         print(f"phase 2 ts={ts} D={D} B4 train_fwd ({kind}): image rel {r_img:.3e}, alpha rel "
               f"{r_alpha:.3e} (exit blocks differ on {int((done_k != done_t).sum())} tiles); "
               f"against the wide kernel: image rel {r_wide:.3e}, alpha and exit blocks "
@@ -619,6 +635,15 @@ def phase_train_kernels():
         hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha_k)
         grem0 = (g * img_k).sum(-1)
         args = (geom, cols, g, hterm, grem0, done_k, plan)
+        if D > T.MAX_CHANNELS:  # RenderTrain renders such widths in chunks of B5's widest
+            try:
+                T.train_rows(*args)
+            except ValueError:
+                print(f"phase 2 ts={ts} D={D} B5 refuses the width (MAX_CHANNELS "
+                      f"{T.MAX_CHANNELS})", flush=True)
+            else:
+                check(False, f"B5 refuses D = {D}")
+            continue
         layout = T.train_cluster(ts, D)
         for dtype in (torch.float32, torch.bfloat16):
             K.LAUNCHES.reset()
@@ -1700,6 +1725,9 @@ def phase_absgrad():
     launches = K.LAUNCHES.snapshot()
     check(launches["train_bwd_geom"] == 1,
           f"the backward launched the geometry-only B5 once ({launches})")
+    check(launches["train_fwd"] == 2 and launches["train_fwd_wide"] == 0,
+          f"the forward rendered both channel chunks (512 in 2 slices, 3) through B4's "
+          f"cluster kernel ({launches})")
     d_abs = grads[5]
     check(all(bool(torch.isfinite(x).all()) for x in grads) and bool((d_abs != 0).any()),
           "every gradient finite, the absgrad probe's nonzero")
@@ -2235,8 +2263,8 @@ def phase_lseg(den3):
 # Phase 8: queries and edits on phase 7's LSeg-512 field at the canonical
 # shape (N = 2^19, 1296 x 840, 8 orbit views): segmentation and its edits,
 # the compressed lift, PCA and affordance transfer, each through the
-# functions the apps call (files are written only by the apps, with
-# imageio, which the card's machine lacks: output_path None here).
+# functions the apps call (timed with no output path; the segment app's
+# files are then written and read back by ``write_checks``).
 TEXT_POS, TEXT_NEG = 2, 3  # CLIP-tower query rows; one --pos-idx row joins the positives
 PLANTED_ROWS = 10  # field rows set to the positive query, and as many to the negative
 TIE_MARGIN = 1e-5  # decisions this close to a tie are left out of the float64 checks
@@ -2287,6 +2315,116 @@ def labels_f64(field, bank, k, n_classes):
     votes = bank.labels[order[:, :k]]
     counts = (votes[..., None] == np.arange(n_classes)).sum(1)
     return counts.argmax(1), gap
+
+
+def read_gif_cv2(path):
+    """(frames RGB, durations ms, loop) of a GIF, decoded by cv2."""
+    import cv2
+
+    ok, anim = cv2.imreadanimation(path)
+    check(bool(ok), f"cv2 decodes {os.path.basename(path)}")
+    return ([np.ascontiguousarray(f[..., 2::-1]) for f in anim.frames],
+            [int(x) for x in anim.durations], int(anim.loop_count))
+
+
+def gif_holds(path, frames) -> str:
+    """Checks the GIF at ``path`` against ``frames``: each decoded frame
+    equal to its encoder's palette of the frame, 100-ms delays, endless
+    loop; returns a summary (the decoded frames' mean error)."""
+    from tpugs_torch.io.images import gif_palette
+
+    got, durations, loop = read_gif_cv2(path)
+    check(len(got) == len(frames) and durations == [100] * len(frames) and loop == 0,
+          f"{os.path.basename(path)}: {len(frames)} frames of 100 ms, endless loop "
+          f"({len(got)}, {durations[:3]}, {loop})")
+    errs = []
+    for g, f in zip(got, frames):
+        palette, idx = gif_palette(f)
+        check(np.array_equal(g, palette[idx]), f"{os.path.basename(path)}: a frame decodes "
+              f"to its palette")
+        errs.append(float(np.abs(g.astype(int) - f.astype(int)).mean()))
+    return (f"{os.path.basename(path)} {len(got)} frames ({os.path.getsize(path) / 1e6:.2f} MB, "
+            f"mean error {np.mean(errs):.3f})")
+
+
+def write_checks(scene, planted, pos_q, neg_q, cams, extracted, deleted, w, h):
+    """The segment app's three GIFs and the extracted and deleted scenes'
+    per-frame PNGs, written as the app writes them into a temporary
+    directory and read back with cv2; the compression round trip of the
+    scene on the card against the same round trip of CPU copies, bit for
+    bit; the viewer's PNG of one frame; ``apply_float_colormap`` against a
+    lookup in its table. Prints one line per piece."""
+    import tempfile
+
+    import cv2
+
+    from tpugs_torch.convert import scene_to_numpy
+    from tpugs_torch.core.scene import GaussianScene
+    from tpugs_torch.io.compression import compress_scene, compressed_size_bytes, decompress_scene
+    from tpugs_torch.io.images import read_image
+    from tpugs_torch.train.colormaps import TURBO
+    from tpugs_torch.train.modules import apply_float_colormap
+    from tpugs_torch.train.viewer import encode_png
+    from tpugs_torch.viz.gif import render_mask_2d_to_gif, render_to_gif
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = {k: os.path.join(tmp, f"{k}.gif") for k in ("mask2d", "extracted", "deleted")}
+        frames = {"mask2d": render_mask_2d_to_gif(scene, planted, pos_q, neg_q, cams,
+                                                  paths["mask2d"]),
+                  "extracted": render_to_gif(paths["extracted"], extracted, cams,
+                                             use_checkerboard_background=True),
+                  "deleted": render_to_gif(paths["deleted"], deleted, cams)}
+        write_s = time.perf_counter() - t0
+        lines = [gif_holds(paths[k], frames[k]) for k in paths]
+        n_png = 0
+        for k in ("extracted", "deleted"):
+            for c, f in enumerate(frames[k]):
+                got = read_image(f"{paths[k]}.images/frame_{c:04d}.png")
+                check(np.array_equal(got, f), f"{k} frame {c}'s PNG decodes to the frame")
+                n_png += 1
+        print(f"phase 8 segment files (render_mask_2d_to_gif, render_to_gif with paths, "
+              f"{write_s:.1f} s with their renders): " + "; ".join(lines)
+              + f"; {n_png} per-frame PNGs equal to their frames", flush=True)
+
+        # compression: the scene on the card and its CPU copy, round trips equal
+        t0 = time.perf_counter()
+        compress_scene(scene, os.path.join(tmp, "card"))
+        back = decompress_scene(os.path.join(tmp, "card"), device="cuda")
+        comp_s = time.perf_counter() - t0
+        cpu = GaussianScene(**{k: v.cpu() for k, v in vars(scene).items()
+                               if isinstance(v, torch.Tensor)})
+        compress_scene(cpu, os.path.join(tmp, "cpu"))
+        back_cpu = decompress_scene(os.path.join(tmp, "cpu"), device="cpu")
+        a, b = scene_to_numpy(back), scene_to_numpy(back_cpu)
+        same = all(np.array_equal(a[k], b[k]) for k in a)
+        files_same = all(
+            np.array_equal(read_image(os.path.join(tmp, "card", f)),
+                           read_image(os.path.join(tmp, "cpu", f)))
+            for f in os.listdir(os.path.join(tmp, "card")) if f.endswith(".png"))
+        print(f"phase 8 compression of the canonical scene (N={scene.num_gaussians}): "
+              f"{compressed_size_bytes(os.path.join(tmp, 'card')) / 1e6:.3f} MB in "
+              f"{len(os.listdir(os.path.join(tmp, 'card')))} files, round trip {comp_s:.2f} s; "
+              f"the card's round trip equals the CPU copy's bit for bit {same}, PNGs equal "
+              f"{files_same}", flush=True)
+        check(same and files_same, "the compression round trip on the card equals the CPU's")
+        del back, back_cpu, cpu
+
+    # the viewer's PNG of a frame; the colormap against its table
+    frame = frames["mask2d"][0]
+    png = encode_png(frame)
+    dec = cv2.imdecode(np.frombuffer(png, np.uint8), cv2.IMREAD_UNCHANGED)[..., ::-1]
+    check(np.array_equal(dec, frame), "the viewer's PNG decodes to the frame")
+    x = np.concatenate([np.random.default_rng(3).uniform(-0.2, 1.2, 100_000),
+                        [0.0, 1.0, np.nan, np.inf, -np.inf, 255 / 256]])
+    idx = np.clip(np.floor(np.nan_to_num(np.clip(x, 0, 1), nan=0.0) * 256), 0, 255).astype(int)
+    want = (TURBO[idx] * 255).astype(np.uint8)
+    want[np.isnan(x)] = 0
+    cmap_ok = np.array_equal(apply_float_colormap(x), want)
+    print(f"phase 8 viewer PNG of a {w}x{h} frame: {len(png) / 1e6:.3f} MB, decodes to the "
+          f"frame; apply_float_colormap on {len(x)} values (0, 1, NaN, infinities, out of "
+          f"range) equals the turbo table's lookup {cmap_ok}", flush=True)
+    check(cmap_ok, "apply_float_colormap equals its table's lookup")
 
 
 def phase_queries(field_cpu, ref3):
@@ -2402,8 +2540,9 @@ def phase_queries(field_cpu, ref3):
         check(launches["train_fwd"] >= VIEWS, f"{name}: B4 at D = 3 on every view ({launches})")
     check(launches_e["train_fwd_wide"] == 0 and launches_d["train_fwd_wide"] == 0,
           "the RGB frames take B4's cluster kernel")
-    check(launches_m["train_fwd_wide"] >= VIEWS,
-          f"mask2d: B4's wide kernel at D = {d} on every view ({launches_m})")
+    check(launches_m["train_fwd"] >= 2 * VIEWS and launches_m["train_fwd_wide"] == 0,
+          f"mask2d: B4's cluster kernel at D = 3 and, in channel slices, at D = {d} on every "
+          f"view ({launches_m})")
 
     # view 0's mask: the feature image again (B4 is deterministic), scored
     # on the card and in float64; the function's frame from the same mask
@@ -2457,28 +2596,41 @@ def phase_queries(field_cpu, ref3):
           f"extracted + checkerboard {seg_ms['extracted']:.2f} (peak {ext_peak:.2f} GB), "
           f"deleted {seg_ms['deleted']:.2f} (peak {del_peak:.2f} GB), render_mask_2d_to_gif "
           f"(RGB + D={d} feature image + per-pixel mask) {seg_ms['mask2d']:.2f} (peak "
-          f"{m2d_peak:.2f} GB), opacity-hidden {seg_ms['opacity']:.2f}; B4 launches: D=3 "
-          f"{launches_e['train_fwd']} + {launches_d['train_fwd']} + {launches_m['train_fwd']}, "
-          f"D={d} {launches_m['train_fwd_wide']}; segment_by_opacity(~mask) against the deleted "
+          f"{m2d_peak:.2f} GB), opacity-hidden {seg_ms['opacity']:.2f}; B4 launches: "
+          f"extracted {launches_e['train_fwd']}, deleted {launches_d['train_fwd']}, mask2d "
+          f"{launches_m['train_fwd']} (D=3 and D={d} on each view), the wide kernel "
+          f"{launches_m['train_fwd_wide']}; segment_by_opacity(~mask) against the deleted "
           f"scene: max abs {worst:.3e} per pixel (bound 1/510), frames within {frames_close}",
           flush=True)
     check(worst <= 1 / 510, "the opacity-hidden render equals the deleted scene's within 1/510")
 
-    # B4-viz: the D = 512 feature render of view 0 against its twin, its
-    # time and its bound on the pairs with a nonzero weight
+    # B4-viz: the D = 512 feature render of view 0 (B4's cluster kernel in
+    # channel slices) against its twin, its alpha and exit blocks against the
+    # wide kernel's, its time beside the wide kernel's, and its bound on the
+    # pairs with a nonzero weight
+    from tpugs_torch.kernels.build import load_library
+
     geom, cols, plan, done = (seen[k] for k in ("geom", "cols", "plan", "blocks_done"))
     ts = plan.tile_size
+    layout = T.train_fwd_cluster(ts, d)
     vgen = torch.Generator(device="cuda").manual_seed(8)
     tiles = torch.randperm(plan.n_tiles, device="cuda", generator=vgen)[:64]
     inside = tile_inside(h, w, ts, tiles)
-    img_t, alpha_t, _ = T.train_tiles_plain(geom, cols, plan, 0.0, tiles)
+    img_t, alpha_t, done_t = T.train_tiles_plain(geom, cols, plan, 0.0, tiles)
     b4v = rel_err(torch.where(inside, image_to_tiles(seen["image"], ts)[tiles], 0.0),
                   torch.where(inside, img_t, 0.0))
     alpha_tiles = image_to_tiles(seen["alpha"][..., None], ts)[..., 0]
     b4v_alpha = rel_err(torch.where(inside[..., 0], alpha_tiles[tiles], 0.0),
                         torch.where(inside[..., 0], alpha_t, 0.0))
+    done_twin = torch.equal(done[tiles], done_t)
     del img_t, alpha_t
+    wide = lambda: T._launch_train_fwd(load_library(), geom, cols, plan, 0.0, None)  # noqa: E731
+    img_w, alpha_w, done_w = wide()
+    as_wide = torch.equal(seen["alpha"], alpha_w) and torch.equal(done, done_w)
+    _, b4v_wide_rel = rel_err(seen["image"], img_w)
+    del img_w, alpha_w, done_w
     b4v_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, 0.0), 3)
+    b4v_wide_ms = time_cuda(wide, 3)
     b4v_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, 0.0), 1)
     pairs, weighted, _ = walked_pairs(geom, plan, 0.0)
     walked = int(done.sum())
@@ -2486,18 +2638,31 @@ def phase_queries(field_cpu, ref3):
                       pairs * PAIR_OPS + weighted * 2 * d, PEAK_F32_FLOPS)
     b4v_walked = bound(walked * 128 * (8 + d) * 4 + h * w * (d + 1) * 4,
                        pairs * (PAIR_OPS + 2 * d), PEAK_F32_FLOPS)
-    print(f"phase 8 B4-viz (wide kernel, D={d}, tile {ts}, trans_eps=0) on view 0's feature "
-          f"image: 64 tiles against the twin, image rel {b4v[1]:.3e}, alpha rel "
-          f"{b4v_alpha[1]:.3e}; {b4v_ms:.3f} ms (twin {b4v_plain:.1f}); {pairs} pairs walked, "
-          f"{weighted} with a nonzero weight; bound {b4v_bound[0]:.4f} ms by {b4v_bound[1]}, "
-          f"share {b4v_bound[0] / b4v_ms:.3f} ({b4v_walked[0]:.4f} on the walked pairs' "
-          f"products)", flush=True)
-    check(b4v[1] <= 1e-4 and b4v_alpha[1] <= 1e-4, "B4 at D = 512 within 1e-4 of its twin")
-    b4v_rec = rec("B4-viz", "train_fwd_wide (feature image, trans_eps 0)",
+    print(f"phase 8 B4-viz (cluster kernel, (C, P, S, Ns) = {layout}, D={d}, tile {ts}, "
+          f"trans_eps=0) on view 0's feature image: 64 tiles against the twin, image rel "
+          f"{b4v[1]:.3e}, alpha rel {b4v_alpha[1]:.3e}, exit blocks equal {done_twin}; against "
+          f"the wide kernel: image rel {b4v_wide_rel:.3e}, alpha and exit blocks bit-equal "
+          f"{as_wide}; {b4v_ms:.3f} ms, the wide kernel {b4v_wide_ms:.3f} ms in the same call "
+          f"(twin {b4v_plain:.1f}); {pairs} pairs walked, {weighted} with a nonzero weight; "
+          f"bound {b4v_bound[0]:.4f} ms by {b4v_bound[1]}, share {b4v_bound[0] / b4v_ms:.3f} "
+          f"(the wide kernel's {b4v_bound[0] / b4v_wide_ms:.3f}; {b4v_walked[0]:.4f} on the "
+          f"walked pairs' products)", flush=True)
+    check(b4v[1] <= 1e-4 and b4v_alpha[1] <= 1e-4 and done_twin,
+          "B4 at D = 512 within 1e-4 of its twin, its exit blocks equal")
+    check(as_wide and b4v_wide_rel <= 1e-4, "B4 at D = 512: alpha and exit blocks bit-equal to "
+          "the wide kernel's, the image within 1e-4")
+    b4v_rec = rec("B4-viz", "train_fwd (feature image in channel slices, trans_eps 0)",
                   "tpugs_torch/csrc/train_fwd.cu", "tpugs/raster/pallas_train.py:250",
-                  launches_m["train_fwd_wide"], b4v, b4v_ms, b4v_plain, b4v_bound)
-    b4v_rec.update(bound_walked_ms=b4v_walked[0])
+                  launches_m["train_fwd"] - VIEWS, b4v, b4v_ms, b4v_plain, b4v_bound)
+    b4v_rec.update(bound_walked_ms=b4v_walked[0], wide_ms=b4v_wide_ms)
     del seen, geom, cols, plan, done, frames_e, frames_d, frames_m, frames_h, hidden
+
+    # the segment app's files, as it writes them (output paths given), read
+    # back with cv2 alone: each GIF's frames equal to its encoder's palette
+    # of the returned frame, its delays and loop; each per-frame PNG equal
+    # to the frame; then the compressed scene, the viewer's PNG and the
+    # colormap
+    write_checks(scene, planted, pos_q, neg_q, cams, extracted, deleted, w, h)
     del extracted, deleted, planted
 
     # (b) the codec, trained on the card, then the compressed lift
@@ -2550,7 +2715,8 @@ def phase_queries(field_cpu, ref3):
     frames_f, f_s, f_peak = _timed(lambda: render_pca(scene, field, cams, None, "frame"))
     launches_f = K.LAUNCHES.snapshot()
     check(launches_g["train_fwd"] >= VIEWS, "PCA gaussian mode renders through B4")
-    check(launches_f["train_fwd_wide"] >= VIEWS, "PCA frame mode renders D = 512 through B4")
+    check(launches_f["train_fwd"] >= VIEWS and launches_f["train_fwd_wide"] == 0,
+          "PCA frame mode renders D = 512 through B4's cluster kernel in channel slices")
     mean, comps = feature_pca(field)
     colors, _, _ = pca_colors(field, mean, comps)
     colors_ok = bool(torch.isfinite(colors).all()) and float(colors.min()) >= 0 and float(
@@ -3448,8 +3614,9 @@ def phase_interactive(field_cpu):
     K.LAUNCHES.reset()
     (rgbd, feat_img), rf_ms = synced_ms(lambda: session.render_rgbd_features(vm0, K0, w, h))
     n_rf = K.LAUNCHES.snapshot()
-    check(n_rf["train_fwd"] == 1 and n_rf["train_fwd_wide"] == 1,
-          "the RGB+ED render ran B4's cluster kernel and the 512-wide field its wide kernel")
+    check(n_rf["train_fwd"] == 2 and n_rf["train_fwd_wide"] == 0,
+          "the RGB+ED render and, in channel slices, the 512-wide field ran B4's cluster "
+          "kernel")
     s = session.scene
     with torch.no_grad():
         (vm_t, K_t, plan_s), plan_ms = synced_ms(lambda: session._plan(s, vm0, K0, w, h))
@@ -3974,7 +4141,15 @@ def phase_atscale():
                 data, out_dir, data_factor=1, max_steps=steps, chunked=True, save_every=0))
         launches = K.LAUNCHES.snapshot()
         peak_gb = max(held["peak"], torch.cuda.max_memory_allocated()) / 1e9
-        gif = os.path.exists(os.path.join(out_dir, "traj.gif"))
+        gif = os.path.join(out_dir, "traj.gif")
+        check(box["traj_error"] is None and os.path.exists(gif),
+              f"main's render_traj wrote traj.gif ({box['traj_error']})")
+        traj_frames, traj_ms, traj_loop = read_gif_cv2(gif)
+        traj_mb = os.path.getsize(gif) / 1e6
+        check(len(traj_frames) == 30 and traj_ms == [100] * 30 and traj_loop == 0
+              and all(f.shape == (h, w, 3) for f in traj_frames)
+              and sum(int(f.any()) for f in traj_frames) == 30,
+              f"traj.gif: 30 frames of {w}x{h}, none black, 100 ms each, endless loop")
 
     n_train = sum(1 for i in range(ATSCALE["n_cams"]) if i % cfg.test_every)
     check(tr is box["tr"] and box["init_n"] == ATSCALE["n_sfm_points"],
@@ -4023,10 +4198,10 @@ def phase_atscale():
     frames = tr.render_traj(K0, "", n_frames=8)
     check(len(frames) == 8 and all(f.shape == (h, w, 3) and f.dtype == np.uint8
                                    for f in frames), "render_traj: 8 uint8 frames")
-    print(f"phase 13 trajectory GIF {'written' if gif else 'not written'}"
-          + (f" (main's render_traj: {box['traj_error']})" if box["traj_error"] else "")
-          + f"; render_traj with no path: 8 frames, {sum(int(f.any()) for f in frames)} not "
-          f"black; phase 13 total {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 13 trajectory GIF written by main's render_traj and read back by cv2: "
+          f"{len(traj_frames)} frames of {w}x{h}, {traj_mb:.2f} MB; render_traj with no path: "
+          f"8 frames, {sum(int(f.any()) for f in frames)} not black; phase 13 total "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     del tr, box
     torch.cuda.empty_cache()
     return records

@@ -74,7 +74,10 @@ def test_app_matches_tpugs(case, data_dir, tmp_path, capsys):
     kw = {**ARGS, **CASES[case]}
     j_main(data_dir=data_dir, result_dir=str(tmp_path / "j"), **kw)
     ref = capsys.readouterr().out
-    trainer = t_main(data_dir=data_dir, result_dir=str(tmp_path / "t"), device="cpu", **kw)
+    with pytest.MonkeyPatch.context() as m:  # as on the card's machine: traj.gif all the same
+        for name in ("imageio", "matplotlib"):
+            m.setitem(sys.modules, name, None)
+        trainer = t_main(data_dir=data_dir, result_dir=str(tmp_path / "t"), device="cpu", **kw)
     got = capsys.readouterr().out
     (ref_steps, ref_refines), (steps, refines) = _lines(ref), _lines(got)
     assert len(steps) == len(ref_steps) > 0, got

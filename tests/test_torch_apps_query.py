@@ -100,7 +100,17 @@ def _mask_line(log):
     return [line for line in log.splitlines() if line.startswith("mask: ")]
 
 
-def test_segment_matches_tpugs(dataset):
+@contextlib.contextmanager
+def _without_imageio_and_matplotlib(monkeypatch):
+    """``import imageio`` and ``import matplotlib`` fail inside, as on the
+    card's machine: the port's apps write their files without them."""
+    with monkeypatch.context() as m:
+        for name in ("imageio", "matplotlib"):
+            m.setitem(sys.modules, name, None)
+        yield
+
+
+def test_segment_matches_tpugs(dataset, monkeypatch):
     from tpugs.apps.segment import main as j_main
     from tpugs_torch.apps.segment import main as t_main
 
@@ -108,7 +118,8 @@ def test_segment_matches_tpugs(dataset):
     kw = dict(feature=FEATURE, pos_idx="0,2", neg_idx="1,3", export_checkpoint=True,
               skip_prune=True)
     tres, jres = _results(dataset, "seg-port", feats), _results(dataset, "seg-tpugs", feats)
-    got, log = _run(t_main, dataset, tres, device="cpu", **kw)
+    with _without_imageio_and_matplotlib(monkeypatch):
+        got, log = _run(t_main, dataset, tres, device="cpu", **kw)
     ref, j_log = _run(j_main, dataset, jres, **kw)
     assert got.dtype == torch.bool and 0 < int(got.sum()) < N
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
@@ -278,7 +289,8 @@ def test_visualize_pca_app_matches_tpugs(dataset, monkeypatch):
     _run(j_main, dataset, _results(dataset, "pca-tpugs", feats), feature=FEATURE,
          skip_prune=True)
     res = _results(dataset, "pca-port", feats)
-    got, _ = _run(t_main, dataset, res, feature=FEATURE, skip_prune=True, device="cpu")
+    with _without_imageio_and_matplotlib(monkeypatch):
+        got, _ = _run(t_main, dataset, res, feature=FEATURE, skip_prune=True, device="cpu")
     assert len(caught) == len(got) == 2
     for frames, ref in zip(got, caught):
         for g, r in zip(frames, ref):

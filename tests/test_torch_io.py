@@ -8,8 +8,10 @@ package is read by the other, and both read it to the same values.
 * scenes: PLY, ``.pt`` in the gsplat layout (with a feature field) and
   the inria layout, ``.npz`` and the PNG-grid compression, each written by
   one package and read by the other, float-equal to the source (the
-  compression: equal to the other package's decompression of the same
-  files);
+  compression: the same meta and PNG pixels, equal to the other
+  package's decompression of the same files, the port's files at most
+  10% larger than tpugs': cv2's zlib build is not Pillow's, so the bytes
+  differ);
 * ``load_checkpoint`` on a single camera with a non-integer principal
   point after ``data_factor`` (the ``int`` truncation) and on a rig of
   two cameras of one render size (each image its own K, image-name
@@ -20,6 +22,7 @@ package is read by the other, and both read it to the same values.
 
 import os
 
+import imageio.v2 as imageio
 import numpy as np
 import pytest
 import torch
@@ -155,12 +158,19 @@ def test_compression_both_ways(tmp_path):
     ts = scene_from_numpy(_j_arrays(js), device="cpu")
     j_dir, t_dir = str(tmp_path / "j"), str(tmp_path / "t")
     assert jcomp.compress_scene(js, j_dir) == tcomp.compress_scene(ts, t_dir)
+    assert sorted(os.listdir(j_dir)) == sorted(os.listdir(t_dir))
     for name in sorted(os.listdir(j_dir)):
-        assert (tmp_path / "j" / name).read_bytes() == (tmp_path / "t" / name).read_bytes(), name
+        j_file, t_file = tmp_path / "j" / name, tmp_path / "t" / name
+        if name.endswith(".png"):
+            ref = imageio.imread(j_file)
+            got = imageio.imread(t_file)
+            assert got.dtype == ref.dtype and np.array_equal(got, ref), name
+        else:
+            assert j_file.read_bytes() == t_file.read_bytes(), name
     for d in (j_dir, t_dir):
         _assert_scenes_equal(scene_to_numpy(tcomp.decompress_scene(d, device="cpu")),
                              _j_arrays(jcomp.decompress_scene(d)))
-    assert tcomp.compressed_size_bytes(t_dir) == jcomp.compressed_size_bytes(j_dir)
+    assert tcomp.compressed_size_bytes(t_dir) <= 1.1 * jcomp.compressed_size_bytes(j_dir)
 
 
 def _rig_model(sparse, rig: bool):

@@ -11,11 +11,13 @@ place); B3 bit-equal on the same rows. B4 within 1e-4 of max|twin|; B5
 rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
 (``grad_rows_error``), in f32 and bf16, at widths of B5's cluster kernel
-(D = 3, 20, 131, 256) and of its one-CTA kernel (D = 300); two B5 launches
-bit-equal. B4 at the same widths launches the kernel its width selects
-(``train_fwd_cluster``); its cluster kernel's alpha and exit blocks are
-bit-equal to the wide kernel's on the same inputs, and two B4 launches
-give the same outputs bit for bit. B6's live striped rows within
+(D = 3, 20, 131, 256) and of its one-CTA kernel (D = 300, 512); two B5
+launches bit-equal; D = 600 is refused. B4 at the same widths and at 600
+launches its cluster kernel in the channel slices its width selects
+(``train_fwd_cluster``: one slice up to 256 channels, two at 300 and 512,
+three at 600); its alpha and exit blocks are bit-equal to the wide
+kernel's on the same inputs, and two B4 launches give the same outputs
+bit for bit. B6's live striped rows within
 ``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``,
 also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
@@ -230,8 +232,9 @@ def test_async_copy_probe_reads_19():
 
 
 # B4's and B5's cluster kernels at D = 3, 20, 131, 256 (clusters of 2 CTAs at
-# tile 16, 8 at tile 32), their wide kernels at D = 300
-@pytest.fixture(scope="module", params=[3, 20, 131, 256, 300])
+# tile 16, 8 at tile 32); above, B4 in 2 or 3 channel slices and B5's
+# one-CTA kernel (up to MAX_CHANNELS = 512)
+@pytest.fixture(scope="module", params=[3, 20, 131, 256, 300, 512, 600])
 def train_packs(view, request):
     plan, pack, _ = view
     d = request.param
@@ -246,8 +249,9 @@ def test_train_fwd_kernel_matches_twin(train_packs):
     K.LAUNCHES.reset()
     img, alpha, done = T.train_forward(geom, cols, plan)
     torch.cuda.synchronize()
-    wide = T.train_fwd_cluster(plan.tile_size, cols.shape[1]) is None
-    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == ((0, 1) if wide else (1, 0))
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (1, 0)
+    d = cols.shape[1]
+    assert T.train_fwd_cluster(plan.tile_size, d)[2] == (1 if d <= 256 else 2 if d <= 512 else 3)
     img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
     assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
     assert torch.equal(done, done_t)
@@ -255,10 +259,9 @@ def test_train_fwd_kernel_matches_twin(train_packs):
 
 def test_train_fwd_cluster_kernel_matches_the_wide_kernel(train_packs):
     """The cluster kernel computes every weight with the wide kernel's
-    instructions in its order: alpha and the exit blocks are bit-equal to
-    the wide kernel's on the same inputs (the image differs by the sum
-    order and 3xTF32, within 1e-4). At D = 300 both calls are the wide
-    kernel."""
+    instructions in its order, in every channel slice: alpha and the exit
+    blocks are bit-equal to the wide kernel's on the same inputs (the image
+    differs by the sum order and 3xTF32, within 1e-4)."""
     from tpugs_torch.kernels.build import load_library
 
     plan, geom, cols, _ = train_packs
@@ -295,6 +298,11 @@ def test_train_bwd_kernel_matches_twin(train_packs, dtype):
     grem0 = (g * img).sum(-1)
     args = (geom, cols, g, hterm, grem0, done, plan, dtype)
     K.LAUNCHES.reset()
+    if d > T.MAX_CHANNELS:  # RenderTrain chunks such widths; B5 itself refuses them
+        with pytest.raises(ValueError, match="exceed"):
+            T.train_rows(*args)
+        assert (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_wide) == (0, 0)
+        return
     rows = T.train_rows(*args)
     sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
     torch.cuda.synchronize()
@@ -322,6 +330,8 @@ def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
     g = torch.randn(img.shape, device="cuda", generator=gen)
     hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
     args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan, dtype)
+    if cols.shape[1] > T.MAX_CHANNELS:  # refused: test_train_bwd_kernel_matches_twin
+        return
     first = T.train_rows(*args)
     second = T.train_rows(*args)
     torch.cuda.synchronize()

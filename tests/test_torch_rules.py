@@ -100,6 +100,21 @@ def test_port_imports_no_jax_and_no_tpugs():
     assert not bad, f"forbidden imports: {bad}"
 
 
+def test_port_imports_no_imageio_and_no_matplotlib():
+    """The card's machine has neither: every image the port writes or
+    reads goes through ``io/images.py`` (cv2 and the port's GIF encoder),
+    every colormap through the port's own tables. Imports inside functions
+    count too."""
+    files = sorted((REPO / "tpugs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = [
+        (str(f.relative_to(REPO)), m)
+        for f in files
+        for m in _imported_modules(f)
+        if m.split(".")[0] in ("imageio", "matplotlib")
+    ]
+    assert not bad, f"imports the card's machine lacks: {bad}"
+
+
 def _queue_a_items():
     """Item numbers of ``ROADMAP.md``'s queue A ("### A." up to the next
     "### " heading): the lines that open with "N. "."""

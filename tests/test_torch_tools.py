@@ -487,3 +487,84 @@ def test_convert_weights_parity_forward_of_a_reference_checkout(body, small_towe
     finally:
         sys.modules.pop("lseg", None)
     assert sys.path == path
+
+
+# a facebookresearch/dinov2 checkout's ``vit_large``, standing in for the
+# public one: the port's own ViT at the tool's widths, with one weight
+# perturbed where PLANT is set
+STUB_DINO = """
+import torch
+
+from tpugs_torch.apps import convert_weights
+from tpugs_torch.encoders.convert import load_dino_state_dict
+from tpugs_torch.encoders.vit import patch_tokens
+
+PLANT = {plant}
+
+
+class _ViT(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.vit = convert_weights.VisionTransformer(convert_weights.DINOV2_VIT_L14_REG,
+                                                     act="gelu", device="cpu")
+
+    def load_state_dict(self, sd, strict=True):
+        out = self.vit.load_state_dict(load_dino_state_dict(sd), strict=strict)
+        if PLANT:
+            with torch.no_grad():
+                self.vit.norm.bias[0] += PLANT
+        return out
+
+    def forward_features(self, x):
+        return {{"x_norm_patchtokens": patch_tokens(self.vit(x))}}
+
+
+def vit_large(**kwargs):
+    return _ViT()
+"""
+
+
+@pytest.mark.parametrize("plant", [0.0, 0.5])
+def test_convert_weights_dino_parity_compares_like_grids(plant, small_towers, tmp_path,
+                                                         monkeypatch):
+    """With a ``dinov2`` package on ``--reference-dir``, the parity holds the
+    reference's normalised patch tokens of the 224-px probe against the
+    port's ViT's on the same grid (224 / 56 = 4 at the tool's test widths;
+    16 at ViT-L/14): both (4, 4, D). It reads 0 against the port's own ViT,
+    and a planted change of one weight moves it by that much; the
+    self-check stays ``DinoEncoder``'s (224, 224, D)."""
+    pkg = tmp_path / "ref" / "dinov2" / "models"
+    pkg.mkdir(parents=True)
+    (pkg.parent / "__init__.py").write_text("")
+    (pkg / "__init__.py").write_text("")
+    (pkg / "vision_transformer.py").write_text(STUB_DINO.format(plant=plant))
+    dino = tmp_path / "dino.pth"
+    torch.save(_dino_sd(), dino)
+    shapes = []
+    real = convert_weights._parity
+
+    def parity(ours, theirs):
+        shapes.append((tuple(ours.shape), tuple(theirs.shape)))
+        return real(ours, theirs)
+
+    monkeypatch.setattr(convert_weights, "_parity", parity)
+    try:
+        report, outputs = convert_weights.main([
+            "--dino-ckpt", str(dino), "--reference-dir", str(tmp_path / "ref"),
+            "--out-dir", str(tmp_path / "o"), "--device", CPU])
+    finally:
+        for name in ("dinov2.models.vision_transformer", "dinov2.models", "dinov2"):
+            sys.modules.pop(name, None)
+    assert shapes == [((4, 4, 16), (4, 4, 16))]
+    assert outputs["dino"].shape == (224, 224, 16)
+    assert set(report["dino"]) == {"converted", "self_check", "parity_vs_torch"}
+    got = report["dino"]["parity_vs_torch"]
+    if plant:
+        assert got["max_abs_err"] == pytest.approx(plant, rel=1e-6) and got["cosine"] < 1.0
+    else:
+        assert got["max_abs_err"] == 0.0 and got["cosine"] == pytest.approx(1.0)
+
+
+def test_parity_refuses_unlike_shapes():
+    with pytest.raises(ValueError, match="like shapes"):
+        convert_weights._parity(torch.zeros(224, 224, 4), torch.zeros(16, 16, 4))

@@ -1,11 +1,13 @@
 """B4's kernel choice and its phases tool's tables, on the CPU.
 
-* ``train_fwd_cluster`` gives (C, P) = (ts*ts / 128, 128) at tiles 16 and
-  32 up to ``CLUSTER_MAX_CHANNELS`` channels, so a tile's pixels split into
-  whole ranks (8 at tile 32, 2 at tile 16), and None (the wide kernel) for
-  wider images and for other tiles; widths below 1 and tiles over 32
-  raise. It does not stop at B5's ``MAX_CHANNELS``: the wide kernel takes
-  any width.
+* ``train_fwd_cluster`` gives (C, P, S, Ns) = (ts*ts / 128, 128, S, Ns)
+  at tiles 16 and 32 at every width, so a tile's pixels split into whole
+  ranks (8 at tile 32, 2 at tile 16) and its channels into S = ceil(D /
+  SLICE_CHANNELS) slices of Ns columns, a multiple of 16 at most
+  ``CLUSTER_MAX_CHANNELS``, the narrowest multiple of 16 whose S slices
+  cover D, every slice holding at least one channel; None (the wide kernel) for
+  other tiles; widths below 1 and tiles over 32 raise. It does not stop at
+  B5's ``MAX_CHANNELS``.
 * Every pattern of the tool's ``cluster`` table occurs exactly once in the
   tree's ``train_fwd.cu``, so each variant builds from the tree's kernel;
   the ``4d5fa2f`` table is held to that commit's source, which the tree no
@@ -24,7 +26,8 @@ from tpugs_torch.experiments import adjoint_phases, train_fwd_phases
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster import train as T
 from tpugs_torch.raster.train import (
-    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, train_fwd_cluster)
+    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, SLICE_CHANNELS, fwd_slices,
+    train_fwd_cluster)
 
 SOURCE = Path(adjoint_phases.__file__).resolve().parents[1] / "csrc" / "train_fwd.cu"
 TABLE = train_fwd_phases.TABLES["cluster"]
@@ -33,14 +36,21 @@ TABLE = train_fwd_phases.TABLES["cluster"]
 @pytest.mark.parametrize("d", [1, 3, 20, 131, 144, 250, 256, 257, 300, 512, 600])
 @pytest.mark.parametrize("ts", [16, 32])
 def test_train_fwd_cluster_geometry(ts, d):
-    got = train_fwd_cluster(ts, d)
-    if d > CLUSTER_MAX_CHANNELS:
-        assert got is None
-        return
-    c, p = got
+    c, p, s, ns = train_fwd_cluster(ts, d)
     assert p == PIXELS_PER_RANK == 128
     assert c * p == ts * ts
     assert c == {16: 2, 32: 8}[ts]
+    assert s == -(-d // SLICE_CHANNELS) and (s == 1) == (d <= CLUSTER_MAX_CHANNELS)
+    assert ns % 16 == 0 and ns <= CLUSTER_MAX_CHANNELS
+    assert (s - 1) * ns < d <= s * ns, "every slice holds a channel"
+    assert s * (ns - 16) < d, "balanced: the narrowest multiple of 16 that covers D"
+
+
+@pytest.mark.parametrize("d, widest, want", [
+    (512, 256, (2, 256)), (512, 128, (4, 128)), (600, 256, (3, 208)), (600, 128, (5, 128)),
+    (257, 256, (2, 144)), (515, 256, (3, 176)), (131, 256, (1, 144)), (3, 256, (1, 16))])
+def test_fwd_slices_balance_the_channels(d, widest, want):
+    assert fwd_slices(d, widest) == want
 
 
 @pytest.mark.parametrize("ts", [1, 4, 8, 24])
@@ -55,7 +65,7 @@ def test_train_fwd_cluster_refuses(ts, d):
 
 
 def test_wide_widths_are_not_bounded_by_the_backward():
-    assert MAX_CHANNELS < 600 and train_fwd_cluster(32, 600) is None
+    assert MAX_CHANNELS < 600 and train_fwd_cluster(32, 600)[2:] == (3, 208)
 
 
 PATTERNS = [

@@ -96,7 +96,8 @@ def test_eval_compression_matches_tpugs(trainers):
     for ds in (views[:2], None):
         ref = jt.eval_compression(ds)
         got = pt.eval_compression(ds)
-        assert got["compressed_bytes"] == ref["compressed_bytes"] > 0
+        # the same PNG pixels (test_torch_io.py); cv2's zlib is not Pillow's
+        assert 0 < got["compressed_bytes"] <= 1.1 * ref["compressed_bytes"]
         np.testing.assert_allclose(got["psnr_vs_uncompressed"], ref["psnr_vs_uncompressed"],
                                    rtol=1e-5)
 
@@ -333,4 +334,8 @@ def test_viewer_http_surface_and_orbit():
     for yaw, pitch in ((0.3, 0.2), (1.0, -1.2), (0.0, np.pi / 2)):
         np.testing.assert_array_equal(tv.orbit_viewmat(center, yaw, pitch, 3.0),
                                       jv.orbit_viewmat(center, yaw, pitch, 3.0))
-    np.testing.assert_array_equal(tv.encode_png(frame), jv.encode_png(frame))
+    # cv2 writes the PNG, Pillow tpugs': the same pixels, other bytes
+    import imageio.v2 as imageio
+
+    np.testing.assert_array_equal(imageio.imread(tv.encode_png(frame)),
+                                  imageio.imread(jv.encode_png(frame)))

@@ -39,7 +39,8 @@ Layout mirrors ``tpugs`` so each module's counterpart is easy to find:
   query/     text and exemplar queries, 3D masks and edits, exact k-NN,
              affordance transfer and its evaluation
   codec/     the linear 512 -> 16 feature codec and its Adam training
-  viz/       GIF frames, mask overlays and PCA renders (imageio for files)
+  viz/       GIF frames, mask overlays and PCA renders (files by io/images.py:
+             the port's GIF encoder, cv2 for PNGs)
   train/     config, metrics, the strategies (Default, MCMC), the trainer
              (step, refine, pose and appearance, eval, checkpoints), the
              modules, LPIPS, the COLMAP dataset, normalisation,

@@ -18,7 +18,15 @@ DINOv2 ViT-L/14-reg state dict), for each tower:
    prompts, only with ``--bpe-path``) and report the output's shape,
    finiteness and statistics;
 4. with ``--reference-dir``, run the parity forward of a lang-seg or
-   dinov2 checkout where one is importable, else say so in the report;
+   dinov2 checkout where one is importable, else say so in the report.
+   LSeg's is set against the self-check's output. DINOv2's compares the
+   reference's ``x_norm_patchtokens`` with the port's own
+   ``VisionTransformer``'s normalised patch tokens, both of the 224-px
+   probe as it is (no resize, no input normalisation), on the same 16 x
+   16 grid: the self-check's ``DinoEncoder`` output is another thing, the
+   probe resized to 896 px and its 64 x 64 grid resized back to 224 x 224
+   (tpugs' script set the two against each other, and its parity could
+   only raise);
 
 and write ``convert_report.json`` with tpugs' keys. The towers run where
 ``--device`` says, the card by default (tpugs forces the CPU). On the
@@ -51,7 +59,7 @@ from tpugs_torch.encoders.convert import (
 )
 from tpugs_torch.encoders.dino import DinoEncoder
 from tpugs_torch.encoders.lseg import LSegEncoder, LSegNet
-from tpugs_torch.encoders.vit import DINOV2_VIT_L14_REG, VisionTransformer
+from tpugs_torch.encoders.vit import DINOV2_VIT_L14_REG, VisionTransformer, patch_tokens
 
 TEXT_PROBE = ["table", "a photo of a vase"]
 
@@ -73,8 +81,12 @@ def _stats(x) -> dict:
 
 
 def _parity(ours, theirs) -> dict:
-    a = torch.as_tensor(ours).detach().double().cpu().ravel()
-    b = torch.as_tensor(theirs).detach().double().cpu().ravel()
+    a = torch.as_tensor(ours).detach().double().cpu()
+    b = torch.as_tensor(theirs).detach().double().cpu()
+    if a.shape != b.shape:
+        raise ValueError(f"the parity compares like shapes, got {tuple(a.shape)} against "
+                         f"{tuple(b.shape)}")
+    a, b = a.ravel(), b.ravel()
     return {
         "max_abs_err": float((a - b).abs().max()),
         "rel_err": float((a - b).abs().max() / (b.abs().max() + 1e-30)),
@@ -158,11 +170,21 @@ def convert_dino(ckpt, out_dir, reference_dir, report, dev):
     feats = DinoEncoder.from_vit(vit)(probe)
     entry = {"converted": meta, "self_check": _stats(feats)}
     ref = _torch_dino_forward(ckpt, probe, reference_dir)
-    entry["parity_vs_torch"] = _parity(feats, ref) if ref is not None else (
+    entry["parity_vs_torch"] = _parity(_dino_patch_grid(vit, probe), ref) if ref is not None else (
         "torch DINOv2 not importable — pass --reference-dir with a "
         "facebookresearch/dinov2 checkout")
     report["dino"] = entry
     return feats
+
+
+def _dino_patch_grid(vit, probe):
+    """The port's normalised patch tokens of ``probe`` (H, W, 3) as it is,
+    without resize or input normalisation: (gh, gw, D), as
+    ``_torch_dino_forward`` gives the reference's."""
+    with torch.no_grad():
+        out = vit.eval()(probe.permute(2, 0, 1)[None])
+    gh, gw = out["grid"]
+    return patch_tokens(out)[0].reshape(gh, gw, -1)
 
 
 def _torch_dino_forward(ckpt, probe, reference_dir):

@@ -15,7 +15,8 @@ Queries are text prompts through the CLIP text tower
 or, with ``--pos-idx`` / ``--neg-idx``, the features of exemplar
 Gaussians. ``--compressed`` scores a 16-d field with the queries projected
 through the codec's encoder; ``--f3dgs`` scores ``features @
-feature_proj`` of a trained feature field. GIFs need ``imageio``.
+feature_proj`` of a trained feature field. GIFs and PNG frames are
+written by ``io/images.py``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
     python -m tpugs_torch.apps.visualize_pca --data-dir DATA --checkpoint CKPT \\
         --results-dir OUT --data-factor 1 --feature linear:8 [--device cpu]
 
-writes ``pca_gaussian.gif`` and ``pca_frame.gif`` (``imageio``) beside
+writes ``pca_gaussian.gif`` and ``pca_frame.gif`` (``io/images.py``) beside
 ``features_<feature>.npz``; ``--f3dgs`` takes ``features @ feature_proj``
 of a trained feature field instead.
 """

@@ -15,7 +15,7 @@
 // Plain TF32 is ruled out: the trainer's gradients are held at 3e-4 of
 // their maximum and the image at 1e-4 of its twin's.
 //
-// Design (D <= 256: the cluster kernel). The TPU kernel keeps a tile's
+// Design (the cluster kernel). The TPU kernel keeps a tile's
 // (1024, d_pad) f32 image in VMEM, 536 KB at D = 131, over a Hopper CTA's
 // 227 KB. The one-CTA-per-32-channel-slice kernel below (the wide kernel)
 // therefore computed every pair's weight once per slice, five times at
@@ -69,9 +69,26 @@
 // the product of chunks whose weights are all 0 for a warpgroup (+0.6 ms),
 // geometry in 16- and 8-byte slots instead of six 4-byte arrays (+0.1).
 //
-// Widths D > 256 (CLUSTER_MAX_CHANNELS) take the wide kernel at the end of
-// this file (tpugs_train_fwd_wide), chosen by width alone, as do tiles
-// other than 16 and 32, whose pixels do not split into ranks of 128.
+// Channel slices (every D). A thread's accumulators hold at most 256
+// columns, so the channels are cut into S slices of Ns = 16 ceil(D / 16 S)
+// columns (S = ceil(D / SLICE_CHANNELS); raster/train.py::train_fwd_cluster,
+// which the C side checks), and each (tile, slice) is a cluster of its own:
+// grid C * S * n_tiles, cluster c = S tile + s. Slice s owns channels
+// [s Ns, s Ns + ns), ns = min(Ns, D - s Ns); its colour staging brings in ns
+// floats of each of the chunk's 16 rows, 16 runs D floats apart (16-byte
+// cp.async where D % 4 == 0, else 4-byte; with S = 1 the chunk's rows are
+// one run of 16 D floats, as before). Every slice walks the tile's pairs
+// with the same instructions in the same order, so every slice computes
+// the same weights and takes the same exit; slice 0 alone writes alpha and
+// blocks_done. At the D = 512 feature image (tile 16, trans_eps 0; NVIDIA
+// H100 80GB HBM3, 700.00 W; PERF.md): 17.5 ms against 43.7 for the wide
+// kernel; slices 256 columns wide (one CTA per SM) 1-3% faster than 128
+// (two CTAs per SM, twice the walks); of the 17.5 ms the walks take 5.6,
+// the product 5.9, the colour staging and split 6.0; skipping the product
+// of all-zero chunks costs 0.4 ms more here too.
+//
+// Tiles other than 16 and 32, whose pixels do not split into ranks of 128,
+// take the wide kernel at the end of this file (tpugs_train_fwd_wide).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,7 +107,7 @@ constexpr int kPix = 128;          // pixels per rank; PIXELS_PER_RANK in raster
 constexpr int kThreads = 256;      // two warpgroups; two lanes per pixel in the walk
 constexpr int kKC = 16;            // Gaussians per chunk
 constexpr int kChunks = kBlock / kKC;
-constexpr int kMaxClusterD = 256;  // CLUSTER_MAX_CHANNELS in raster/train.py
+constexpr int kMaxSliceD = 256;    // a slice's widest: CLUSTER_MAX_CHANNELS in raster/train.py
 constexpr int kMaxCluster = 8;     // portable cluster size: ts = 32 gives C = 8
 static_assert(kChunks % 2 == 0, "operand buffers alternate by chunk across blocks");
 
@@ -250,17 +267,33 @@ __device__ __forceinline__ void stage_geom(BlockGeom& g, const float* __restrict
   }
 }
 
-// A chunk's colour rows (row .. row + 15, one contiguous run of 16 D
-// floats, 16-byte aligned since rows are multiples of 16) into Raw.
+// A chunk's colour rows (row .. row + 15), channels c0 .. c0 + ns - 1 of
+// each, into Raw as [kKC][ns]. With ns == D the rows are one contiguous run
+// of 16 D floats (16-byte aligned since rows are multiples of 16); else 16
+// runs of ns floats, D apart: by 16 bytes where D % 4 == 0 (then c0 and ns
+// are multiples of 4 too), else by 4.
 __device__ __forceinline__ void stage_colours(float* Raw, const float* __restrict__ cols,
-                                              long long row, int D, int tid) {
-  const float* src = cols + row * D;
-  for (int v = tid; v < kKC * D / 4; v += kThreads) cp_async16(Raw + 4 * v, src + 4 * v);
+                                              long long row, int D, int c0, int ns, int tid) {
+  const float* src = cols + row * D + c0;
+  if (ns == D) {
+    for (int v = tid; v < kKC * D / 4; v += kThreads) cp_async16(Raw + 4 * v, src + 4 * v);
+  } else if ((D & 3) == 0) {
+    const int nv = ns >> 2;
+    for (int v = tid; v < kKC * nv; v += kThreads) {
+      const int i = v / nv, k = v - i * nv;
+      cp_async16(Raw + i * ns + 4 * k, src + static_cast<long long>(i) * D + 4 * k);
+    }
+  } else {
+    for (int v = tid; v < kKC * ns; v += kThreads) {
+      const int i = v / ns, k = v - i * ns;
+      cp_async4(Raw + i * ns + k, src + static_cast<long long>(i) * D + k);
+    }
+  }
 }
 
-// Raw (16 Gaussians x D) into Ch/Cl: channel n's 4 Gaussians 4a..4a+3 as
-// one 16-byte row of a core matrix, hi and lo. Channels [D, N) hold the
-// zeros that zero_pad_colours wrote.
+// Raw (16 Gaussians x D, D the slice's ns) into Ch/Cl: channel n's 4
+// Gaussians 4a..4a+3 as one 16-byte row of a core matrix, hi and lo.
+// Channels [D, N) hold the zeros that zero_pad_colours wrote.
 template <int N>
 __device__ __forceinline__ void split_colours(float* Ch, float* Cl, const float* Raw, int D,
                                               int tid) {
@@ -323,15 +356,16 @@ __device__ __forceinline__ void walk_chunk(const BlockGeom& g, int i0, int q, fl
   }
 }
 
-// Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
-// one tile, rank r its pixel rows [r * kPix / ts, (r + 1) * kPix / ts).
+// Grid C * S * n_tiles in clusters of (C, 1, 1): the C CTAs of cluster c
+// take tile c / S and channel slice c % S (Ns = 16 NB columns), rank r the
+// tile's pixel rows [r * kPix / ts, (r + 1) * kPix / ts).
 template <int NB>
 __global__ void __launch_bounds__(kThreads, NB <= 9 ? 2 : 1)
 train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                          const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
                          const int* __restrict__ padded_starts, float* __restrict__ img,
                          float* __restrict__ alpha_out, int* __restrict__ blocks_done, int ntx,
-                         int ts, int width, int height, int D, float trans_eps, int C) {
+                         int ts, int width, int height, int D, float trans_eps, int C, int S) {
   constexpr int N = 16 * NB;
   extern __shared__ __align__(128) float smem[];
   float* Wbuf = smem;                      // [2][hi, lo][kPix * kKC]
@@ -346,7 +380,9 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   const int q = lane >> 4;                        // lane half of the pixel in the walk
   const int pl = 16 * warp + (lane & 15);         // this thread's pixel of the rank
   const int rank = static_cast<int>(cluster_rank());
-  const int tile = blockIdx.x / C;
+  const int tile = blockIdx.x / C / S;
+  const int slice = blockIdx.x / C % S;
+  const int c0 = slice * N, ns = min(N, D - c0);  // the slice's channels
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
   const long long pstart = padded_starts[tile];
@@ -356,10 +392,10 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   const float py = static_cast<float>(y0 + pl / ts) + 0.5f;
 
   if (tid < 2) exit_mark[tid] = 0;
-  zero_pad_colours<N>(Cbuf, D, tid);
+  zero_pad_colours<N>(Cbuf, ns, tid);
   if (nb > 0) {
     stage_geom(gs[0], geom, pstart, tid);
-    stage_colours(Raw, cols, pstart, D, tid);
+    stage_colours(Raw, cols, pstart, D, c0, ns, tid);
     cp_async_commit();
   }
   cluster_arrive();  // every CTA has started and set its marks (waited before the first mark)
@@ -384,9 +420,9 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       float* Wl = Wh + kPix * kKC;
       float* Ch = Cbuf + buf * 2 * N * kKC;
       float* Cl = Ch + N * kKC;
-      split_colours<N>(Ch, Cl, Raw + buf * kKC * N, D, tid);
+      split_colours<N>(Ch, Cl, Raw + buf * kKC * N, ns, tid);
       if (j + 1 < kChunks || b + 1 < nb)  // the next chunk's colours, by cp.async
-        stage_colours(Raw + (buf ^ 1) * kKC * N, cols, row0 + (j + 1) * kKC, D, tid);
+        stage_colours(Raw + (buf ^ 1) * kKC * N, cols, row0 + (j + 1) * kKC, D, c0, ns, tid);
       cp_async_commit();
       walk_chunk(g, j * kKC, q, px, py, remaining, trans, texc, Wh, Wl, pl);
       fence_proxy_async();
@@ -406,15 +442,15 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   if (b == 0) cluster_wait();
   wgmma_wait_all();
 
-  if (rank == 0 && tid == 0) blocks_done[tile] = b;
+  if (slice == 0 && rank == 0 && tid == 0) blocks_done[tile] = b;
   const int xi = x0 + pl % ts, yi = y0 + pl / ts;
-  if (q == 0 && xi < width && yi < height)
+  if (slice == 0 && q == 0 && xi < width && yi < height)
     alpha_out[static_cast<long long>(yi) * width + xi] = 1.0f - trans;
   // The image through shared memory, free once every product has read its
   // operands: thread (warp w of the warpgroup, lane l) holds rows 16w + l/4
   // (+8) and columns 8i + 2(l%4) (+1) of the warpgroup's 64 pixels in
   // acc[4i..4i+3]; then warp w writes pixels 16w..16w+15, each one run of
-  // D floats in device memory.
+  // the slice's ns floats in device memory.
   constexpr int LD = image_ld(N);
   __syncthreads();
 #pragma unroll
@@ -429,16 +465,16 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   for (int p = 16 * warp; p < 16 * warp + 16; ++p) {
     const int x = x0 + p % ts, y = y0 + p / ts;
     if (x < width && y < height) {
-      float* o = img + (static_cast<long long>(y) * width + x) * D;
-      for (int c = lane; c < D; c += 32) o[c] = smem[p * LD + c];
+      float* o = img + (static_cast<long long>(y) * width + x) * D + c0;
+      for (int c = lane; c < ns; c += 32) o[c] = smem[p * LD + c];
     }
   }
 }
 
-cudaLaunchConfig_t cluster_config(int n_tiles, int C, size_t bytes, cudaStream_t stream,
+cudaLaunchConfig_t cluster_config(int n_clusters, int C, size_t bytes, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * n_tiles, 1, 1);
+  cfg.gridDim = dim3(C * n_clusters, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -469,33 +505,38 @@ template <int NB>
 cudaError_t run(const float* geom, const float* cols, const int* tile_starts,
                 const int* tile_ends, const int* padded_starts, float* img, float* alpha,
                 int* blocks_done, int n_tiles, int ntx, int ts, int width, int height, int D,
-                float trans_eps, int C, cudaStream_t stream, int* resident) {
+                float trans_eps, int C, int S, cudaStream_t stream, int* resident) {
   size_t bytes = 0;
   cudaError_t e = prepare<NB>(&bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(n_tiles > 0 ? n_tiles : 1, C, bytes, stream, attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(n_tiles > 0 ? S * n_tiles : 1, C, bytes, stream, attr);
   if (n_tiles == 0) return cudaOccupancyMaxActiveClusters(resident, train_fwd_cluster_kernel<NB>, &cfg);
   e = cudaLaunchKernelEx(&cfg, train_fwd_cluster_kernel<NB>, geom, cols, tile_starts, tile_ends,
                          padded_starts, img, alpha, blocks_done, ntx, ts, width, height, D,
-                         trans_eps, C);
+                         trans_eps, C, S);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// (C, P) as raster/train.py::train_fwd_cluster gives them, or an error.
+// (C, P, S, Ns) as raster/train.py::train_fwd_cluster gives them: every
+// slice Ns columns wide (a multiple of 16, at most kMaxSliceD) and holding
+// at least one channel; or an error.
 cudaError_t dispatch(const float* geom, const float* cols, const int* tile_starts,
                      const int* tile_ends, const int* padded_starts, float* img, float* alpha,
                      int* blocks_done, int n_tiles, int ntx, int ts, int width, int height,
-                     int D, float trans_eps, int C, int P, cudaStream_t stream, int* resident) {
-  if (D < 1 || D > kMaxClusterD || (ts != 16 && ts != 32) || P != kPix || C * P != ts * ts ||
-      C > kMaxCluster)
+                     int D, float trans_eps, int C, int P, int S, int Ns, cudaStream_t stream,
+                     int* resident) {
+  if (D < 1 || S < 1 || Ns < 16 || Ns > kMaxSliceD || Ns % 16 != 0 ||
+      static_cast<long long>(S - 1) * Ns >= D || static_cast<long long>(S) * Ns < D ||
+      (ts != 16 && ts != 32) || P != kPix || C * P != ts * ts || C > kMaxCluster)
     return cudaErrorInvalidValue;
 #define TPUGS_FWD_CASE(nb)                                                                    \
   case nb:                                                                                   \
     return run<nb>(geom, cols, tile_starts, tile_ends, padded_starts, img, alpha, blocks_done, \
-                   n_tiles, ntx, ts, width, height, D, trans_eps, C, stream, resident);
-  switch ((D + 15) / 16) {
+                   n_tiles, ntx, ts, width, height, D, trans_eps, C, S, stream, resident);
+  switch (Ns / 16) {
     TPUGS_FWD_CASE(1) TPUGS_FWD_CASE(2) TPUGS_FWD_CASE(3) TPUGS_FWD_CASE(4)
     TPUGS_FWD_CASE(5) TPUGS_FWD_CASE(6) TPUGS_FWD_CASE(7) TPUGS_FWD_CASE(8)
     TPUGS_FWD_CASE(9) TPUGS_FWD_CASE(10) TPUGS_FWD_CASE(11) TPUGS_FWD_CASE(12)
@@ -505,7 +546,7 @@ cudaError_t dispatch(const float* geom, const float* cols, const int* tile_start
 #undef TPUGS_FWD_CASE
 }
 
-// ------------------------------ the wide kernel (D > kMaxClusterD, other tiles)
+// ------------------------------------ the wide kernel (tiles other than 16, 32)
 
 constexpr int kSliceC = 32;  // channels per CUDA block
 
@@ -593,13 +634,14 @@ train_fwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
       const int *padded_starts, float *img, float *alpha, int *blocks_done, int n_tiles,   \
       int ntx, int ts, int width, int height, int D, float trans_eps
 
-// The cluster kernel, for D <= 256 at tiles 16 and 32, at (C, P) from
-// raster/train.py::train_fwd_cluster.
-extern "C" int tpugs_train_fwd(TPUGS_TRAIN_FWD_ARGS, int C, int P, cudaStream_t stream) {
+// The cluster kernel in channel slices, for any D at tiles 16 and 32, at
+// (C, P, S, Ns) from raster/train.py::train_fwd_cluster.
+extern "C" int tpugs_train_fwd(TPUGS_TRAIN_FWD_ARGS, int C, int P, int S, int Ns,
+                               cudaStream_t stream) {
   if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tpugs::dispatch(geom, cols, tile_starts, tile_ends, padded_starts,
                                           img, alpha, blocks_done, n_tiles, ntx, ts, width,
-                                          height, D, trans_eps, C, P, stream, nullptr));
+                                          height, D, trans_eps, C, P, S, Ns, stream, nullptr));
 }
 
 // The wide kernel, for any D >= 1 and ts * ts <= 1024.
@@ -612,12 +654,12 @@ extern "C" int tpugs_train_fwd_wide(TPUGS_TRAIN_FWD_ARGS, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident clusters of the cluster kernel at tile ts and D channels, or
-// minus a CUDA error.
+// Resident clusters of the cluster kernel at tile ts and a slice of D <=
+// 256 channels, or minus a CUDA error.
 extern "C" int tpugs_train_fwd_max_clusters(int ts, int D) {
   int n = 0;
   const cudaError_t e = tpugs::dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                         nullptr, nullptr, 0, 1, ts, 1, 1, D, 0.0f, ts * ts / 128,
-                                        128, nullptr, &n);
+                                        128, 1, (D + 15) / 16 * 16, nullptr, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

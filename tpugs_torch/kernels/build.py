@@ -44,12 +44,13 @@ SIGNATURES = {
     "tpugs_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     "tpugs_reduce_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # geom, cols, starts, ends, padded_starts, img, alpha, blocks_done,
-    # n_tiles, ntx, ts, W, H, D, eps, cluster size, pixels per rank, stream
-    "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+    # n_tiles, ntx, ts, W, H, D, eps, cluster size, pixels per rank,
+    # channel slices, slice width, stream
+    "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _P],
     # the same without the cluster geometry: the wide kernel (one CTA per
-    # tile and 32-channel slice)
+    # tile and 32-channel slice), for tiles other than 16 and 32
     "tpugs_train_fwd_wide": [_P] * 8 + [_I] * 6 + [_F, _P],
-    # tile size, D -> resident clusters
+    # tile size, D of one slice -> resident clusters
     "tpugs_train_fwd_max_clusters": [_I, _I],
     # geom, cols, g, hterm, grem0, starts, ends, padded_starts, blocks_done, out,
     # n_tiles, ntx, ts, W, H, D, row width, cluster size, pixels per rank, stream

@@ -57,8 +57,9 @@ GEOM_COLS = 8  # [mx, my, conic_a, conic_b, conic_c, opacity, 0, 0]
 GEOM_GRADS = 8  # dmx dmy dca dcb dcc dop |dmx| |dmy|
 MAX_CHANNELS = 512  # B5's one-CTA kernel keeps 32 Gaussians x D sums in shared memory
 CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory,
-# B4's its image in wgmma accumulators
+# B4's its image (of one channel slice) in wgmma accumulators
 PIXELS_PER_RANK = 128  # pixels of a tile per CTA of the B4 and B5 cluster kernels
+SLICE_CHANNELS = 256  # B4's widest channel slice (faster than 128 at D = 512: PERF.md)
 
 
 def grad_row_width(channels: int) -> int:
@@ -120,25 +121,34 @@ def _check_packs(geom, cols, plan: Plan) -> int:
     return cols.shape[1]
 
 
-def train_fwd_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
-    """(C, P) of B4's cluster kernel: a tile's ts*ts pixels go to a cluster
-    of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile 32,
-    2 at tile 16). None for more than CLUSTER_MAX_CHANNELS channels, whose
-    wgmma accumulators do not fit a thread's registers, and for other tiles
-    (their pixels do not split into ranks of P): those take the wide kernel,
-    which takes any width. The C side refuses any other (C, P)."""
+def fwd_slices(channels: int, widest: int = SLICE_CHANNELS) -> Tuple[int, int]:
+    """(S, Ns): B4's channels cut into S = ceil(D / widest) slices of Ns =
+    16 ceil(D / 16 S) columns: the narrowest multiple of 16 whose S slices
+    cover D, so the slices are balanced (the last holds the remainder)."""
+    s = cdiv(channels, widest)
+    return s, 16 * cdiv(channels, 16 * s)
+
+
+def train_fwd_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int, int, int]]:
+    """(C, P, S, Ns) of B4's cluster kernel: a tile's ts*ts pixels go to
+    clusters of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at
+    tile 32, 2 at tile 16), one cluster for each of the S channel slices of
+    ``fwd_slices`` (a slice's image lives in wgmma accumulators, at most
+    CLUSTER_MAX_CHANNELS columns a thread). None for tiles other than 16 and
+    32 (their pixels do not split into ranks of P): those take the wide
+    kernel. The C side refuses any other (C, P, S, Ns)."""
     if not 1 <= tile_size <= 32:
         raise ValueError(f"tile_size {tile_size}: B4 takes 1 to 32")
     if channels < 1:
         raise ValueError(f"{channels} channels: B4 takes at least 1")
-    if channels > CLUSTER_MAX_CHANNELS or tile_size not in (16, 32):
+    if tile_size not in (16, 32):
         return None
-    return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
+    return (tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK) + fwd_slices(channels)
 
 
 def _launch_train_fwd(lib, geom, cols, plan: Plan, trans_eps: float, cluster):
     """One B4 launch into new outputs: the cluster kernel at ``cluster`` =
-    (C, P), or the wide kernel for None; counts it in ``LAUNCHES``."""
+    (C, P, S, Ns), or the wide kernel for None; counts it in ``LAUNCHES``."""
     dev = geom.device
     nt, w, h, d = plan.n_tiles, plan.width, plan.height, cols.shape[1]
     img = torch.empty((h, w, d), dtype=torch.float32, device=dev)
@@ -169,9 +179,9 @@ def train_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B4: image (H, W, D) and alpha = 1 - T (H, W), float32, without a
     background, and the number of 128-Gaussian blocks each tile walked
-    before its early exit (n_tiles,) int32. Up to CLUSTER_MAX_CHANNELS
-    channels at tiles 16 and 32 the cluster kernel runs, else the wide
-    kernel (``train_fwd_cluster``)."""
+    before its early exit (n_tiles,) int32. At tiles 16 and 32 the cluster
+    kernel runs in channel slices (``train_fwd_cluster``), at other tiles
+    the wide kernel."""
     d = _check_packs(geom, cols, plan)
     if not _dispatch(geom.device):
         return train_forward_plain(geom, cols, plan, trans_eps)

@@ -10,7 +10,8 @@
   Flax's ``Dense`` is: truncated-normal LeCun weights, zero biases, from
   the caller's generator;
 * ``apply_float_colormap`` / ``apply_depth_colormap`` — host-side
-  colormaps (matplotlib, imported where used).
+  colormaps: matplotlib's lookup on the port's own copy of its table
+  (``train/colormaps.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 
 from tpugs_torch.core.device import DeviceLike, resolve_device
 from tpugs_torch.raster.sh import eval_sh_basis, num_sh_bases
+from tpugs_torch.train.colormaps import COLORMAPS
 
 
 def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
@@ -106,11 +108,25 @@ class AppearanceOptModule(nn.Module):
 
 
 def apply_float_colormap(img: np.ndarray, colormap: str = "turbo") -> np.ndarray:
-    """[0, 1] float map -> uint8 RGB through a matplotlib colormap."""
-    import matplotlib
-
-    mapper = matplotlib.colormaps[colormap]
-    return (mapper(np.clip(img, 0, 1))[..., :3] * 255).astype(np.uint8)
+    """[0, 1] float map -> uint8 RGB through one of the colormaps the port
+    carries (``COLORMAPS``), with matplotlib's lookup: x clipped to [0, 1],
+    row floor(x * 256) (in x's own precision; 1 takes the last row), NaN
+    the "bad" colour (0, 0, 0); each channel * 255, truncated."""
+    table = COLORMAPS.get(colormap)
+    if table is None:
+        raise ValueError(f"colormap {colormap!r} is not one the port carries "
+                         f"({sorted(COLORMAPS)})")
+    n = len(table)
+    x = np.array(np.clip(img, 0, 1), copy=True)
+    bad = np.isnan(x) if x.dtype.kind == "f" else np.zeros(x.shape, bool)
+    if x.dtype.kind == "f":
+        x *= n
+        x[x == n] = n - 1
+    with np.errstate(invalid="ignore"):
+        idx = x.astype(int)
+    rgb = table[np.clip(idx, 0, n - 1)]
+    rgb[bad] = 0.0
+    return (rgb * 255).astype(np.uint8)
 
 
 def apply_depth_colormap(depth: np.ndarray, acc: Optional[np.ndarray] = None,

@@ -1,6 +1,6 @@
 """Live training viewer — browser view of a training run. Counterpart:
-``tpugs/train/viewer.py``, host-side; ``imageio`` is imported where a frame
-is encoded.
+``tpugs/train/viewer.py``, host-side; frames are encoded as PNG by
+``io/images.py::encode_png`` (``cv2``).
 
 The reference runs a viser/nerfview web viewer alongside training
 (``f3dgs/simple_trainer_feature_3dgs.py:403-409,928-947``): a browser
@@ -25,7 +25,6 @@ a cadence knob.
 
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -33,6 +32,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from tpugs_torch.io.images import encode_png
 
 _PAGE = """<!doctype html>
 <html><head><title>tpugs live</title><style>
@@ -74,14 +75,6 @@ setInterval(()=>{
 },1000);
 </script></body></html>
 """
-
-
-def encode_png(frame_uint8: np.ndarray) -> bytes:
-    import imageio.v2 as imageio
-
-    buf = io.BytesIO()
-    imageio.imwrite(buf, np.ascontiguousarray(frame_uint8), format="png")
-    return buf.getvalue()
 
 
 class LiveViewer:

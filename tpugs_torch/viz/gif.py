@@ -9,8 +9,9 @@
 
 Renders, masks and overlays run on the scene's device under
 ``torch.inference_mode()`` (``rasterize_with_plan``: B4 at the colours'
-width); frames come back as host uint8 arrays. Files are written with ``imageio``, imported only when
-a path is given: without it a write raises ImportError.
+width); frames come back as host uint8 arrays. Files are written by
+``io/images.py``: the GIF by the port's own encoder (``write_gif``), the
+per-frame PNGs by ``cv2`` (``write_png``), where a path is given.
 """
 
 from __future__ import annotations
@@ -23,15 +24,10 @@ import torch
 
 from tpugs_torch.core.camera import Camera
 from tpugs_torch.core.scene import GaussianScene
+from tpugs_torch.io.images import write_gif, write_png
 from tpugs_torch.query.text import get_mask2d
 from tpugs_torch.raster.api import RasterPlan, plan_render, rasterize_with_plan
 from tpugs_torch.viz.common import create_checkerboard, to_uint8, uint8_image
-
-
-def require_imageio():
-    import imageio
-
-    return imageio
 
 
 def view_plan(scene: GaussianScene, cams: Camera, c: int) -> RasterPlan:
@@ -51,7 +47,7 @@ def render_colors(scene: GaussianScene, cams: Camera, c: int, plan: RasterPlan, 
 
 
 def save_gif(frames, output_path: str, fps: int = 10) -> None:
-    require_imageio().mimsave(output_path, frames, duration=1000.0 / fps, loop=0)
+    write_gif(output_path, frames, duration_ms=1000.0 / fps, loop=0)
 
 
 @torch.inference_mode()
@@ -66,7 +62,6 @@ def render_to_gif(
 ):
     """The list of uint8 frames; with ``output_path``, the GIF there and
     (``save_frames``) each frame as ``<output>.images/frame_XXXX.png``."""
-    imageio = require_imageio() if output_path is not None else None
     aux_dir = None
     if output_path is not None and save_frames:
         aux_dir = output_path + ".images"
@@ -87,7 +82,7 @@ def render_to_gif(
                 torch.uint8).cpu().numpy()
         frames.append(frame)
         if aux_dir is not None:
-            imageio.imwrite(f"{aux_dir}/frame_{c:04d}.png", frame)
+            write_png(f"{aux_dir}/frame_{c:04d}.png", frame)
     if output_path is not None:
         save_gif(frames, output_path, fps)
     return frames
@@ -118,8 +113,6 @@ def render_mask_2d_to_gif(
     """Per view: the RGB render with the mask of its rendered feature image
     (scored per pixel against the queries) overlaid in red. Returns the
     uint8 frames; writes the GIF where ``output_path`` is given."""
-    if output_path is not None:
-        require_imageio()
     frames = []
     for c in range(cams.num_cameras):
         plan = view_plan(scene, cams, c)

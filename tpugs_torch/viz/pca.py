@@ -26,7 +26,7 @@ import torch
 from tpugs_torch.core.camera import Camera
 from tpugs_torch.core.scene import GaussianScene
 from tpugs_torch.viz.common import to_uint8
-from tpugs_torch.viz.gif import render_colors, require_imageio, save_gif, view_plan
+from tpugs_torch.viz.gif import render_colors, save_gif, view_plan
 
 
 def feature_pca(features, n_components: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,8 +76,6 @@ def render_pca(
     ``output_path`` is given."""
     if mode not in ("gaussian", "frame"):
         raise ValueError(f"unknown pca mode {mode!r}")
-    if output_path is not None:
-        require_imageio()
     mean, comps = feature_pca(features)
     frames = []
     if mode == "gaussian":
