@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Seventeen phases; the first failure ends the run with a nonzero exit:
+Eighteen phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
-             B2's by cluster size, B4's and B5's by tile and D.
+             B2's by cluster size, B4's and B5's by tile and D, B5's
+             colour slices by tile and slice width, its geometry kernel's
+             (clusters of 4 and 16 CTAs) by tile and D.
 2. kernels — each kernel (B1 render, B2 adjoint in f32 and bf16, B3
              reduce; B6 scatter-write adjoint and B7 stripe sum in f32 and
              bf16, each bit-equal to B2's rows and B3's sums; B4
@@ -19,18 +21,19 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              unculled instantiation, each counting its own launches, and
              two launches bit-equal), D = 3, 20 and 131 (B4 and B5 also at 256, their cluster
              kernels' widest, 300 and 512: B4's cluster kernel in two
-             channel slices, B5's one-CTA kernel; B4 also at 600, in three
-             slices, where B5 refuses the width; each width's launch
-             counters; B4's alpha and exit blocks bit-equal to its wide
+             channel slices, B5 in two colour slices plus its geometry
+             kernel; B4 also at 600, in three slices, where B5 refuses the
+             width; each width's launch counters; B4's alpha and exit blocks bit-equal to its wide
              kernel's; two launches bit-equal); S1's
              asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
              300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs), tiles 16
              and 32, f32 and bf16 (B2 against its twin, B6 bit-equal); B5's
-             geometry-only launch (``train_geom_rows``) at D = 515 and 1030
-             against its twin, and its columns 0:6 against the sums of the
-             chunked B5 launches' geometry.
+             geometry launch (``train_geom_rows``) at D = 515 (the geometry
+             cluster kernel) and 1030 (above its cap: the one-CTA geometry
+             kernel) against its twin, and its columns 0:6 against the sums
+             of the chunked B5 launches' geometry.
 3. full width — the canonical back-projection shape (N = 2^19 Gaussians,
              1296 x 840, D = 512, tile 32, linear encoder, 8 orbit views
              after one warm-up view) through ``backproject_views``, with the
@@ -53,6 +56,12 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              CUDA-event times; the loss finite, every parameter moved, B4,
              B5 and B3 launched every step; 64 random tiles of one step held
              against the twins.
+   training at feature_dim 512 — the same step with ``feature_dim`` and
+             ``feature_out_dim`` 512 (D = 515: a 512-channel chunk on B5's
+             colour slices and geometry kernel, then D = 3), 2 warm-up and
+             3 timed steps: ms/step, the stage split, launches, peak; the
+             recorded step's first chunk held on 64 tiles and timed as
+             phase 4's (B4-f512, B5-wide, B3-f512).
 5. raster API and eager lift — the canonical lift shape (N = 2^19,
              1296 x 840, D = 512, 8 orbit views) at tile 16 with no early
              exit (the reference's tiled path): ``create_feature_field``
@@ -69,9 +78,11 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              path's walked pairs. Then ``render_tiled`` at D = 515 with a
              background and the absgrad probe at view 0, forward and
              backward (ms, peak; B4's cluster kernel for both channel
-             chunks, no wide-kernel launch; B5's geometry-only launch once, rebuilt
-             from the render's inputs it gives the probe's gradient bit for
-             bit, 64 tiles against the twin, its time against its bound).
+             chunks, no wide-kernel launch; B5's first chunk on the colour
+             slices and the geometry kernel, timed against its bound; B5's
+             geometry launch over all 515 channels once, rebuilt from the
+             render's inputs it gives the probe's gradient bit for bit, 64
+             tiles against the twin, its time against its bound).
 6. app     — ``tpugs_torch.apps.backproject.main`` from files on disk: the
              canonical scene plus 10 opaque Gaussians outside every view
              as a gsplat ``.pt``, a COLMAP model of the 8 orbit views whose
@@ -267,7 +278,8 @@ Seventeen phases; the first failure ends the run with a nonzero exit:
              exists, the time of one library call that computes the same
              function (a sparse CSR product for B3, B7 and S2; S1's
              ``index_copy_``); phase 5's four kernels as B4-, B2-, B3- and
-             B5-tiled, B5's geometry-only launch as B5-geom, phase 7's
+             B5-tiled, B5's geometry launch as B5-geom, phase 4's
+             feature_dim 512 step as B4-f512, B5-wide and B3-f512, phase 7's
              as B2-lseg, B3-lseg, B2-dino and B3-dino, phase 8's
              feature render as B4-viz, phase 9's as B4-, B5- and
              B3-refined, phase 10's as B1-, B2- and B3-prof, phase 11's
@@ -362,6 +374,7 @@ def gaussians_of(plan, rows: torch.Tensor) -> torch.Tensor:
 
 def phase_build():
     from tpugs_torch.kernels.build import build_library, load_library
+    from tpugs_torch.raster import train as T
 
     t0 = time.perf_counter()
     so = build_library()
@@ -390,6 +403,17 @@ def phase_build():
         print(f"phase 1 B5 {name} rows: resident clusters by (tile, D) "
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B5 {name} clusters fit on the card")
+        resident = {(ts, ns): lib.tpugs_train_bwd_colour_max_clusters(bf16, ts, ns)
+                    for ts in (16, 32) for ns in (128, 256)}
+        print(f"phase 1 B5 {name} colour slices: resident clusters by (tile, slice width) "
+              f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
+        check(all(n > 0 for n in resident.values()), f"B5 {name} colour slices fit on the card")
+    resident = {(ts, d): lib.tpugs_train_bwd_geom_max_clusters(ts, d)
+                for ts in (16, 32) for d in (5, 512, 515, T.GEOM_CLUSTER_MAX_CHANNELS)}
+    print(f"phase 1 B5 geometry kernel: resident clusters by (tile, D) "
+          f"(cudaOccupancyMaxActiveClusters; clusters of 4 CTAs at tile 16, 16 at tile 32): "
+          f"{resident}", flush=True)
+    check(all(n > 0 for n in resident.values()), "B5's geometry clusters fit on the card")
     resident = {(ts, d): lib.tpugs_train_fwd_max_clusters(ts, d)
                 for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256))}
     print(f"phase 1 B4: resident clusters by (tile, D) (cudaOccupancyMaxActiveClusters): "
@@ -567,8 +591,9 @@ def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
 
 # (tile, D, view) of phase 2's train kernels: B4's and B5's cluster kernels
 # in clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256; above it
-# B4's cluster kernel in 2 (300, 512) or 3 (600) channel slices and B5's
-# one-CTA kernel up to its 512 channels (train_fwd_cluster, train_cluster)
+# B4's cluster kernel in 2 (300, 512) or 3 (600) channel slices and B5 in 2
+# colour slices plus its geometry kernel up to its 512 channels
+# (train_fwd_cluster, train_layout)
 TRAIN_KERNEL_SHAPES = ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0), (32, 256, 0),
                        (16, 300, 1), (32, 300, 1), (16, 512, 0), (32, 512, 1), (16, 600, 1),
                        (32, 600, 0))
@@ -644,22 +669,25 @@ def phase_train_kernels():
             else:
                 check(False, f"B5 refuses D = {D}")
             continue
-        layout = T.train_cluster(ts, D)
+        layout = T.train_layout(ts, D)
         for dtype in (torch.float32, torch.bfloat16):
             K.LAUNCHES.reset()
             rows_k = T.train_rows(*args, dtype)
             sums_k = reduce_rows(rows_k, plan, D + T.GEOM_GRADS)
             torch.cuda.synchronize()
-            launched = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_wide)
-            check(launched == ((0, 1) if layout is None else (1, 0)),
-                  f"B5 at D = {D} launched the kernel its width selects ({launched})")
+            launched = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour,
+                        K.LAUNCHES.train_bwd_geom, K.LAUNCHES.train_bwd_geom_cta)
+            check(launched == ((1, 0, 0, 0) if "cluster" in layout else (0, 1, 1, 0)),
+                  f"B5 at D = {D} launched the kernels its width selects ({launched})")
             same = torch.equal(T.train_rows(*args, dtype), rows_k)
             rows_t, mags = T.train_rows_plain(*args, dtype, magnitudes=True)
             sums_t = reduce_rows_plain(rows_t, plan, D + T.GEOM_GRADS)
             sums_m = reduce_rows_plain(mags, plan, D + T.GEOM_GRADS)
             a, g_rows, e_rows = T.grad_rows_error(rows_k, rows_t, D, mags)
             _, g_sums, e_sums = T.grad_rows_error(sums_k, sums_t, D, sums_m)
-            kind = "one-CTA kernel" if layout is None else "cluster (C, P) = {}".format(layout)
+            kind = ("cluster (C, P) = {}".format(layout["cluster"]) if "cluster" in layout else
+                    "colour slices (C, P, S, Ns) = {} + geometry (C, P) = {}".format(
+                        layout["colour"], layout["geom"]))
             print(f"phase 2 ts={ts} D={D} B5 train_bwd {dtype} ({kind}): rows max abs {a:.3e}, "
                   f"{g_rows:.3e} of column-group max, {e_rows:.3e} of the entry's magnitude; "
                   f"B3 sums {g_sums:.3e} and {e_sums:.3e}; a second launch bit-equal {same}",
@@ -704,24 +732,27 @@ def phase_train_kernels():
     check(worst <= 3e-4, "render_plan_train gradients within 3e-4 of each column's max")
 
 
-# (tile, D, view) of phase 2's geometry-only B5: above the colour kernels'
-# 512 channels, two and three channel chunks
+# (tile, D, view) of phase 2's geometry launch of B5: above the colour
+# kernels' 512 channels, two and three channel chunks; 1030 is above the
+# geometry cluster kernel's cap (GEOM_CLUSTER_MAX_CHANNELS)
 TRAIN_GEOM_SHAPES = ((16, 515, 0), (32, 1030, 1))
 
 
 def phase_train_geom():
-    """B5's geometry-only launch (``train_geom_rows``, 8 columns, any D)
+    """B5's geometry launch (``train_geom_rows``, 8 columns, any D)
     against its twin at mid shapes, rows and B3's sums by
     ``grad_rows_error`` against GRAD_ROWS_TOL[float32]; its columns 0:6
     summed per Gaussian against the sums of the chunked ``train_rows``
     launches' geometry (chunks of MAX_CHANNELS, ``hterm`` in the first),
-    within the same limits; two launches bit-equal. Only its own launch
-    counter is checked."""
+    within the same limits; two launches bit-equal; its time at each shape.
+    Only its own launch counter (the geometry cluster kernel's, or the
+    one-CTA geometry kernel's above its cap) is checked."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.plan import build_plan
     from tpugs_torch.raster.projection import project
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
 
     W, H = 300, 200
     scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
@@ -742,9 +773,13 @@ def phase_train_geom():
         K.LAUNCHES.reset()
         rows = T.train_geom_rows(*args)
         torch.cuda.synchronize()
-        launched = K.LAUNCHES.train_bwd_geom
-        check(launched == 1, f"train_geom_rows launched its kernel once ({launched})")
+        cluster = T.geom_cluster(ts, D)
+        kernel = "train_bwd_geom" if cluster else "train_bwd_geom_cta"
+        launched = K.LAUNCHES.snapshot()
+        check(launched == {**dict.fromkeys(launched, 0), kernel: 1},
+              f"train_geom_rows launched {kernel} once ({launched})")
         same = torch.equal(T.train_geom_rows(*args), rows)
+        ms = time_cuda(lambda: T.train_geom_rows(*args), 3)
         sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
         rows_t, mags = T.train_rows_plain(*args, magnitudes=True, geometry_only=True)
         sums_m = K.reduce_rows_plain(mags, plan, T.GEOM_GRADS)
@@ -760,11 +795,11 @@ def phase_train_geom():
             chunked += K.reduce_rows(rows_c, plan, c1 - c0 + T.GEOM_GRADS)[:, c1 - c0:]
         chunked[:, 6:] = sums[:, 6:]  # the absolute columns do not add over chunks
         _, g_chunk, e_chunk = T.grad_rows_error(sums, chunked, 0, sums_m)
-        print(f"phase 2 ts={ts} D={D} B5 train_geom_rows f32 ({len(T.channel_chunks(D))} "
-              f"channel chunks): rows max abs {a:.3e}, {g_rows:.3e} of column-group max, "
+        print(f"phase 2 ts={ts} D={D} B5 train_geom_rows f32 ({kernel}, (C, P) = {cluster}; "
+              f"{len(T.channel_chunks(D))} channel chunks): rows max abs {a:.3e}, {g_rows:.3e} of column-group max, "
               f"{e_rows:.3e} of the entry's magnitude; B3 sums {g_sums:.3e} and {e_sums:.3e}; "
               f"columns 0:6 against the chunked launches' geometry {g_chunk:.3e} and "
-              f"{e_chunk:.3e}; a second launch bit-equal {same}", flush=True)
+              f"{e_chunk:.3e}; a second launch bit-equal {same}; {ms:.3f} ms", flush=True)
         check(g_rows <= tol[0] and e_rows <= tol[1] and g_sums <= tol[0] and e_sums <= tol[1],
               "B5's geometry rows and their sums within GRAD_ROWS_TOL of the twins")
         check(g_chunk <= tol[0] and e_chunk <= tol[1],
@@ -1207,12 +1242,13 @@ def phase_experiments(r):
 TRAIN_CAMS, TRAIN_WARMUP, TRAIN_STEPS = 8, 3, 10
 
 
-def train_step_records(seen, w, h, launches, tag, ids):
+def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_bwd")):
     """The kernels of one recorded train step (``Trainer.record``): B4, B5
     and B3 on 64 random tiles against their twins (phase 4's tolerances),
     then their times, their twins' and B3's library call's, against the
     bounds of this step's work. Returns the three kernel records under
-    ``ids``."""
+    ``ids``; B5's under the name ``b5[0]`` with the launches of counter
+    ``b5[1]``."""
     from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
@@ -1238,7 +1274,8 @@ def train_step_records(seen, w, h, launches, tag, ids):
     span = span_rows(plan, tiles)
     rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype, tiles,
                                       magnitudes=True)
-    b5 = T.grad_rows_error(rows[span], rows_t[span], D, mags[span])
+    b5_name, b5_key = b5
+    b5_err = T.grad_rows_error(rows[span], rows_t[span], D, mags[span])
     gids = gaussians_of(plan, span)
     red_t = K.reduce_rows_plain(rows, plan, D + 8, gaussians=gids)
     b3 = rel_err(sums[gids], red_t)
@@ -1246,11 +1283,11 @@ def train_step_records(seen, w, h, launches, tag, ids):
     same_exit = torch.equal(done[tiles], done_t)
     print(f"{tag} check on 64 tiles ({len(gids)} Gaussians): B4 image rel {b4[1]:.3e}, "
           f"alpha rel {b4_alpha[1]:.3e}, exit blocks equal {same_exit}; B5 {dtype} rows "
-          f"{b5[1]:.3e} of column-group max, {b5[2]:.3e} of the entry's magnitude; "
+          f"{b5_err[1]:.3e} of column-group max, {b5_err[2]:.3e} of the entry's magnitude; "
           f"B3 bit-equal {b3_equal}", flush=True)
     check(b4[1] <= 1e-4 and b4_alpha[1] <= 1e-4 and same_exit,
           "B4 within 1e-4 of its twin on the sampled tiles")
-    check(within_grad_tol(b5[1], b5[2], dtype),
+    check(within_grad_tol(b5_err[1], b5_err[2], dtype),
           "B5 rows within GRAD_ROWS_TOL on the sampled tiles")
     check(b3_equal, "B3 bit-equal on the sampled Gaussians")
     del rows_t, mags, img_t
@@ -1300,8 +1337,8 @@ def train_step_records(seen, w, h, launches, tag, ids):
         rec(ids[0], "train_fwd", "tpugs_torch/csrc/train_fwd.cu",
             "tpugs/raster/pallas_train.py:250", launches["train_fwd"], b4, b4_ms, b4_plain,
             b4_bound),
-        rec(ids[1], "train_bwd", "tpugs_torch/csrc/train_bwd.cu",
-            "tpugs/raster/pallas_train.py:557", launches["train_bwd"], b5, b5_ms, b5_plain,
+        rec(ids[1], b5_name, "tpugs_torch/csrc/train_bwd.cu",
+            "tpugs/raster/pallas_train.py:557", launches[b5_key], b5_err, b5_ms, b5_plain,
             b5_bound),
         rec(ids[2], "reduce (train rows)", "tpugs_torch/csrc/reduce.cu",
             "tpugs/raster/pallas_tiled.py:2233", launches["reduce"], b3, b3_ms,
@@ -1309,15 +1346,16 @@ def train_step_records(seen, w, h, launches, tag, ids):
     ]
 
 
-def phase_train():
-    """The train step at full width through ``Trainer.train_chunk``: 3
-    warm-up steps (SH degrees 0-2, sh_degree_interval 1), then 10 timed
-    steps at degree 3. Returns the kernel records of B4, B5 and B3 on the
-    train rows, the initial scene on the host (phases 9 and 12 start there) and
-    the timed steps' ms/step and peak GB (phase 12 compares)."""
+def timed_train(tag, feature_dim, warmup, steps):
+    """The train step at phase 4's configuration with ``feature_dim``
+    features (and a teacher of as many) through ``Trainer.train_chunk``:
+    ``warmup`` steps (SH degrees 0-2, sh_degree_interval 1), ``steps``
+    timed steps at degree 3, then one more step recorded
+    (``Trainer.record``). Returns the record, the timed steps' launches,
+    ms/step, steps/s, peak GB and stage ms, the losses, the initial scene
+    and the trainer's tile and row dtype; every loss finite and every
+    parameter moved."""
     import dataclasses
-
-    import numpy as np
 
     from tpugs_torch.encoders import get_encoder
     from tpugs_torch.raster import kernels as K
@@ -1333,19 +1371,20 @@ def phase_train():
     cams = orbit_cameras(TRAIN_CAMS, w, h, radius=3.0, device="cuda")
     images = torch.from_numpy(
         rng.uniform(0, 1, (TRAIN_CAMS, h, w, 3)).astype(np.float32)).cuda()
-    cam_idx = rng.integers(0, TRAIN_CAMS, TRAIN_WARMUP + TRAIN_STEPS + 1)
-    cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=128, feature_out_dim=512,
-                      strategy="none", random_bkgd=False, sh_degree_interval=1)
+    cam_idx = rng.integers(0, TRAIN_CAMS, warmup + steps + 1)
+    cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=feature_dim,
+                      feature_out_dim=512, strategy="none", random_bkgd=False,
+                      sh_degree_interval=1)
     scene0 = init_scene_from_points(pts, rgbs, cfg)
     tr = Trainer(cfg, scene0, 1.0,
                  teacher=get_encoder("linear:512"), width=w, height=h, n_cameras=TRAIN_CAMS)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
     initial = {f.name: getattr(tr.scene, f.name).detach().clone()
                for f in dataclasses.fields(tr.scene)}
-    print(f"phase 4 train set-up (init_scene_from_points with kNN scales, Trainer): "
+    print(f"{tag} train set-up (init_scene_from_points with kNN scales, Trainer): "
           f"{time.perf_counter() - t0:.1f} s; tile {tr.tile_size}, rows "
           f"{cfg.pallas_contrib_dtype}, D = 3 + {cfg.feature_dim}", flush=True)
-    warm = tr.train_chunk(staged, TRAIN_WARMUP, cam_idx[:TRAIN_WARMUP])
+    warm = tr.train_chunk(staged, warmup, cam_idx[:warmup])
     torch.cuda.synchronize()
 
     events = []
@@ -1362,7 +1401,7 @@ def phase_train():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    out = tr.train_chunk(staged, TRAIN_STEPS, cam_idx[TRAIN_WARMUP:-1])
+    out = tr.train_chunk(staged, steps, cam_idx[warmup:-1])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.LAUNCHES.snapshot()
@@ -1372,33 +1411,85 @@ def phase_train():
     stage_ms = dict.fromkeys(STAGES, 0.0)
     prev = start
     for name, ev in events:
-        stage_ms[name] += prev.elapsed_time(ev) / TRAIN_STEPS
+        stage_ms[name] += prev.elapsed_time(ev) / steps
         prev = ev
     losses = np.concatenate([warm["loss"], out["loss"]])
     check(bool(np.isfinite(losses).all()), "every loss finite")
     for f in dataclasses.fields(tr.scene):
         check(not torch.equal(getattr(tr.scene, f.name).detach(), initial[f.name]),
               f"parameter {f.name} changed")
-    for name in ("train_fwd", "train_bwd", "reduce"):
-        check(launches[name] >= TRAIN_STEPS,
-              f"{name} kernel launched at least once per step ({launches[name]})")
-    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_wide"] == 0,
-          "D = 131 takes the cluster kernels of B4 and B5")
-    stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
-    print(f"phase 4 train N={n} {w}x{h} D=131 (feature 128 -> teacher 512) tile="
-          f"{tr.tile_size} steps={TRAIN_STEPS} at SH 3: {1e3 * wall / TRAIN_STEPS:.2f} ms/step, "
-          f"{TRAIN_STEPS / wall:.3f} steps/s, peak {peak_gb:.2f} GB; losses "
-          f"{' '.join(f'{x:.4f}' for x in losses)}; stage ms/step (CUDA events): {stages}; "
-          f"launches {launches}", flush=True)
 
     # One more step, recorded: the main path's own kernel inputs and
-    # outputs for the checks and times below.
+    # outputs for the checks and times that follow.
     tr.record = seen = {}
     tr.train_chunk(staged, 1, cam_idx[-1:])
     tr.record = None
     torch.cuda.synchronize()
-    return (train_step_records(seen, w, h, launches, "phase 4", ("B4", "B5", "B3-train")),
-            scene0.to("cpu"), {"ms_step": 1e3 * wall / TRAIN_STEPS, "peak_gb": peak_gb})
+    return {"seen": seen, "launches": launches, "ms_step": 1e3 * wall / steps,
+            "steps_s": steps / wall, "peak_gb": peak_gb, "stage_ms": stage_ms, "losses": losses,
+            "scene0": scene0, "tile": tr.tile_size}
+
+
+def phase_train():
+    """The train step at full width through ``Trainer.train_chunk``: 3
+    warm-up steps (SH degrees 0-2, sh_degree_interval 1), then 10 timed
+    steps at degree 3. Returns the kernel records of B4, B5 and B3 on the
+    train rows, the initial scene on the host (phases 9 and 12 start there) and
+    the timed steps' ms/step and peak GB (phase 12 compares)."""
+    r = timed_train("phase 4", 128, TRAIN_WARMUP, TRAIN_STEPS)
+    launches = r["launches"]
+    for name in ("train_fwd", "train_bwd", "reduce"):
+        check(launches[name] >= TRAIN_STEPS,
+              f"{name} kernel launched at least once per step ({launches[name]})")
+    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_colour"] == 0
+          and launches["train_bwd_geom"] == 0, "D = 131 takes the cluster kernels of B4 and B5")
+    stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
+    print(f"phase 4 train N={N_FULL} {W_FULL}x{H_FULL} D=131 (feature 128 -> teacher 512) tile="
+          f"{r['tile']} steps={TRAIN_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, "
+          f"{r['steps_s']:.3f} steps/s, peak {r['peak_gb']:.2f} GB; losses "
+          f"{' '.join(f'{x:.4f}' for x in r['losses'])}; stage ms/step (CUDA events): {stages}; "
+          f"launches {launches}", flush=True)
+    return (train_step_records(r["seen"], W_FULL, H_FULL, launches, "phase 4",
+                               ("B4", "B5", "B3-train")),
+            r["scene0"].to("cpu"), {"ms_step": r["ms_step"], "peak_gb": r["peak_gb"]})
+
+
+# Feature 3DGS without its speed-up decoder: the rendered feature width is
+# the 512-wide teacher's (D = 515: a 512-channel chunk, then D = 3).
+WIDE_FEATURES, WIDE_WARMUP, WIDE_STEPS = 512, 2, 3
+
+
+def phase_train_wide():
+    """Phase 4's train step at ``feature_dim`` 512: 2 warm-up and 3 timed
+    steps; ms/step, the stage split, launches, peak. B5 renders the first
+    chunk's rows on its colour slices and geometry kernel, and the
+    D = 3 chunk's on its cluster kernel, every step. Returns the kernel
+    records of the recorded step's first chunk (B4-f512, B5-wide,
+    B3-f512)."""
+    from tpugs_torch.raster import train as T
+
+    r = timed_train("phase 4w", WIDE_FEATURES, WIDE_WARMUP, WIDE_STEPS)
+    launches = r["launches"]
+    d = 3 + WIDE_FEATURES
+    chunks = T.channel_chunks(d)
+    check([b - a for a, b in chunks] == [512, 3], f"D = {d} renders in chunks of 512 and 3")
+    for name, per_step in (("train_fwd", 2), ("train_bwd_colour", 1), ("train_bwd_geom", 1),
+                           ("train_bwd", 1), ("reduce", 2)):
+        check(launches[name] >= per_step * WIDE_STEPS,
+              f"{name} kernel launched at least {per_step} times per step ({launches[name]})")
+    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_geom_cta"] == 0,
+          f"no wide B4 or one-CTA B5 launch ({launches})")
+    stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
+    print(f"phase 4w train N={N_FULL} {W_FULL}x{H_FULL} D={d} (feature {WIDE_FEATURES} -> "
+          f"teacher 512; B5 layout of the 512-channel chunk {T.train_layout(r['tile'], 512)}) "
+          f"tile={r['tile']} steps={WIDE_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, "
+          f"{r['steps_s']:.3f} steps/s, peak {r['peak_gb']:.2f} GB; losses "
+          f"{' '.join(f'{x:.4f}' for x in r['losses'])}; stage ms/step (CUDA events): {stages}; "
+          f"launches {launches}", flush=True)
+    return train_step_records(
+        r["seen"], W_FULL, H_FULL, launches, "phase 4w", ("B4-f512", "B5-wide", "B3-f512"),
+        b5=("train_bwd colour slices + geometry (feature_dim 512 step, its D=512 chunk)",
+            "train_bwd_colour"))
 
 
 # Phase 5: the raster API and the eager lift at the canonical lift shape,
@@ -1669,16 +1760,17 @@ def phase_eager():
     ]
 
 
-ABS_D = 515  # above B5's 512-channel rows: two channel chunks and the geometry-only launch
+ABS_D = 515  # above B5's 512-channel rows: two channel chunks and the geometry launch
 
 
 def phase_absgrad():
     """``render_tiled`` (tile 16, trans_eps 0) at the canonical view with
     D = 515 random colours, a background and the absgrad probe, forward and
-    backward: ms, peak memory, the geometry-only B5 launch's time against
-    its bound; the launch rebuilt from the render's own inputs reproduces
-    the probe's gradient, and 64 random tiles of its rows hold against the
-    twin. Returns B5-geom's kernel record."""
+    backward: ms, peak memory, B5's first chunk (D = 512: colour slices and
+    the geometry kernel) and its geometry launch over all channels, each
+    timed against its bound; the geometry launch rebuilt from the render's
+    own inputs reproduces the probe's gradient, and 64 random tiles of its
+    rows hold against the twin. Returns B5-geom's kernel record."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.plan import build_plan
@@ -1723,8 +1815,11 @@ def phase_absgrad():
     fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = K.LAUNCHES.snapshot()
-    check(launches["train_bwd_geom"] == 1,
-          f"the backward launched the geometry-only B5 once ({launches})")
+    check((launches["train_bwd"], launches["train_bwd_colour"], launches["train_bwd_geom"],
+           launches["train_bwd_geom_cta"]) == (1, 1, 2, 0),
+          f"the backward ran B5's 512-channel chunk on the colour slices and the geometry "
+          f"kernel, its 3-channel chunk on the cluster kernel, and the absgrad columns on "
+          f"the geometry kernel over all 515 channels ({launches})")
     check(launches["train_fwd"] == 2 and launches["train_fwd_wide"] == 0,
           f"the forward rendered both channel chunks (512 in 2 slices, 3) through B4's "
           f"cluster kernel ({launches})")
@@ -1762,6 +1857,19 @@ def phase_absgrad():
     walked = int(done.sum())
     pairs, _, kept = walked_pairs(geom, plan, 0.0)
     check(pairs == walked * 128 * ts * ts, "the twin's walk takes the kernel's blocks")
+    # the backward's first chunk (D = 512) on the colour slices and the geometry kernel
+    a, b = T.channel_chunks(D)[0]
+    g0 = g[..., a:b].contiguous()
+    args0 = (geom, cols[:, a:b].contiguous(), g0, hterm,
+             (g0 * (image - transs[..., None] * bg)[..., a:b]).sum(-1).contiguous(), done, plan)
+    rows_ms = time_cuda(lambda: T.train_rows(*args0), 3)
+    rows_bound = bound(walked * 128 * (8 + b) * 4 + h * w * (b + 2) * 4 + 4 * plan.n_tiles
+                       + plan.T_padded * T.grad_row_width(b) * 4,
+                       pairs * PAIR_OPS + kept * (4 * b + PAIR_OPS), PEAK_F32_FLOPS)
+    print(f"phase 5 absgrad B5 train_rows of the first chunk D={b} "
+          f"({T.train_layout(ts, b)}): {rows_ms:.3f} ms; bound {rows_bound[0]:.4f} ms by "
+          f"{rows_bound[1]}, share {rows_bound[0] / rows_ms:.3f}", flush=True)
+    del args0, g0
     # the least work: the walked blocks' geometry and colour rows, g, hterm
     # and grem0 read once per image (as the other B5 bounds count them),
     # blocks_done, the 8-column rows written
@@ -1776,7 +1884,7 @@ def phase_absgrad():
           f"{walked} blocks walked, {pairs} pairs, {kept} with a nonzero alpha; bound "
           f"{b[0]:.4f} ms by {b[1]}, share {b[0] / ms:.3f}; with g read once per walked "
           f"block (bound_restaged) {restaged[0]:.4f} ms by {restaged[1]}", flush=True)
-    return [rec("B5-geom", "train_bwd geometry-only (render_tiled absgrad, D=515, trans_eps 0)",
+    return [rec("B5-geom", "train_bwd geometry (render_tiled absgrad, D=515, trans_eps 0)",
                 "tpugs_torch/csrc/train_bwd.cu", "tpugs/raster/pallas_train.py:557",
                 launches["train_bwd_geom"], err, ms, plain, b)]
 
@@ -4393,6 +4501,7 @@ def main() -> int:
     del view
     train_records, scene0, ref4 = phase_train()
     records += train_records
+    records += phase_train_wide()
     records += phase_eager()
     records += phase_absgrad()
     phase_app()

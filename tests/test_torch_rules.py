@@ -385,8 +385,9 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     assert set(K.LAUNCHES.snapshot().values()) == {0}
     assert set(K.LAUNCHES.snapshot()) == {"render", "render_unculled", "adjoint", "reduce",
                                           "train_fwd",
-                                          "train_fwd_wide", "train_bwd", "train_bwd_wide",
-                                          "train_bwd_geom", "adjoint_scatter", "stripe_sum"}
+                                          "train_fwd_wide", "train_bwd", "train_bwd_colour",
+                                          "train_bwd_geom", "train_bwd_geom_cta",
+                                          "adjoint_scatter", "stripe_sum"}
 
 
 UNPORTED = {

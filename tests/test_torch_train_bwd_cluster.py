@@ -2,12 +2,14 @@
 
 * ``train_cluster`` gives (C, P) = (ts*ts / 128, 128) up to
   ``CLUSTER_MAX_CHANNELS`` channels, so a tile's pixels split into whole
-  ranks (8 at tile 32, 2 at tile 16), and None above it (the one-CTA
-  kernel's widths, up to ``MAX_CHANNELS``); other tiles and widths raise.
+  ranks (8 at tile 32, 2 at tile 16), and None above it, where
+  ``train_layout`` gives the colour slices (the same ranks) and the
+  geometry kernel, up to ``MAX_CHANNELS``; other tiles and widths raise.
 * Every pattern of every phase table that targets a source of this tree
-  (adjoint's ``cluster``, train_bwd's ``cluster``) occurs exactly once in
+  (adjoint's ``cluster``, train_bwd's ``cluster``, ``colour`` and ``geom``)
+  occurs exactly once in
   that source, so each variant builds from the tree's kernel; tables of
-  older commits (``pr3``, ``d4ac1ba``) are exempt. The CPU half of B5 on
+  older commits (``pr3``, ``d4ac1ba``, ``old``) are exempt. The CPU half of B5 on
   the card is the twin, which ``test_torch_train.py`` and
   ``test_torch_train_render.py`` hold against tpugs.
 """
@@ -18,7 +20,7 @@ import pytest
 
 from tpugs_torch.experiments import adjoint_phases, train_bwd_phases
 from tpugs_torch.raster.train import (
-    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, train_cluster)
+    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, train_cluster, train_layout)
 
 CSRC = Path(adjoint_phases.__file__).resolve().parents[1] / "csrc"
 
@@ -29,6 +31,8 @@ def test_train_cluster_geometry(ts, d):
     got = train_cluster(ts, d)
     if d > CLUSTER_MAX_CHANNELS:
         assert got is None
+        c, p = train_layout(ts, d)["colour"][:2]  # the colour slices keep the ranks
+        assert (c, p) == (ts * ts // PIXELS_PER_RANK, PIXELS_PER_RANK)
         return
     c, p = got
     assert p == PIXELS_PER_RANK == 128
@@ -45,10 +49,14 @@ def test_train_cluster_refuses(ts, d):
 TREE_TABLES = [
     (adjoint_phases.TABLES["cluster"], "adjoint.cu"),
     (train_bwd_phases.TABLES["cluster"], "train_bwd.cu"),
+    (train_bwd_phases.TABLES["colour"], "train_bwd.cu"),
+    (train_bwd_phases.TABLES["geom"], "train_bwd.cu"),
 ]
+TREE_IDS = ["adjoint", "train_bwd", "train_bwd-colour", "train_bwd-geom"]
+PATTERN_IDS = ["adjoint.cu", "train_bwd.cu", "train_bwd.cu-colour", "train_bwd.cu-geom"]
 PATTERNS = [
-    pytest.param(table, source, phase, old, id=f"{source}-{phase}-{k}")
-    for table, source in TREE_TABLES
+    pytest.param(table, source, phase, old, id=f"{tid}-{phase}-{k}")
+    for (table, source), tid in zip(TREE_TABLES, PATTERN_IDS)
     for phase, subs in table.items()
     for k, (old, _) in enumerate(subs)
 ]
@@ -59,7 +67,7 @@ def test_phase_pattern_occurs_once_in_the_tree_source(table, source, phase, old)
     assert (CSRC / source).read_text().count(old) == 1, (phase, old)
 
 
-@pytest.mark.parametrize("table, source", TREE_TABLES, ids=["adjoint", "train_bwd"])
+@pytest.mark.parametrize("table, source", TREE_TABLES, ids=TREE_IDS)
 def test_every_variant_of_the_tree_source_builds_its_text(table, source):
     """Cutting several phases out of one copy: no substitution consumes
     another's pattern, and each variant differs from the full source."""

@@ -74,7 +74,7 @@ def _reference(arrays, r, s, jplan, trans_eps, contrib_dtype=jnp.float32):
         return jnp.sum(img * r) + jnp.sum(alpha * s), (img, alpha)
 
     argnums = tuple(range(len(args) + 1))
-    grads, (img, alpha) = jax.grad(loss, argnums, has_aux=True)(*args, probe)
+    grads, (img, alpha) = jax.jit(jax.grad(loss, argnums, has_aux=True))(*args, probe)
     grads = [np.asarray(g) for g in grads]
     if not with_bg:
         grads.insert(4, None)
@@ -105,6 +105,7 @@ CASES = [  # (D, background, trans_eps, tile)
     (3, True, 1e-4, 32),
     (20, True, 0.0, 32),
     (20, False, 1e-4, 16),
+    (300, True, 1e-4, 16),  # above B5's 256-channel cluster kernel: colour slices on the card
 ]
 
 

@@ -25,11 +25,12 @@
 //
 // Design (D <= 256: the cluster kernel). The TPU kernel keeps a tile's
 // whole g in VMEM (536 KB at D = 131); a Hopper CTA has 227 KB, and the
-// one-CTA kernel below restaged g in 32-channel slices eight times per
-// walked block (about 38 GB from L2 per step), which cost 47% of its time
-// (experiments/train_bwd_phases.py). So a tile is a thread-block cluster
-// of C = ts^2 / 128 CTAs (8 at tile 32, 2 at tile 16; train_cluster in
-// raster/train.py, which the C side checks) of 256 threads. Rank r owns
+// one-CTA kernel (its geometry-only form ends this file) restaged g in
+// 32-channel slices eight times per walked block (about 38 GB from L2 per
+// step), which cost 47% of its time (experiments/train_bwd_phases.py). So
+// a tile is a thread-block cluster of C = ts^2 / 128 CTAs (8 at tile 32,
+// 2 at tile 16; train_cluster in raster/train.py, which the C side checks)
+// of 256 threads. Rank r owns
 // 128 pixels, 4 or 8 whole pixel rows of the tile, in 8 x 4 patches of 32,
 // for every block; it loads their g once per tile (68 KB at D = 131) and
 // keeps it. Threads 0-127 (warps 0-3) carry one pixel's T, texc, prefix
@@ -65,22 +66,65 @@
 // sums 4.3, the walk 2.3, the colour staging 1.0, the DSMEM sums 0.5. The
 // products run at about half the f32 FMA rate, the walk on half the warps.
 //
-// Widths D > 256 (CLUSTER_MAX_CHANNELS) take the one-CTA kernel below
-// (tpugs_train_bwd_wide_*), chosen by width alone: there g and the
-// partials of a cluster of 8 no longer fit one CTA's shared memory.
+// Widths D > 256 (CLUSTER_MAX_CHANNELS): g of a rank's 128 pixels over D
+// channels and Dpart no longer fit a CTA. The work splits in two, chosen
+// by width alone (raster/train.py::train_layout, which the C side checks):
+//  - colour slices (train_bwd_colour_kernel): the cluster kernel's layout
+//    over S = ceil(D / 128) channel slices of Ns columns (fwd_slices'
+//    split at COLOUR_SLICE_CHANNELS), one launch with the slices in the grid (cluster c takes tile
+//    c / S, slice c % S), so a tile's slices run side by side. A slice
+//    keeps g of its Ns columns resident, walks for w alone (w = alpha texc
+//    T does not depend on u; the cluster kernel's instructions in its
+//    order, so every w is the cluster kernel's), runs step (3) without
+//    the geometry and step (4) over its columns, stored row by row (rows
+//    are RW apart; a bf16 row of RW = 4 mod 8 columns is 8-byte aligned,
+//    so its stores are 8 bytes). No colour staging, no u product.
+//  - one geometry launch (train_bwd_geom_kernel, below), which needs
+//    u = g . colour summed over all D channels at every pair: the absgrad
+//    columns |dmx| |dmy| are absolute values of per-pixel sums over all
+//    channels and are not linear in the slices. It writes columns D..RW.
+// Together they compute the u product once and the d col product once;
+// the walk runs S + 1 times. Rows of blocks past blocks_done are zeroed
+// by the geometry launch, whole.
 //
-// The geometry-only instantiation of the one-CTA kernel
-// (tpugs_train_bwd_geom_f32) writes rows of the 8 geometry columns alone
-// and drops the colour gradients (Dcol, its zeroing and step (4)). Its
-// shared memory no longer grows with D, so it takes any D >= 1: the u
-// product still reads every colour column and every channel of g, in
-// kDK-channel slices. A render wider than the colour kernels' 512
-// channels runs in channel chunks, whose geometry sums add; the absgrad
-// columns |dmx| |dmy| are absolute values of per-pixel sums over all
-// channels and do not, so they come from one such launch over all D.
-// Bound: walked pairs * 30 + nonzero-alpha pairs * (2D + 30) f32
-// operations, against the colour rows and g read once per walked block and
-// the 8-column rows written (chip_smoke.py, phase 5).
+// The geometry cluster kernel also serves train_geom_rows (rows of the 8
+// geometry columns alone, RW = 8, any D up to kMaxGeomD): a tile is a
+// cluster of C = ts^2 / 64 CTAs of 256 threads (4 at tile 16, 16 at tile
+// 32, a non-portable size); rank r keeps g of its 64 pixels (a 16 x 4
+// block) over all D channels resident (132 KB at D = 515), so one CTA
+// fits an SM and only 64 pixels walk there at once. The sub-block's colour
+// rows stream in by cp.async in 64-channel chunks, double-buffered and
+// issued a chunk ahead; the u product takes all 8 warps (each chunk's two
+// 32-channel halves to the CTA's two halves), so does the walk (4 threads
+// a pixel, a scan over their quarters of the sub-block) and the geometry
+// sums over pixels (from d sigma and d op the walk stores); a block's
+// 128 x 8 partial sums are added over the ranks in rank order through
+// DSMEM. No d col product and no Dpart of width D.
+// Shared memory 256 ldg + 48,384 bytes (ldg = D rounded up to 4, plus 4
+// where that is an even count of 16-byte groups), so D <= 700 fits a
+// CTA's 227 KB beside the 3,072 static bytes.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; experiments/train_bwd_phases.py
+// on chip_smoke.py's phase 5 render, tile 16, trans_eps 0; PERF.md): the
+// rows of its 512-channel chunk 103.3 ms (colour slices 42.0, geometry
+// kernel 61.3) against 251.6 for the one-CTA kernel in the same call; its
+// geometry rows at D = 515 76.4 ms against 129.5. Slices of 128 columns
+// (two CTAs per SM) ran 14% faster than 256 (one). Of the geometry kernel:
+// the u product 26 ms, the colour staging (4-byte copies at D = 515) 13,
+// g 3, the sums 2; the walk on 2 warps with the geometry reduce-scatter
+// cost 37 ms before it took 4 threads a pixel, and a per-sub-block DSMEM
+// exchange cost more than a per-block one; three chunk buffers instead of
+// two gained 2.6% at D = 512 and lost 1% at 515, and skipping the u of
+// Gaussians whose alpha is 0 on all 64 pixels of a rank cost 12% (most
+// are not), so neither was kept.
+//
+// Above kMaxGeomD (GEOM_CLUSTER_MAX_CHANNELS) train_geom_rows takes the
+// one-CTA geometry kernel at the end of this file (the first one-CTA
+// kernel without its colour columns), chosen by width alone: it restages g in
+// 32-channel slices for every sub-block, and its shared memory does not
+// grow with D. Geometry bound (chip_smoke.py, phase 5): walked pairs * 30
+// + nonzero-alpha pairs * (2D + 30) f32 operations, against the colour
+// rows read once per walked block, g once per image, and the rows written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,9 +272,10 @@ __device__ __forceinline__ void sum_partials(bf16* __restrict__ out,
 // (3) The partial d col = W^T G over this rank's pixels, NC = ceil(D / 32):
 // warp w takes Gaussians 8 (w % 4) + 0..7 over pixel half w / 4, lane l
 // the columns l + 32j; the halves are added, then written with the
-// geometry partials (the walking warps in order) into Dpart once every
-// rank has read the previous ones.
-template <int NC>
+// geometry partials (the walking warps in order; not with kGeo false, the
+// colour slices) into Dpart, rows RW apart, once every rank has read the
+// previous ones.
+template <int NC, bool kGeo = true>
 __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, float* Dpart,
                                              const float* GeoW, int ldg, int D, int RW,
                                              int tid) {
@@ -266,7 +311,7 @@ __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, fl
         for (int m = 0; m < 8; ++m) Dpart[(g0 + m) * RW + c] = acc[m][j];
       }
     }
-  } else {
+  } else if constexpr (kGeo) {
     constexpr int kW = kSub * kGeomGrads;  // one walking warp's GeoW
     const int e = tid;                      // 128 threads, 256 sums: two each
 #pragma unroll
@@ -563,20 +608,657 @@ int max_clusters(int ts, int D) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// ------------------------------------- the one-CTA kernel (D > kMaxClusterD)
+// ------------------------------------------ the colour slices (D > 256)
+
+constexpr int kMaxSliceD = 256;  // the widest slice taken: CLUSTER_MAX_CHANNELS in raster/train.py
+
+// Shared memory of one rank of a colour slice Ns columns wide, in floats:
+// g of the slice's columns Gs[kPix][ldg] (ldg / 4 odd), Ws[kPix][kLdU] and
+// Dpart[kSub][Ns], this rank's partial of the slice's columns of the 32
+// rows.
+struct ColourLayout {
+  int Ns, ldg;
+  __host__ __device__ explicit ColourLayout(int ns) : Ns(ns) { ldg = (Ns / 4) % 2 ? Ns : Ns + 4; }
+  __host__ __device__ int ws() const { return kPix * ldg; }
+  __host__ __device__ int dpart() const { return ws() + kPix * kLdU; }
+  __host__ __device__ size_t bytes() const {
+    return size_t(dpart() + kSub * Ns) * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ void store4(float* o, const float4 s) {
+  *reinterpret_cast<float4*>(o) = s;
+}
+__device__ __forceinline__ void store4(bf16* o, const float4 s) {
+  const __nv_bfloat162 h[2] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w)};
+  *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(h);
+}
+
+// This rank's share of a slice's ns columns of the sub-block's 32 rows (out
+// points at row 0, the slice's first column): each 4 columns of a row are
+// the sum of the C ranks' partials, in rank order 0..C-1, read through
+// DSMEM; stored row by row, 4 columns a store (16 bytes in f32, 8 in bf16:
+// RW and the slice's first column are multiples of 4), the row's last
+// ns % 4 columns one by one.
+template <typename OutT>
+__device__ __forceinline__ void sum_columns(OutT* __restrict__ out,
+                                            const uint32_t (&part)[kMaxCluster], int C,
+                                            int rank, int Ns, int ns, int RW, int tid) {
+  const int per_row = Ns / 4;
+  const int n = kSub * per_row;
+  const int per = (n + C - 1) / C;
+  const int end = min(n, (rank + 1) * per);
+  for (int v = rank * per + tid; v < end; v += kCThreads) {
+    const int i = v / per_row;
+    const int c = 4 * (v - i * per_row);
+    if (c >= ns) continue;
+    float4 s = ld_cluster_f4(part[0] + 16u * v);
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < C) add4(s, ld_cluster_f4(part[r] + 16u * v));
+    OutT* o = out + static_cast<long long>(i) * RW + c;
+    if (c + 4 <= ns) {
+      store4(o, s);
+    } else {
+      const float e[4] = {s.x, s.y, s.z, s.w};
+      for (int k = 0; k < ns - c; ++k) store(o + k, e[k]);
+    }
+  }
+}
+
+// Grid C * S * n_tiles in clusters of (C, 1, 1): cluster c takes tile c / S
+// and channel slice c % S, columns [c0, c0 + ns); rank r its pixels
+// [r * kPix, (r + 1) * kPix) as in the cluster kernel. Writes only the
+// slice's columns of the walked blocks' rows.
+template <typename OutT>
+__global__ void __launch_bounds__(kCThreads, 2)
+train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict__ gimg,
+                        const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
+                        const int* __restrict__ padded_starts,
+                        const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
+                        int ts, int width, int height, int D, int RW, int C, int S, int Ns) {
+  extern __shared__ __align__(16) float smem[];
+  const ColourLayout L(Ns);
+  float* Gs = smem;                 // [kPix][ldg]: this rank's g of the slice, for the whole tile
+  float* Ws = smem + L.ws();        // [kPix][kLdU]
+  float* Dpart = smem + L.dpart();  // [kSub][Ns]
+  __shared__ BlockGeom g;
+
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster_rank());
+  const int cl = blockIdx.x / C;
+  const int tile = cl / S;
+  const int c0 = (cl % S) * Ns;
+  const int ns = min(Ns, D - c0);
+  const int ldg = L.ldg;
+  const int count = tile_ends[tile] - tile_starts[tile];
+  const int nb = (count + kBlock - 1) / kBlock;
+  const int nb_done = min(blocks_done[tile], nb);
+  const long long pstart = padded_starts[tile];
+  const int x0 = (tile % ntx) * ts;
+  const int y0 = (tile / ntx) * ts;
+  uint32_t part[kMaxCluster];  // every rank's Dpart, as DSMEM addresses
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
+
+  const int rank_y = y0 + rank * (kPix / ts);
+  const int2 lp = local_xy(tid, ts);
+  const float px = static_cast<float>(x0 + lp.x) + 0.5f;
+  const float py = static_cast<float>(rank_y + lp.y) + 0.5f;
+  float trans = 1.0f;
+
+  // this rank's g of the slice, once per tile: 0 outside the image and past ns
+  for (int idx = tid; idx < kPix * Ns; idx += kCThreads) {
+    const int pl = idx / Ns;
+    const int c = idx - pl * Ns;
+    const int2 l = local_xy(pl, ts);
+    const int x = x0 + l.x;
+    const int y = rank_y + l.y;
+    float v = 0.0f;
+    if (c < ns && x < width && y < height)
+      v = gimg[(static_cast<long long>(y) * width + x) * D + c0 + c];
+    Gs[pl * ldg + c] = v;
+  }
+  cluster_arrive();  // every CTA of the cluster has started
+  cluster_wait();
+  cluster_arrive();  // Dpart is free (paired with the first sub-block's wait)
+
+  for (int b = 0; b < nb_done; ++b) {
+    const long long row0 = pstart + static_cast<long long>(b) * kBlock;
+    load_geom(g, geom, row0, tid, kGeomCols);  // the last walk's reads ended at a barrier
+    const int remaining = count - b * kBlock;
+    float texc = 1.0f;
+    for (int s = 0; s < kBlock / kSub; ++s) {
+      const int gbase = s * kSub;
+      __syncthreads();  // the block's geometry is in, every read of Ws is done
+
+      // the walk for w alone: the cluster kernel's instructions in its order
+      if (tid < kPix) {
+        float* row = Ws + tid * kLdU;
+        for (int i4 = 0; i4 < kSub; i4 += 4) {
+          float ww[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gi = gbase + i4 + e;
+            const PairTerms t = pair_terms(g, gi, px, py);
+            const float alpha = clipped_alpha(t, gi < remaining);
+            ww[e] = alpha * texc * trans;
+            texc *= 1.0f - alpha;
+          }
+          *reinterpret_cast<float4*>(row + i4) = make_float4(ww[0], ww[1], ww[2], ww[3]);
+        }
+      }
+      __syncthreads();
+
+      switch ((ns + 31) / 32) {  // (3) without the geometry, rows Ns apart
+        case 1: partial_rows<1, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 2: partial_rows<2, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 3: partial_rows<3, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 4: partial_rows<4, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 5: partial_rows<5, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 6: partial_rows<6, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        case 7: partial_rows<7, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+        default: partial_rows<8, false>(Ws, Gs, Dpart, nullptr, ldg, ns, Ns, tid); break;
+      }
+      cluster_arrive();  // every rank's partials are complete
+      cluster_wait();
+      // (4) this rank's share of the slice's columns of the 32 rows
+      sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, tid);
+      cluster_arrive();  // this rank has read the others' partials
+    }
+    trans *= texc;
+  }
+  cluster_wait();  // no rank leaves while another may still read its partials
+}
+
+// (C, P, S, Ns) as raster/train.py::train_layout gives them, or an error.
+template <typename OutT>
+cudaError_t prepare_colour(int ts, int D, int RW, int C, int P, int S, int Ns, size_t* bytes) {
+  if (D < 1 || RW < D + kGeomGrads || RW % 4 != 0 || S < 1 || Ns < 16 || Ns > kMaxSliceD ||
+      Ns % 16 != 0 || static_cast<long long>(S - 1) * Ns >= D ||
+      static_cast<long long>(S) * Ns < D || (ts != 16 && ts != 32) || P != kPix ||
+      C * P != ts * ts || C > kMaxCluster)
+    return cudaErrorInvalidValue;
+  *bytes = ColourLayout(Ns).bytes();
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_colour_kernel<OutT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*bytes));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(train_bwd_colour_kernel<OutT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename OutT>
+int launch_colour(const float* geom, const float* gimg, const int* tile_starts,
+                  const int* tile_ends, const int* padded_starts, const int* blocks_done,
+                  OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D, int RW,
+                  int C, int P, int S, int Ns, cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_colour<OutT>(ts, D, RW, C, P, S, Ns, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(S * n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_colour_kernel<OutT>, geom, gimg, tile_starts,
+                         tile_ends, padded_starts, blocks_done, out, ntx, ts, width, height, D,
+                         RW, C, S, Ns);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of one colour slice Ns columns wide at tile ts that can be
+// resident at once, or minus a CUDA error.
+template <typename OutT>
+int max_colour_clusters(int ts, int Ns) {
+  const int C = ts * ts / kPix;
+  size_t bytes = 0;
+  cudaError_t e = prepare_colour<OutT>(ts, Ns, Ns + kGeomGrads, C, kPix, 1, Ns, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_colour_kernel<OutT>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// -------------------------------------------- the geometry cluster kernel
+
+constexpr int kGPix = 64;                // pixels per rank; GEOM_PIXELS_PER_RANK in raster/train.py
+constexpr int kGThreads = 4 * kGPix;     // two channel halves of the u product; 4 walk a pixel
+constexpr int kKC = 64;                  // channels per staged colour chunk, half to each half
+constexpr int kLdC = kKC + 4;            // Cc[gaussian][channel]: an odd count of 16-byte groups
+constexpr int kLdS = kGPix + 5;          // Dsig/Dop[gaussian][pixel]: the walk's stores in 32 banks
+constexpr int kMaxGeomCluster = 16;      // non-portable: ts = 32 gives C = 16
+constexpr int kMaxGeomD = 700;           // GEOM_CLUSTER_MAX_CHANNELS in raster/train.py
+
+// Shared memory of one rank, in floats: g Gs[kGPix][ldg] (ldg / 4 odd), two
+// colour chunk buffers Cc[kSub][kLdC], Us[kGPix][kLdU], the walk's d sigma
+// and d op Dsig/Dop[kSub][kLdS], and this rank's partial sums of the block
+// Gpart[kBlock][8].
+struct GeomLayout {
+  int D4, ldg;
+  __host__ __device__ explicit GeomLayout(int D) {
+    D4 = (D + 3) / 4 * 4;
+    ldg = (D4 / 4) % 2 ? D4 : D4 + 4;
+  }
+  __host__ __device__ int chunks() const { return kGPix * ldg; }
+  __host__ __device__ int us() const { return chunks() + 2 * kSub * kLdC; }
+  __host__ __device__ int dsig() const { return us() + kGPix * kLdU; }
+  __host__ __device__ int dop() const { return dsig() + kSub * kLdS; }
+  __host__ __device__ int gpart() const { return dop() + kSub * kLdS; }
+  __host__ __device__ size_t bytes() const {
+    return size_t(gpart() + kBlock * kGeomGrads) * sizeof(float);
+  }
+};
+
+// Local pixel l (0..63) of rank r: the rank's 16 x 4 pixel block (ts / 16
+// blocks across the tile, rank order row-major), each walking warp an
+// 8 x 4 patch of it.
+__device__ __forceinline__ int2 geom_xy(int l, int rank, int ts) {
+  const int per_row = ts >> 4, lane = l & 31;
+  return make_int2(16 * (rank % per_row) + 8 * (l >> 5) + (lane & 7),
+                   4 * (rank / per_row) + (lane >> 3));
+}
+
+// Channels [k0, k0 + kKC) of the colour rows cols[row .. row + 32) into
+// Cc (one committed group): 16-byte cp.async where D % 4 == 0 (the rows
+// are then 16-byte aligned), else 4-byte; zeros in the chunk's columns
+// past D up to a multiple of 4.
+__device__ __forceinline__ void stage_chunk(float* Cc, const float* __restrict__ cols,
+                                            long long row, int k0, int D, int tid) {
+  const int kw = min(kKC, D - k0);
+  const float* src = cols + row * D + k0;
+  if ((D & 3) == 0) {
+    for (int e = tid; e < kSub * (kKC / 4); e += kGThreads) {
+      const int i = e / (kKC / 4);
+      const int k = 4 * (e % (kKC / 4));
+      if (k < kw) cp_async16(Cc + i * kLdC + k, src + static_cast<long long>(i) * D + k);
+    }
+  } else {
+    const int kw4 = (kw + 3) & ~3;
+    for (int e = tid; e < kSub * kKC; e += kGThreads) {
+      const int i = e / kKC;
+      const int k = e % kKC;
+      if (k < kw)
+        cp_async4(Cc + i * kLdC + k, src + static_cast<long long>(i) * D + k);
+      else if (k < kw4)
+        Cc[i * kLdC + k] = 0.0f;
+    }
+  }
+  cp_async_commit();
+}
+
+// This rank's share of the block's 128 x 8 geometry sums (out points at
+// row 0, the first geometry column): each 4 sums are the C ranks' partials
+// added in rank order 0..C-1 through DSMEM; the n_pad columns after the
+// geometry are written 0.
+template <typename OutT>
+__device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
+                                             const uint32_t (&part)[kMaxGeomCluster], int C,
+                                             int rank, int RW, int n_pad, int tid) {
+  constexpr int n = kBlock * kGeomGrads / 4;
+  const int per = (n + C - 1) / C;
+  const int v = rank * per + tid;
+  if (tid >= per || v >= n) return;
+  float4 s = ld_cluster_f4(part[0] + 16u * v);
+#pragma unroll
+  for (int r = 1; r < kMaxGeomCluster; ++r)
+    if (r < C) add4(s, ld_cluster_f4(part[r] + 16u * v));
+  const int t = 4 * (v & 1);
+  OutT* o = out + static_cast<long long>(v >> 1) * RW + t;
+  store(o, s.x);
+  store(o + 1, s.y);
+  store(o + 2, s.z);
+  store(o + 3, s.w);
+  if (t) for (int k = 0; k < n_pad; ++k) store(o + 4 + k, 0.0f);
+}
+
+// Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
+// one tile, rank r the 64 pixels of its 16 x 4 block. Writes columns
+// [col0, RW) of every row of the tile's span: col0 = 0 for RW = 8 (the
+// geometry rows of train_geom_rows), else col0 = D (train_rows' geometry
+// and pad columns, and the whole rows of the blocks past blocks_done).
+// Per 32-Gaussian sub-block:
+//   (1) u (64 x 32) = G Ct^T chunk by chunk, each chunk's two halves of 32
+//       channels to the two halves of the CTA (a 4 x 4 register tile per
+//       thread, each u summed over its half's channels in order); the
+//       halves' sums are added through Us;
+//   (2) the walk, 4 threads per pixel, each a quarter of the sub-block's
+//       Gaussians: each computes its quarter's transmittance factor P and
+//       sum S of alpha * T * u from 1, an exclusive scan over the 4 (under
+//       (P1, S1)(P2, S2) = (P1 P2, S1 + P1 S2), 2 shuffle steps) gives each
+//       its T and prefix of w * u on entry, and each then replays its
+//       quarter and stores d sigma and d op per pair;
+//   (3) all 8 warps sum the 8 geometry terms of each Gaussian over the
+//       rank's pixels, 8 threads per Gaussian of 8 pixels each and a
+//       butterfly over the 8 (pairs whose d sigma and d op are 0 skipped);
+// and per 128-Gaussian block (4) the ranks' partials are added in rank
+// order through DSMEM, one cluster exchange a block.
+template <typename OutT>
+__global__ void __launch_bounds__(kGThreads, 1)
+train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
+                      const float* __restrict__ gimg, const float* __restrict__ hterm,
+                      const float* __restrict__ grem0, const int* __restrict__ tile_starts,
+                      const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
+                      const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
+                      int ts, int width, int height, int D, int RW, int C) {
+  extern __shared__ __align__(16) float smem[];
+  const GeomLayout L(D);
+  float* Gs = smem;                  // [kGPix][ldg]: this rank's g, for the whole tile
+  float* Cbuf = smem + L.chunks();   // 2 x Cc[kSub][kLdC]
+  float* Us = smem + L.us();         // [kGPix][kLdU]
+  float* Dsig = smem + L.dsig();     // [kSub][kLdS]
+  float* Dop = smem + L.dop();       // [kSub][kLdS]
+  float* Gpart = smem + L.gpart();   // [kSub][kGeomGrads]
+  __shared__ BlockGeom g;
+
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster_rank());
+  const int tile = blockIdx.x / C;
+  const int ldg = L.ldg, D4 = L.D4;
+  const int col0 = RW == kGeomGrads ? 0 : D;
+  const int n_pad = RW - col0 - kGeomGrads;
+  const int count = tile_ends[tile] - tile_starts[tile];
+  const int nb = (count + kBlock - 1) / kBlock;
+  const int nb_done = min(blocks_done[tile], nb);
+  const long long pstart = padded_starts[tile];
+  const int x0 = (tile % ntx) * ts;
+  const int y0 = (tile / ntx) * ts;
+  uint32_t part[kMaxGeomCluster];  // every rank's Gpart, as DSMEM addresses
+#pragma unroll
+  for (int r = 0; r < kMaxGeomCluster; ++r)
+    part[r] = map_rank(smem_addr(Gpart), r < C ? r : 0);
+
+  // this thread's pixel in the walk, its quarter of the Gaussians and the
+  // pixel's carried state (the same in its 4 threads)
+  const int wp = tid >> 2, quarter = tid & 3;
+  const int2 lp = geom_xy(wp, rank, ts);
+  const int xi = x0 + lp.x;
+  const int yi = y0 + lp.y;
+  const bool in_img = xi < width && yi < height;
+  const float px = static_cast<float>(xi) + 0.5f;
+  const float py = static_cast<float>(yi) + 0.5f;
+  const long long pix = static_cast<long long>(yi) * width + xi;
+  const float h = in_img ? hterm[pix] : 0.0f;
+  float grem = in_img ? grem0[pix] : 0.0f;
+  float trans = 1.0f;
+
+  // this rank's g over all D channels, once per tile: 0 outside the image
+  // and in columns [D, D4)
+  for (int idx = tid; idx < kGPix * D4; idx += kGThreads) {
+    const int pl = idx / D4;
+    const int c = idx - pl * D4;
+    const int2 l = geom_xy(pl, rank, ts);
+    const int x = x0 + l.x;
+    const int y = y0 + l.y;
+    float v = 0.0f;
+    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
+    Gs[pl * ldg + c] = v;
+  }
+  // the colour chunks of the walk in order: sub-block q / n_ch of the span,
+  // channels kKC (q % n_ch) onward
+  const int n_ch = (D + kKC - 1) / kKC;
+  const int n_q = nb_done * (kBlock / kSub) * n_ch;
+  if (n_q > 0) stage_chunk(Cbuf, cols, pstart, 0, D, tid);
+  cluster_arrive();  // every CTA of the cluster has started
+  cluster_wait();
+  cluster_arrive();  // Gpart is free (paired with the first block's wait)
+
+  // (1)'s thread (pg, gg) of channel half `half`: pixels pg + 16j, Gaussians gg + 8m
+  const int half = tid / (kGThreads / 2);
+  const int gg = tid & 7, pg = (tid % (kGThreads / 2)) >> 3;
+  int q = 0;
+  for (int b = 0; b < nb_done; ++b) {
+    const long long row0 = pstart + static_cast<long long>(b) * kBlock;
+    load_geom(g, geom, row0, tid, kGeomCols);  // the last walk's reads ended at a barrier
+    const int remaining = count - b * kBlock;
+    float texc = 1.0f, cs = 0.0f;
+    for (int s = 0; s < kBlock / kSub; ++s) {
+      const int gbase = s * kSub;
+
+      // (1) u = G Ct^T, chunk by chunk, each chunk staged one ahead
+      float u[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) u[j][m] = 0.0f;
+      for (int kc = 0; kc < n_ch; ++kc, ++q) {
+        cp_async_wait_all();  // chunk q is in (the only group in flight)
+        __syncthreads();      // for every thread, and every read of chunk q - 1 is done
+        if (q + 1 < n_q)
+          stage_chunk(Cbuf + ((q + 1) & 1) * kSub * kLdC, cols,
+                      pstart + static_cast<long long>((q + 1) / n_ch) * kSub,
+                      ((q + 1) % n_ch) * kKC, D, tid);
+        const int k0 = kc * kKC + half * (kKC / 2);
+        const float* Cc = Cbuf + (q & 1) * kSub * kLdC + half * (kKC / 2);
+        const float* Gk = Gs + k0;
+        const int kw4 = min(kKC / 2, D4 - k0);
+#pragma unroll 1
+        for (int k = 0; k < kw4; k += 4) {
+          float4 gv[4], cv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            gv[j] = *reinterpret_cast<const float4*>(Gk + (pg + 16 * j) * ldg + k);
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            cv[m] = *reinterpret_cast<const float4*>(Cc + (gg + 8 * m) * kLdC + k);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              float a = fmaf(gv[j].x, cv[m].x, u[j][m]);
+              a = fmaf(gv[j].y, cv[m].y, a);
+              a = fmaf(gv[j].z, cv[m].z, a);
+              u[j][m] = fmaf(gv[j].w, cv[m].w, a);
+            }
+        }
+      }
+      // the halves' sums: u = u(half 0) + u(half 1)
+      if (half) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) Us[(pg + 16 * j) * kLdU + gg + 8 * m] = u[j][m];
+      }
+      __syncthreads();
+      if (!half) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            float* o = Us + (pg + 16 * j) * kLdU + gg + 8 * m;
+            *o = u[j][m] + *o;
+          }
+      }
+      __syncthreads();
+
+      // (2) the walk: thread `quarter` of pixel wp takes Gaussians
+      // 8 quarter + 0..7 of the sub-block
+      {
+        const float* row = Us + wp * kLdU + 8 * quarter;
+        const float4 ua = *reinterpret_cast<const float4*>(row);
+        const float4 ub = *reinterpret_cast<const float4*>(row + 4);
+        const float uu[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
+        float al[8], ex[8];
+        unsigned grad = 0, pos = 0;  // bit e: d alpha passes the clip; sigma > 0
+        float P = 1.0f, S = 0.0f;    // the quarter's T factor and sum of alpha * T * u, from 1
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int gi = gbase + 8 * quarter + e;
+          const PairTerms pt = pair_terms(g, gi, px, py);
+          const float alpha = clipped_alpha(pt, gi < remaining);
+          al[e] = alpha;
+          ex[e] = pt.e;
+          if (alpha != 0.0f && pt.alpha_raw < kAlphaMax) grad |= 1u << e;
+          if (pt.sigma > 0.0f) pos |= 1u << e;
+          S = fmaf(alpha * P, uu[e], S);
+          P *= 1.0f - alpha;
+        }
+#pragma unroll
+        for (int d = 1; d < 4; d <<= 1) {  // inclusive scan over the pixel's quarters
+          const float Pu = __shfl_up_sync(0xffffffffu, P, d, 4);
+          const float Su = __shfl_up_sync(0xffffffffu, S, d, 4);
+          if (quarter >= d) {
+            S = fmaf(Pu, S, Su);
+            P = Pu * P;
+          }
+        }
+        float Pe = __shfl_up_sync(0xffffffffu, P, 1, 4);  // exclusive: the quarters before
+        float Se = __shfl_up_sync(0xffffffffu, S, 1, 4);
+        if (quarter == 0) {
+          Pe = 1.0f;
+          Se = 0.0f;
+        }
+        float tx = texc * Pe;                  // T within the block on entry
+        float c = fmaf(texc * trans, Se, cs);  // prefix of w * u on entry
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int gi = gbase + 8 * quarter + e;
+          const float alpha = al[e];
+          const float w = alpha * tx * trans;
+          c = fmaf(w, uu[e], c);
+          const float v = grem - c;
+          const float d_alpha = tx * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
+          const float d_araw = (grad >> e) & 1u ? d_alpha : 0.0f;
+          tx *= 1.0f - alpha;
+          Dsig[(8 * quarter + e) * kLdS + wp] = (pos >> e) & 1u ? -d_araw * g.op[gi] * ex[e] : 0.0f;
+          Dop[(8 * quarter + e) * kLdS + wp] = d_araw * ex[e];
+        }
+        texc = __shfl_sync(0xffffffffu, tx, 3, 4);  // the pixel's state after the sub-block
+        cs = __shfl_sync(0xffffffffu, c, 3, 4);
+      }
+      __syncthreads();
+
+      // (3) this rank's partial sums, once every rank has read the previous
+      // block's
+      if (s == 0) cluster_wait();
+      {
+        const int i = tid >> 3, l = tid & 7;
+        const int gi = gbase + i;
+        const float mx = g.mx[gi], my = g.my[gi];
+        const float ca = g.ca[gi], cb = g.cb[gi], cc = g.cc[gi];
+        float a[kGeomGrads];
+#pragma unroll
+        for (int k = 0; k < kGeomGrads; ++k) a[k] = 0.0f;
+        for (int p = l; p < kGPix; p += 8) {
+          const float ds = Dsig[i * kLdS + p];
+          const float dop = Dop[i * kLdS + p];
+          if (ds == 0.0f && dop == 0.0f) continue;  // every term 0
+          const int2 xy = geom_xy(p, rank, ts);
+          const float dx = __fsub_rn(static_cast<float>(x0 + xy.x) + 0.5f, mx);
+          const float dy = __fsub_rn(static_cast<float>(y0 + xy.y) + 0.5f, my);
+          const float dmx = ds * -(ca * dx + cb * dy);
+          const float dmy = ds * -(cc * dy + cb * dx);
+          a[0] += dmx;
+          a[1] += dmy;
+          a[2] += ds * (0.5f * dx * dx);
+          a[3] += ds * (dx * dy);
+          a[4] += ds * (0.5f * dy * dy);
+          a[5] += dop;
+          a[6] += fabsf(dmx);
+          a[7] += fabsf(dmy);
+        }
+#pragma unroll
+        for (int k = 0; k < kGeomGrads; ++k) {
+#pragma unroll
+          for (int off = 4; off >= 1; off >>= 1) a[k] += __shfl_xor_sync(0xffffffffu, a[k], off);
+        }
+        if (l == 0) {
+#pragma unroll
+          for (int k = 0; k < kGeomGrads; ++k) Gpart[(gbase + i) * kGeomGrads + k] = a[k];
+        }
+      }
+    }
+    cluster_arrive();  // every rank's partial of the block is complete
+    cluster_wait();
+    // (4) this rank's share of the 128 x 8 sums, the C partials in rank order
+    sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);
+    cluster_arrive();  // this rank has read the others' partials
+    trans *= texc;
+    grem -= cs;
+  }
+  // blocks the forward's early exit skipped: whole zero rows, 16 bytes a
+  // store, split over the cluster's ranks (the span is 16-byte aligned)
+  constexpr int V = 16 / sizeof(OutT);
+  const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
+  const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * RW / V;
+  for (long long v = rank * kGThreads + tid; v < n_vec; v += C * kGThreads)
+    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
+  cluster_wait();  // no rank leaves while another may still read its partial
+}
+
+// (C, P) as raster/train.py::geom_cluster gives them, or an error. RW is 8
+// (geometry rows) or train_rows' (D + 8 rounded up to 4).
+template <typename OutT>
+cudaError_t prepare_geom(int ts, int D, int RW, int C, int P, size_t* bytes) {
+  if (D < 1 || D > kMaxGeomD || (RW != kGeomGrads && RW != (D + kGeomGrads + 3) / 4 * 4) ||
+      (ts != 16 && ts != 32) || P != kGPix || C * P != ts * ts || C > kMaxGeomCluster)
+    return cudaErrorInvalidValue;
+  *bytes = GeomLayout(D).bytes();
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*bytes));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+cudaLaunchConfig_t geom_config(int n_tiles, int C, size_t bytes, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
+  cfg.blockDim = dim3(kGThreads, 1, 1);
+  return cfg;
+}
+
+template <typename OutT>
+int launch_geom(const float* geom, const float* cols, const float* gimg, const float* hterm,
+                const float* grem0, const int* tile_starts, const int* tile_ends,
+                const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
+                int ntx, int ts, int width, int height, int D, int RW, int C, int P,
+                cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_geom<OutT>(ts, D, RW, C, P, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = geom_config(n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_geom_kernel<OutT>, geom, cols, gimg, hterm, grem0,
+                         tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
+                         width, height, D, RW, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the geometry kernel at (ts, D) that can be resident at once
+// (geometry rows, RW = 8), or minus a CUDA error.
+int max_geom_clusters(int ts, int D) {
+  const int C = ts * ts / kGPix;
+  size_t bytes = 0;
+  cudaError_t e = prepare_geom<float>(ts, D, kGeomGrads, C, kGPix, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = geom_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_geom_kernel<float>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// ------------------------- the one-CTA geometry kernel (D > kMaxGeomD)
 
 constexpr int kThreads = 256;     // = pixels per chunk
 constexpr int kDK = 32;           // channels per staged slice of g
 constexpr int kMaxPixels = 1024;
 constexpr int kLdG = kDK + 1;     // Gs[pixel][channel]
-constexpr int kLdC = kSub + 4;    // Ct[channel][gaussian], 16-byte rows
+constexpr int kLdCt = kSub + 4;   // Ct[channel][gaussian], 16-byte rows
 constexpr int kLdW = kSub + 4;    // Ws[pixel][gaussian], 16-byte rows
 constexpr int kLdD = kThreads + 8;  // Dsig/Dop[gaussian][pixel]
 
-constexpr size_t kFixedFloats = size_t(kThreads) * kLdG + size_t(kDK) * kLdC +
+constexpr size_t kFixedFloats = size_t(kThreads) * kLdG + size_t(kDK) * kLdCt +
                                 size_t(kThreads) * kLdW + 2 * size_t(kSub) * kLdD +
                                 size_t(kSub) * kGeomGrads + 4 * size_t(kMaxPixels);
-
 
 // Gs[q][k] = g(pixel q of chunk c, channel d0 + k), 0 outside the image
 // or past D; ts = 1 << ts_shift. Each warp reads 32 consecutive channels of
@@ -597,20 +1279,20 @@ __device__ __forceinline__ void stage_g(float* Gs, const float* __restrict__ gim
   }
 }
 
-// kGeomOnly: rows of the kGeomGrads geometry columns alone (RW = kGeomGrads),
-// no colour gradients; any D.
-template <typename OutT, bool kGeomOnly>
+// f32 rows of the kGeomGrads geometry columns alone (RW = kGeomGrads), any
+// D; one CTA per tile, its pixels in chunks of 256, g restaged per slice.
 __global__ void __launch_bounds__(kThreads)
-train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
-                 const float* __restrict__ gimg, const float* __restrict__ hterm,
-                 const float* __restrict__ grem0, const int* __restrict__ tile_starts,
-                 const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
-                 const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx, int ts,
-                 int width, int height, int D, int Dpad, int RW) {
+train_bwd_geom_cta_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
+                          const float* __restrict__ gimg, const float* __restrict__ hterm,
+                          const float* __restrict__ grem0, const int* __restrict__ tile_starts,
+                          const int* __restrict__ tile_ends,
+                          const int* __restrict__ padded_starts,
+                          const int* __restrict__ blocks_done, float* __restrict__ out, int ntx,
+                          int ts, int width, int height, int D) {
   extern __shared__ __align__(16) float smem[];
   float* Gs = smem;                       // [kThreads][kLdG]
-  float* Ct = Gs + kThreads * kLdG;       // [kDK][kLdC]
-  float* Ws = Ct + kDK * kLdC;            // [kThreads][kLdW]
+  float* Ct = Gs + kThreads * kLdG;       // [kDK][kLdCt]
+  float* Ws = Ct + kDK * kLdCt;           // [kThreads][kLdW]
   float* Dsig = Ws + kThreads * kLdW;     // [kSub][kLdD]
   float* Dop = Dsig + kSub * kLdD;        // [kSub][kLdD]
   float* Geo = Dop + kSub * kLdD;         // [kSub][kGeomGrads]
@@ -618,7 +1300,6 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
   float* Tx = Tr + kMaxPixels;            //   texc within the block
   float* Cs = Tx + kMaxPixels;            //   prefix of w*u within the block
   float* Gr = Cs + kMaxPixels;            //   grem carried into the block
-  float* Dcol = Gr + kMaxPixels;          // [kSub][Dpad]; absent with kGeomOnly
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
@@ -649,8 +1330,6 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
     for (int s = 0; s < kBlock / kSub; ++s) {
       const int gbase = s * kSub;
       __syncthreads();  // the previous sub-block's rows are written
-      if constexpr (!kGeomOnly)
-        for (int idx = tid; idx < kSub * Dpad; idx += kThreads) Dcol[idx] = 0.0f;
       for (int idx = tid; idx < kSub * kGeomGrads; idx += kThreads) Geo[idx] = 0.0f;
       for (int c = 0; c < n_chunks; ++c) {
         const int p = c * kThreads + tid;
@@ -663,17 +1342,17 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < kSub; ++i) u[i] = 0.0f;
         for (int d0 = 0; d0 < D; d0 += kDK) {
-          __syncthreads();  // previous readers of Gs, Ct (and g, Geo, Dcol init) done
+          __syncthreads();  // previous readers of Gs, Ct (and g, Geo init) done
           stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);
           for (int idx = tid; idx < kSub * kDK; idx += kThreads) {
             const int i = idx / kDK;
             const int k = idx % kDK;
-            Ct[k * kLdC + i] = d0 + k < D ? cols[(row0 + gbase + i) * D + d0 + k] : 0.0f;
+            Ct[k * kLdCt + i] = d0 + k < D ? cols[(row0 + gbase + i) * D + d0 + k] : 0.0f;
           }
           __syncthreads();
           for (int k = 0; k < kDK; ++k) {
             const float gv = Gs[tid * kLdG + k];
-            const float4* cv = reinterpret_cast<const float4*>(Ct + k * kLdC);
+            const float4* cv = reinterpret_cast<const float4*>(Ct + k * kLdCt);
 #pragma unroll
             for (int i4 = 0; i4 < kSub / 4; ++i4) {
               const float4 v = cv[i4];
@@ -707,7 +1386,6 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
             const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
             Dop[i * kLdD + tid] = d_araw * t.e;
             Dsig[i * kLdD + tid] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
-            Ws[tid * kLdW + i] = w;
             texc *= 1.0f - alpha;
           }
           Tx[p] = texc;
@@ -754,44 +1432,10 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
             for (int k = 0; k < kGeomGrads; ++k) Geo[i * kGeomGrads + k] += a[k];
           }
         }
-
-        // (4) d col(gbase + 4 ig + j, d0 + k) += sum_q w(q, .) g(q, d0 + k)
-        if constexpr (!kGeomOnly) {
-          const int ig = tid / 32;
-          const int k = tid % 32;
-          for (int d0 = 0; d0 < D; d0 += kDK) {
-            __syncthreads();  // previous readers of Gs done
-            stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);
-            __syncthreads();
-            float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-            for (int q = 0; q < kThreads; ++q) {
-              const float4 w4 = *reinterpret_cast<const float4*>(Ws + q * kLdW + 4 * ig);
-              const float gv = Gs[q * kLdG + k];
-              a0 = fmaf(w4.x, gv, a0);
-              a1 = fmaf(w4.y, gv, a1);
-              a2 = fmaf(w4.z, gv, a2);
-              a3 = fmaf(w4.w, gv, a3);
-            }
-            float* dc = Dcol + (4 * ig) * Dpad + d0 + k;
-            dc[0] += a0;
-            dc[Dpad] += a1;
-            dc[2 * Dpad] += a2;
-            dc[3 * Dpad] += a3;
-          }
-        }
       }
       __syncthreads();
-      for (int idx = tid; idx < kSub * RW; idx += kThreads) {
-        const int i = idx / RW;
-        const int col = idx % RW;
-        const int lead = kGeomOnly ? 0 : D;  // colour columns before the geometry
-        float v = 0.0f;
-        if (col < lead)
-          v = Dcol[i * Dpad + col];
-        else if (col < lead + kGeomGrads)
-          v = Geo[i * kGeomGrads + col - lead];
-        store(out + (row0 + gbase + i) * RW + col, v);
-      }
+      for (int idx = tid; idx < kSub * kGeomGrads; idx += kThreads)
+        out[(row0 + gbase) * kGeomGrads + idx] = Geo[idx];
     }
     __syncthreads();
     for (int p = tid; p < tspx; p += kThreads) {
@@ -803,30 +1447,27 @@ train_bwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
     __syncthreads();
   }
   // blocks the forward's early exit skipped: zero rows
-  const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
-  const long long n_zero = static_cast<long long>(nb - nb_done) * kBlock * RW;
-  constexpr int V = 16 / sizeof(OutT);  // 16-byte stores; the span is 16-byte aligned
-  for (long long v = tid; v < n_zero / V; v += kThreads)
-    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
+  const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * kGeomGrads;
+  const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * kGeomGrads / 4;
+  for (long long v = tid; v < n_vec; v += kThreads)
+    *reinterpret_cast<uint4*>(out + zero0 + v * 4) = make_uint4(0, 0, 0, 0);
 }
 
-template <typename OutT, bool kGeomOnly = false>
-int launch_wide(const float* geom, const float* cols, const float* gimg, const float* hterm,
-           const float* grem0, const int* tile_starts, const int* tile_ends,
-           const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles, int ntx,
-           int ts, int width, int height, int D, int RW, cudaStream_t stream) {
-  const int Dpad = (D + kDK - 1) / kDK * kDK;
-  const bool rw_ok = kGeomOnly ? RW == kGeomGrads : RW >= D + kGeomGrads;
-  if (D < 1 || !rw_ok || (ts != 16 && ts != 32))
+int launch_geom_cta(const float* geom, const float* cols, const float* gimg,
+                    const float* hterm, const float* grem0, const int* tile_starts,
+                    const int* tile_ends, const int* padded_starts, const int* blocks_done,
+                    float* out, int n_tiles, int ntx, int ts, int width, int height, int D,
+                    int RW, cudaStream_t stream) {
+  if (D < 1 || RW != kGeomGrads || (ts != 16 && ts != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = (kFixedFloats + (kGeomOnly ? 0 : size_t(kSub) * Dpad)) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_wide_kernel<OutT, kGeomOnly>,
+  const size_t bytes = kFixedFloats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_cta_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  train_bwd_wide_kernel<OutT, kGeomOnly><<<n_tiles, kThreads, bytes, stream>>>(
+  train_bwd_geom_cta_kernel<<<n_tiles, kThreads, bytes, stream>>>(
       geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done, out,
-      ntx, ts, width, height, D, Dpad, RW);
+      ntx, ts, width, height, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -840,7 +1481,7 @@ int launch_wide(const float* geom, const float* cols, const float* gimg, const f
 #define TPUGS_TRAIN_BWD_PASS                                                                  \
   geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done
 
-// The cluster kernel, for D <= 256, at (C, P) from raster/train.py::train_cluster.
+// The cluster kernel, for D <= 256, at (C, P) from raster/train.py::train_layout.
 extern "C" int tpugs_train_bwd_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
                                    int ts, int width, int height, int D, int RW, int C, int P,
                                    cudaStream_t stream) {
@@ -855,32 +1496,65 @@ extern "C" int tpugs_train_bwd_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, in
                                               width, height, D, RW, C, P, stream);
 }
 
-// The one-CTA kernel, for D > 256 (any D <= 512).
-extern "C" int tpugs_train_bwd_wide_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
-                                        int ts, int width, int height, int D, int RW,
-                                        cudaStream_t stream) {
-  return tpugs::launch_wide<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height,
-                                   D, RW, stream);
+// The colour slices (the row's columns [0, D)), at (C, P, S, Ns) from
+// train_layout; cols, hterm and grem0 are not read.
+extern "C" int tpugs_train_bwd_colour_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles,
+                                          int ntx, int ts, int width, int height, int D,
+                                          int RW, int C, int P, int S, int Ns,
+                                          cudaStream_t stream) {
+  return tpugs::launch_colour<float>(geom, gimg, tile_starts, tile_ends, padded_starts,
+                                     blocks_done, out, n_tiles, ntx, ts, width, height, D, RW,
+                                     C, P, S, Ns, stream);
 }
 
-extern "C" int tpugs_train_bwd_wide_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
-                                         int n_tiles, int ntx, int ts, int width, int height,
-                                         int D, int RW, cudaStream_t stream) {
-  return tpugs::launch_wide<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
-                                           height, D, RW, stream);
+extern "C" int tpugs_train_bwd_colour_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
+                                           int n_tiles, int ntx, int ts, int width,
+                                           int height, int D, int RW, int C, int P, int S,
+                                           int Ns, cudaStream_t stream) {
+  return tpugs::launch_colour<__nv_bfloat16>(geom, gimg, tile_starts, tile_ends,
+                                             padded_starts, blocks_done, out, n_tiles, ntx, ts,
+                                             width, height, D, RW, C, P, S, Ns, stream);
 }
 
-// The one-CTA kernel's geometry-only instantiation: f32 rows of the 8
-// geometry columns (RW = 8), for any D >= 1.
+// The geometry cluster kernel at (C, P) from raster/train.py::geom_cluster:
+// rows of the 8 geometry columns (RW = 8), or train_rows' columns D..RW
+// and the skipped blocks' whole rows (RW = D + 8 rounded up to 4).
 extern "C" int tpugs_train_bwd_geom_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
-                                        int ts, int width, int height, int D, int RW,
-                                        cudaStream_t stream) {
-  return tpugs::launch_wide<float, true>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
-                                         height, D, RW, stream);
+                                        int ts, int width, int height, int D, int RW, int C,
+                                        int P, cudaStream_t stream) {
+  return tpugs::launch_geom<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height,
+                                   D, RW, C, P, stream);
+}
+
+extern "C" int tpugs_train_bwd_geom_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
+                                         int n_tiles, int ntx, int ts, int width, int height,
+                                         int D, int RW, int C, int P, cudaStream_t stream) {
+  return tpugs::launch_geom<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
+                                           height, D, RW, C, P, stream);
+}
+
+// The one-CTA geometry kernel: f32 rows of the 8 geometry columns (RW = 8),
+// for D above the geometry cluster kernel's kMaxGeomD.
+extern "C" int tpugs_train_bwd_geom_cta_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles,
+                                            int ntx, int ts, int width, int height, int D,
+                                            int RW, cudaStream_t stream) {
+  return tpugs::launch_geom_cta(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height, D,
+                                RW, stream);
 }
 
 // Resident clusters of the cluster kernel at tile ts and D channels (bf16
 // or f32 rows), or minus a CUDA error.
 extern "C" int tpugs_train_bwd_max_clusters(int bf16, int ts, int D) {
   return bf16 ? tpugs::max_clusters<__nv_bfloat16>(ts, D) : tpugs::max_clusters<float>(ts, D);
+}
+
+// Resident clusters of one colour slice Ns columns wide at tile ts.
+extern "C" int tpugs_train_bwd_colour_max_clusters(int bf16, int ts, int Ns) {
+  return bf16 ? tpugs::max_colour_clusters<__nv_bfloat16>(ts, Ns)
+              : tpugs::max_colour_clusters<float>(ts, Ns);
+}
+
+// Resident clusters of the geometry kernel at tile ts (C = ts^2 / 64) and D.
+extern "C" int tpugs_train_bwd_geom_max_clusters(int ts, int D) {
+  return tpugs::max_geom_clusters(ts, D);
 }

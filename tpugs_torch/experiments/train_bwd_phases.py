@@ -1,12 +1,19 @@
 """Where does the train backward kernel's time go? Times B5
-(``csrc/train_bwd.cu``) on the inputs of one recorded full-width train
-step with each of its phases removed in turn.
+(``csrc/train_bwd.cu``) on recorded inputs with each of its phases
+removed in turn: ``--inputs step``, one full-width train step (D = 131,
+tile 32, chip_smoke.py's phase 4); ``step512``, the same step at
+``feature_dim`` 512 (D = 515: the rows of its first 512-channel chunk);
+or ``absgrad``, chip_smoke.py's phase 5 render (the canonical scene's view
+0 at tile 16, ``trans_eps`` 0, D = 515 with a background): the rows of its
+first 512-channel chunk and its geometry rows over all 515 channels.
 
 The harness is ``adjoint_phases``'s: each variant is a copy of a B5
 source with phases cut out by exact text substitutions (``TABLES``; a
 pattern that is not found exactly once raises), compiled by ``nvcc`` into
 its own library under ``build/train_bwd_phases/<table>/`` and launched
-through its own ``tpugs_train_bwd_f32``. The phases:
+through the table's own entry points (``LAUNCH``) into rows of the
+inputs' width (``rows``, D + 8 rounded up to 4) or of the 8 geometry
+columns (``geometry``). The phases:
 
   u product   the products u = g . colour (the walk reads u = 0)
   g staging   every copy of the image cotangent g into shared memory
@@ -16,25 +23,41 @@ through its own ``tpugs_train_bwd_f32``. The phases:
   geometry    the 8 geometry sums over pixels
   d col       the product d col = w^T g
   zero rows   the rows of the blocks past a tile's early exit
-  colour staging  (cluster kernel) the sub-blocks' colour copies
-  exchange    (cluster kernel) the DSMEM sums of the ranks' partial rows
+  colour staging  (cluster kernels) the sub-blocks' colour copies
+  exchange    (cluster kernels) the DSMEM sums of the ranks' partial rows
   occupancy   (cluster kernel) not a phase: 114 KB more shared memory per
               CTA, so that only one fits on an SM
 
-A variant's rows are wrong by design; only the full copy's rows are held
-to the plain twin, on 64 sampled tiles, within ``GRAD_ROWS_TOL``. Table
-``d4ac1ba`` is the one-CTA kernel of commit d4ac1ba; table ``cluster`` is
-the resident-g cluster kernel that replaced it.
+A variant's rows are wrong by design; only the full copy's columns are
+held to the plain twin, on 64 sampled tiles, within ``GRAD_ROWS_TOL``
+(the other columns taken from the twin). Tables: ``d4ac1ba``, the one-CTA
+kernel of commit d4ac1ba; ``cluster``, the resident-g cluster kernel that
+replaced it (D <= 256); ``old``, the one-CTA kernel of commit 44b3c3e,
+which wrote the rows above 256 channels and the geometry rows, and
+``old-cluster``, that commit's cluster kernel (its full copy only);
+``colour`` and ``geom``, the colour slices and the geometry cluster kernel
+that replaced the one-CTA kernel. Where a table's full copy writes every
+column, the tool prints whether its rows equal the route's bit for bit.
+``--widest`` (repeatable) times the colour table with slices of at most
+that many columns. Beside the tables, the tree's own ``train_rows`` and
+``train_geom_rows`` (the route) are timed on the same inputs, with the
+bound of each work (chip_smoke.py's B5 bounds).
 
 On the card::
 
     git show d4ac1ba:tpugs_torch/csrc/train_bwd.cu > build/train_bwd_d4ac1ba.cu
     python -m tpugs_torch.experiments.train_bwd_phases \\
         --run d4ac1ba=build/train_bwd_d4ac1ba.cu --run cluster
+    git show 44b3c3e:tpugs_torch/csrc/train_bwd.cu > build/train_bwd_44b3c3e.cu
+    python -m tpugs_torch.experiments.train_bwd_phases --inputs absgrad \\
+        --run old=build/train_bwd_44b3c3e.cu --run colour --run geom \\
+        --widest 256 --widest 128
+    python -m tpugs_torch.experiments.train_bwd_phases \
+        --run old-cluster=build/train_bwd_44b3c3e.cu --run cluster
 
-prints one line per kernel and variant: ms (CUDA events, mean of
+prints one line per kernel, work and variant: ms (CUDA events, mean of
 ``--iters`` launches), the full kernel timed first and last. The kernels
-of one call share the recorded step and the card.
+of one call share the recorded inputs and the card.
 """
 
 from __future__ import annotations
@@ -48,6 +71,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from tpugs_torch.experiments.adjoint_phases import Sub, build_variants, variants
+from tpugs_torch.raster import train as T
 
 _D4_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
             const float alpha = clipped_alpha(t, gi < remaining);
@@ -87,6 +111,20 @@ TABLES: Dict[str, Dict[str, List[Sub]]] = {
         "zero rows": [("  for (long long idx = tid; idx < n_zero; idx += kThreads) "
                        "store(out + zero0 + idx, 0.0f);\n", "")],
     },
+    "old": {
+        "u product": [("for (int k = 0; k < kDK; ++k) {\n            const float gv = Gs[tid",
+                       "for (int k = 0; k < 0; ++k) {\n            const float gv = Gs[tid")],
+        "g staging": [
+            ("\n          stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);", "\n"),
+            ("\n            stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);",
+             "\n"),
+        ],
+        "d col": [("            for (int q = 0; q < kThreads; ++q) {\n"
+                   "              const float4 w4",
+                   "            for (int q = 0; q < 0; ++q) {\n"
+                   "              const float4 w4")],
+    },
+    "old-cluster": {},
 }
 
 _CLUSTER_WALK = """            const PairTerms t = pair_terms(g, gi, px, py);
@@ -110,20 +148,80 @@ _CLUSTER_CONST_WALK = """            const float d_araw = 1e-3f * gi;
             dopv[e] = d_araw;
             dxv[e] = px;
             dyv[e] = py;"""
+_D_COL = [("for (int q = q0; q < q0 + kPix / 2; ++q) {", "for (int q = q0; q < q0; ++q) {")]
 
 TABLES["cluster"] = {
     "u product": [("for (int k = 0; k < D4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
-    "g staging": [("    Gs[pl * ldg + c] = v;\n", "")],
+    "g staging": [("    const int y = rank_y + l.y;\n    float v = 0.0f;\n"
+                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
+                   "* width + x) * D + c];\n    Gs[pl * ldg + c] = v;\n",
+                   "    const int y = rank_y + l.y;\n    float v = 0.0f;\n"
+                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
+                   "* width + x) * D + c];\n")],
     "colour staging": [("    cp_async4(Ct + i * L.ldg + e - i * D, src + e);\n", "")],
     "walk": [(_CLUSTER_WALK, _CLUSTER_CONST_WALK)],
-    "geometry": [("if (__any_sync(0xffffffffu, any)) {", "if (false) {")],
-    "d col": [("for (int q = q0; q < q0 + kPix / 2; ++q) {",
-               "for (int q = q0; q < q0; ++q) {")],
-    "zero rows": [("    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n"
-                   "  cluster_wait();", "  cluster_wait();")],
+    "geometry": [("make_float4(ww[0], ww[1], ww[2], ww[3]);\n"
+                  "          float sum = 0.0f;  // every term is 0 when no lane has a nonzero d "
+                  "alpha\n          if (__any_sync(0xffffffffu, any)) {",
+                  "make_float4(ww[0], ww[1], ww[2], ww[3]);\n"
+                  "          float sum = 0.0f;\n          if (false) {")],
+    "d col": _D_COL,
+    "zero rows": [("  for (long long v = rank * kCThreads + tid; v < n_vec; v += C * kCThreads)\n"
+                   "    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n",
+                   "")],
     "exchange": [("      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);\n", "")],
     "occupancy": [("*bytes = ClusterLayout(D, RW).bytes();",
                    "*bytes = ClusterLayout(D, RW).bytes() + 114 * 1024;")],
+}
+
+TABLES["colour"] = {
+    "g staging": [("      v = gimg[(static_cast<long long>(y) * width + x) * D + c0 + c];\n"
+                   "    Gs[pl * ldg + c] = v;\n",
+                   "      v = gimg[(static_cast<long long>(y) * width + x) * D + c0 + c];\n")],
+    "walk": [("""            const PairTerms t = pair_terms(g, gi, px, py);
+            const float alpha = clipped_alpha(t, gi < remaining);
+            ww[e] = alpha * texc * trans;
+            texc *= 1.0f - alpha;""", """            ww[e] = 1e-3f * gi + trans + px + py;""")],
+    "d col": _D_COL,
+    "exchange": [("      sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, "
+                  "tid);\n", "")],
+}
+
+_GEOM_WALK = """          const PairTerms pt = pair_terms(g, gi, px, py);
+          const float alpha = clipped_alpha(pt, gi < remaining);
+          al[e] = alpha;
+          ex[e] = pt.e;
+          if (alpha != 0.0f && pt.alpha_raw < kAlphaMax) grad |= 1u << e;
+          if (pt.sigma > 0.0f) pos |= 1u << e;
+          S = fmaf(alpha * P, uu[e], S);
+          P *= 1.0f - alpha;"""
+_GEOM_CONST_WALK = """          al[e] = 1e-3f * gi + px + py;
+          ex[e] = 1e-3f;
+          grad |= 1u << e;
+          pos |= 1u << e;
+          S = fmaf(al[e] * P, uu[e], S);
+          P *= 1.0f - al[e];"""
+
+TABLES["geom"] = {
+    "u product": [("for (int k = 0; k < kw4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
+    "g staging": [("    const int y = y0 + l.y;\n    float v = 0.0f;\n"
+                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
+                   "* width + x) * D + c];\n    Gs[pl * ldg + c] = v;\n",
+                   "    const int y = y0 + l.y;\n    float v = 0.0f;\n"
+                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
+                   "* width + x) * D + c];\n")],
+    "colour staging": [
+        ("      if (k < kw) cp_async16(Cc + i * kLdC + k, src + static_cast<long long>(i) * D + k);\n",
+         ""),
+        ("        cp_async4(Cc + i * kLdC + k, src + static_cast<long long>(i) * D + k);\n",
+         "        ;\n"),
+    ],
+    "walk": [(_GEOM_WALK, _GEOM_CONST_WALK)],
+    "geometry": [("for (int p = l; p < kGPix; p += 8) {", "for (int p = l; p < 0; p += 8) {")],
+    "zero rows": [("  for (long long v = rank * kGThreads + tid; v < n_vec; v += C * kGThreads)\n"
+                   "    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n",
+                   "")],
+    "exchange": [("    sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);\n", "")],
 }
 
 VARIANTS = (
@@ -140,24 +238,35 @@ VARIANTS = (
     ("no products", ("u product", "d col")),
 )
 
-# Tables whose kernel takes the cluster geometry (C, P) after the row width.
-CLUSTER_TABLES = ("cluster",)
+
+# table -> work -> (entry point, (ts, D, widest) -> the cluster arguments after
+# the row width, or None where the kernel does not take the width; the
+# columns it writes: "all", "colour" 0:D or "geometry" D onward)
+LAUNCH = {
+    "d4ac1ba": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: (), "all")},
+    "cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d), "all")},
+    "old": {"rows": ("tpugs_train_bwd_wide_f32", lambda ts, d, ws: (), "all"),
+            "geometry": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: (), "all")},
+    "old-cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d),
+                             "all")},
+    "colour": {"rows": ("tpugs_train_bwd_colour_f32", lambda ts, d, ws: (
+        ts * ts // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK) + T.fwd_slices(
+            d, ws or T.COLOUR_SLICE_CHANNELS), "colour")},
+    "geom": {"rows": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
+                      "geometry"),
+             "geometry": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
+                          "all")},
+}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _load(so: Path, table: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(so))
-    fn = lib.tpugs_train_bwd_f32
-    fn.argtypes = [_P] * 10 + [_I] * 7 + ([_I, _I] if table in CLUSTER_TABLES else []) + [_P]
-    fn.restype = _I
-    return lib
-
-
-def recorded_step(warmup: int = 3) -> dict:
+def recorded_step(warmup: int = 3, feature_dim: int = 128) -> dict:
     """B5's inputs and rows of one train step at ``chip_smoke.py``'s phase 4
-    configuration (2^19 Gaussians, 1296 x 840, D = 131, tile 32, f32
-    rows), caught by ``Trainer.record`` after ``warmup`` steps."""
+    configuration (2^19 Gaussians, 1296 x 840, tile 32, f32 rows) with
+    ``feature_dim`` features (D = 3 + feature_dim; above 512 channels those
+    of the first channel chunk), caught by ``Trainer.record`` after
+    ``warmup`` steps."""
     import numpy as np
 
     from tpugs_torch.encoders import get_encoder
@@ -172,8 +281,9 @@ def recorded_step(warmup: int = 3) -> dict:
     cams = orbit_cameras(n_cams, w, h, radius=3.0, device="cuda")
     images = torch.from_numpy(rng.uniform(0, 1, (n_cams, h, w, 3)).astype(np.float32)).cuda()
     cam_idx = rng.integers(0, n_cams, warmup + 1)
-    cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=128, feature_out_dim=512,
-                      strategy="none", random_bkgd=False, sh_degree_interval=1)
+    cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=feature_dim,
+                      feature_out_dim=512, strategy="none", random_bkgd=False,
+                      sh_degree_interval=1)
     tr = Trainer(cfg, init_scene_from_points(pts, rgbs, cfg), 1.0,
                  teacher=get_encoder("linear:512"), width=w, height=h, n_cameras=n_cams)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
@@ -185,61 +295,159 @@ def recorded_step(warmup: int = 3) -> dict:
     return seen
 
 
-def measure(runs: List[Tuple[str, Path]], iters: int = 3) -> List[Tuple[str, str, float]]:
-    """(table, variant, ms) of every variant of every (table, source) in
-    ``runs``, on one recorded step."""
+def absgrad_inputs(d: int = 515) -> dict:
+    """chip_smoke.py's phase 5 render at D = ``d``: the canonical scene
+    (2^19 Gaussians, seed 0), view 0 of 8 orbit views at 1296 x 840, tile
+    16, ``trans_eps`` 0, seeded colours, background and image cotangent;
+    B4 in channel chunks as ``RenderTrain``. Returns B5's inputs (geom,
+    cols, g, hterm, grem0, blocks_done, plan) for ``rows`` (the first
+    chunk) and ``geometry`` (all channels)."""
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    n, w, h = 2**19, 1296, 840
+    scene = random_scene(n, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    cams = orbit_cameras(8, w, h, radius=3.0, device="cuda")
+    with torch.no_grad():
+        proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
+                       cams.viewmats[0], cams.Ks[0], w, h)
+        plan = build_plan(proj, w, h, 16)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
+    colors = torch.rand((n, d), device="cuda", generator=gen)
+    bg = torch.rand((d,), device="cuda", generator=gen)
+    g = torch.randn((h, w, d), device="cuda", generator=gen)
+    geom, cols = T.pack_train(proj.means2d, proj.conics, opac, colors, plan)
+    outs = [T.train_forward(geom, cols[:, a:b].contiguous(), plan, 0.0)
+            for a, b in T.channel_chunks(d)]
+    image = torch.cat([o[0] for o in outs], -1)
+    _, alpha, done = outs[0]
+    hterm = ((g @ bg) * (1.0 - alpha)).contiguous()
+    a, b = T.channel_chunks(d)[0]
+    g0 = g[..., a:b].contiguous()
+    return {"rows": (geom, cols[:, a:b].contiguous(), g0, hterm,
+                     (g0 * image[..., a:b]).sum(-1).contiguous(), done, plan),
+            "geometry": (geom, cols, g, hterm, (g * image).sum(-1).contiguous(), done, plan)}
+
+
+def work_bound(args, work: str):
+    """(least ms, what bounds it) of B5's rows or geometry rows on ``args``,
+    as chip_smoke.py counts them: pairs * 30 + nonzero-alpha pairs * (4D +
+    30) f32 operations for the rows, (2D + 30) for the geometry; the walked
+    blocks' packs, g, hterm and grem0 once, blocks_done, the rows written."""
+    from tpugs_torch.raster.kernels import _all_tiles, _walk_blocks
+    from tpugs_torch.utils.profiling import PEAKS_H100
+
+    geom, cols, g, _, _, done, plan = args
+    d, (h, w) = cols.shape[1], (plan.height, plan.width)
+    kept = torch.zeros((), dtype=torch.int64, device=geom.device)
+
+    def visit(st):
+        kept.add_((st.terms["alpha"] != 0).sum())
+
+    _walk_blocks(geom, plan, _all_tiles(plan, geom.device), 0.0, visit, n_blocks=done)
+    walked = int(done.sum())
+    pairs = walked * 128 * plan.tile_size**2
+    per_pair = 4 * d if work == "rows" else 2 * d
+    width = T.grad_row_width(d) if work == "rows" else T.GEOM_GRADS
+    ops = pairs * 30 + int(kept) * (per_pair + 30)
+    nbytes = walked * 128 * (8 + d) * 4 + h * w * (d + 2) * 4 + 4 * plan.n_tiles \
+        + plan.T_padded * width * 4
+    t_b, t_o = 1e3 * nbytes / (PEAKS_H100["hbm_gbps"] * 1e9), \
+        1e3 * ops / (PEAKS_H100["tflops_f32"] * 1e12)
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def measure(runs: List[Tuple[str, Path]], iters: int = 3, inputs: str = "step",
+            widest=(None,)) -> List[Tuple[str, str, float]]:
+    """(kernel, variant, ms) of every variant of every (table, source) in
+    ``runs`` on every work of the recorded ``inputs`` that the table takes,
+    the colour table once for each ``widest`` slice (None:
+    COLOUR_SLICE_CHANNELS); then the route (the tree's ``train_rows`` and
+    ``train_geom_rows``) on each work, and each work's bound."""
     from tpugs_torch.raster import kernels as K
-    from tpugs_torch.raster import train as T
     from tpugs_torch.utils.timing import time_cuda
 
     build = Path(K.__file__).resolve().parents[2] / "build" / "train_bwd_phases"
-    libs = {table: {name: _load(so, table) for name, so in
+    libs = {table: {name: ctypes.CDLL(str(so)) for name, so in
                     build_variants(source, TABLES[table], build / table, VARIANTS).items()}
             for table, source in runs}
-    s = recorded_step()
-    geom, cols, plan, g, hterm, grem0, done = (s[k] for k in (
-        "geom", "cols", "plan", "g_image", "hterm", "grem0", "blocks_done"))
-    d = cols.shape[1]
-    width = T.grad_row_width(d)
-    out = torch.empty((plan.T_padded, width), dtype=torch.float32, device="cuda")
+    if inputs == "absgrad":
+        works = absgrad_inputs()
+    else:
+        s = recorded_step(feature_dim=512 if inputs == "step512" else 128)
+        works = {"rows": tuple(s[k] for k in (
+            "geom", "cols", "g_image", "hterm", "grem0", "blocks_done", "plan"))}
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    ntx, _ = plan.grid
-
-    def launcher(lib, table):
-        cluster = T.train_cluster(plan.tile_size, d) if table in CLUSTER_TABLES else ()
-
-        def go():
-            rc = lib.tpugs_train_bwd_f32(
-                K._ptr(geom), K._ptr(cols), K._ptr(g), K._ptr(hterm), K._ptr(grem0),
-                K._ptr(plan.tile_starts), K._ptr(plan.tile_ends), K._ptr(plan.padded_starts),
-                K._ptr(done), K._ptr(out), plan.n_tiles, ntx, plan.tile_size, plan.width,
-                plan.height, d, width, *cluster, stream)
-            if rc != 0:
-                raise RuntimeError(f"variant launch failed with CUDA error {rc}")
-            return out
-        return go
-
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
-    rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, torch.float32,
-                                      tiles, magnitudes=True)
-    count = (plan.tile_ends[tiles] - plan.tile_starts[tiles]).long()
-    length = (count + K.BLOCK - 1) // K.BLOCK * K.BLOCK
-    owner = torch.repeat_interleave(torch.arange(len(tiles), device="cuda"), length)
-    first = torch.cumsum(length, 0) - length
-    span = (plan.padded_starts[tiles].long()[owner] - first[owner]
-            + torch.arange(int(length.sum()), device="cuda"))  # the tiles' padded rows
     results = []
-    for table, _ in runs:
-        full = launcher(libs[table]["full"], table)()
-        torch.cuda.synchronize()
-        _, of_group, of_entry = T.grad_rows_error(full[span], rows_t[span], d, mags[span])
-        group_tol, entry_tol = T.GRAD_ROWS_TOL[torch.float32]
-        if not (of_group <= group_tol and of_entry <= entry_tol):
-            raise RuntimeError(f"table {table}: the full copy's rows differ from the twin "
-                               f"({of_group:.3e}, {of_entry:.3e})")
-        for name in [name for name, _ in variants(TABLES[table], VARIANTS)] + ["full"]:
-            results.append((table, name, time_cuda(launcher(libs[table][name], table), iters)))
+    for work, args in works.items():
+        geom, cols, g, hterm, grem0, done, plan = args
+        d, ts = cols.shape[1], plan.tile_size
+        width = T.grad_row_width(d) if work == "rows" else T.GEOM_GRADS
+        out = torch.zeros((plan.T_padded, width), dtype=torch.float32, device="cuda")
+        ntx, _ = plan.grid
+        tiles = torch.randperm(plan.n_tiles, device="cuda", generator=gen)[:64]
+        rows_t, mags = T.train_rows_plain(*args, torch.float32, tiles, magnitudes=True,
+                                          geometry_only=work == "geometry")
+        count = (plan.tile_ends[tiles] - plan.tile_starts[tiles]).long()
+        length = (count + K.BLOCK - 1) // K.BLOCK * K.BLOCK
+        owner = torch.repeat_interleave(torch.arange(len(tiles), device="cuda"), length)
+        first = torch.cumsum(length, 0) - length
+        span = (plan.padded_starts[tiles].long()[owner] - first[owner]
+                + torch.arange(int(length.sum()), device="cuda"))  # the tiles' padded rows
+        d_err = d if work == "rows" else 0
+        route = (lambda: T.train_rows(*args)) if work == "rows" else (
+            lambda: T.train_geom_rows(*args))
+        route_rows = route()
+
+        def launcher(lib, table, ws):
+            name, layout, _ = LAUNCH[table][work]
+            cluster = layout(ts, d, ws)
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 10 + [_I] * (7 + len(cluster)) + [_P]
+            fn.restype = _I
+
+            def go():
+                rc = fn(
+                    K._ptr(geom), K._ptr(cols), K._ptr(g), K._ptr(hterm), K._ptr(grem0),
+                    K._ptr(plan.tile_starts), K._ptr(plan.tile_ends),
+                    K._ptr(plan.padded_starts), K._ptr(done), K._ptr(out), plan.n_tiles, ntx,
+                    ts, plan.width, plan.height, d, width, *cluster, stream)
+                if rc != 0:
+                    raise RuntimeError(f"variant launch failed with CUDA error {rc}")
+                return out
+            return go
+
+        for table, _ in runs:
+            if work not in LAUNCH[table] or LAUNCH[table][work][1](ts, d, None) is None:
+                continue
+            for ws in widest if table == "colour" else (None,):
+                tag = f"{table}/{work}" + (f"/{ws or T.COLOUR_SLICE_CHANNELS}"
+                                           if table == "colour" else "")
+                launcher(libs[table]["full"], table, ws)()
+                torch.cuda.synchronize()
+                got = rows_t[span].clone()
+                written = {"all": slice(0, width), "colour": slice(0, d),
+                           "geometry": slice(d, width)}[LAUNCH[table][work][2]]
+                got[:, written] = out[span][:, written]
+                _, of_group, of_entry = T.grad_rows_error(got, rows_t[span], d_err, mags[span])
+                group_tol, entry_tol = T.GRAD_ROWS_TOL[torch.float32]
+                if not (of_group <= group_tol and of_entry <= entry_tol):
+                    raise RuntimeError(f"{tag}: the full copy's rows differ from the twin "
+                                       f"({of_group:.3e}, {of_entry:.3e})")
+                if LAUNCH[table][work][2] == "all":
+                    print(f"B5 {tag}: the full copy's rows bit-equal to the route's "
+                          f"{torch.equal(out, route_rows)}", flush=True)
+                for name in [name for name, _ in variants(TABLES[table], VARIANTS)] + ["full"]:
+                    results.append((tag, name, time_cuda(
+                        launcher(libs[table][name], table, ws), iters)))
+        del route_rows
+        results.append((f"route/{work}", f"D={d} tile {ts}", time_cuda(route, iters)))
+        b = work_bound(args, work)
+        results.append((f"bound/{work}", f"D={d} by {b[1]}", b[0]))
+        del rows_t, mags, out
     return results
 
 
@@ -249,6 +457,12 @@ def main(argv=None) -> int:
     ap.add_argument("--run", action="append", metavar="TABLE[=SOURCE]",
                     help="a kernel to take apart: its table and source (default the "
                          "tree's train_bwd.cu); repeatable")
+    ap.add_argument("--inputs", choices=("step", "step512", "absgrad"), default="step",
+                    help="the recorded train step (D = 131), the step at feature_dim 512, or "
+                         "chip_smoke.py's phase 5 render at D = 515")
+    ap.add_argument("--widest", action="append", type=int,
+                    help="the colour table's widest slice (default COLOUR_SLICE_CHANNELS); "
+                         "repeatable")
     ap.add_argument("--iters", type=int, default=3)
     a = ap.parse_args(argv)
     runs = []
@@ -261,9 +475,9 @@ def main(argv=None) -> int:
         raise SystemExit("train_bwd_phases needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"train_bwd phases of {runs} on {smi}", flush=True)
-    for table, name, ms in measure(runs, a.iters):
-        print(f"B5 {table:8s} {name:18s} {ms:.3f} ms", flush=True)
+    print(f"train_bwd phases of {runs} on {a.inputs} inputs, {smi}", flush=True)
+    for kernel, name, ms in measure(runs, a.iters, a.inputs, tuple(a.widest or (None,))):
+        print(f"B5 {kernel:18s} {name:18s} {ms:.3f} ms", flush=True)
     return 0
 
 

@@ -56,13 +56,20 @@ SIGNATURES = {
     # n_tiles, ntx, ts, W, H, D, row width, cluster size, pixels per rank, stream
     "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 9 + [_P],
     "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 9 + [_P],
-    # the same without the cluster geometry: the one-CTA kernel of wide rows
-    "tpugs_train_bwd_wide_f32": [_P] * 10 + [_I] * 7 + [_P],
-    "tpugs_train_bwd_wide_bf16": [_P] * 10 + [_I] * 7 + [_P],
-    # the one-CTA kernel's geometry-only rows (row width 8, any D)
-    "tpugs_train_bwd_geom_f32": [_P] * 10 + [_I] * 7 + [_P],
+    # the colour slices: ... cluster size, pixels per rank, slices, slice width, stream
+    "tpugs_train_bwd_colour_f32": [_P] * 10 + [_I] * 11 + [_P],
+    "tpugs_train_bwd_colour_bf16": [_P] * 10 + [_I] * 11 + [_P],
+    # the geometry cluster kernel: as tpugs_train_bwd_f32 (row width 8, or D's rows)
+    "tpugs_train_bwd_geom_f32": [_P] * 10 + [_I] * 9 + [_P],
+    "tpugs_train_bwd_geom_bf16": [_P] * 10 + [_I] * 9 + [_P],
+    # the one-CTA geometry kernel (row width 8, any D): no cluster geometry
+    "tpugs_train_bwd_geom_cta_f32": [_P] * 10 + [_I] * 7 + [_P],
     # bf16 (0/1), tile size, D -> resident clusters
     "tpugs_train_bwd_max_clusters": [_I, _I, _I],
+    # bf16 (0/1), tile size, slice width -> resident clusters of one colour slice
+    "tpugs_train_bwd_colour_max_clusters": [_I, _I, _I],
+    # tile size, D -> resident clusters of the geometry kernel
+    "tpugs_train_bwd_geom_max_clusters": [_I, _I],
     # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,
     # eps, cluster size, grid x, stream
     "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],

@@ -155,7 +155,7 @@ def render_tiled(
     (``trans_eps=0``) and f32 gradient rows. ``config.tile_size`` must be
     the plan's, 16 or 32; ``block_size`` and ``tiles_per_chunk`` are the
     reference's TPU layout knobs and do not change the result. Widths above
-    B5's MAX_CHANNELS run in channel chunks (``RenderTrain``).
+    train_rows' MAX_CHANNELS run in channel chunks (``RenderTrain``).
     ``abs_probe``'s gradient is the absgrad statistic; ``on_stage`` and
     ``record`` as in ``render_plan_train``."""
     check_tile_config(config, plan)

@@ -7,7 +7,7 @@ twins and the ``torch.autograd.Function`` around them. Counterparts in
                            :250) and
                            ``_forward_impl`` (:258)
   B5 ``train_rows``     <- ``_backward_impl`` (:496, kernel :275); its
-                           geometry-only launch ``train_geom_rows`` gives the
+                           geometry launch ``train_geom_rows`` gives the
                            absgrad columns of renders wider than B5's rows
   ``RenderTrain``       <- ``_train_core`` and its VJP (:586-637)
   ``render_plan_train`` <- ``render_plan_train`` (:692)
@@ -55,11 +55,15 @@ from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 
 GEOM_COLS = 8  # [mx, my, conic_a, conic_b, conic_c, opacity, 0, 0]
 GEOM_GRADS = 8  # dmx dmy dca dcb dcc dop |dmx| |dmy|
-MAX_CHANNELS = 512  # B5's one-CTA kernel keeps 32 Gaussians x D sums in shared memory
+MAX_CHANNELS = 512  # train_rows' widest, RenderTrain's channel chunk
 CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory,
 # B4's its image (of one channel slice) in wgmma accumulators
 PIXELS_PER_RANK = 128  # pixels of a tile per CTA of the B4 and B5 cluster kernels
 SLICE_CHANNELS = 256  # B4's widest channel slice (faster than 128 at D = 512: PERF.md)
+COLOUR_SLICE_CHANNELS = 128  # B5's widest colour slice above CLUSTER_MAX_CHANNELS (faster
+# than 256 at D = 512: PERF.md)
+GEOM_PIXELS_PER_RANK = 64  # pixels of a tile per CTA of B5's geometry cluster kernel
+GEOM_CLUSTER_MAX_CHANNELS = 700  # its rank's g over all D channels fits a CTA's 227 KB
 
 
 def grad_row_width(channels: int) -> int:
@@ -198,8 +202,9 @@ def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
     """(C, P) of B5's cluster kernel: a tile's ts*ts pixels go to a cluster
     of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile
     32, 2 at tile 16). None for more than CLUSTER_MAX_CHANNELS channels,
-    whose g does not fit a CTA's shared memory: those take the one-CTA
-    kernel. The C side refuses any other (C, P)."""
+    whose g does not fit a CTA's shared memory: those take the colour
+    slices and the geometry kernel (``train_layout``). The C side refuses
+    any other (C, P)."""
     if tile_size not in (16, 32):
         raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
     if not 1 <= channels <= MAX_CHANNELS:
@@ -209,18 +214,53 @@ def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
     return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
 
 
+def geom_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
+    """(C, P) of B5's geometry cluster kernel: a tile's ts*ts pixels go to a
+    cluster of C = ts*ts / P CTAs of P = GEOM_PIXELS_PER_RANK pixels each
+    (4 at tile 16, 16 at tile 32), each keeping its pixels' g over all D
+    channels. None above GEOM_CLUSTER_MAX_CHANNELS, where that g does not
+    fit a CTA: ``train_geom_rows`` then takes the one-CTA geometry kernel.
+    The C side refuses any other (C, P)."""
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
+    if channels < 1:
+        raise ValueError(f"{channels} channels: B5 takes at least 1")
+    if channels > GEOM_CLUSTER_MAX_CHANNELS:
+        return None
+    return tile_size**2 // GEOM_PIXELS_PER_RANK, GEOM_PIXELS_PER_RANK
+
+
+def train_layout(tile_size: int, channels: int) -> dict:
+    """The launches of ``train_rows`` at tile ts and D channels, chosen by
+    width alone: {"cluster": (C, P)} up to CLUSTER_MAX_CHANNELS (the
+    cluster kernel, ``train_cluster``); above it {"colour": (C, P, S, Ns),
+    "geom": (Cg, Pg)}: the colour slices, the cluster kernel's ranks over
+    S channel slices of Ns columns (``fwd_slices(D,
+    COLOUR_SLICE_CHANNELS)``), and the geometry kernel (``geom_cluster``)
+    for columns D onward. The C side refuses any other layout."""
+    cluster = train_cluster(tile_size, channels)
+    if cluster is not None:
+        return {"cluster": cluster}
+    return {"colour": (tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK)
+            + fwd_slices(channels, COLOUR_SLICE_CHANNELS),
+            "geom": geom_cluster(tile_size, channels)}
+
+
 def train_rows_plain(
     geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan,
     contrib_dtype: torch.dtype = torch.float32,
     tiles: Optional[torch.Tensor] = None,
     magnitudes: bool = False,
     geometry_only: bool = False,
+    colour_only: bool = False,
 ):
     """B5's twin: as ``train_rows``, or with ``geometry_only`` as
-    ``train_geom_rows`` (rows of the GEOM_GRADS columns alone, at any D);
-    with ``tiles`` only those tiles' spans are filled. Per block, with u = g . colour (a product over
-    channels), an inclusive prefix of w*u along the block (``cumsum``, not
-    the reference's doubling scan) and the per-pixel carry ``grem``:
+    ``train_geom_rows`` (rows of the GEOM_GRADS columns alone, at any D),
+    or with ``colour_only`` rows of the D colour columns alone (the colour
+    slices' columns); with ``tiles`` only those tiles' spans are filled.
+    Per block, with u = g . colour (a product over channels), an inclusive
+    prefix of w*u along the block (``cumsum``, not the reference's doubling
+    scan) and the per-pixel carry ``grem``:
 
         d_alpha = texc * T * u - (grem - prefix + hterm) / max(1 - alpha, 1e-6)
 
@@ -231,12 +271,15 @@ def train_rows_plain(
     error, which cancellation in the sums over pixels and in ``v`` leaves
     far above the entry itself (``grad_rows_error``)."""
     dev = geom.device
+    if geometry_only and colour_only:
+        raise ValueError("geometry_only and colour_only exclude each other")
     if tiles is None:
         tiles = _all_tiles(plan, dev)
     d = cols.shape[1]
     ts = plan.tile_size
     lead = 0 if geometry_only else d  # colour columns before the geometry
-    width = GEOM_GRADS if geometry_only else grad_row_width(d)
+    width = GEOM_GRADS if geometry_only else d if colour_only else grad_row_width(d)
+    filled = lead if colour_only else lead + GEOM_GRADS
     out = torch.zeros((plan.T_padded, width), dtype=contrib_dtype, device=dev)
     g_t = image_to_tiles(g_image, ts)[tiles]
     h_t = image_to_tiles(hterm[..., None], ts)[tiles][..., 0]
@@ -267,9 +310,9 @@ def train_rows_plain(
             dm_x, dm_y, d_sig * (0.5 * dx * dx), d_sig * (dx * dy), d_sig * (0.5 * dy * dy),
             d_araw * t["e"], dm_x.abs(), dm_y.abs(),
         ], dim=-1).sum(1)  # (ka, BLOCK, 8)
-        parts = [geo_grads] if geometry_only else [
-            torch.bmm(st.w.transpose(1, 2), g_a), geo_grads]  # d col (ka, BLOCK, D)
-        out[st.rows, : lead + GEOM_GRADS] = torch.cat(parts, -1).to(contrib_dtype)
+        parts = ([] if geometry_only else [torch.bmm(st.w.transpose(1, 2), g_a)]  # d col
+                 ) + ([] if colour_only else [geo_grads])
+        out[st.rows, :filled] = torch.cat(parts, -1).to(contrib_dtype)
         grem[st.active] = grem[st.active] - cs[..., -1]
         if mags is None:
             return
@@ -287,8 +330,9 @@ def train_rows_plain(
             mx_m, my_m, sig_m * (0.5 * dx * dx), sig_m * (dx * dy).abs(),
             sig_m * (0.5 * dy * dy), da_m * t["e"], mx_m, my_m,
         ], dim=-1).sum(1)
-        parts = [geo_m] if geometry_only else [torch.bmm(st.w.transpose(1, 2), g_m), geo_m]
-        mags[st.rows, : lead + GEOM_GRADS] = torch.cat(parts, -1)
+        parts = ([] if geometry_only else [torch.bmm(st.w.transpose(1, 2), g_m)]
+                 ) + ([] if colour_only else [geo_m])
+        mags[st.rows, :filled] = torch.cat(parts, -1)
         grem_m[st.active] = grem_m[st.active] + cs_m[..., -1]
 
     _walk_blocks(geom, plan, tiles, 0.0, visit, n_blocks=blocks_done[tiles])
@@ -334,8 +378,9 @@ def train_rows(
     cotangent ``g_image`` (H, W, D), ``hterm`` = h * T_final and ``grem0``
     = g . (image without background) per pixel (H, W), and B4's
     ``blocks_done``. Rows of blocks the forward skipped are zero. Up to
-    CLUSTER_MAX_CHANNELS channels the cluster kernel runs, above it the
-    one-CTA kernel: chosen by width alone (``train_cluster``)."""
+    CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above it the
+    colour slices (columns 0:D) and the geometry kernel (columns D onward),
+    chosen by width alone (``train_layout``)."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
     if contrib_dtype not in CONTRIB_DTYPES:
@@ -352,20 +397,27 @@ def train_rows(
     if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
     bf16 = contrib_dtype == torch.bfloat16
-    cluster = train_cluster(plan.tile_size, d)
-    if cluster is None:
-        fn = lib.tpugs_train_bwd_wide_bf16 if bf16 else lib.tpugs_train_bwd_wide_f32
-    else:
+    args = (geom, cols, g_image, hterm, grem0, blocks_done, plan, out)
+    layout = train_layout(plan.tile_size, d)
+    if "cluster" in layout:
         fn = lib.tpugs_train_bwd_bf16 if bf16 else lib.tpugs_train_bwd_f32
-    rc = _launch_train_bwd(fn, geom, cols, g_image, hterm, grem0, blocks_done, plan, out,
-                           cluster)
-    if cluster is None:
-        _launched(rc, "train_bwd_wide")
-        LAUNCHES.train_bwd_wide += 1
-    else:
-        _launched(rc, "train_bwd")
+        _launched(_launch_train_bwd(fn, *args, layout["cluster"]), "train_bwd")
         LAUNCHES.train_bwd += 1
+        return out
+    _check_chunk_alignment(cols)
+    fn = lib.tpugs_train_bwd_colour_bf16 if bf16 else lib.tpugs_train_bwd_colour_f32
+    _launched(_launch_train_bwd(fn, *args, layout["colour"]), "train_bwd_colour")
+    LAUNCHES.train_bwd_colour += 1
+    fn = lib.tpugs_train_bwd_geom_bf16 if bf16 else lib.tpugs_train_bwd_geom_f32
+    _launched(_launch_train_bwd(fn, *args, layout["geom"]), "train_bwd_geom")
+    LAUNCHES.train_bwd_geom += 1
     return out
+
+
+def _check_chunk_alignment(cols: torch.Tensor) -> None:
+    if cols.shape[1] % 4 == 0 and cols.data_ptr() % 16:
+        raise ValueError("cols must be 16-byte aligned (the geometry kernel copies 16-byte "
+                         "vectors where D % 4 == 0)")
 
 
 def train_geom_rows(
@@ -377,28 +429,33 @@ def train_geom_rows(
     blocks_done: torch.Tensor,
     plan: Plan,
 ) -> torch.Tensor:
-    """B5's geometry-only launch: f32 rows (T_padded, GEOM_GRADS) of
+    """B5's geometry launch: f32 rows (T_padded, GEOM_GRADS) of
     ``train_rows``' geometry columns (dmx dmy dca dcb dcc dop |dmx| |dmy|),
-    with the same inputs, at any number of channels D (the one-CTA kernel
-    without its colour gradients, whose shared memory caps ``train_rows``
-    at MAX_CHANNELS). Its twin is ``train_rows_plain(...,
-    geometry_only=True)``. ``RenderTrain`` takes the absgrad columns of a
-    render wider than MAX_CHANNELS from it."""
-    _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
+    with the same inputs, at any number of channels D: the geometry cluster
+    kernel up to GEOM_CLUSTER_MAX_CHANNELS, the one-CTA geometry kernel
+    above it, chosen by width alone (``geom_cluster``). Its twin is
+    ``train_rows_plain(..., geometry_only=True)``. ``RenderTrain`` takes
+    the absgrad columns of a render wider than MAX_CHANNELS from it."""
+    d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
     if not _dispatch(dev):
         return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
                                 geometry_only=True)
-    if plan.tile_size not in (16, 32):
-        raise ValueError(f"tile_size {plan.tile_size}: the kernels take 16 or 32")
+    cluster = geom_cluster(plan.tile_size, d)
     from tpugs_torch.kernels.build import load_library
 
+    lib = load_library()
     out = torch.empty((plan.T_padded, GEOM_GRADS), dtype=torch.float32, device=dev)
     if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
-    rc = _launch_train_bwd(load_library().tpugs_train_bwd_geom_f32, geom, cols, g_image, hterm,
-                           grem0, blocks_done, plan, out)
-    _launched(rc, "train_bwd_geom")
+    args = (geom, cols, g_image, hterm, grem0, blocks_done, plan, out)
+    if cluster is None:
+        _launched(_launch_train_bwd(lib.tpugs_train_bwd_geom_cta_f32, *args),
+                  "train_bwd_geom_cta")
+        LAUNCHES.train_bwd_geom_cta += 1
+        return out
+    _check_chunk_alignment(cols)
+    _launched(_launch_train_bwd(lib.tpugs_train_bwd_geom_f32, *args, cluster), "train_bwd_geom")
     LAUNCHES.train_bwd_geom += 1
     return out
 
@@ -420,9 +477,10 @@ def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int,
     ``mags`` from ``train_rows_plain(..., magnitudes=True)`` (summed like
     the rows for the sums). The groups are the D colour gradients, then
     each geometry column on its own (their scales differ by orders of
-    magnitude). The last value sees a wrong or missing light row, which
-    the group maximum hides: Gaussians late in a span, at small T, have
-    gradients orders of magnitude below it. An entry's own value is no
+    magnitude; rows of the colour columns alone have only the first). The
+    last value sees a wrong or missing light row, which the group maximum
+    hides: Gaussians late in a span, at small T, have gradients orders of
+    magnitude below it. An entry's own value is no
     scale for it, because ``v = grem - prefix`` and the sums over pixels
     cancel; its magnitude is. It is at least the smallest normal float, as
     in ``rows_error``."""
@@ -434,7 +492,8 @@ def grad_rows_error(got: torch.Tensor, ref: torch.Tensor, channels: int,
     mag = torch.maximum(got.abs(), ref.abs())
     worst = 0.0
     colour = [slice(0, d)] if d else []  # 0 channels: train_geom_rows' rows
-    for cols in colour + [slice(d + j, d + j + 1) for j in range(GEOM_GRADS)]:
+    geometry = [slice(d + j, d + j + 1) for j in range(GEOM_GRADS) if d + j < ref.shape[1]]
+    for cols in colour + geometry:
         scale = float(mag[:, cols].max())
         if scale > 0:
             worst = max(worst, float(diff[:, cols].max()) / scale)
@@ -450,8 +509,8 @@ def _no_mark(name: str) -> None:
 
 
 def channel_chunks(channels: int):
-    """[start, end) column ranges of at most MAX_CHANNELS each, B5's widest
-    launch: a wider render runs B4 and B5 once per chunk."""
+    """[start, end) column ranges of at most MAX_CHANNELS each, the widest
+    ``train_rows``: a wider render runs B4 and B5 once per chunk."""
     return [(a, min(a + MAX_CHANNELS, channels)) for a in range(0, channels, MAX_CHANNELS)]
 
 
@@ -470,15 +529,13 @@ class RenderTrain(torch.autograd.Function):
     over pixels of the absolute per-pixel screen gradient, are not linear
     in the chunks: when the probe needs a gradient, B5's geometry-only
     launch (``train_geom_rows``) runs once over all channels and B3 sums
-    its columns 6:8. ``record`` takes at most MAX_CHANNELS channels."""
+    its columns 6:8. ``record`` receives the first chunk's inputs and
+    outputs."""
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, background, abs_probe,
                 plan, trans_eps, contrib_dtype, mark, record):
         chunks = channel_chunks(colors.shape[1])
-        if len(chunks) > 1 and record is not None:
-            raise ValueError(f"{colors.shape[1]} channels render in chunks of {MAX_CHANNELS}: "
-                             "record takes at most that many")
         geom, cols = pack_train(means2d, conics, opacities, colors, plan)
         mark("pack")
         outs = [train_forward(geom, cols[:, a:b].contiguous(), plan, trans_eps)
@@ -486,8 +543,9 @@ class RenderTrain(torch.autograd.Function):
         image = torch.cat([o[0] for o in outs], -1) if len(outs) > 1 else outs[0][0]
         _, alpha, done = outs[0]
         if record is not None:
-            record.update(geom=geom, cols=cols, plan=plan, trans_eps=trans_eps,
-                          image=image.detach(), alpha=alpha.detach(), blocks_done=done)
+            record.update(geom=geom, cols=cols[:, : chunks[0][1]].contiguous(), plan=plan,
+                          trans_eps=trans_eps, image=outs[0][0].detach(),
+                          alpha=alpha.detach(), blocks_done=done)
         if background is not None:
             image = image + (1.0 - alpha)[..., None] * background
         mark("render")
@@ -517,8 +575,8 @@ class RenderTrain(torch.autograd.Function):
             rows = train_rows(geom, cols[:, a:b].contiguous(), g_c,
                               hterm if i == 0 else torch.zeros_like(hterm), grem0, done, plan,
                               ctx.contrib_dtype)
-            if ctx.record is not None:
-                ctx.record.update(g_image=g_image, hterm=hterm, grem0=grem0,
+            if ctx.record is not None and i == 0:
+                ctx.record.update(g_image=g_c, hterm=hterm, grem0=grem0,
                                   contrib_dtype=ctx.contrib_dtype, rows=rows)
             mark("B5 rows")
             sums = reduce_rows(rows, plan, b - a + GEOM_GRADS)
@@ -559,7 +617,8 @@ def render_plan_train(
     and after "B5 rows" and "B3 reduce" in the backward. ``record``, a
     dict, receives B4's inputs and outputs (geom, cols, plan, trans_eps,
     image, alpha, blocks_done) and B5's further inputs and rows (g_image,
-    hterm, grem0, contrib_dtype, rows)."""
+    hterm, grem0, contrib_dtype, rows), of the first channel chunk above
+    MAX_CHANNELS."""
     return RenderTrain.apply(means2d, conics, opacities, colors, background, abs_probe,
                              plan, trans_eps, contrib_dtype, on_stage or _no_mark, record)
 
