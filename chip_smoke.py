@@ -409,9 +409,10 @@ def phase_build():
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B5 {name} colour slices fit on the card")
     resident = {(ts, d): lib.tpugs_train_bwd_geom_max_clusters(ts, d)
-                for ts in (16, 32) for d in (5, 512, 515, T.GEOM_CLUSTER_MAX_CHANNELS)}
+                for ts in (16, 32) for d in (5, 515, 700, 1027, 2051, T.GEOM_MAX_CHANNELS)}
+    layouts = {(ts, d): T.geom_cluster(ts, d) for ts, d in resident}
     print(f"phase 1 B5 geometry kernel: resident clusters by (tile, D) "
-          f"(cudaOccupancyMaxActiveClusters; clusters of 4 CTAs at tile 16, 16 at tile 32): "
+          f"(cudaOccupancyMaxActiveClusters; (C, P, G) by geom_cluster {layouts}): "
           f"{resident}", flush=True)
     check(all(n > 0 for n in resident.values()), "B5's geometry clusters fit on the card")
     resident = {(ts, d): lib.tpugs_train_fwd_max_clusters(ts, d)
@@ -591,9 +592,9 @@ def within_grad_tol(of_group: float, of_entry: float, dtype) -> bool:
 
 # (tile, D, view) of phase 2's train kernels: B4's and B5's cluster kernels
 # in clusters of 8 (tile 32) and 2 (tile 16) CTAs up to D = 256; above it
-# B4's cluster kernel in 2 (300, 512) or 3 (600) channel slices and B5 in 2
-# colour slices plus its geometry kernel up to its 512 channels
-# (train_fwd_cluster, train_layout)
+# B4's cluster kernel in 2 (300, 512) or 3 (600) channel slices and B5 in 3
+# to 5 colour slices plus its geometry kernel (train_fwd_cluster,
+# train_layout)
 TRAIN_KERNEL_SHAPES = ((32, 131, 0), (16, 20, 1), (32, 3, 1), (16, 131, 0), (32, 256, 0),
                        (16, 300, 1), (32, 300, 1), (16, 512, 0), (32, 512, 1), (16, 600, 1),
                        (32, 600, 0))
@@ -660,15 +661,6 @@ def phase_train_kernels():
         hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha_k)
         grem0 = (g * img_k).sum(-1)
         args = (geom, cols, g, hterm, grem0, done_k, plan)
-        if D > T.MAX_CHANNELS:  # RenderTrain renders such widths in chunks of B5's widest
-            try:
-                T.train_rows(*args)
-            except ValueError:
-                print(f"phase 2 ts={ts} D={D} B5 refuses the width (MAX_CHANNELS "
-                      f"{T.MAX_CHANNELS})", flush=True)
-            else:
-                check(False, f"B5 refuses D = {D}")
-            continue
         layout = T.train_layout(ts, D)
         for dtype in (torch.float32, torch.bfloat16):
             K.LAUNCHES.reset()
@@ -676,8 +668,8 @@ def phase_train_kernels():
             sums_k = reduce_rows(rows_k, plan, D + T.GEOM_GRADS)
             torch.cuda.synchronize()
             launched = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour,
-                        K.LAUNCHES.train_bwd_geom, K.LAUNCHES.train_bwd_geom_cta)
-            check(launched == ((1, 0, 0, 0) if "cluster" in layout else (0, 1, 1, 0)),
+                        K.LAUNCHES.train_bwd_geom)
+            check(launched == ((1, 0, 0) if "cluster" in layout else (0, 1, 1)),
                   f"B5 at D = {D} launched the kernels its width selects ({launched})")
             same = torch.equal(T.train_rows(*args, dtype), rows_k)
             rows_t, mags = T.train_rows_plain(*args, dtype, magnitudes=True)
@@ -686,7 +678,7 @@ def phase_train_kernels():
             a, g_rows, e_rows = T.grad_rows_error(rows_k, rows_t, D, mags)
             _, g_sums, e_sums = T.grad_rows_error(sums_k, sums_t, D, sums_m)
             kind = ("cluster (C, P) = {}".format(layout["cluster"]) if "cluster" in layout else
-                    "colour slices (C, P, S, Ns) = {} + geometry (C, P) = {}".format(
+                    "colour slices (C, P, S, Ns) = {} + geometry (C, P, G) = {}".format(
                         layout["colour"], layout["geom"]))
             print(f"phase 2 ts={ts} D={D} B5 train_bwd {dtype} ({kind}): rows max abs {a:.3e}, "
                   f"{g_rows:.3e} of column-group max, {e_rows:.3e} of the entry's magnitude; "
@@ -732,21 +724,20 @@ def phase_train_kernels():
     check(worst <= 3e-4, "render_plan_train gradients within 3e-4 of each column's max")
 
 
-# (tile, D, view) of phase 2's geometry launch of B5: above the colour
-# kernels' 512 channels, two and three channel chunks; 1030 is above the
-# geometry cluster kernel's cap (GEOM_CLUSTER_MAX_CHANNELS)
-TRAIN_GEOM_SHAPES = ((16, 515, 0), (32, 1030, 1))
+# (tile, D, view) of phase 2's geometry launch of B5 (geom_cluster's (C, P,
+# G)): 515, 64 pixels a rank in one cluster of 4; 1030, 32 pixels a rank in
+# two pixel groups of 16 CTAs; 2051, 16 pixels a rank in one group of 16
+TRAIN_GEOM_SHAPES = ((16, 515, 0), (32, 1030, 1), (16, 2051, 0))
 
 
 def phase_train_geom():
-    """B5's geometry launch (``train_geom_rows``, 8 columns, any D)
-    against its twin at mid shapes, rows and B3's sums by
-    ``grad_rows_error`` against GRAD_ROWS_TOL[float32]; its columns 0:6
-    summed per Gaussian against the sums of the chunked ``train_rows``
-    launches' geometry (chunks of MAX_CHANNELS, ``hterm`` in the first),
-    within the same limits; two launches bit-equal; its time at each shape.
-    Only its own launch counter (the geometry cluster kernel's, or the
-    one-CTA geometry kernel's above its cap) is checked."""
+    """B5's geometry launch (``train_geom_rows``, 8 columns, any D up to
+    GEOM_MAX_CHANNELS) against its twin at mid shapes, rows and B3's sums
+    by ``grad_rows_error`` against GRAD_ROWS_TOL[float32]; its columns 0:6
+    summed per Gaussian against the sums of ``train_rows``' geometry over
+    512-channel chunks of the colours (``hterm`` in the first), within the
+    same limits; two launches bit-equal; its time at each shape. Its launch
+    counter alone moves, once."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.plan import build_plan
@@ -774,10 +765,9 @@ def phase_train_geom():
         rows = T.train_geom_rows(*args)
         torch.cuda.synchronize()
         cluster = T.geom_cluster(ts, D)
-        kernel = "train_bwd_geom" if cluster else "train_bwd_geom_cta"
         launched = K.LAUNCHES.snapshot()
-        check(launched == {**dict.fromkeys(launched, 0), kernel: 1},
-              f"train_geom_rows launched {kernel} once ({launched})")
+        check(launched == {**dict.fromkeys(launched, 0), "train_bwd_geom": 1},
+              f"train_geom_rows launched the geometry kernel once ({launched})")
         same = torch.equal(T.train_geom_rows(*args), rows)
         ms = time_cuda(lambda: T.train_geom_rows(*args), 3)
         sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
@@ -787,7 +777,8 @@ def phase_train_geom():
         _, g_sums, e_sums = T.grad_rows_error(
             sums, K.reduce_rows_plain(rows_t, plan, T.GEOM_GRADS), 0, sums_m)
         chunked = torch.zeros_like(sums)
-        for i, (c0, c1) in enumerate(T.channel_chunks(D)):
+        chunks = [(c0, min(c0 + 512, D)) for c0 in range(0, D, 512)]
+        for i, (c0, c1) in enumerate(chunks):
             g_c = g[..., c0:c1].contiguous()
             rows_c = T.train_rows(geom, cols[:, c0:c1].contiguous(), g_c,
                                   hterm if i == 0 else torch.zeros_like(hterm),
@@ -795,8 +786,9 @@ def phase_train_geom():
             chunked += K.reduce_rows(rows_c, plan, c1 - c0 + T.GEOM_GRADS)[:, c1 - c0:]
         chunked[:, 6:] = sums[:, 6:]  # the absolute columns do not add over chunks
         _, g_chunk, e_chunk = T.grad_rows_error(sums, chunked, 0, sums_m)
-        print(f"phase 2 ts={ts} D={D} B5 train_geom_rows f32 ({kernel}, (C, P) = {cluster}; "
-              f"{len(T.channel_chunks(D))} channel chunks): rows max abs {a:.3e}, {g_rows:.3e} of column-group max, "
+        print(f"phase 2 ts={ts} D={D} B5 train_geom_rows f32 ((C, P, G) = {cluster}; against "
+              f"{len(chunks)} channel chunks): rows max abs {a:.3e}, {g_rows:.3e} of "
+              f"column-group max, "
               f"{e_rows:.3e} of the entry's magnitude; B3 sums {g_sums:.3e} and {e_sums:.3e}; "
               f"columns 0:6 against the chunked launches' geometry {g_chunk:.3e} and "
               f"{e_chunk:.3e}; a second launch bit-equal {same}; {ms:.3f} ms", flush=True)
@@ -1346,9 +1338,10 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     ]
 
 
-def timed_train(tag, feature_dim, warmup, steps):
+def timed_train(tag, feature_dim, warmup, steps, teacher=512, absgrad=False):
     """The train step at phase 4's configuration with ``feature_dim``
-    features (and a teacher of as many) through ``Trainer.train_chunk``:
+    features against a ``linear`` teacher ``teacher`` wide, absgrad on or
+    off, through ``Trainer.train_chunk``:
     ``warmup`` steps (SH degrees 0-2, sh_degree_interval 1), ``steps``
     timed steps at degree 3, then one more step recorded
     (``Trainer.record``). Returns the record, the timed steps' launches,
@@ -1373,11 +1366,11 @@ def timed_train(tag, feature_dim, warmup, steps):
         rng.uniform(0, 1, (TRAIN_CAMS, h, w, 3)).astype(np.float32)).cuda()
     cam_idx = rng.integers(0, TRAIN_CAMS, warmup + steps + 1)
     cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=feature_dim,
-                      feature_out_dim=512, strategy="none", random_bkgd=False,
-                      sh_degree_interval=1)
+                      feature_out_dim=teacher, strategy="none", random_bkgd=False,
+                      sh_degree_interval=1, absgrad=absgrad)
     scene0 = init_scene_from_points(pts, rgbs, cfg)
-    tr = Trainer(cfg, scene0, 1.0,
-                 teacher=get_encoder("linear:512"), width=w, height=h, n_cameras=TRAIN_CAMS)
+    tr = Trainer(cfg, scene0, 1.0, teacher=get_encoder(f"linear:{teacher}"), width=w,
+                 height=h, n_cameras=TRAIN_CAMS)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
     initial = {f.name: getattr(tr.scene, f.name).detach().clone()
                for f in dataclasses.fields(tr.scene)}
@@ -1455,40 +1448,84 @@ def phase_train():
 
 
 # Feature 3DGS without its speed-up decoder: the rendered feature width is
-# the 512-wide teacher's (D = 515: a 512-channel chunk, then D = 3).
+# the 512-wide teacher's (D = 515).
 WIDE_FEATURES, WIDE_WARMUP, WIDE_STEPS = 512, 2, 3
+# ... and DINOv2's 1024-wide features, trained with absgrad (D = 1027).
+WIDER_FEATURES = 1024
+
+
+def one_launch_per_step(tag, launches, steps):
+    """Each render of the step ran B4 once and B5 as one colour launch and
+    one geometry launch, with no cluster-kernel B5 and no wide B4."""
+    for name, want in (("train_fwd", 1), ("train_bwd_colour", 1), ("train_bwd_geom", 1),
+                       ("train_bwd", 0), ("train_fwd_wide", 0)):
+        check(launches[name] == want * steps,
+              f"{tag}: {name} launched {want} time(s) per step ({launches[name]})")
+    check(launches["reduce"] >= steps, f"{tag}: B3 launched every step ({launches['reduce']})")
 
 
 def phase_train_wide():
     """Phase 4's train step at ``feature_dim`` 512: 2 warm-up and 3 timed
-    steps; ms/step, the stage split, launches, peak. B5 renders the first
-    chunk's rows on its colour slices and geometry kernel, and the
-    D = 3 chunk's on its cluster kernel, every step. Returns the kernel
-    records of the recorded step's first chunk (B4-f512, B5-wide,
-    B3-f512)."""
+    steps; ms/step, the stage split, launches, peak. Every step renders
+    all 515 channels in one B4 launch and differentiates them in one
+    colour and one geometry launch of B5. Returns the recorded step's
+    kernel records (B4-f512, B5-wide, B3-f512)."""
     from tpugs_torch.raster import train as T
 
     r = timed_train("phase 4w", WIDE_FEATURES, WIDE_WARMUP, WIDE_STEPS)
     launches = r["launches"]
     d = 3 + WIDE_FEATURES
-    chunks = T.channel_chunks(d)
-    check([b - a for a, b in chunks] == [512, 3], f"D = {d} renders in chunks of 512 and 3")
-    for name, per_step in (("train_fwd", 2), ("train_bwd_colour", 1), ("train_bwd_geom", 1),
-                           ("train_bwd", 1), ("reduce", 2)):
-        check(launches[name] >= per_step * WIDE_STEPS,
-              f"{name} kernel launched at least {per_step} times per step ({launches[name]})")
-    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_geom_cta"] == 0,
-          f"no wide B4 or one-CTA B5 launch ({launches})")
+    one_launch_per_step("phase 4w", launches, WIDE_STEPS)
     stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
     print(f"phase 4w train N={N_FULL} {W_FULL}x{H_FULL} D={d} (feature {WIDE_FEATURES} -> "
-          f"teacher 512; B5 layout of the 512-channel chunk {T.train_layout(r['tile'], 512)}) "
+          f"teacher 512; B5 layout {T.train_layout(r['tile'], d)}) "
           f"tile={r['tile']} steps={WIDE_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, "
           f"{r['steps_s']:.3f} steps/s, peak {r['peak_gb']:.2f} GB; losses "
           f"{' '.join(f'{x:.4f}' for x in r['losses'])}; stage ms/step (CUDA events): {stages}; "
           f"launches {launches}", flush=True)
     return train_step_records(
         r["seen"], W_FULL, H_FULL, launches, "phase 4w", ("B4-f512", "B5-wide", "B3-f512"),
-        b5=("train_bwd colour slices + geometry (feature_dim 512 step, its D=512 chunk)",
+        b5=("train_bwd colour slices + geometry (feature_dim 512 step, D=515)",
+            "train_bwd_colour"))
+
+
+def phase_train_wider():
+    """Phase 4's train step at ``feature_dim`` 1024 against a 1024-wide
+    teacher (DINOv2's width) with absgrad: 2 warm-up and 3 timed steps;
+    ms/step, the stage split, launches (one B4, one colour and one
+    geometry launch per step), peak. The recorded step's absgrad probe
+    gradient equals B3's sums of the geometry launch rebuilt from its
+    recorded inputs, bit for bit. Returns its kernel records (B4-f1024,
+    B5-f1024, B3-f1024)."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+
+    r = timed_train("phase 4x", WIDER_FEATURES, WIDE_WARMUP, WIDE_STEPS,
+                    teacher=WIDER_FEATURES, absgrad=True)
+    launches = r["launches"]
+    d = 3 + WIDER_FEATURES
+    one_launch_per_step("phase 4x", launches, WIDE_STEPS)
+    stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
+    print(f"phase 4x train N={N_FULL} {W_FULL}x{H_FULL} D={d} (feature {WIDER_FEATURES} -> "
+          f"teacher {WIDER_FEATURES}, absgrad; B5 layout {T.train_layout(r['tile'], d)}) "
+          f"tile={r['tile']} steps={WIDE_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, "
+          f"{r['steps_s']:.3f} steps/s, peak {r['peak_gb']:.2f} GB; losses "
+          f"{' '.join(f'{x:.4f}' for x in r['losses'])}; stage ms/step (CUDA events): {stages}; "
+          f"launches {launches}", flush=True)
+    seen = r["seen"]
+    args = tuple(seen[k] for k in ("geom", "cols", "g_image", "hterm", "grem0", "blocks_done",
+                                   "plan"))
+    rebuilt = K.reduce_rows(T.train_geom_rows(*args), seen["plan"], T.GEOM_GRADS)[:, 6:8]
+    same = torch.equal(rebuilt, seen["probe_grads"]["abs"])
+    print(f"phase 4x absgrad check: the geometry launch rebuilt from the recorded step's "
+          f"inputs gives the probe's gradient bit for bit {same} (nonzero entries "
+          f"{int((rebuilt != 0).sum())})", flush=True)
+    check(same and bool((rebuilt != 0).any()),
+          "the rebuilt geometry launch reproduces the step's absgrad gradient")
+    del rebuilt, args
+    return train_step_records(
+        seen, W_FULL, H_FULL, launches, "phase 4x", ("B4-f1024", "B5-f1024", "B3-f1024"),
+        b5=("train_bwd colour slices + geometry (feature_dim 1024 step, D=1027, absgrad)",
             "train_bwd_colour"))
 
 
@@ -1760,17 +1797,17 @@ def phase_eager():
     ]
 
 
-ABS_D = 515  # above B5's 512-channel rows: two channel chunks and the geometry launch
+ABS_D = 515  # above B5's cluster kernel: colour slices and the geometry launch
 
 
 def phase_absgrad():
     """``render_tiled`` (tile 16, trans_eps 0) at the canonical view with
     D = 515 random colours, a background and the absgrad probe, forward and
-    backward: ms, peak memory, B5's first chunk (D = 512: colour slices and
-    the geometry kernel) and its geometry launch over all channels, each
-    timed against its bound; the geometry launch rebuilt from the render's
-    own inputs reproduces the probe's gradient, and 64 random tiles of its
-    rows hold against the twin. Returns B5-geom's kernel record."""
+    backward: ms, peak memory, one B4 launch and B5 as one colour and one
+    geometry launch; B5's rows and its geometry launch alone, each timed
+    against its bound; the geometry launch rebuilt from the render's own
+    inputs reproduces the probe's gradient, and 64 random tiles of its rows
+    hold against the twin. Returns B5-geom's kernel record."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.plan import build_plan
@@ -1815,14 +1852,13 @@ def phase_absgrad():
     fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = K.LAUNCHES.snapshot()
-    check((launches["train_bwd"], launches["train_bwd_colour"], launches["train_bwd_geom"],
-           launches["train_bwd_geom_cta"]) == (1, 1, 2, 0),
-          f"the backward ran B5's 512-channel chunk on the colour slices and the geometry "
-          f"kernel, its 3-channel chunk on the cluster kernel, and the absgrad columns on "
-          f"the geometry kernel over all 515 channels ({launches})")
-    check(launches["train_fwd"] == 2 and launches["train_fwd_wide"] == 0,
-          f"the forward rendered both channel chunks (512 in 2 slices, 3) through B4's "
-          f"cluster kernel ({launches})")
+    check((launches["train_bwd"], launches["train_bwd_colour"],
+           launches["train_bwd_geom"]) == (0, 1, 1),
+          f"the backward ran B5 over all 515 channels as one colour launch and one "
+          f"geometry launch, which also gives the absgrad columns ({launches})")
+    check(launches["train_fwd"] == 1 and launches["train_fwd_wide"] == 0,
+          f"the forward rendered all 515 channels in one launch of B4's cluster kernel "
+          f"({launches})")
     d_abs = grads[5]
     check(all(bool(torch.isfinite(x).all()) for x in grads) and bool((d_abs != 0).any()),
           "every gradient finite, the absgrad probe's nonzero")
@@ -1833,7 +1869,7 @@ def phase_absgrad():
 
     # the geometry launch again, from the render's own inputs (RenderTrain.backward)
     geom, cols = T.pack_train(*inputs[:4], plan)
-    alpha, done = T.train_forward(geom, cols[:, :T.MAX_CHANNELS].contiguous(), plan, 0.0)[1:]
+    alpha, done = T.train_forward(geom, cols, plan, 0.0)[1:]
     transs = 1.0 - alpha
     hterm = ((g @ bg) * transs).contiguous()
     grem0 = (g * (image - transs[..., None] * bg)).sum(-1).contiguous()
@@ -1857,19 +1893,14 @@ def phase_absgrad():
     walked = int(done.sum())
     pairs, _, kept = walked_pairs(geom, plan, 0.0)
     check(pairs == walked * 128 * ts * ts, "the twin's walk takes the kernel's blocks")
-    # the backward's first chunk (D = 512) on the colour slices and the geometry kernel
-    a, b = T.channel_chunks(D)[0]
-    g0 = g[..., a:b].contiguous()
-    args0 = (geom, cols[:, a:b].contiguous(), g0, hterm,
-             (g0 * (image - transs[..., None] * bg)[..., a:b]).sum(-1).contiguous(), done, plan)
-    rows_ms = time_cuda(lambda: T.train_rows(*args0), 3)
-    rows_bound = bound(walked * 128 * (8 + b) * 4 + h * w * (b + 2) * 4 + 4 * plan.n_tiles
-                       + plan.T_padded * T.grad_row_width(b) * 4,
-                       pairs * PAIR_OPS + kept * (4 * b + PAIR_OPS), PEAK_F32_FLOPS)
-    print(f"phase 5 absgrad B5 train_rows of the first chunk D={b} "
-          f"({T.train_layout(ts, b)}): {rows_ms:.3f} ms; bound {rows_bound[0]:.4f} ms by "
-          f"{rows_bound[1]}, share {rows_bound[0] / rows_ms:.3f}", flush=True)
-    del args0, g0
+    # the backward's B5: colour slices and the geometry kernel over all D
+    rows_ms = time_cuda(lambda: T.train_rows(*args), 3)
+    rows_bound = bound(walked * 128 * (8 + D) * 4 + h * w * (D + 2) * 4 + 4 * plan.n_tiles
+                       + plan.T_padded * T.grad_row_width(D) * 4,
+                       pairs * PAIR_OPS + kept * (4 * D + PAIR_OPS), PEAK_F32_FLOPS)
+    print(f"phase 5 absgrad B5 train_rows D={D} ({T.train_layout(ts, D)}): {rows_ms:.3f} ms; "
+          f"bound {rows_bound[0]:.4f} ms by {rows_bound[1]}, share "
+          f"{rows_bound[0] / rows_ms:.3f}", flush=True)
     # the least work: the walked blocks' geometry and colour rows, g, hterm
     # and grem0 read once per image (as the other B5 bounds count them),
     # blocks_done, the 8-column rows written
@@ -4502,6 +4533,7 @@ def main() -> int:
     train_records, scene0, ref4 = phase_train()
     records += train_records
     records += phase_train_wide()
+    records += phase_train_wider()
     records += phase_eager()
     records += phase_absgrad()
     phase_app()

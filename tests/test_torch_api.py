@@ -18,12 +18,16 @@ scenes at 64x48, 3 orbit cameras.
 * ``render_tiled`` (``RenderTrain`` on the twins) against
   ``render_tiled_autodiff``: image and alpha 2e-5, every gradient
   (means2d, conics, opacities, colours, background) 5e-5 of its max;
-  at D = 515 (two channel chunks, one ``hterm``) the same limits;
+  at D = 515 (colour slices plus the geometry launch) the same limits;
+  at D = 1027 (DINOv2's 1024 + RGB) with the absgrad probe the same limits,
+  the probe's gradient against autograd through the same walk with a leaf
+  copy of each mean per pixel (each pixel's gradient its own; the
+  absolute values summed over pixels), 5e-5 of its max;
 * ``render_tiled`` at D = 4 and 515 against ``jax.grad`` of tpugs'
   ``render_tiled`` on the binning of the same projection: image and alpha
   2e-5, every gradient 5e-5 of its max; the absgrad probe at D = 4 and
-  515 (B5's geometry-only launch over all channels) against ``jax.grad``
-  of tpugs' probe, 5e-5 of its max;
+  515 (B5's geometry columns over all channels) against ``jax.grad`` of
+  tpugs' probe, 5e-5 of its max;
 * ``render_tiled_autodiff``'s block size and tiles per chunk change no
   pixel beyond 1e-5 (tpugs' ``test_tiled_block_boundary_invariance``);
 * the binning: ``tile_cut_mask``, ``culled_covers`` and
@@ -56,7 +60,9 @@ from tpugs_torch.raster.tiled import (
     render_tiled_autodiff,
     required_blocks,
 )
-from tpugs_torch.raster.train import MAX_CHANNELS
+from tpugs_torch.raster.kernels import _tile_pixels
+from tpugs_torch.raster.naive import evaluate_alpha
+from tpugs_torch.raster.tiles import tiles_to_image
 
 W, H = 64, 48
 _j_binning = jax.jit(jb.build_tile_binning, static_argnums=(1, 2, 3, 4))
@@ -242,7 +248,7 @@ def _grads(fn, inputs, plan, g, s, probe=False):
 NAMES = ("means2d", "conics", "opacities", "colors", "background")
 
 
-@pytest.mark.parametrize("d", [3, 4, MAX_CHANNELS + 3])
+@pytest.mark.parametrize("d", [3, 4, 515])
 def test_render_tiled_matches_autodiff(setup, d):
     _, jc, ts = setup
     _, plan, inputs, g, s = _view_inputs(ts, jc, 1, d, d)
@@ -257,7 +263,7 @@ def test_render_tiled_matches_autodiff(setup, d):
         _close(a / scale, b / scale, 5e-5, name)
 
 
-@pytest.mark.parametrize("d", [4, MAX_CHANNELS + 3])
+@pytest.mark.parametrize("d", [4, 515])
 def test_render_tiled_matches_tpugs(setup, d):
     _, jc, ts = setup
     proj, plan, inputs, g, s = _view_inputs(ts, jc, 1, d, d)
@@ -285,7 +291,7 @@ def test_render_tiled_matches_tpugs(setup, d):
         _close(a / scale, b / scale, 5e-5, name)
 
 
-@pytest.mark.parametrize("d", [4, MAX_CHANNELS + 3])
+@pytest.mark.parametrize("d", [4, 515])
 def test_render_tiled_absgrad_matches_tpugs(setup, d):
     js, jc, ts = setup
     proj, plan, inputs, g, s = _view_inputs(ts, jc, 2, d, 7)
@@ -306,6 +312,70 @@ def test_render_tiled_absgrad_matches_tpugs(setup, d):
     scale = float(np.abs(ref).max())
     assert scale > 0
     _close(grads[5].numpy() / scale, ref / scale, 5e-5, "absgrad")
+
+
+def _absgrad_autodiff(inputs, plan, g, s):
+    """The absgrad statistic (N, 2) by autograd through
+    ``render_tiled_autodiff``'s walk (blocks of 128, every tile at once),
+    where each (pixel, Gaussian) pair reads its own leaf copy of the
+    Gaussian's mean: the gradient of that copy is the pixel's; per
+    Gaussian, its absolute values summed over the pixels."""
+    m2d, con, opa, colors, bg = (x.detach() for x in inputs)
+    n, d, ts = m2d.shape[0], colors.shape[1], plan.tile_size
+    order = plan.order
+    m = torch.cat([m2d[order], m2d.new_zeros((1, 2))])
+    c = torch.cat([con[order], con.new_ones((1, 3))])
+    o = torch.cat([opa[order], opa.new_zeros((1,))])
+    col = torch.cat([colors[order], colors.new_zeros((1, d))])
+    gid_of = torch.cat([plan.padded_gid.long(), torch.full((1,), n)])
+    spans = (plan.tile_ends - plan.tile_starts).long()
+    px, py = _tile_pixels(torch.arange(plan.n_tiles), plan.grid[0], ts)
+    img = torch.zeros((plan.n_tiles, ts * ts, d))
+    trans = torch.ones((plan.n_tiles, ts * ts))
+    copies, gids = [], []
+    for b in range(required_blocks(plan, 128)):
+        j = b * 128 + torch.arange(128)
+        in_span = j[None, :] < spans[:, None]
+        gid = gid_of[torch.where(in_span, plan.padded_starts.long()[:, None] + j, plan.T_padded)]
+        mx, my = (m[gid, k][..., None].expand(-1, -1, ts * ts).clone().requires_grad_()
+                  for k in (0, 1))
+        alpha = evaluate_alpha(c[gid][:, :, None, :], o[gid][..., None], px[:, None, :] - mx,
+                               py[:, None, :] - my)
+        alpha = torch.where(in_span[..., None], alpha, torch.zeros_like(alpha))
+        cum = torch.cumprod(1.0 - alpha, dim=1)
+        texc = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+        img = img + torch.einsum("tbp,tbd->tpd", alpha * texc * trans[:, None, :], col[gid])
+        trans = trans * cum[:, -1]
+        copies += [mx, my]
+        gids.append(gid)
+    w, h = plan.width, plan.height
+    image = tiles_to_image(img + trans[..., None] * bg, w, h, ts)
+    alpha = tiles_to_image((1.0 - trans)[..., None], w, h, ts)[..., 0]
+    grads = torch.autograd.grad((image * g).sum() + (alpha * s).sum(), copies)
+    sums = torch.zeros((n + 1, 2))
+    for gid, gx, gy in zip(gids, grads[0::2], grads[1::2]):
+        sums.index_add_(0, gid.reshape(-1),
+                        torch.stack([gx.abs().sum(-1), gy.abs().sum(-1)], -1).reshape(-1, 2))
+    out = torch.zeros((n, 2))
+    out[order] = sums[:n]
+    return out
+
+
+def test_render_tiled_absgrad_above_700_channels_matches_autodiff(setup):
+    """D = 1027, above the geometry kernel's 64-pixel ranks (700 channels):
+    one ``train_rows`` over all channels gives every gradient and the
+    absgrad columns."""
+    _, jc, ts = setup
+    _, plan, inputs, g, s = _view_inputs(ts, jc, 2, 1027, 11)
+    img, alpha, grads = _grads(render_tiled, inputs, plan, g, s, probe=True)
+    img_r, alpha_r, grads_r = _grads(render_tiled_autodiff, inputs, plan, g, s)
+    _close(img, img_r, 2e-5, "image")
+    _close(alpha, alpha_r, 2e-5, "alpha")
+    refs = list(grads_r) + [_absgrad_autodiff(inputs, plan, g, s)]
+    for name, a, b in zip(NAMES + ("absgrad",), grads, refs):
+        scale = float(b.abs().max())
+        assert scale > 0, name
+        _close(a / scale, b / scale, 5e-5, name)
 
 
 def test_autodiff_walk_is_block_invariant(setup):

@@ -12,10 +12,10 @@ rows, and B3's sums of them, within ``GRAD_ROWS_TOL`` of each column
 group's largest value and of each entry's own magnitude
 (``grad_rows_error``), in f32 and bf16, at widths of B5's cluster kernel
 (D = 3, 20, 131, 256) and of its colour slices plus geometry kernel
-(D = 300, 512), each of those two launches also alone against its twin's
-columns; two B5 launches bit-equal; D = 600 is refused; the colour
-slices' columns bit-equal to the cluster kernel's where both take the
-width (their weights are the same instructions). B4 at the same widths and at 600
+(D = 300, 512, 600), each of those two launches also alone against its
+twin's columns; two B5 launches bit-equal; the colour slices' columns
+bit-equal to the cluster kernel's where both take the width (their
+weights are the same instructions). B4 at the same widths and at 600
 launches its cluster kernel in the channel slices its width selects
 (``train_fwd_cluster``: one slice up to 256 channels, two at 300 and 512,
 three at 600); its alpha and exit blocks are bit-equal to the wide
@@ -27,10 +27,12 @@ B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
 bf16 unit of the twin's (they are expected bit-equal) and scattered to
 ``pos``; its probe reads 19. The tiled path's regime, ``trans_eps`` = 0
 (every block walked): B4 and B5 at D = 3 and 4, and B2 with one zero
-channel, held by the same limits. B5's geometry launch at D = 5, 515 and
-the geometry cluster kernel's cap (700), and the one-CTA geometry kernel
-above it (1030), against the twin by ``GRAD_ROWS_TOL`` (f32), and its
-columns 0:6 against the sums of the chunked B5 launches' geometry. B2 at
+channel, held by the same limits. B5's geometry launch at D = 5, 515, 700
+(P = 64 pixels a rank, one pixel group), 1030 (P = 32: one group at tile
+16, two at tile 32), 2051 (P = 16: one group, four) and 4096 (P = 8: two,
+eight; ``geom_cluster``), against the twin by ``GRAD_ROWS_TOL`` (f32), two
+launches bit-equal, and its columns 0:6 against the sums of B5's rows'
+geometry over 512-channel chunks of the colours. B2 at
 D = 1024 (DINO's width) in f32 and bf16 by ``ROWS_TOL``, B6 bit-equal.
 
 The encoders have no kernel of their own; they are held on the card
@@ -236,8 +238,8 @@ def test_async_copy_probe_reads_19():
 
 
 # B4's and B5's cluster kernels at D = 3, 20, 131, 256 (clusters of 2 CTAs at
-# tile 16, 8 at tile 32); above, B4 in 2 or 3 channel slices and B5 in 2
-# colour slices plus its geometry kernel (up to MAX_CHANNELS = 512)
+# tile 16, 8 at tile 32); above, B4 in 2 or 3 channel slices and B5 in 3, 4
+# or 5 colour slices plus its geometry kernel
 @pytest.fixture(scope="module", params=[3, 20, 131, 256, 300, 512, 600])
 def train_packs(view, request):
     plan, pack, _ = view
@@ -302,20 +304,12 @@ def test_train_bwd_kernel_matches_twin(train_packs, dtype):
     grem0 = (g * img).sum(-1)
     args = (geom, cols, g, hterm, grem0, done, plan, dtype)
     K.LAUNCHES.reset()
-
-    def launched():
-        return K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour, K.LAUNCHES.train_bwd_geom
-
-    if d > T.MAX_CHANNELS:  # RenderTrain chunks such widths; B5 itself refuses them
-        with pytest.raises(ValueError, match="exceed"):
-            T.train_rows(*args)
-        assert launched() == (0, 0, 0)
-        return
     rows = T.train_rows(*args)
     sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
     torch.cuda.synchronize()
     wide = T.train_cluster(plan.tile_size, d) is None
-    assert launched() == ((0, 1, 1) if wide else (1, 0, 0))
+    launched = K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour, K.LAUNCHES.train_bwd_geom
+    assert launched == ((0, 1, 1) if wide else (1, 0, 0))
     rows_t, mags = T.train_rows_plain(*args, magnitudes=True)
     group_tol, entry_tol = T.GRAD_ROWS_TOL[dtype]
     _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
@@ -338,8 +332,6 @@ def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
     g = torch.randn(img.shape, device="cuda", generator=gen)
     hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
     args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan, dtype)
-    if cols.shape[1] > T.MAX_CHANNELS:  # refused: test_train_bwd_kernel_matches_twin
-        return
     first = T.train_rows(*args)
     second = T.train_rows(*args)
     torch.cuda.synchronize()
@@ -348,11 +340,17 @@ def test_train_bwd_kernel_is_deterministic(train_packs, dtype):
 
 def _launch_alone(fn, args, layout, d, dtype):
     """One of ``train_rows``' two launches above 256 channels, alone, into
-    zero rows."""
+    zero rows: the colour slices' entry ``fn``, or with ``fn`` None the
+    geometry kernel."""
+    from tpugs_torch.kernels.build import load_library
+
     geom, cols, g, hterm, grem0, done, plan = args[:7]
     out = torch.zeros((plan.T_padded, T.grad_row_width(d)), dtype=dtype, device="cuda")
-    rc = T._launch_train_bwd(fn, geom, cols, g, hterm, grem0, done, plan, out, layout)
-    assert rc == 0
+    if fn is None:
+        T._launch_geom(load_library(), geom, cols, g, hterm, grem0, done, plan, out, layout)
+    else:
+        assert T._launch_train_bwd(fn, geom, cols, g, hterm, grem0, done, plan, out,
+                                   layout) == 0
     torch.cuda.synchronize()
     return out
 
@@ -369,8 +367,6 @@ def test_train_bwd_colour_and_geometry_launches_alone(train_packs, dtype):
 
     plan, geom, cols, gen = train_packs
     d = cols.shape[1]
-    if d > T.MAX_CHANNELS:
-        return
     img, alpha, done = T.train_forward(geom, cols, plan)
     g = torch.randn(img.shape, device="cuda", generator=gen)
     hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
@@ -390,10 +386,9 @@ def test_train_bwd_colour_and_geometry_launches_alone(train_packs, dtype):
     ref_c, mags_c = T.train_rows_plain(*args, magnitudes=True, colour_only=True)
     _, of_group, of_entry = T.grad_rows_error(rows_c[:, :d], ref_c, d, mags_c)
     assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
-    geom_fn = lib.tpugs_train_bwd_geom_bf16 if bf16 else lib.tpugs_train_bwd_geom_f32
     layout = T.geom_cluster(plan.tile_size, d)
-    rows_g = _launch_alone(geom_fn, args, layout, d, dtype)
-    assert torch.equal(rows_g, _launch_alone(geom_fn, args, layout, d, dtype))
+    rows_g = _launch_alone(None, args, layout, d, dtype)
+    assert torch.equal(rows_g, _launch_alone(None, args, layout, d, dtype))
     assert not rows_g[:, :d].any()  # skipped blocks' rows are written 0, whole
     rows_t, mags = T.train_rows_plain(*args, magnitudes=True)
     _, of_group, of_entry = T.grad_rows_error(rows_g[:, d:], rows_t[:, d:], 0, mags[:, d:])
@@ -401,18 +396,18 @@ def test_train_bwd_colour_and_geometry_launches_alone(train_packs, dtype):
     assert not rows_g[:, d + T.GEOM_GRADS:].any()
 
 
-# B5's geometry launch: above the colour kernels' 512 channels, at the
-# geometry cluster kernel's cap and above it (the one-CTA geometry kernel),
-# at trans_eps 0 (render_tiled's regime) and the default
+# B5's geometry launch at each pixels-per-rank width of ``geom_cluster``
+# (GEOM_WIDTHS: 64 up to 700 channels, 32, 16, 8) and so one to eight
+# pixel groups, at trans_eps 0 (render_tiled's regime) and the default
 @pytest.mark.parametrize("d, trans_eps", [(5, 0.0), (515, 0.0), (1030, T.TRANS_EPS),
-                                          (T.GEOM_CLUSTER_MAX_CHANNELS, T.TRANS_EPS)])
+                                          (700, T.TRANS_EPS), (2051, T.TRANS_EPS),
+                                          (4096, 0.0)])
 def test_train_geom_rows_match_twin_and_the_chunked_geometry(view, d, trans_eps):
-    """``train_geom_rows`` (8 geometry columns, any D) within GRAD_ROWS_TOL
-    (f32) of ``train_rows_plain(..., geometry_only=True)``, rows and B3's
-    sums, counting only its own launches (the geometry cluster kernel up to
-    its cap, the one-CTA geometry kernel above); its columns 0:6 summed per
-    Gaussian equal the sums of the chunked ``train_rows`` launches'
-    geometry (chunks of MAX_CHANNELS, ``hterm`` in the first only) within
+    """``train_geom_rows`` (8 geometry columns, any D up to the cap) within
+    GRAD_ROWS_TOL (f32) of ``train_rows_plain(..., geometry_only=True)``,
+    rows and B3's sums, counting only its own launch; its columns 0:6
+    summed per Gaussian equal the sums of ``train_rows``' geometry over
+    512-channel chunks of the colours (``hterm`` in the first only) within
     the same limits; two launches bit-equal."""
     plan, pack, _ = view
     gen = torch.Generator(device="cuda").manual_seed(d)
@@ -425,8 +420,8 @@ def test_train_geom_rows_match_twin_and_the_chunked_geometry(view, d, trans_eps)
     K.LAUNCHES.reset()
     rows = T.train_geom_rows(*args)
     torch.cuda.synchronize()
-    kernel = "train_bwd_geom" if T.geom_cluster(plan.tile_size, d) else "train_bwd_geom_cta"
-    assert K.LAUNCHES.snapshot() == {**{k: 0 for k in K.LAUNCHES.snapshot()}, kernel: 1}
+    assert K.LAUNCHES.snapshot() == {**{k: 0 for k in K.LAUNCHES.snapshot()},
+                                     "train_bwd_geom": 1}
     assert rows.shape == (plan.T_padded, T.GEOM_GRADS) and rows.dtype == torch.float32
     assert torch.equal(rows, T.train_geom_rows(*args))
     sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
@@ -439,7 +434,7 @@ def test_train_geom_rows_match_twin_and_the_chunked_geometry(view, d, trans_eps)
         sums, K.reduce_rows_plain(rows_t, plan, T.GEOM_GRADS), 0, sums_m)
     assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
     chunked = 0.0
-    for i, (a, b) in enumerate(T.channel_chunks(d)):
+    for i, (a, b) in enumerate((a, min(a + 512, d)) for a in range(0, d, 512)):
         g_c = g[..., a:b].contiguous()
         rows_c = T.train_rows(geom, cols[:, a:b].contiguous(), g_c,
                               hterm if i == 0 else torch.zeros_like(hterm),

@@ -67,7 +67,7 @@ from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
-from tpugs_torch.raster.train import pack_train, train_forward, train_rows
+from tpugs_torch.raster.train import GEOM_MAX_CHANNELS, pack_train, train_forward, train_rows
 from tpugs_torch.train.config import TrainConfig
 from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
 from tpugs_torch.train.modules import AppearanceOptModule, CameraOptModule
@@ -344,7 +344,8 @@ BAD_CALLS.update({
     "train_bwd f16 rows": (
         lambda p, k, f: train_rows(*_bwd_args(p, k), p, torch.float16), TypeError),
     "train_bwd too many channels": (
-        lambda p, k, f: train_rows(*_bwd_args(p, k, d=513), p), ValueError),
+        lambda p, k, f: train_rows(*_bwd_args(p, k, d=GEOM_MAX_CHANNELS + 1), p),
+        ValueError),
 })
 
 
@@ -386,7 +387,7 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     assert set(K.LAUNCHES.snapshot()) == {"render", "render_unculled", "adjoint", "reduce",
                                           "train_fwd",
                                           "train_fwd_wide", "train_bwd", "train_bwd_colour",
-                                          "train_bwd_geom", "train_bwd_geom_cta",
+                                          "train_bwd_geom",
                                           "adjoint_scatter", "stripe_sum"}
 
 

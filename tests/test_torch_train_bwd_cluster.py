@@ -4,7 +4,8 @@
   ``CLUSTER_MAX_CHANNELS`` channels, so a tile's pixels split into whole
   ranks (8 at tile 32, 2 at tile 16), and None above it, where
   ``train_layout`` gives the colour slices (the same ranks) and the
-  geometry kernel, up to ``MAX_CHANNELS``; other tiles and widths raise.
+  geometry kernel, up to ``GEOM_MAX_CHANNELS``; other tiles and widths
+  raise.
 * Every pattern of every phase table that targets a source of this tree
   (adjoint's ``cluster``, train_bwd's ``cluster``, ``colour`` and ``geom``)
   occurs exactly once in
@@ -20,12 +21,12 @@ import pytest
 
 from tpugs_torch.experiments import adjoint_phases, train_bwd_phases
 from tpugs_torch.raster.train import (
-    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, train_cluster, train_layout)
+    CLUSTER_MAX_CHANNELS, GEOM_MAX_CHANNELS, PIXELS_PER_RANK, train_cluster, train_layout)
 
 CSRC = Path(adjoint_phases.__file__).resolve().parents[1] / "csrc"
 
 
-@pytest.mark.parametrize("d", [1, 3, 20, 131, 250, 256, 257, 300, 512])
+@pytest.mark.parametrize("d", [1, 3, 20, 131, 250, 256, 257, 300, 512, 1027])
 @pytest.mark.parametrize("ts", [16, 32])
 def test_train_cluster_geometry(ts, d):
     got = train_cluster(ts, d)
@@ -40,7 +41,7 @@ def test_train_cluster_geometry(ts, d):
     assert c == {16: 2, 32: 8}[ts]
 
 
-@pytest.mark.parametrize("ts, d", [(8, 3), (64, 3), (32, 0), (16, MAX_CHANNELS + 1)])
+@pytest.mark.parametrize("ts, d", [(8, 3), (64, 3), (32, 0), (16, GEOM_MAX_CHANNELS + 1)])
 def test_train_cluster_refuses(ts, d):
     with pytest.raises(ValueError):
         train_cluster(ts, d)

@@ -3,18 +3,22 @@ selects, the C side's limits, and the plain decomposition that the card's
 two launches follow.
 
 * ``train_layout`` gives the cluster kernel up to ``CLUSTER_MAX_CHANNELS``
-  and, above it up to ``MAX_CHANNELS``, colour slices of the cluster
+  and, above it up to ``GEOM_MAX_CHANNELS``, colour slices of the cluster
   kernel's ranks (``fwd_slices`` at ``COLOUR_SLICE_CHANNELS``) plus the
-  geometry cluster kernel; ``geom_cluster`` gives that kernel up to
-  ``GEOM_CLUSTER_MAX_CHANNELS`` and None above (the one-CTA geometry
-  kernel); other tiles and widths raise.
+  geometry cluster kernel; ``geom_cluster`` gives that kernel's (C, P, G)
+  at every width: P pixels a rank by ``GEOM_WIDTHS`` (64 up to 700
+  channels, 32 up to 1276, 16 up to 2108, 8 up to 4096), clusters of C =
+  min(ts*ts / P, 16) CTAs, G pixel groups; other tiles, widths below 1 and
+  above the cap raise, ``train_rows`` naming the cap.
 * The limits named in ``raster/train.py`` are the constants of
-  ``csrc/train_bwd.cu``, and the geometry kernel's shared memory at the cap
-  fits a CTA while one channel more does not.
+  ``csrc/train_bwd.cu``; the geometry kernel's shared memory at each
+  width's P fits a CTA, and one channel past a width does not at its P
+  (so P is the largest that fits).
 * The colour-only twins of the slices, each on its own columns of the
   colours and of g, plus the geometry-only twin over all channels,
   assembled into rows with zero pad columns, equal ``train_rows_plain``
-  within 1e-6 of each column group's maximum, in f32 and bf16.
+  within 1e-6 of each column group's maximum, in f32 and bf16, at widths
+  of one and of two pixel groups.
 """
 
 import re
@@ -29,40 +33,42 @@ from tpugs_torch.raster.projection import project
 from tpugs_torch.raster.train import (
     CLUSTER_MAX_CHANNELS,
     COLOUR_SLICE_CHANNELS,
-    GEOM_CLUSTER_MAX_CHANNELS,
     GEOM_GRADS,
-    GEOM_PIXELS_PER_RANK,
-    MAX_CHANNELS,
+    GEOM_MAX_CHANNELS,
+    GEOM_MAX_CLUSTER,
+    GEOM_WIDTHS,
     PIXELS_PER_RANK,
     fwd_slices,
     geom_cluster,
     grad_row_width,
     pack_train,
+    train_cluster,
     train_forward_plain,
     train_layout,
+    train_rows,
     train_rows_plain,
 )
 from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
 
 SOURCE = Path(__file__).resolve().parents[1] / "tpugs_torch" / "csrc" / "train_bwd.cu"
-CAP = GEOM_CLUSTER_MAX_CHANNELS
+CAP = GEOM_MAX_CHANNELS
 SMEM_PER_CTA = 232_448  # a Hopper CTA's shared memory (227 KB), static bytes included
 STATIC_BYTES = 6 * 128 * 4  # the block's geometry (BlockGeom)
+# (widest D, (C, P, G)) of the geometry kernel by tile
+GEOM_LAYOUTS = {16: ((700, (4, 64, 1)), (1276, (8, 32, 1)), (2108, (16, 16, 1)),
+                     (4096, (16, 8, 2))),
+                32: ((700, (16, 64, 1)), (1276, (16, 32, 2)), (2108, (16, 16, 4)),
+                     (4096, (16, 8, 8)))}
 
 
-@pytest.mark.parametrize("d", [1, 3, 256, 257, 300, 512, CAP, CAP + 1])
+@pytest.mark.parametrize("d", [1, 3, 256, 257, 300, 512, 700, 701, 1027, 1276, 1277, 2051,
+                               2108, 2109, CAP])
 @pytest.mark.parametrize("ts", [16, 32])
 def test_layout_by_width_and_tile(ts, d):
     geom = geom_cluster(ts, d)
-    if d > CAP:
-        assert geom is None
-    else:
-        assert geom == (ts * ts // GEOM_PIXELS_PER_RANK, GEOM_PIXELS_PER_RANK)
-        assert geom[0] == {16: 4, 32: 16}[ts]
-    if d > MAX_CHANNELS:
-        with pytest.raises(ValueError):
-            train_layout(ts, d)
-        return
+    assert geom == next(want for widest, want in GEOM_LAYOUTS[ts] if d <= widest)
+    c, p, g = geom
+    assert c * p * g == ts * ts and c == min(ts * ts // p, GEOM_MAX_CLUSTER)
     layout = train_layout(ts, d)
     c = ts * ts // PIXELS_PER_RANK
     if d <= CLUSTER_MAX_CHANNELS:
@@ -77,11 +83,19 @@ def test_layout_by_width_and_tile(ts, d):
 
 @pytest.mark.parametrize("call", [
     lambda: train_layout(8, 300), lambda: train_layout(64, 3), lambda: train_layout(16, 0),
-    lambda: train_layout(32, MAX_CHANNELS + 1), lambda: geom_cluster(24, 5),
-    lambda: geom_cluster(16, 0)])
+    lambda: train_layout(32, CAP + 1), lambda: geom_cluster(24, 5),
+    lambda: geom_cluster(16, 0), lambda: geom_cluster(32, CAP + 1),
+    lambda: train_cluster(16, CAP + 1)])
 def test_layout_refuses(call):
     with pytest.raises(ValueError):
         call()
+
+
+def test_train_rows_names_the_cap():
+    geom, cols, g, hterm, grem0, done, plan = _bwd_inputs(3, 16)
+    wide = cols.new_zeros((plan.T_padded, CAP + 1)), g.new_zeros((H, W, CAP + 1))
+    with pytest.raises(ValueError, match=f"GEOM_MAX_CHANNELS = {CAP}"):
+        train_rows(geom, wide[0], wide[1], hterm, grem0, done, plan)
 
 
 def _constant(name):
@@ -90,22 +104,36 @@ def _constant(name):
     return int(m.group(1))
 
 
-def _geom_bytes(d):
-    """The geometry kernel's dynamic shared memory (GeomLayout::bytes)."""
+def _c_widths():
+    m = re.search(r"constexpr int kGeomWidths\[4\]\[2\] = \{(.*)\};", SOURCE.read_text())
+    assert m
+    return tuple(tuple(int(x) for x in pair) for pair in re.findall(r"\{(\d+), (\d+)\}", m[1]))
+
+
+def _geom_bytes(p, d):
+    """The geometry kernel's dynamic shared memory at P = p (GeomLayout<P>::
+    bytes): g, two chunks of K KS colour columns, the u buffers (one at
+    K = 2), d sigma and d op, the block's partial sums."""
     d4 = -(-d // 4) * 4
     ldg = d4 if (d4 // 4) % 2 else d4 + 4
-    kc = _constant("kKC")
-    return 4 * (GEOM_PIXELS_PER_RANK * ldg + 2 * 32 * (kc + 4) + GEOM_PIXELS_PER_RANK * 36
-                + 2 * 32 * (GEOM_PIXELS_PER_RANK + 5) + 128 * GEOM_GRADS)
+    k = 128 // p
+    kc = k * (32 if p >= 16 else 16)
+    return 4 * (p * ldg + 2 * 32 * (kc + 4) + (1 if k == 2 else k) * p * 36
+                + 2 * 32 * (p + 5) + 128 * GEOM_GRADS)
 
 
 def test_c_side_limits_are_the_python_ones():
-    assert _constant("kMaxGeomD") == GEOM_CLUSTER_MAX_CHANNELS
-    assert _constant("kGPix") == GEOM_PIXELS_PER_RANK
+    assert _c_widths() == GEOM_WIDTHS
+    assert _constant("kMaxGeomD") == GEOM_MAX_CHANNELS == GEOM_WIDTHS[-1][0]
+    assert _constant("kMaxGeomCluster") == GEOM_MAX_CLUSTER
+    assert _constant("kGeomSmem") + STATIC_BYTES == SMEM_PER_CTA
     assert _constant("kMaxSliceD") == _constant("kMaxClusterD") == CLUSTER_MAX_CHANNELS
     assert COLOUR_SLICE_CHANNELS <= CLUSTER_MAX_CHANNELS
-    assert _geom_bytes(CAP) + STATIC_BYTES <= SMEM_PER_CTA
-    assert all(_geom_bytes(d) + STATIC_BYTES > SMEM_PER_CTA for d in range(CAP + 1, CAP + 9))
+    for widest, p in GEOM_WIDTHS:
+        assert _geom_bytes(p, widest) + STATIC_BYTES <= SMEM_PER_CTA, p
+        if widest < CAP:  # the next width needs the smaller P
+            assert all(_geom_bytes(p, d) + STATIC_BYTES > SMEM_PER_CTA
+                       for d in range(widest + 1, widest + 9)), p
 
 
 W, H, N = 64, 48, 600
@@ -130,7 +158,7 @@ def _bwd_inputs(d, ts):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ts", [16, 32])
-@pytest.mark.parametrize("d", [300, 512])
+@pytest.mark.parametrize("d", [300, 512, 1027])
 def test_slices_and_geometry_assemble_the_rows(d, ts, dtype):
     geom, cols, g, hterm, grem0, done, plan = _bwd_inputs(d, ts)
     full = train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype)

@@ -6,8 +6,8 @@
   SLICE_CHANNELS) slices of Ns columns, a multiple of 16 at most
   ``CLUSTER_MAX_CHANNELS``, the narrowest multiple of 16 whose S slices
   cover D, every slice holding at least one channel; None (the wide kernel) for
-  other tiles; widths below 1 and tiles over 32 raise. It does not stop at
-  B5's ``MAX_CHANNELS``.
+  other tiles; widths below 1 and tiles over 32 raise. It takes every
+  width B5 takes, up to ``GEOM_MAX_CHANNELS``, and beyond.
 * Every pattern of the tool's ``cluster`` table occurs exactly once in the
   tree's ``train_fwd.cu``, so each variant builds from the tree's kernel;
   the ``4d5fa2f`` table is held to that commit's source, which the tree no
@@ -26,7 +26,7 @@ from tpugs_torch.experiments import adjoint_phases, train_fwd_phases
 from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster import train as T
 from tpugs_torch.raster.train import (
-    CLUSTER_MAX_CHANNELS, MAX_CHANNELS, PIXELS_PER_RANK, SLICE_CHANNELS, fwd_slices,
+    CLUSTER_MAX_CHANNELS, GEOM_MAX_CHANNELS, PIXELS_PER_RANK, SLICE_CHANNELS, fwd_slices,
     train_fwd_cluster)
 
 SOURCE = Path(adjoint_phases.__file__).resolve().parents[1] / "csrc" / "train_fwd.cu"
@@ -65,7 +65,9 @@ def test_train_fwd_cluster_refuses(ts, d):
 
 
 def test_wide_widths_are_not_bounded_by_the_backward():
-    assert MAX_CHANNELS < 600 and train_fwd_cluster(32, 600)[2:] == (3, 208)
+    assert train_fwd_cluster(32, 600)[2:] == (3, 208)
+    assert train_fwd_cluster(32, GEOM_MAX_CHANNELS)[2:] == (16, 256)
+    assert train_fwd_cluster(16, GEOM_MAX_CHANNELS + 1)[2:] == (17, 256)
 
 
 PATTERNS = [

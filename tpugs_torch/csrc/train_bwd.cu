@@ -25,7 +25,7 @@
 //
 // Design (D <= 256: the cluster kernel). The TPU kernel keeps a tile's
 // whole g in VMEM (536 KB at D = 131); a Hopper CTA has 227 KB, and the
-// one-CTA kernel (its geometry-only form ends this file) restaged g in
+// one-CTA kernel that it replaced restaged g in
 // 32-channel slices eight times per walked block (about 38 GB from L2 per
 // step), which cost 47% of its time (experiments/train_bwd_phases.py). So
 // a tile is a thread-block cluster of C = ts^2 / 128 CTAs (8 at tile 32,
@@ -66,9 +66,10 @@
 // sums 4.3, the walk 2.3, the colour staging 1.0, the DSMEM sums 0.5. The
 // products run at about half the f32 FMA rate, the walk on half the warps.
 //
-// Widths D > 256 (CLUSTER_MAX_CHANNELS): g of a rank's 128 pixels over D
-// channels and Dpart no longer fit a CTA. The work splits in two, chosen
-// by width alone (raster/train.py::train_layout, which the C side checks):
+// Widths D > 256 (CLUSTER_MAX_CHANNELS), up to kMaxGeomD: g of a rank's
+// 128 pixels over D channels and Dpart no longer fit a CTA. The work splits
+// in two, chosen by width alone (raster/train.py::train_layout, which the
+// C side checks):
 //  - colour slices (train_bwd_colour_kernel): the cluster kernel's layout
 //    over S = ceil(D / 128) channel slices of Ns columns (fwd_slices'
 //    split at COLOUR_SLICE_CHANNELS), one launch with the slices in the grid (cluster c takes tile
@@ -88,43 +89,51 @@
 // by the geometry launch, whole.
 //
 // The geometry cluster kernel also serves train_geom_rows (rows of the 8
-// geometry columns alone, RW = 8, any D up to kMaxGeomD): a tile is a
-// cluster of C = ts^2 / 64 CTAs of 256 threads (4 at tile 16, 16 at tile
-// 32, a non-portable size); rank r keeps g of its 64 pixels (a 16 x 4
-// block) over all D channels resident (132 KB at D = 515), so one CTA
-// fits an SM and only 64 pixels walk there at once. The sub-block's colour
-// rows stream in by cp.async in 64-channel chunks, double-buffered and
-// issued a chunk ahead; the u product takes all 8 warps (each chunk's two
-// 32-channel halves to the CTA's two halves), so does the walk (4 threads
-// a pixel, a scan over their quarters of the sub-block) and the geometry
-// sums over pixels (from d sigma and d op the walk stores); a block's
-// 128 x 8 partial sums are added over the ranks in rank order through
-// DSMEM. No d col product and no Dpart of width D.
-// Shared memory 256 ldg + 48,384 bytes (ldg = D rounded up to 4, plus 4
-// where that is an even count of 16-byte groups), so D <= 700 fits a
-// CTA's 227 KB beside the 3,072 static bytes.
+// geometry columns alone, RW = 8). Its rank keeps g of P pixels over all D
+// channels resident, P the largest of 64, 32, 16 and 8 whose layout fits a
+// CTA (kGeomWidths: 64 up to D = 700, 32 up to 1276, 16 up to 2108, 8 up
+// to the cap kMaxGeomD = 4096). At tile 32 a tile's g outgrows the 227 KB
+// of 16 CTAs, the largest cluster (a non-portable size), above about 880
+// channels, so no one cluster can hold it: a tile's ts^2 / P ranks form G
+// pixel groups, each a cluster of C = min(ts^2 / P, 16) CTAs of 256 threads
+// (raster/train.py::geom_cluster, which the C side checks). Each group
+// walks the tile's blocks (B4's blocks_done) for its own pixels; a pixel's
+// state depends on no other pixel, so the groups exchange nothing. The
+// sub-block's colour rows stream in by cp.async in chunks of KC channels
+// (64 at P = 64, 128 at 32, 256 at 16 and 8), double-buffered and issued a
+// chunk ahead (4-byte copies where D % 4 != 0: the rows are not 16-byte
+// aligned). The u product takes all 8 warps in 128 / P channel splits of
+// 32 channels a chunk (16 at P = 8), so does the walk (256 / P threads a
+// pixel, a scan over their shares of the sub-block) and the geometry sums
+// over pixels (from d sigma and d op the walk stores); a block's 128 x 8
+// partial sums are added over the group's ranks in rank order through
+// DSMEM. With G = 1 those are the rows. With G > 1 each group stores them
+// in a scratch [T_padded][G][8] and train_bwd_geom_groups_kernel adds the
+// groups in group order: no atomics, the same rows on every run. |dmx| and
+// |dmy| are sums over pixels of per-pixel absolute values, so the groups'
+// sums add as the ranks' do. No d col product and no Dpart of width D.
+// Shared memory GeomLayout<P>: 256 ldg + 48,384 bytes at P = 64 (ldg = D
+// rounded up to 4, plus 4 where that is an even count of 16-byte groups),
+// at most kGeomSmem beside the 3,072 static bytes.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; experiments/train_bwd_phases.py
-// on chip_smoke.py's phase 5 render, tile 16, trans_eps 0; PERF.md): the
-// rows of its 512-channel chunk 103.3 ms (colour slices 42.0, geometry
-// kernel 61.3) against 251.6 for the one-CTA kernel in the same call; its
-// geometry rows at D = 515 76.4 ms against 129.5. Slices of 128 columns
-// (two CTAs per SM) ran 14% faster than 256 (one). Of the geometry kernel:
-// the u product 26 ms, the colour staging (4-byte copies at D = 515) 13,
-// g 3, the sums 2; the walk on 2 warps with the geometry reduce-scatter
-// cost 37 ms before it took 4 threads a pixel, and a per-sub-block DSMEM
-// exchange cost more than a per-block one; three chunk buffers instead of
-// two gained 2.6% at D = 512 and lost 1% at 515, and skipping the u of
-// Gaussians whose alpha is 0 on all 64 pixels of a rank cost 12% (most
-// are not), so neither was kept.
+// Measured at P = 64 (NVIDIA H100 80GB HBM3, 700.00 W;
+// experiments/train_bwd_phases.py on chip_smoke.py's phase 5 render, tile
+// 16, trans_eps 0; PERF.md): the rows of a 512-channel render 103.3 ms
+// (colour slices 42.0, geometry kernel 61.3) against 251.6 for the first
+// one-CTA kernel in the same call; its geometry rows at D = 515 76.4 ms
+// against 129.5 for a one-CTA geometry kernel that restaged g in 32-channel
+// slices for every sub-block. Slices of 128 columns (two CTAs per SM) ran
+// 14% faster than 256 (one). Of the geometry kernel: the u product 26 ms,
+// the colour staging (4-byte copies at D = 515) 13, g 3, the sums 2; the
+// walk on 2 warps with the geometry reduce-scatter cost 37 ms before it
+// took 4 threads a pixel, and a per-sub-block DSMEM exchange cost more than
+// a per-block one; three chunk buffers instead of two gained 2.6% at D =
+// 512 and lost 1% at 515, and skipping the u of Gaussians whose alpha is 0
+// on all 64 pixels of a rank cost 12% (most are not), so neither was kept.
 //
-// Above kMaxGeomD (GEOM_CLUSTER_MAX_CHANNELS) train_geom_rows takes the
-// one-CTA geometry kernel at the end of this file (the first one-CTA
-// kernel without its colour columns), chosen by width alone: it restages g in
-// 32-channel slices for every sub-block, and its shared memory does not
-// grow with D. Geometry bound (chip_smoke.py, phase 5): walked pairs * 30
-// + nonzero-alpha pairs * (2D + 30) f32 operations, against the colour
-// rows read once per walked block, g once per image, and the rows written.
+// Geometry bound (chip_smoke.py, phase 5): walked pairs * 30 +
+// nonzero-alpha pairs * (2D + 30) f32 operations, against the colour rows
+// read once per walked block, g once per image, and the rows written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -823,49 +832,75 @@ int max_colour_clusters(int ts, int Ns) {
 
 // -------------------------------------------- the geometry cluster kernel
 
-constexpr int kGPix = 64;                // pixels per rank; GEOM_PIXELS_PER_RANK in raster/train.py
-constexpr int kGThreads = 4 * kGPix;     // two channel halves of the u product; 4 walk a pixel
-constexpr int kKC = 64;                  // channels per staged colour chunk, half to each half
-constexpr int kLdC = kKC + 4;            // Cc[gaussian][channel]: an odd count of 16-byte groups
-constexpr int kLdS = kGPix + 5;          // Dsig/Dop[gaussian][pixel]: the walk's stores in 32 banks
-constexpr int kMaxGeomCluster = 16;      // non-portable: ts = 32 gives C = 16
-constexpr int kMaxGeomD = 700;           // GEOM_CLUSTER_MAX_CHANNELS in raster/train.py
+constexpr int kGThreads = 256;        // the u product's channel splits, the walk's pixels
+constexpr int kMaxGeomCluster = 16;   // GEOM_MAX_CLUSTER in raster/train.py; non-portable
+constexpr int kGeomSmem = 229376;     // dynamic bytes a CTA may take: 227 KB less BlockGeom
+constexpr int kMaxGeomD = 4096;       // GEOM_MAX_CHANNELS in raster/train.py
+// (widest D, pixels per rank P) of the geometry kernel, the largest P whose
+// layout fits kGeomSmem first: GEOM_WIDTHS in raster/train.py
+constexpr int kGeomWidths[4][2] = {{700, 64}, {1276, 32}, {2108, 16}, {4096, 8}};
 
-// Shared memory of one rank, in floats: g Gs[kGPix][ldg] (ldg / 4 odd), two
-// colour chunk buffers Cc[kSub][kLdC], Us[kGPix][kLdU], the walk's d sigma
-// and d op Dsig/Dop[kSub][kLdS], and this rank's partial sums of the block
+// The kernel's shape at NP pixels per rank: the u product in K channel
+// splits of 2 NP threads (a 4 x 4 register tile each), KS channels of every
+// staged chunk of KC = K KS to a split; the walk Q threads per pixel, NG
+// Gaussians of the sub-block each. NU u buffers: at K = 2 the halves add in
+// registers, else every split stores its partial and all threads add them.
+template <int NP>
+struct GeomShape {
+  static constexpr int K = 128 / NP;
+  static constexpr int KS = NP >= 16 ? 32 : 16;
+  static constexpr int KC = K * KS;
+  static constexpr int Q = kGThreads / NP;
+  static constexpr int NG = kSub / Q;
+  static constexpr int NU = K == 2 ? 1 : K;
+  static constexpr int LDC = KC + 4;  // Cc[gaussian][channel]: an odd count of 16-byte groups
+  static constexpr int LDS = NP + 5;  // Dsig/Dop[gaussian][pixel]: the walk's stores in 32 banks
+};
+
+// Shared memory of one rank, in floats: g Gs[NP][ldg] (ldg / 4 odd), two
+// colour chunk buffers Cc[kSub][LDC], Us[NU][NP][kLdU], the walk's d sigma
+// and d op Dsig/Dop[kSub][LDS], and this rank's partial sums of the block
 // Gpart[kBlock][8].
+template <int NP>
 struct GeomLayout {
+  using Sh = GeomShape<NP>;
   int D4, ldg;
   __host__ __device__ explicit GeomLayout(int D) {
     D4 = (D + 3) / 4 * 4;
     ldg = (D4 / 4) % 2 ? D4 : D4 + 4;
   }
-  __host__ __device__ int chunks() const { return kGPix * ldg; }
-  __host__ __device__ int us() const { return chunks() + 2 * kSub * kLdC; }
-  __host__ __device__ int dsig() const { return us() + kGPix * kLdU; }
-  __host__ __device__ int dop() const { return dsig() + kSub * kLdS; }
-  __host__ __device__ int gpart() const { return dop() + kSub * kLdS; }
+  __host__ __device__ int chunks() const { return NP * ldg; }
+  __host__ __device__ int us() const { return chunks() + 2 * kSub * Sh::LDC; }
+  __host__ __device__ int dsig() const { return us() + Sh::NU * NP * kLdU; }
+  __host__ __device__ int dop() const { return dsig() + kSub * Sh::LDS; }
+  __host__ __device__ int gpart() const { return dop() + kSub * Sh::LDS; }
   __host__ __device__ size_t bytes() const {
     return size_t(gpart() + kBlock * kGeomGrads) * sizeof(float);
   }
 };
 
-// Local pixel l (0..63) of rank r: the rank's 16 x 4 pixel block (ts / 16
-// blocks across the tile, rank order row-major), each walking warp an
-// 8 x 4 patch of it.
-__device__ __forceinline__ int2 geom_xy(int l, int rank, int ts) {
-  const int per_row = ts >> 4, lane = l & 31;
-  return make_int2(16 * (rank % per_row) + 8 * (l >> 5) + (lane & 7),
-                   4 * (rank / per_row) + (lane >> 3));
+// Local pixel l (0..NP-1) of the tile's rank R: the rank's (NP / 4) x 4
+// pixel block (ts / (NP / 4) blocks across the tile, rank order
+// row-major), in patches of up to 8 x 4 side by side (at NP = 64 each
+// walking warp's pixels lie in one).
+template <int NP>
+__device__ __forceinline__ int2 geom_xy(int l, int R, int ts) {
+  constexpr int bw = NP / 4, pw = bw < 8 ? bw : 8;
+  const int per_row = ts / bw, li = l % (4 * pw);
+  return make_int2(bw * (R % per_row) + pw * (l / (4 * pw)) + li % pw,
+                   4 * (R / per_row) + li / pw);
 }
 
-// Channels [k0, k0 + kKC) of the colour rows cols[row .. row + 32) into
+// Channels [k0, k0 + KC) of the colour rows cols[row .. row + 32) into
 // Cc (one committed group): 16-byte cp.async where D % 4 == 0 (the rows
 // are then 16-byte aligned), else 4-byte; zeros in the chunk's columns
-// past D up to a multiple of 4.
+// past D up to a multiple of 4. (Aligned 16-byte loads into registers,
+// shifted into place after the chunk before, ran 3% slower at D = 515 and
+// 2% faster at 1027: the loads' latency is no longer hidden.)
+template <int NP>
 __device__ __forceinline__ void stage_chunk(float* Cc, const float* __restrict__ cols,
                                             long long row, int k0, int D, int tid) {
+  constexpr int kKC = GeomShape<NP>::KC, kLdC = GeomShape<NP>::LDC;
   const int kw = min(kKC, D - k0);
   const float* src = cols + row * D + k0;
   if ((D & 3) == 0) {
@@ -889,9 +924,9 @@ __device__ __forceinline__ void stage_chunk(float* Cc, const float* __restrict__
 }
 
 // This rank's share of the block's 128 x 8 geometry sums (out points at
-// row 0, the first geometry column): each 4 sums are the C ranks' partials
-// added in rank order 0..C-1 through DSMEM; the n_pad columns after the
-// geometry are written 0.
+// row 0, the first geometry column; rows RW apart): each 4 sums are the C
+// ranks' partials added in rank order 0..C-1 through DSMEM; the n_pad
+// columns after the geometry are written 0.
 template <typename OutT>
 __device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
                                              const uint32_t (&part)[kMaxGeomCluster], int C,
@@ -913,48 +948,56 @@ __device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
   if (t) for (int k = 0; k < n_pad; ++k) store(o + 4 + k, 0.0f);
 }
 
-// Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
-// one tile, rank r the 64 pixels of its 16 x 4 block. Writes columns
-// [col0, RW) of every row of the tile's span: col0 = 0 for RW = 8 (the
-// geometry rows of train_geom_rows), else col0 = D (train_rows' geometry
-// and pad columns, and the whole rows of the blocks past blocks_done).
+// Grid C * G * n_tiles in clusters of (C, 1, 1): cluster c takes tile c / G
+// and its pixel group c % G, the tile's ranks R = (c % G) C .. + C - 1 of
+// NP pixels each (geom_xy). Writes columns [col0, RW) of every row of the
+// tile's span: col0 = 0 for RW = 8 (the geometry rows of train_geom_rows),
+// else col0 = D (train_rows' geometry and pad columns, and the whole rows
+// of the blocks past blocks_done). With G = 1 the cluster's sums are the
+// rows; with G > 1 each group stores its sums of every walked row in gsum
+// [T_padded][G][8], and train_bwd_geom_groups_kernel adds them.
 // Per 32-Gaussian sub-block:
-//   (1) u (64 x 32) = G Ct^T chunk by chunk, each chunk's two halves of 32
-//       channels to the two halves of the CTA (a 4 x 4 register tile per
-//       thread, each u summed over its half's channels in order); the
-//       halves' sums are added through Us;
-//   (2) the walk, 4 threads per pixel, each a quarter of the sub-block's
-//       Gaussians: each computes its quarter's transmittance factor P and
-//       sum S of alpha * T * u from 1, an exclusive scan over the 4 (under
-//       (P1, S1)(P2, S2) = (P1 P2, S1 + P1 S2), 2 shuffle steps) gives each
-//       its T and prefix of w * u on entry, and each then replays its
-//       quarter and stores d sigma and d op per pair;
+//   (1) u (NP x 32) = G Ct^T chunk by chunk, each chunk's K slices of KS
+//       channels to the K splits of the CTA (a 4 x 4 register tile per
+//       thread, each u summed over its split's channels in order); the
+//       splits' sums are added in split order through Us;
+//   (2) the walk, Q threads per pixel, each NG of the sub-block's
+//       Gaussians: each computes its share's transmittance factor P and
+//       sum S of alpha * T * u from 1, an exclusive scan over the Q (under
+//       (P1, S1)(P2, S2) = (P1 P2, S1 + P1 S2), log2 Q shuffle steps) gives
+//       each its T and prefix of w * u on entry, and each then replays its
+//       share and stores d sigma and d op per pair;
 //   (3) all 8 warps sum the 8 geometry terms of each Gaussian over the
-//       rank's pixels, 8 threads per Gaussian of 8 pixels each and a
+//       rank's pixels, 8 threads per Gaussian of NP / 8 pixels each and a
 //       butterfly over the 8 (pairs whose d sigma and d op are 0 skipped);
 // and per 128-Gaussian block (4) the ranks' partials are added in rank
 // order through DSMEM, one cluster exchange a block.
-template <typename OutT>
+template <typename OutT, int NP>
 __global__ void __launch_bounds__(kGThreads, 1)
 train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                       const float* __restrict__ gimg, const float* __restrict__ hterm,
                       const float* __restrict__ grem0, const int* __restrict__ tile_starts,
                       const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
-                      const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
-                      int ts, int width, int height, int D, int RW, int C) {
+                      const int* __restrict__ blocks_done, OutT* __restrict__ out,
+                      float* __restrict__ gsum, int ntx, int ts, int width, int height, int D,
+                      int RW, int C, int G) {
+  using Sh = GeomShape<NP>;
+  constexpr int kLdC = Sh::LDC, kLdS = Sh::LDS, kStride = NP / 4;
   extern __shared__ __align__(16) float smem[];
-  const GeomLayout L(D);
-  float* Gs = smem;                  // [kGPix][ldg]: this rank's g, for the whole tile
+  const GeomLayout<NP> L(D);
+  float* Gs = smem;                  // [NP][ldg]: this rank's g, for the whole tile
   float* Cbuf = smem + L.chunks();   // 2 x Cc[kSub][kLdC]
-  float* Us = smem + L.us();         // [kGPix][kLdU]
+  float* Us = smem + L.us();         // [NU][NP][kLdU]
   float* Dsig = smem + L.dsig();     // [kSub][kLdS]
   float* Dop = smem + L.dop();       // [kSub][kLdS]
-  float* Gpart = smem + L.gpart();   // [kSub][kGeomGrads]
+  float* Gpart = smem + L.gpart();   // [kBlock][kGeomGrads]
   __shared__ BlockGeom g;
 
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster_rank());
-  const int tile = blockIdx.x / C;
+  const int cl = blockIdx.x / C;
+  const int tile = cl / G, group = cl % G;
+  const int R = group * C + rank;  // the rank among the tile's ts^2 / NP
   const int ldg = L.ldg, D4 = L.D4;
   const int col0 = RW == kGeomGrads ? 0 : D;
   const int n_pad = RW - col0 - kGeomGrads;
@@ -969,10 +1012,10 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
   for (int r = 0; r < kMaxGeomCluster; ++r)
     part[r] = map_rank(smem_addr(Gpart), r < C ? r : 0);
 
-  // this thread's pixel in the walk, its quarter of the Gaussians and the
-  // pixel's carried state (the same in its 4 threads)
-  const int wp = tid >> 2, quarter = tid & 3;
-  const int2 lp = geom_xy(wp, rank, ts);
+  // this thread's pixel in the walk, its share of the Gaussians and the
+  // pixel's carried state (the same in its Q threads)
+  const int wp = tid / Sh::Q, quarter = tid % Sh::Q;
+  const int2 lp = geom_xy<NP>(wp, R, ts);
   const int xi = x0 + lp.x;
   const int yi = y0 + lp.y;
   const bool in_img = xi < width && yi < height;
@@ -985,10 +1028,10 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
 
   // this rank's g over all D channels, once per tile: 0 outside the image
   // and in columns [D, D4)
-  for (int idx = tid; idx < kGPix * D4; idx += kGThreads) {
+  for (int idx = tid; idx < NP * D4; idx += kGThreads) {
     const int pl = idx / D4;
     const int c = idx - pl * D4;
-    const int2 l = geom_xy(pl, rank, ts);
+    const int2 l = geom_xy<NP>(pl, R, ts);
     const int x = x0 + l.x;
     const int y = y0 + l.y;
     float v = 0.0f;
@@ -996,17 +1039,18 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
     Gs[pl * ldg + c] = v;
   }
   // the colour chunks of the walk in order: sub-block q / n_ch of the span,
-  // channels kKC (q % n_ch) onward
-  const int n_ch = (D + kKC - 1) / kKC;
+  // channels KC (q % n_ch) onward
+  const int n_ch = (D + Sh::KC - 1) / Sh::KC;
   const int n_q = nb_done * (kBlock / kSub) * n_ch;
-  if (n_q > 0) stage_chunk(Cbuf, cols, pstart, 0, D, tid);
+  if (n_q > 0) stage_chunk<NP>(Cbuf, cols, pstart, 0, D, tid);
   cluster_arrive();  // every CTA of the cluster has started
   cluster_wait();
   cluster_arrive();  // Gpart is free (paired with the first block's wait)
 
-  // (1)'s thread (pg, gg) of channel half `half`: pixels pg + 16j, Gaussians gg + 8m
-  const int half = tid / (kGThreads / 2);
-  const int gg = tid & 7, pg = (tid % (kGThreads / 2)) >> 3;
+  // (1)'s thread (pg, gg) of channel split `half`: pixels pg + (NP / 4) j,
+  // Gaussians gg + 8m
+  const int half = tid / (kGThreads / Sh::K);
+  const int gg = tid & 7, pg = (tid % (kGThreads / Sh::K)) >> 3;
   int q = 0;
   for (int b = 0; b < nb_done; ++b) {
     const long long row0 = pstart + static_cast<long long>(b) * kBlock;
@@ -1026,19 +1070,19 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
         cp_async_wait_all();  // chunk q is in (the only group in flight)
         __syncthreads();      // for every thread, and every read of chunk q - 1 is done
         if (q + 1 < n_q)
-          stage_chunk(Cbuf + ((q + 1) & 1) * kSub * kLdC, cols,
-                      pstart + static_cast<long long>((q + 1) / n_ch) * kSub,
-                      ((q + 1) % n_ch) * kKC, D, tid);
-        const int k0 = kc * kKC + half * (kKC / 2);
-        const float* Cc = Cbuf + (q & 1) * kSub * kLdC + half * (kKC / 2);
+          stage_chunk<NP>(Cbuf + ((q + 1) & 1) * kSub * kLdC, cols,
+                          pstart + static_cast<long long>((q + 1) / n_ch) * kSub,
+                          ((q + 1) % n_ch) * Sh::KC, D, tid);
+        const int k0 = kc * Sh::KC + half * Sh::KS;
+        const float* Cc = Cbuf + (q & 1) * kSub * kLdC + half * Sh::KS;
         const float* Gk = Gs + k0;
-        const int kw4 = min(kKC / 2, D4 - k0);
+        const int kw4 = min(Sh::KS, D4 - k0);
 #pragma unroll 1
         for (int k = 0; k < kw4; k += 4) {
           float4 gv[4], cv[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            gv[j] = *reinterpret_cast<const float4*>(Gk + (pg + 16 * j) * ldg + k);
+            gv[j] = *reinterpret_cast<const float4*>(Gk + (pg + kStride * j) * ldg + k);
 #pragma unroll
           for (int m = 0; m < 4; ++m)
             cv[m] = *reinterpret_cast<const float4*>(Cc + (gg + 8 * m) * kLdC + k);
@@ -1053,38 +1097,65 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
             }
         }
       }
-      // the halves' sums: u = u(half 0) + u(half 1)
-      if (half) {
+      // the splits' sums, in split order: u = u(split 0) + u(split 1) + ...
+      if constexpr (Sh::K == 2) {
+        if (half) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) Us[(pg + kStride * j) * kLdU + gg + 8 * m] = u[j][m];
+        }
+        __syncthreads();
+        if (!half) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              float* o = Us + (pg + kStride * j) * kLdU + gg + 8 * m;
+              *o = u[j][m] + *o;
+            }
+        }
+      } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int m = 0; m < 4; ++m) Us[(pg + 16 * j) * kLdU + gg + 8 * m] = u[j][m];
-      }
-      __syncthreads();
-      if (!half) {
+          for (int m = 0; m < 4; ++m)
+            Us[(half * NP + pg + kStride * j) * kLdU + gg + 8 * m] = u[j][m];
+        __syncthreads();
+        for (int e = tid; e < NP * kSub; e += kGThreads) {
+          float* o = Us + (e / kSub) * kLdU + e % kSub;
+          float a = o[0];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            float* o = Us + (pg + 16 * j) * kLdU + gg + 8 * m;
-            *o = u[j][m] + *o;
-          }
+          for (int k = 1; k < Sh::K; ++k) a += o[k * NP * kLdU];
+          o[0] = a;
+        }
       }
       __syncthreads();
 
       // (2) the walk: thread `quarter` of pixel wp takes Gaussians
-      // 8 quarter + 0..7 of the sub-block
+      // NG quarter + 0..NG-1 of the sub-block
       {
-        const float* row = Us + wp * kLdU + 8 * quarter;
-        const float4 ua = *reinterpret_cast<const float4*>(row);
-        const float4 ub = *reinterpret_cast<const float4*>(row + 4);
-        const float uu[8] = {ua.x, ua.y, ua.z, ua.w, ub.x, ub.y, ub.z, ub.w};
-        float al[8], ex[8];
-        unsigned grad = 0, pos = 0;  // bit e: d alpha passes the clip; sigma > 0
-        float P = 1.0f, S = 0.0f;    // the quarter's T factor and sum of alpha * T * u, from 1
+        const float* row = Us + wp * kLdU + Sh::NG * quarter;
+        float uu[Sh::NG];
+        if constexpr (Sh::NG % 4 == 0) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int gi = gbase + 8 * quarter + e;
+          for (int e = 0; e < Sh::NG; e += 4) {
+            const float4 u4 = *reinterpret_cast<const float4*>(row + e);
+            uu[e] = u4.x;
+            uu[e + 1] = u4.y;
+            uu[e + 2] = u4.z;
+            uu[e + 3] = u4.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < Sh::NG; ++e) uu[e] = row[e];
+        }
+        float al[Sh::NG], ex[Sh::NG];
+        unsigned grad = 0, pos = 0;  // bit e: d alpha passes the clip; sigma > 0
+        float P = 1.0f, S = 0.0f;    // the share's T factor and sum of alpha * T * u, from 1
+#pragma unroll
+        for (int e = 0; e < Sh::NG; ++e) {
+          const int gi = gbase + Sh::NG * quarter + e;
           const PairTerms pt = pair_terms(g, gi, px, py);
           const float alpha = clipped_alpha(pt, gi < remaining);
           al[e] = alpha;
@@ -1095,16 +1166,16 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
           P *= 1.0f - alpha;
         }
 #pragma unroll
-        for (int d = 1; d < 4; d <<= 1) {  // inclusive scan over the pixel's quarters
-          const float Pu = __shfl_up_sync(0xffffffffu, P, d, 4);
-          const float Su = __shfl_up_sync(0xffffffffu, S, d, 4);
+        for (int d = 1; d < Sh::Q; d <<= 1) {  // inclusive scan over the pixel's shares
+          const float Pu = __shfl_up_sync(0xffffffffu, P, d, Sh::Q);
+          const float Su = __shfl_up_sync(0xffffffffu, S, d, Sh::Q);
           if (quarter >= d) {
             S = fmaf(Pu, S, Su);
             P = Pu * P;
           }
         }
-        float Pe = __shfl_up_sync(0xffffffffu, P, 1, 4);  // exclusive: the quarters before
-        float Se = __shfl_up_sync(0xffffffffu, S, 1, 4);
+        float Pe = __shfl_up_sync(0xffffffffu, P, 1, Sh::Q);  // exclusive: the shares before
+        float Se = __shfl_up_sync(0xffffffffu, S, 1, Sh::Q);
         if (quarter == 0) {
           Pe = 1.0f;
           Se = 0.0f;
@@ -1112,8 +1183,8 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
         float tx = texc * Pe;                  // T within the block on entry
         float c = fmaf(texc * trans, Se, cs);  // prefix of w * u on entry
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int gi = gbase + 8 * quarter + e;
+        for (int e = 0; e < Sh::NG; ++e) {
+          const int gi = gbase + Sh::NG * quarter + e;
           const float alpha = al[e];
           const float w = alpha * tx * trans;
           c = fmaf(w, uu[e], c);
@@ -1121,11 +1192,12 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
           const float d_alpha = tx * trans * uu[e] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
           const float d_araw = (grad >> e) & 1u ? d_alpha : 0.0f;
           tx *= 1.0f - alpha;
-          Dsig[(8 * quarter + e) * kLdS + wp] = (pos >> e) & 1u ? -d_araw * g.op[gi] * ex[e] : 0.0f;
-          Dop[(8 * quarter + e) * kLdS + wp] = d_araw * ex[e];
+          Dsig[(Sh::NG * quarter + e) * kLdS + wp] =
+              (pos >> e) & 1u ? -d_araw * g.op[gi] * ex[e] : 0.0f;
+          Dop[(Sh::NG * quarter + e) * kLdS + wp] = d_araw * ex[e];
         }
-        texc = __shfl_sync(0xffffffffu, tx, 3, 4);  // the pixel's state after the sub-block
-        cs = __shfl_sync(0xffffffffu, c, 3, 4);
+        texc = __shfl_sync(0xffffffffu, tx, Sh::Q - 1, Sh::Q);  // the pixel's state after the sub-block
+        cs = __shfl_sync(0xffffffffu, c, Sh::Q - 1, Sh::Q);
       }
       __syncthreads();
 
@@ -1140,11 +1212,11 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
         float a[kGeomGrads];
 #pragma unroll
         for (int k = 0; k < kGeomGrads; ++k) a[k] = 0.0f;
-        for (int p = l; p < kGPix; p += 8) {
+        for (int p = l; p < NP; p += 8) {
           const float ds = Dsig[i * kLdS + p];
           const float dop = Dop[i * kLdS + p];
           if (ds == 0.0f && dop == 0.0f) continue;  // every term 0
-          const int2 xy = geom_xy(p, rank, ts);
+          const int2 xy = geom_xy<NP>(p, R, ts);
           const float dx = __fsub_rn(static_cast<float>(x0 + xy.x) + 0.5f, mx);
           const float dy = __fsub_rn(static_cast<float>(y0 + xy.y) + 0.5f, my);
           const float dmx = ds * -(ca * dx + cb * dy);
@@ -1171,304 +1243,166 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
     }
     cluster_arrive();  // every rank's partial of the block is complete
     cluster_wait();
-    // (4) this rank's share of the 128 x 8 sums, the C partials in rank order
-    sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);
+    // (4) this rank's share of the 128 x 8 sums, the C partials in rank order:
+    // the rows themselves, or the group's sums
+    if (G == 1)
+      sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);
+    else
+      sum_geometry(gsum + (row0 * G + group) * kGeomGrads, part, C, rank, G * kGeomGrads, 0,
+                   tid);
     cluster_arrive();  // this rank has read the others' partials
     trans *= texc;
     grem -= cs;
   }
   // blocks the forward's early exit skipped: whole zero rows, 16 bytes a
-  // store, split over the cluster's ranks (the span is 16-byte aligned)
+  // store, split over the tile's ranks (the span is 16-byte aligned)
   constexpr int V = 16 / sizeof(OutT);
   const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
   const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * RW / V;
-  for (long long v = rank * kGThreads + tid; v < n_vec; v += C * kGThreads)
+  for (long long v = R * kGThreads + tid; v < n_vec; v += G * C * kGThreads)
     *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
   cluster_wait();  // no rank leaves while another may still read its partial
 }
 
-// (C, P) as raster/train.py::geom_cluster gives them, or an error. RW is 8
-// (geometry rows) or train_rows' (D + 8 rounded up to 4).
+// The G pixel groups' sums of every walked row (gsum [T_padded][G][8]),
+// added in group order 0..G-1, into the row's columns [col0, col0 + 8), the
+// pad columns after them 0 (col0 as in train_bwd_geom_kernel). Grid
+// n_tiles: CTA t takes tile t's walked blocks, two 16-byte vectors a row.
 template <typename OutT>
-cudaError_t prepare_geom(int ts, int D, int RW, int C, int P, size_t* bytes) {
+__global__ void __launch_bounds__(kGThreads)
+train_bwd_geom_groups_kernel(const float* __restrict__ gsum, const int* __restrict__ tile_starts,
+                             const int* __restrict__ tile_ends,
+                             const int* __restrict__ padded_starts,
+                             const int* __restrict__ blocks_done, OutT* __restrict__ out, int D,
+                             int RW, int G) {
+  const int tile = blockIdx.x;
+  const int count = tile_ends[tile] - tile_starts[tile];
+  const int nb_done = min(blocks_done[tile], (count + kBlock - 1) / kBlock);
+  const long long pstart = padded_starts[tile];
+  const int col0 = RW == kGeomGrads ? 0 : D;
+  const int n_pad = RW - col0 - kGeomGrads;
+  for (int v = threadIdx.x; v < nb_done * kBlock * 2; v += kGThreads) {
+    const long long row = pstart + (v >> 1);
+    const int t = 4 * (v & 1);
+    const float* p = gsum + row * G * kGeomGrads + t;
+    float4 s = *reinterpret_cast<const float4*>(p);
+    for (int k = 1; k < G; ++k) add4(s, *reinterpret_cast<const float4*>(p + k * kGeomGrads));
+    OutT* o = out + row * RW + col0 + t;
+    store(o, s.x);
+    store(o + 1, s.y);
+    store(o + 2, s.z);
+    store(o + 3, s.w);
+    if (t) for (int k = 0; k < n_pad; ++k) store(o + 4 + k, 0.0f);
+  }
+}
+
+// P of the geometry kernel at D channels (kGeomWidths), 0 past its cap.
+int geom_pixels(int D) {
+  for (const auto& w : kGeomWidths)
+    if (D <= w[0]) return w[1];
+  return 0;
+}
+
+// (C, P, G) as raster/train.py::geom_cluster gives them, or an error. RW
+// is 8 (geometry rows) or train_rows' (D + 8 rounded up to 4).
+cudaError_t check_geom(int ts, int D, int RW, int C, int P, int G) {
   if (D < 1 || D > kMaxGeomD || (RW != kGeomGrads && RW != (D + kGeomGrads + 3) / 4 * 4) ||
-      (ts != 16 && ts != 32) || P != kGPix || C * P != ts * ts || C > kMaxGeomCluster)
+      (ts != 16 && ts != 32) || P != geom_pixels(D) ||
+      C != min(ts * ts / P, kMaxGeomCluster) || C * P * G != ts * ts)
     return cudaErrorInvalidValue;
-  *bytes = GeomLayout(D).bytes();
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+  return cudaSuccess;
+}
+
+template <typename OutT, int NP>
+cudaError_t prepare_geom(int D, size_t* bytes) {
+  *bytes = GeomLayout<NP>(D).bytes();
+  if (*bytes > static_cast<size_t>(kGeomSmem)) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*bytes));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+  e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(train_bwd_geom_kernel<OutT>,
+  return cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
-cudaLaunchConfig_t geom_config(int n_tiles, int C, size_t bytes, cudaStream_t stream,
+cudaLaunchConfig_t geom_config(int n_clusters, int C, size_t bytes, cudaStream_t stream,
                                cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
+  cudaLaunchConfig_t cfg = cluster_config(n_clusters, C, bytes, stream, attr);
   cfg.blockDim = dim3(kGThreads, 1, 1);
   return cfg;
+}
+
+template <typename OutT, int NP>
+int launch_geom_p(const float* geom, const float* cols, const float* gimg, const float* hterm,
+                  const float* grem0, const int* tile_starts, const int* tile_ends,
+                  const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
+                  int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C,
+                  int G, cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_geom<OutT, NP>(D, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = geom_config(G * n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_geom_kernel<OutT, NP>, geom, cols, gimg, hterm, grem0,
+                         tile_starts, tile_ends, padded_starts, blocks_done, out, gsum, ntx, ts,
+                         width, height, D, RW, C, G);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 1)
+    train_bwd_geom_groups_kernel<OutT><<<n_tiles, kGThreads, 0, stream>>>(
+        gsum, tile_starts, tile_ends, padded_starts, blocks_done, out, D, RW, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
 int launch_geom(const float* geom, const float* cols, const float* gimg, const float* hterm,
                 const float* grem0, const int* tile_starts, const int* tile_ends,
-                const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
-                int ntx, int ts, int width, int height, int D, int RW, int C, int P,
-                cudaStream_t stream) {
+                const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
+                int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C, int P,
+                int G, cudaStream_t stream) {
+  cudaError_t e = check_geom(ts, D, RW, C, P, G);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 1 && gsum == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define TPUGS_GEOM_LAUNCH(NP)                                                                  \
+  launch_geom_p<OutT, NP>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,             \
+                          padded_starts, blocks_done, out, gsum, n_tiles, ntx, ts, width,     \
+                          height, D, RW, C, G, stream)
+  switch (P) {
+    case 64: return TPUGS_GEOM_LAUNCH(64);
+    case 32: return TPUGS_GEOM_LAUNCH(32);
+    case 16: return TPUGS_GEOM_LAUNCH(16);
+    default: return TPUGS_GEOM_LAUNCH(8);
+  }
+#undef TPUGS_GEOM_LAUNCH
+}
+
+template <int NP>
+int max_geom_clusters_p(int C, int D) {
   size_t bytes = 0;
-  cudaError_t e = prepare_geom<OutT>(ts, D, RW, C, P, &bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = prepare_geom<float, NP>(D, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = geom_config(n_tiles, C, bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, train_bwd_geom_kernel<OutT>, geom, cols, gimg, hterm, grem0,
-                         tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
-                         width, height, D, RW, C);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const cudaLaunchConfig_t cfg = geom_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_geom_kernel<float, NP>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // Clusters of the geometry kernel at (ts, D) that can be resident at once
 // (geometry rows, RW = 8), or minus a CUDA error.
 int max_geom_clusters(int ts, int D) {
-  const int C = ts * ts / kGPix;
-  size_t bytes = 0;
-  cudaError_t e = prepare_geom<float>(ts, D, kGeomGrads, C, kGPix, &bytes);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = geom_config(1, C, bytes, nullptr, attr);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_geom_kernel<float>, &cfg);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
-}
-
-// ------------------------- the one-CTA geometry kernel (D > kMaxGeomD)
-
-constexpr int kThreads = 256;     // = pixels per chunk
-constexpr int kDK = 32;           // channels per staged slice of g
-constexpr int kMaxPixels = 1024;
-constexpr int kLdG = kDK + 1;     // Gs[pixel][channel]
-constexpr int kLdCt = kSub + 4;   // Ct[channel][gaussian], 16-byte rows
-constexpr int kLdW = kSub + 4;    // Ws[pixel][gaussian], 16-byte rows
-constexpr int kLdD = kThreads + 8;  // Dsig/Dop[gaussian][pixel]
-
-constexpr size_t kFixedFloats = size_t(kThreads) * kLdG + size_t(kDK) * kLdCt +
-                                size_t(kThreads) * kLdW + 2 * size_t(kSub) * kLdD +
-                                size_t(kSub) * kGeomGrads + 4 * size_t(kMaxPixels);
-
-// Gs[q][k] = g(pixel q of chunk c, channel d0 + k), 0 outside the image
-// or past D; ts = 1 << ts_shift. Each warp reads 32 consecutive channels of
-// one pixel.
-__device__ __forceinline__ void stage_g(float* Gs, const float* __restrict__ gimg, int chunk,
-                                        int d0, int x0, int y0, int ts_shift, int width,
-                                        int height, int D, int tid) {
-  const int k = tid % kDK;
-  const int ts_mask = (1 << ts_shift) - 1;
-  for (int q = tid / kDK; q < kThreads; q += kThreads / kDK) {
-    const int p = chunk * kThreads + q;
-    const int x = x0 + (p & ts_mask);
-    const int y = y0 + (p >> ts_shift);
-    float v = 0.0f;
-    if (x < width && y < height && d0 + k < D)
-      v = gimg[(static_cast<long long>(y) * width + x) * D + d0 + k];
-    Gs[q * kLdG + k] = v;
+  const int P = geom_pixels(D);
+  if (D < 1 || P == 0 || (ts != 16 && ts != 32)) return -static_cast<int>(cudaErrorInvalidValue);
+  const int C = min(ts * ts / P, kMaxGeomCluster);
+  switch (P) {
+    case 64: return max_geom_clusters_p<64>(C, D);
+    case 32: return max_geom_clusters_p<32>(C, D);
+    case 16: return max_geom_clusters_p<16>(C, D);
+    default: return max_geom_clusters_p<8>(C, D);
   }
-}
-
-// f32 rows of the kGeomGrads geometry columns alone (RW = kGeomGrads), any
-// D; one CTA per tile, its pixels in chunks of 256, g restaged per slice.
-__global__ void __launch_bounds__(kThreads)
-train_bwd_geom_cta_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
-                          const float* __restrict__ gimg, const float* __restrict__ hterm,
-                          const float* __restrict__ grem0, const int* __restrict__ tile_starts,
-                          const int* __restrict__ tile_ends,
-                          const int* __restrict__ padded_starts,
-                          const int* __restrict__ blocks_done, float* __restrict__ out, int ntx,
-                          int ts, int width, int height, int D) {
-  extern __shared__ __align__(16) float smem[];
-  float* Gs = smem;                       // [kThreads][kLdG]
-  float* Ct = Gs + kThreads * kLdG;       // [kDK][kLdCt]
-  float* Ws = Ct + kDK * kLdCt;           // [kThreads][kLdW]
-  float* Dsig = Ws + kThreads * kLdW;     // [kSub][kLdD]
-  float* Dop = Dsig + kSub * kLdD;        // [kSub][kLdD]
-  float* Geo = Dop + kSub * kLdD;         // [kSub][kGeomGrads]
-  float* Tr = Geo + kSub * kGeomGrads;    // per pixel: T carried into the block
-  float* Tx = Tr + kMaxPixels;            //   texc within the block
-  float* Cs = Tx + kMaxPixels;            //   prefix of w*u within the block
-  float* Gr = Cs + kMaxPixels;            //   grem carried into the block
-  __shared__ BlockGeom g;
-
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int tspx = ts * ts;
-  const int ts_shift = __ffs(ts) - 1;  // ts is 16 or 32
-  const int n_chunks = tspx / kThreads;
-  const int count = tile_ends[tile] - tile_starts[tile];
-  const int nb = (count + kBlock - 1) / kBlock;
-  const int nb_done = min(blocks_done[tile], nb);
-  const long long pstart = padded_starts[tile];
-  const int x0 = (tile % ntx) * ts;
-  const int y0 = (tile / ntx) * ts;
-
-  for (int p = tid; p < tspx; p += kThreads) {
-    const int x = x0 + p % ts;
-    const int y = y0 + p / ts;
-    Tr[p] = 1.0f;
-    Tx[p] = 1.0f;
-    Cs[p] = 0.0f;
-    Gr[p] = (x < width && y < height) ? grem0[static_cast<long long>(y) * width + x] : 0.0f;
-  }
-
-  for (int b = 0; b < nb_done; ++b) {
-    const long long row0 = pstart + static_cast<long long>(b) * kBlock;
-    load_geom(g, geom, row0, tid, kGeomCols);
-    const int remaining = count - b * kBlock;
-    for (int s = 0; s < kBlock / kSub; ++s) {
-      const int gbase = s * kSub;
-      __syncthreads();  // the previous sub-block's rows are written
-      for (int idx = tid; idx < kSub * kGeomGrads; idx += kThreads) Geo[idx] = 0.0f;
-      for (int c = 0; c < n_chunks; ++c) {
-        const int p = c * kThreads + tid;
-        const int x = x0 + (p & (ts - 1));
-        const int y = y0 + (p >> ts_shift);
-        const bool in_img = x < width && y < height;
-
-        // (1) u[i] = g(p) . col(gbase + i)
-        float u[kSub];
-#pragma unroll
-        for (int i = 0; i < kSub; ++i) u[i] = 0.0f;
-        for (int d0 = 0; d0 < D; d0 += kDK) {
-          __syncthreads();  // previous readers of Gs, Ct (and g, Geo init) done
-          stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);
-          for (int idx = tid; idx < kSub * kDK; idx += kThreads) {
-            const int i = idx / kDK;
-            const int k = idx % kDK;
-            Ct[k * kLdCt + i] = d0 + k < D ? cols[(row0 + gbase + i) * D + d0 + k] : 0.0f;
-          }
-          __syncthreads();
-          for (int k = 0; k < kDK; ++k) {
-            const float gv = Gs[tid * kLdG + k];
-            const float4* cv = reinterpret_cast<const float4*>(Ct + k * kLdCt);
-#pragma unroll
-            for (int i4 = 0; i4 < kSub / 4; ++i4) {
-              const float4 v = cv[i4];
-              u[4 * i4 + 0] = fmaf(gv, v.x, u[4 * i4 + 0]);
-              u[4 * i4 + 1] = fmaf(gv, v.y, u[4 * i4 + 1]);
-              u[4 * i4 + 2] = fmaf(gv, v.z, u[4 * i4 + 2]);
-              u[4 * i4 + 3] = fmaf(gv, v.w, u[4 * i4 + 3]);
-            }
-          }
-        }
-
-        // (2) the walk over the sub-block for this pixel
-        {
-          const float px = static_cast<float>(x) + 0.5f;
-          const float py = static_cast<float>(y) + 0.5f;
-          const float trans = Tr[p];
-          const float grem = Gr[p];
-          const float h = in_img ? hterm[static_cast<long long>(y) * width + x] : 0.0f;
-          float texc = Tx[p];
-          float cs = Cs[p];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i) {
-            const int gi = gbase + i;
-            const PairTerms t = pair_terms(g, gi, px, py);
-            const float alpha = clipped_alpha(t, gi < remaining);
-            const bool kept = alpha != 0.0f;
-            const float w = alpha * texc * trans;
-            cs = fmaf(w, u[i], cs);
-            const float v = grem - cs;
-            const float d_alpha = texc * trans * u[i] - (v + h) / fmaxf(1.0f - alpha, 1e-6f);
-            const float d_araw = (kept && t.alpha_raw < kAlphaMax) ? d_alpha : 0.0f;
-            Dop[i * kLdD + tid] = d_araw * t.e;
-            Dsig[i * kLdD + tid] = t.sigma > 0.0f ? -d_araw * g.op[gi] * t.e : 0.0f;
-            texc *= 1.0f - alpha;
-          }
-          Tx[p] = texc;
-          Cs[p] = cs;
-        }
-        __syncthreads();
-
-        // (3) geometry sums: 8 threads per Gaussian, then a shuffle over them
-        {
-          const int i = tid >> 3;
-          const int l = tid & 7;
-          const int gi = gbase + i;
-          const float mx = g.mx[gi], my = g.my[gi];
-          const float ca = g.ca[gi], cb = g.cb[gi], cc = g.cc[gi];
-          float a[kGeomGrads];
-#pragma unroll
-          for (int k = 0; k < kGeomGrads; ++k) a[k] = 0.0f;
-          for (int q = l; q < kThreads; q += 8) {
-            const int pq = c * kThreads + q;
-            const float qx = static_cast<float>(x0 + (pq & (ts - 1))) + 0.5f;
-            const float qy = static_cast<float>(y0 + (pq >> ts_shift)) + 0.5f;
-            const float dx = __fsub_rn(qx, mx);
-            const float dy = __fsub_rn(qy, my);
-            const float ds = Dsig[i * kLdD + q];
-            const float dmx = ds * -(ca * dx + cb * dy);
-            const float dmy = ds * -(cc * dy + cb * dx);
-            a[0] += dmx;
-            a[1] += dmy;
-            a[2] += ds * (0.5f * dx * dx);
-            a[3] += ds * (dx * dy);
-            a[4] += ds * (0.5f * dy * dy);
-            a[5] += Dop[i * kLdD + q];
-            a[6] += fabsf(dmx);
-            a[7] += fabsf(dmy);
-          }
-#pragma unroll
-          for (int k = 0; k < kGeomGrads; ++k) {
-#pragma unroll
-            for (int off = 4; off >= 1; off >>= 1)
-              a[k] += __shfl_xor_sync(0xffffffffu, a[k], off);
-          }
-          if (l == 0) {
-#pragma unroll
-            for (int k = 0; k < kGeomGrads; ++k) Geo[i * kGeomGrads + k] += a[k];
-          }
-        }
-      }
-      __syncthreads();
-      for (int idx = tid; idx < kSub * kGeomGrads; idx += kThreads)
-        out[(row0 + gbase) * kGeomGrads + idx] = Geo[idx];
-    }
-    __syncthreads();
-    for (int p = tid; p < tspx; p += kThreads) {
-      Tr[p] *= Tx[p];
-      Gr[p] -= Cs[p];
-      Tx[p] = 1.0f;
-      Cs[p] = 0.0f;
-    }
-    __syncthreads();
-  }
-  // blocks the forward's early exit skipped: zero rows
-  const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * kGeomGrads;
-  const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * kGeomGrads / 4;
-  for (long long v = tid; v < n_vec; v += kThreads)
-    *reinterpret_cast<uint4*>(out + zero0 + v * 4) = make_uint4(0, 0, 0, 0);
-}
-
-int launch_geom_cta(const float* geom, const float* cols, const float* gimg,
-                    const float* hterm, const float* grem0, const int* tile_starts,
-                    const int* tile_ends, const int* padded_starts, const int* blocks_done,
-                    float* out, int n_tiles, int ntx, int ts, int width, int height, int D,
-                    int RW, cudaStream_t stream) {
-  if (D < 1 || RW != kGeomGrads || (ts != 16 && ts != 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = kFixedFloats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_cta_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  train_bwd_geom_cta_kernel<<<n_tiles, kThreads, bytes, stream>>>(
-      geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done, out,
-      ntx, ts, width, height, D);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1516,30 +1450,25 @@ extern "C" int tpugs_train_bwd_colour_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* 
                                              width, height, D, RW, C, P, S, Ns, stream);
 }
 
-// The geometry cluster kernel at (C, P) from raster/train.py::geom_cluster:
+// The geometry cluster kernel at (C, P, G) from raster/train.py::geom_cluster:
 // rows of the 8 geometry columns (RW = 8), or train_rows' columns D..RW
-// and the skipped blocks' whole rows (RW = D + 8 rounded up to 4).
-extern "C" int tpugs_train_bwd_geom_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
-                                        int ts, int width, int height, int D, int RW, int C,
-                                        int P, cudaStream_t stream) {
-  return tpugs::launch_geom<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height,
-                                   D, RW, C, P, stream);
+// and the skipped blocks' whole rows (RW = D + 8 rounded up to 4); gsum,
+// f32 [T_padded][G][8], holds the pixel groups' sums where G > 1 (else it
+// may be null), and a second kernel adds them into out.
+extern "C" int tpugs_train_bwd_geom_f32(TPUGS_TRAIN_BWD_ARGS, float* out, float* gsum,
+                                        int n_tiles, int ntx, int ts, int width, int height,
+                                        int D, int RW, int C, int P, int G,
+                                        cudaStream_t stream) {
+  return tpugs::launch_geom<float>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts, width,
+                                   height, D, RW, C, P, G, stream);
 }
 
-extern "C" int tpugs_train_bwd_geom_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
+extern "C" int tpugs_train_bwd_geom_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, float* gsum,
                                          int n_tiles, int ntx, int ts, int width, int height,
-                                         int D, int RW, int C, int P, cudaStream_t stream) {
-  return tpugs::launch_geom<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
-                                           height, D, RW, C, P, stream);
-}
-
-// The one-CTA geometry kernel: f32 rows of the 8 geometry columns (RW = 8),
-// for D above the geometry cluster kernel's kMaxGeomD.
-extern "C" int tpugs_train_bwd_geom_cta_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles,
-                                            int ntx, int ts, int width, int height, int D,
-                                            int RW, cudaStream_t stream) {
-  return tpugs::launch_geom_cta(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width, height, D,
-                                RW, stream);
+                                         int D, int RW, int C, int P, int G,
+                                         cudaStream_t stream) {
+  return tpugs::launch_geom<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts,
+                                           width, height, D, RW, C, P, G, stream);
 }
 
 // Resident clusters of the cluster kernel at tile ts and D channels (bf16
@@ -1554,7 +1483,8 @@ extern "C" int tpugs_train_bwd_colour_max_clusters(int bf16, int ts, int Ns) {
               : tpugs::max_colour_clusters<float>(ts, Ns);
 }
 
-// Resident clusters of the geometry kernel at tile ts (C = ts^2 / 64) and D.
+// Resident clusters of the geometry kernel at tile ts and D (its (C, P)
+// from geom_cluster's rule; RW = 8).
 extern "C" int tpugs_train_bwd_geom_max_clusters(int ts, int D) {
   return tpugs::max_geom_clusters(ts, D);
 }

@@ -2,10 +2,11 @@
 (``csrc/train_bwd.cu``) on recorded inputs with each of its phases
 removed in turn: ``--inputs step``, one full-width train step (D = 131,
 tile 32, chip_smoke.py's phase 4); ``step512``, the same step at
-``feature_dim`` 512 (D = 515: the rows of its first 512-channel chunk);
-or ``absgrad``, chip_smoke.py's phase 5 render (the canonical scene's view
-0 at tile 16, ``trans_eps`` 0, D = 515 with a background): the rows of its
-first 512-channel chunk and its geometry rows over all 515 channels.
+``feature_dim`` 512 (D = 515, phase 4w); ``step1024``, the step at
+``feature_dim`` 1024 against a 1024-wide teacher with absgrad (D = 1027,
+phase 4x): its rows and its geometry rows; or ``absgrad``, chip_smoke.py's
+phase 5 render (the canonical scene's view 0 at tile 16, ``trans_eps`` 0,
+D = 515 with a background): its rows and its geometry rows.
 
 The harness is ``adjoint_phases``'s: each variant is a copy of a B5
 source with phases cut out by exact text substitutions (``TABLES``; a
@@ -25,6 +26,8 @@ columns (``geometry``). The phases:
   zero rows   the rows of the blocks past a tile's early exit
   colour staging  (cluster kernels) the sub-blocks' colour copies
   exchange    (cluster kernels) the DSMEM sums of the ranks' partial rows
+  group sum   (geometry kernel) the second kernel, which adds the pixel
+              groups' sums (only where G > 1)
   occupancy   (cluster kernel) not a phase: 114 KB more shared memory per
               CTA, so that only one fits on an SM
 
@@ -32,28 +35,30 @@ A variant's rows are wrong by design; only the full copy's columns are
 held to the plain twin, on 64 sampled tiles, within ``GRAD_ROWS_TOL``
 (the other columns taken from the twin). Tables: ``d4ac1ba``, the one-CTA
 kernel of commit d4ac1ba; ``cluster``, the resident-g cluster kernel that
-replaced it (D <= 256); ``old``, the one-CTA kernel of commit 44b3c3e,
-which wrote the rows above 256 channels and the geometry rows, and
-``old-cluster``, that commit's cluster kernel (its full copy only);
-``colour`` and ``geom``, the colour slices and the geometry cluster kernel
-that replaced the one-CTA kernel. Where a table's full copy writes every
-column, the tool prints whether its rows equal the route's bit for bit.
-``--widest`` (repeatable) times the colour table with slices of at most
-that many columns. Beside the tables, the tree's own ``train_rows`` and
-``train_geom_rows`` (the route) are timed on the same inputs, with the
-bound of each work (chip_smoke.py's B5 bounds).
+replaced it (D <= 256), and ``old-cluster``, the same kernel in another
+commit's source (its full copy only); ``colour`` and ``geom``, the colour
+slices and the geometry cluster kernel; ``old``, commit d031322's B5 (its full
+copy only): its geometry launch (the geometry cluster kernel of 64-pixel
+ranks up to 700 channels, a one-CTA geometry kernel above) and, on every
+``rows`` work, its route: B5's rows per 512-channel chunk of the colours
+and, with absgrad above 512 channels, the geometry launch over all of
+them (``old/route``, the chunks' inputs cut beforehand). Where a table's
+full copy writes every column, the tool prints whether its rows equal the
+route's bit for bit. ``--widest`` (repeatable) times the colour table
+with slices of at most that many columns. Beside the tables, the tree's
+own ``train_rows`` and ``train_geom_rows`` (the route) are timed on the
+same inputs, with the bound of each work (chip_smoke.py's B5 bounds).
 
 On the card::
 
     git show d4ac1ba:tpugs_torch/csrc/train_bwd.cu > build/train_bwd_d4ac1ba.cu
     python -m tpugs_torch.experiments.train_bwd_phases \\
         --run d4ac1ba=build/train_bwd_d4ac1ba.cu --run cluster
-    git show 44b3c3e:tpugs_torch/csrc/train_bwd.cu > build/train_bwd_44b3c3e.cu
-    python -m tpugs_torch.experiments.train_bwd_phases --inputs absgrad \\
-        --run old=build/train_bwd_44b3c3e.cu --run colour --run geom \\
-        --widest 256 --widest 128
-    python -m tpugs_torch.experiments.train_bwd_phases \
-        --run old-cluster=build/train_bwd_44b3c3e.cu --run cluster
+    git show d031322:tpugs_torch/csrc/train_bwd.cu > build/train_bwd_d031322.cu
+    python -m tpugs_torch.experiments.train_bwd_phases --inputs step1024 \\
+        --run old=build/train_bwd_d031322.cu --run geom --run colour
+    python -m tpugs_torch.experiments.train_bwd_phases \\
+        --run old-cluster=build/train_bwd_d031322.cu --run cluster
 
 prints one line per kernel, work and variant: ms (CUDA events, mean of
 ``--iters`` launches), the full kernel timed first and last. The kernels
@@ -64,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -91,6 +97,7 @@ _CONST_WALK = """            cs = fmaf(1e-3f, u[i], cs);
             Ws[tid * kLdW + i] = 1e-3f;"""
 
 TABLES: Dict[str, Dict[str, List[Sub]]] = {
+    "old": {},
     "d4ac1ba": {
         "u product": [("        for (int k = 0; k < kDK; ++k) {\n"
                        "            const float gv = Gs[tid * kLdG + k];",
@@ -110,19 +117,6 @@ TABLES: Dict[str, Dict[str, List[Sub]]] = {
                    "              const float4 w4")],
         "zero rows": [("  for (long long idx = tid; idx < n_zero; idx += kThreads) "
                        "store(out + zero0 + idx, 0.0f);\n", "")],
-    },
-    "old": {
-        "u product": [("for (int k = 0; k < kDK; ++k) {\n            const float gv = Gs[tid",
-                       "for (int k = 0; k < 0; ++k) {\n            const float gv = Gs[tid")],
-        "g staging": [
-            ("\n          stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);", "\n"),
-            ("\n            stage_g(Gs, gimg, c, d0, x0, y0, ts_shift, width, height, D, tid);",
-             "\n"),
-        ],
-        "d col": [("            for (int q = 0; q < kThreads; ++q) {\n"
-                   "              const float4 w4",
-                   "            for (int q = 0; q < 0; ++q) {\n"
-                   "              const float4 w4")],
     },
     "old-cluster": {},
 }
@@ -217,11 +211,17 @@ TABLES["geom"] = {
          "        ;\n"),
     ],
     "walk": [(_GEOM_WALK, _GEOM_CONST_WALK)],
-    "geometry": [("for (int p = l; p < kGPix; p += 8) {", "for (int p = l; p < 0; p += 8) {")],
-    "zero rows": [("  for (long long v = rank * kGThreads + tid; v < n_vec; v += C * kGThreads)\n"
+    "geometry": [("for (int p = l; p < NP; p += 8) {", "for (int p = l; p < 0; p += 8) {")],
+    "zero rows": [("  for (long long v = R * kGThreads + tid; v < n_vec; v += G * C * kGThreads)\n"
                    "    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n",
                    "")],
-    "exchange": [("    sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);\n", "")],
+    "exchange": [("    if (G == 1)\n"
+                  "      sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);\n"
+                  "    else\n"
+                  "      sum_geometry(gsum + (row0 * G + group) * kGeomGrads, part, C, rank, "
+                  "G * kGeomGrads, 0,\n                   tid);\n", "")],
+    "group sum": [("  if (G > 1)\n    train_bwd_geom_groups_kernel<OutT>",
+                   "  if (false)\n    train_bwd_geom_groups_kernel<OutT>")],
 }
 
 VARIANTS = (
@@ -234,39 +234,59 @@ VARIANTS = (
     ("no d col product", ("d col",)),
     ("no zero rows", ("zero rows",)),
     ("no DSMEM sums", ("exchange",)),
+    ("no group sum", ("group sum",)),
     ("one CTA per SM", ("occupancy",)),
     ("no products", ("u product", "d col")),
 )
 
 
-# table -> work -> (entry point, (ts, D, widest) -> the cluster arguments after
-# the row width, or None where the kernel does not take the width; the
-# columns it writes: "all", "colour" 0:D or "geometry" D onward)
+OLD_GEOM_MAX_CHANNELS = 700  # d031322's geometry cluster kernel (64-pixel ranks); above, one CTA
+
+
+def _old_geom(d: int, text: str):
+    """d031322's geometry launch at D = ``d`` from its source ``text``:
+    (entry, ts -> its cluster arguments after the row width). Up to 700
+    channels its geometry cluster kernel; above, its one-CTA geometry
+    kernel, the source's other f32 geometry entry (no cluster arguments)."""
+    if d <= OLD_GEOM_MAX_CHANNELS:
+        return "tpugs_train_bwd_geom_f32", lambda ts: (ts * ts // 64, 64)
+    (name,) = set(re.findall(r'extern "C" int (tpugs_train_bwd_geom_\w+_f32)\(', text)) - {
+        "tpugs_train_bwd_geom_f32"}
+    return name, lambda ts: ()
+
+
+# table -> work -> (entry point, or (D, source text) -> entry point; (ts, D,
+# widest) -> the cluster arguments after the row width, or None where the
+# kernel does not take the width, or (ts, D, source text) -> them; the
+# columns it writes: "all", "colour" 0:D or "geometry" D onward; whether the
+# entry takes the pixel groups' scratch after out)
 LAUNCH = {
-    "d4ac1ba": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: (), "all")},
-    "cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d), "all")},
-    "old": {"rows": ("tpugs_train_bwd_wide_f32", lambda ts, d, ws: (), "all"),
-            "geometry": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: (), "all")},
+    "d4ac1ba": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: (), "all", False)},
+    "cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d), "all",
+                         False)},
     "old-cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d),
-                             "all")},
+                             "all", False)},
+    "old": {"geometry": (lambda d, text: _old_geom(d, text)[0],
+                         lambda ts, d, text: _old_geom(d, text)[1](ts), "all", False)},
     "colour": {"rows": ("tpugs_train_bwd_colour_f32", lambda ts, d, ws: (
         ts * ts // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK) + T.fwd_slices(
-            d, ws or T.COLOUR_SLICE_CHANNELS), "colour")},
+            d, ws or T.COLOUR_SLICE_CHANNELS), "colour", False)},
     "geom": {"rows": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
-                      "geometry"),
+                      "geometry", True),
              "geometry": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
-                          "all")},
+                          "all", True)},
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def recorded_step(warmup: int = 3, feature_dim: int = 128) -> dict:
+def recorded_step(warmup: int = 3, feature_dim: int = 128, teacher: int = 512,
+                  absgrad: bool = False) -> dict:
     """B5's inputs and rows of one train step at ``chip_smoke.py``'s phase 4
     configuration (2^19 Gaussians, 1296 x 840, tile 32, f32 rows) with
-    ``feature_dim`` features (D = 3 + feature_dim; above 512 channels those
-    of the first channel chunk), caught by ``Trainer.record`` after
-    ``warmup`` steps."""
+    ``feature_dim`` features (D = 3 + feature_dim) against a ``linear``
+    teacher ``teacher`` wide, absgrad on or off, caught by
+    ``Trainer.record`` after ``warmup`` steps."""
     import numpy as np
 
     from tpugs_torch.encoders import get_encoder
@@ -282,10 +302,10 @@ def recorded_step(warmup: int = 3, feature_dim: int = 128) -> dict:
     images = torch.from_numpy(rng.uniform(0, 1, (n_cams, h, w, 3)).astype(np.float32)).cuda()
     cam_idx = rng.integers(0, n_cams, warmup + 1)
     cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=feature_dim,
-                      feature_out_dim=512, strategy="none", random_bkgd=False,
-                      sh_degree_interval=1)
+                      feature_out_dim=teacher, strategy="none", random_bkgd=False,
+                      sh_degree_interval=1, absgrad=absgrad)
     tr = Trainer(cfg, init_scene_from_points(pts, rgbs, cfg), 1.0,
-                 teacher=get_encoder("linear:512"), width=w, height=h, n_cameras=n_cams)
+                 teacher=get_encoder(f"linear:{teacher}"), width=w, height=h, n_cameras=n_cams)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
     tr.train_chunk(staged, warmup, cam_idx[:warmup])
     tr.record = seen = {}
@@ -298,10 +318,9 @@ def recorded_step(warmup: int = 3, feature_dim: int = 128) -> dict:
 def absgrad_inputs(d: int = 515) -> dict:
     """chip_smoke.py's phase 5 render at D = ``d``: the canonical scene
     (2^19 Gaussians, seed 0), view 0 of 8 orbit views at 1296 x 840, tile
-    16, ``trans_eps`` 0, seeded colours, background and image cotangent;
-    B4 in channel chunks as ``RenderTrain``. Returns B5's inputs (geom,
-    cols, g, hterm, grem0, blocks_done, plan) for ``rows`` (the first
-    chunk) and ``geometry`` (all channels)."""
+    16, ``trans_eps`` 0, seeded colours, background and image cotangent.
+    Returns B5's inputs (geom, cols, g, hterm, grem0, blocks_done, plan)
+    for ``rows`` and ``geometry``, and the image without its background."""
     from tpugs_torch.raster.plan import build_plan
     from tpugs_torch.raster.projection import project
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
@@ -319,16 +338,61 @@ def absgrad_inputs(d: int = 515) -> dict:
     bg = torch.rand((d,), device="cuda", generator=gen)
     g = torch.randn((h, w, d), device="cuda", generator=gen)
     geom, cols = T.pack_train(proj.means2d, proj.conics, opac, colors, plan)
-    outs = [T.train_forward(geom, cols[:, a:b].contiguous(), plan, 0.0)
-            for a, b in T.channel_chunks(d)]
-    image = torch.cat([o[0] for o in outs], -1)
-    _, alpha, done = outs[0]
+    image, alpha, done = T.train_forward(geom, cols, plan, 0.0)
     hterm = ((g @ bg) * (1.0 - alpha)).contiguous()
-    a, b = T.channel_chunks(d)[0]
-    g0 = g[..., a:b].contiguous()
-    return {"rows": (geom, cols[:, a:b].contiguous(), g0, hterm,
-                     (g0 * image[..., a:b]).sum(-1).contiguous(), done, plan),
-            "geometry": (geom, cols, g, hterm, (g * image).sum(-1).contiguous(), done, plan)}
+    args = (geom, cols, g, hterm, (g * image).sum(-1).contiguous(), done, plan)
+    return {"rows": args, "geometry": args}, image
+
+
+def parent_route(lib, text: str, args, image, absgrad: bool, stream):
+    """d031322's B5 launches for one render on ``args`` (all D channels;
+    ``image`` without its background), into new rows: per 512-channel chunk
+    of the colours, that chunk's rows (its cluster kernel up to 256
+    channels, else its colour slices plus its geometry cluster kernel;
+    ``hterm`` in the first chunk only), and with ``absgrad`` above 512
+    channels its geometry launch over all D (its geometry cluster kernel up
+    to 700 channels, its one-CTA geometry kernel above; ``text`` is its
+    source). The chunks' inputs are cut here; the returned function makes
+    the launches."""
+    from tpugs_torch.raster import kernels as K
+
+    geom, cols, g, hterm, _, done, plan = args
+    d, ts, ntx = cols.shape[1], plan.tile_size, plan.grid[0]
+    launches = []
+
+    def add(name, cluster, c, g_c, h_c, grem_c, out):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P] * 10 + [_I] * (7 + len(cluster)) + [_P]
+        fn.restype = _I
+        launches.append(lambda: fn(
+            K._ptr(geom), K._ptr(c), K._ptr(g_c), K._ptr(h_c), K._ptr(grem_c),
+            K._ptr(plan.tile_starts), K._ptr(plan.tile_ends), K._ptr(plan.padded_starts),
+            K._ptr(done), K._ptr(out), plan.n_tiles, ntx, ts, plan.width, plan.height,
+            c.shape[1], out.shape[1], *cluster, stream))
+
+    for a in range(0, d, 512):
+        b = min(a + 512, d)
+        c, g_c = cols[:, a:b].contiguous(), g[..., a:b].contiguous()
+        h_c = hterm if a == 0 else torch.zeros_like(hterm)
+        grem_c = (g_c * image[..., a:b]).sum(-1).contiguous()
+        out = torch.empty((plan.T_padded, T.grad_row_width(b - a)), device="cuda")
+        if b - a <= T.CLUSTER_MAX_CHANNELS:
+            add("tpugs_train_bwd_f32", T.train_cluster(ts, b - a), c, g_c, h_c, grem_c, out)
+            continue
+        add("tpugs_train_bwd_colour_f32", (ts * ts // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK)
+            + T.fwd_slices(b - a, T.COLOUR_SLICE_CHANNELS), c, g_c, h_c, grem_c, out)
+        add("tpugs_train_bwd_geom_f32", (ts * ts // 64, 64), c, g_c, h_c, grem_c, out)
+    if absgrad and d > 512:
+        name, layout = _old_geom(d, text)
+        out = torch.empty((plan.T_padded, T.GEOM_GRADS), device="cuda")
+        add(name, layout(ts), cols, g, hterm, args[4], out)
+
+    def go():
+        for launch in launches:
+            rc = launch()
+            if rc != 0:
+                raise RuntimeError(f"the parent's route failed with CUDA error {rc}")
+    return go
 
 
 def work_bound(args, work: str):
@@ -364,21 +428,29 @@ def measure(runs: List[Tuple[str, Path]], iters: int = 3, inputs: str = "step",
     """(kernel, variant, ms) of every variant of every (table, source) in
     ``runs`` on every work of the recorded ``inputs`` that the table takes,
     the colour table once for each ``widest`` slice (None:
-    COLOUR_SLICE_CHANNELS); then the route (the tree's ``train_rows`` and
-    ``train_geom_rows``) on each work, and each work's bound."""
+    COLOUR_SLICE_CHANNELS); with the ``old`` table, its route on every
+    ``rows`` work (``parent_route``); then the route (the tree's
+    ``train_rows`` and ``train_geom_rows``) on each work, and each work's
+    bound."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.utils.timing import time_cuda
 
     build = Path(K.__file__).resolve().parents[2] / "build" / "train_bwd_phases"
+    texts = {table: Path(source).read_text() for table, source in runs}
     libs = {table: {name: ctypes.CDLL(str(so)) for name, so in
                     build_variants(source, TABLES[table], build / table, VARIANTS).items()}
             for table, source in runs}
+    absgrad = inputs in ("absgrad", "step1024")
     if inputs == "absgrad":
-        works = absgrad_inputs()
+        works, image = absgrad_inputs()
     else:
-        s = recorded_step(feature_dim=512 if inputs == "step512" else 128)
-        works = {"rows": tuple(s[k] for k in (
-            "geom", "cols", "g_image", "hterm", "grem0", "blocks_done", "plan"))}
+        wide = {"step": (128, 512), "step512": (512, 512), "step1024": (1024, 1024)}[inputs]
+        s = recorded_step(feature_dim=wide[0], teacher=wide[1], absgrad=absgrad)
+        args = tuple(s[k] for k in (
+            "geom", "cols", "g_image", "hterm", "grem0", "blocks_done", "plan"))
+        works, image = {"rows": args}, s["image"]
+        if inputs == "step1024":
+            works["geometry"] = args
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
@@ -403,25 +475,31 @@ def measure(runs: List[Tuple[str, Path]], iters: int = 3, inputs: str = "step",
         route_rows = route()
 
         def launcher(lib, table, ws):
-            name, layout, _ = LAUNCH[table][work]
+            name, layout, _, takes_gsum = LAUNCH[table][work]
+            if table == "old":  # its launch depends on the width and its source
+                name, ws = name(d, texts[table]), texts[table]
             cluster = layout(ts, d, ws)
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 10 + [_I] * (7 + len(cluster)) + [_P]
+            fn.argtypes = [_P] * (11 if takes_gsum else 10) + [_I] * (7 + len(cluster)) + [_P]
             fn.restype = _I
+            gsum = (torch.empty((plan.T_padded, cluster[2], T.GEOM_GRADS), device="cuda")
+                    if takes_gsum and cluster[2] > 1 else None)
+            extra = (None if gsum is None else K._ptr(gsum),) if takes_gsum else ()
 
             def go():
                 rc = fn(
                     K._ptr(geom), K._ptr(cols), K._ptr(g), K._ptr(hterm), K._ptr(grem0),
                     K._ptr(plan.tile_starts), K._ptr(plan.tile_ends),
-                    K._ptr(plan.padded_starts), K._ptr(done), K._ptr(out), plan.n_tiles, ntx,
-                    ts, plan.width, plan.height, d, width, *cluster, stream)
+                    K._ptr(plan.padded_starts), K._ptr(done), K._ptr(out), *extra,
+                    plan.n_tiles, ntx, ts, plan.width, plan.height, d, width, *cluster, stream)
                 if rc != 0:
                     raise RuntimeError(f"variant launch failed with CUDA error {rc}")
                 return out
             return go
 
         for table, _ in runs:
-            if work not in LAUNCH[table] or LAUNCH[table][work][1](ts, d, None) is None:
+            if work not in LAUNCH[table] or LAUNCH[table][work][1](
+                    ts, d, texts[table] if table == "old" else None) is None:
                 continue
             for ws in widest if table == "colour" else (None,):
                 tag = f"{table}/{work}" + (f"/{ws or T.COLOUR_SLICE_CHANNELS}"
@@ -444,6 +522,10 @@ def measure(runs: List[Tuple[str, Path]], iters: int = 3, inputs: str = "step",
                     results.append((tag, name, time_cuda(
                         launcher(libs[table][name], table, ws), iters)))
         del route_rows
+        if work == "rows" and "old" in libs:
+            old = parent_route(libs["old"]["full"], texts["old"], args, image, absgrad, stream)
+            results.append(("old/route", f"D={d} tile {ts}", time_cuda(old, iters)))
+            del old
         results.append((f"route/{work}", f"D={d} tile {ts}", time_cuda(route, iters)))
         b = work_bound(args, work)
         results.append((f"bound/{work}", f"D={d} by {b[1]}", b[0]))
@@ -457,9 +539,10 @@ def main(argv=None) -> int:
     ap.add_argument("--run", action="append", metavar="TABLE[=SOURCE]",
                     help="a kernel to take apart: its table and source (default the "
                          "tree's train_bwd.cu); repeatable")
-    ap.add_argument("--inputs", choices=("step", "step512", "absgrad"), default="step",
-                    help="the recorded train step (D = 131), the step at feature_dim 512, or "
-                         "chip_smoke.py's phase 5 render at D = 515")
+    ap.add_argument("--inputs", choices=("step", "step512", "step1024", "absgrad"),
+                    default="step",
+                    help="the recorded train step (D = 131), the step at feature_dim 512, at "
+                         "1024 with absgrad, or chip_smoke.py's phase 5 render at D = 515")
     ap.add_argument("--widest", action="append", type=int,
                     help="the colour table's widest slice (default COLOUR_SLICE_CHANNELS); "
                          "repeatable")

@@ -59,11 +59,11 @@ SIGNATURES = {
     # the colour slices: ... cluster size, pixels per rank, slices, slice width, stream
     "tpugs_train_bwd_colour_f32": [_P] * 10 + [_I] * 11 + [_P],
     "tpugs_train_bwd_colour_bf16": [_P] * 10 + [_I] * 11 + [_P],
-    # the geometry cluster kernel: as tpugs_train_bwd_f32 (row width 8, or D's rows)
-    "tpugs_train_bwd_geom_f32": [_P] * 10 + [_I] * 9 + [_P],
-    "tpugs_train_bwd_geom_bf16": [_P] * 10 + [_I] * 9 + [_P],
-    # the one-CTA geometry kernel (row width 8, any D): no cluster geometry
-    "tpugs_train_bwd_geom_cta_f32": [_P] * 10 + [_I] * 7 + [_P],
+    # the geometry cluster kernel: ..., out (row width 8, or D's rows), the
+    # pixel groups' sums (or null), n_tiles, ntx, ts, W, H, D, row width,
+    # cluster size, pixels per rank, pixel groups, stream
+    "tpugs_train_bwd_geom_f32": [_P] * 11 + [_I] * 10 + [_P],
+    "tpugs_train_bwd_geom_bf16": [_P] * 11 + [_I] * 10 + [_P],
     # bf16 (0/1), tile size, D -> resident clusters
     "tpugs_train_bwd_max_clusters": [_I, _I, _I],
     # bf16 (0/1), tile size, slice width -> resident clusters of one colour slice

@@ -86,7 +86,6 @@ class LaunchCounts:
     train_bwd: int = 0
     train_bwd_colour: int = 0
     train_bwd_geom: int = 0
-    train_bwd_geom_cta: int = 0
     adjoint_scatter: int = 0
     stripe_sum: int = 0
 

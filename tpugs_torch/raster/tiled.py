@@ -154,8 +154,9 @@ def render_tiled(
     The train render (``render_plan_train``) with no early exit
     (``trans_eps=0``) and f32 gradient rows. ``config.tile_size`` must be
     the plan's, 16 or 32; ``block_size`` and ``tiles_per_chunk`` are the
-    reference's TPU layout knobs and do not change the result. Widths above
-    train_rows' MAX_CHANNELS run in channel chunks (``RenderTrain``).
+    reference's TPU layout knobs and do not change the result. Any width up
+    to ``GEOM_MAX_CHANNELS`` renders and differentiates in one launch of
+    each kernel (``RenderTrain``).
     ``abs_probe``'s gradient is the absgrad statistic; ``on_stage`` and
     ``record`` as in ``render_plan_train``."""
     check_tile_config(config, plan)

@@ -7,8 +7,7 @@ twins and the ``torch.autograd.Function`` around them. Counterparts in
                            :250) and
                            ``_forward_impl`` (:258)
   B5 ``train_rows``     <- ``_backward_impl`` (:496, kernel :275); its
-                           geometry launch ``train_geom_rows`` gives the
-                           absgrad columns of renders wider than B5's rows
+                           geometry launch alone is ``train_geom_rows``
   ``RenderTrain``       <- ``_train_core`` and its VJP (:586-637)
   ``render_plan_train`` <- ``render_plan_train`` (:692)
   ``render_scene``      <- ``render_scene_pallas`` (:661)
@@ -55,15 +54,18 @@ from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
 
 GEOM_COLS = 8  # [mx, my, conic_a, conic_b, conic_c, opacity, 0, 0]
 GEOM_GRADS = 8  # dmx dmy dca dcb dcc dop |dmx| |dmy|
-MAX_CHANNELS = 512  # train_rows' widest, RenderTrain's channel chunk
 CLUSTER_MAX_CHANNELS = 256  # B5's cluster kernel keeps each rank's g in shared memory,
 # B4's its image (of one channel slice) in wgmma accumulators
 PIXELS_PER_RANK = 128  # pixels of a tile per CTA of the B4 and B5 cluster kernels
 SLICE_CHANNELS = 256  # B4's widest channel slice (faster than 128 at D = 512: PERF.md)
 COLOUR_SLICE_CHANNELS = 128  # B5's widest colour slice above CLUSTER_MAX_CHANNELS (faster
 # than 256 at D = 512: PERF.md)
-GEOM_PIXELS_PER_RANK = 64  # pixels of a tile per CTA of B5's geometry cluster kernel
-GEOM_CLUSTER_MAX_CHANNELS = 700  # its rank's g over all D channels fits a CTA's 227 KB
+# (widest D, pixels per rank P) of B5's geometry cluster kernel, whose rank
+# keeps its P pixels' g over all D channels: the largest P whose shared
+# memory fits a CTA's 227 KB (kGeomWidths in csrc/train_bwd.cu)
+GEOM_WIDTHS = ((700, 64), (1276, 32), (2108, 16), (4096, 8))
+GEOM_MAX_CHANNELS = GEOM_WIDTHS[-1][0]  # B5's widest render (DINOv2's 1024 with room)
+GEOM_MAX_CLUSTER = 16  # CTAs of one geometry cluster, the H100's largest (non-portable)
 
 
 def grad_row_width(channels: int) -> int:
@@ -198,6 +200,18 @@ def train_forward(
 # ----------------------------------------------------------- B5 backward
 
 
+def _check_width(channels: int) -> None:
+    if not 1 <= channels <= GEOM_MAX_CHANNELS:
+        raise ValueError(f"{channels} channels: B5 takes 1 to GEOM_MAX_CHANNELS = "
+                         f"{GEOM_MAX_CHANNELS}")
+
+
+def _check_b5(tile_size: int, channels: int) -> None:
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
+    _check_width(channels)
+
+
 def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
     """(C, P) of B5's cluster kernel: a tile's ts*ts pixels go to a cluster
     of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile
@@ -205,39 +219,38 @@ def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
     whose g does not fit a CTA's shared memory: those take the colour
     slices and the geometry kernel (``train_layout``). The C side refuses
     any other (C, P)."""
-    if tile_size not in (16, 32):
-        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
-    if not 1 <= channels <= MAX_CHANNELS:
-        raise ValueError(f"{channels} channels: B5 takes 1 to {MAX_CHANNELS}")
+    _check_b5(tile_size, channels)
     if channels > CLUSTER_MAX_CHANNELS:
         return None
     return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
 
 
-def geom_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
-    """(C, P) of B5's geometry cluster kernel: a tile's ts*ts pixels go to a
-    cluster of C = ts*ts / P CTAs of P = GEOM_PIXELS_PER_RANK pixels each
-    (4 at tile 16, 16 at tile 32), each keeping its pixels' g over all D
-    channels. None above GEOM_CLUSTER_MAX_CHANNELS, where that g does not
-    fit a CTA: ``train_geom_rows`` then takes the one-CTA geometry kernel.
-    The C side refuses any other (C, P)."""
-    if tile_size not in (16, 32):
-        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
-    if channels < 1:
-        raise ValueError(f"{channels} channels: B5 takes at least 1")
-    if channels > GEOM_CLUSTER_MAX_CHANNELS:
-        return None
-    return tile_size**2 // GEOM_PIXELS_PER_RANK, GEOM_PIXELS_PER_RANK
+def geom_cluster(tile_size: int, channels: int) -> Tuple[int, int, int]:
+    """(C, P, G) of B5's geometry cluster kernel at any D up to
+    GEOM_MAX_CHANNELS: each rank keeps its P pixels' g over all D channels,
+    P the largest of GEOM_WIDTHS' whose shared memory fits a CTA (64 up to
+    700 channels, then 32, 16, 8); a tile's ts*ts / P ranks form G pixel
+    groups, each a cluster of C = min(ts*ts / P, GEOM_MAX_CLUSTER) CTAs
+    (at tile 32 a tile's g over more than about 880 channels outgrows any
+    one cluster). Each group walks the tile for its own pixels; G > 1
+    groups' sums are added in group order by a second kernel. The C side
+    refuses any other (C, P, G)."""
+    _check_b5(tile_size, channels)
+    p = next(p for widest, p in GEOM_WIDTHS if channels <= widest)
+    ranks = tile_size**2 // p
+    c = min(ranks, GEOM_MAX_CLUSTER)
+    return c, p, ranks // c
 
 
 def train_layout(tile_size: int, channels: int) -> dict:
     """The launches of ``train_rows`` at tile ts and D channels, chosen by
     width alone: {"cluster": (C, P)} up to CLUSTER_MAX_CHANNELS (the
-    cluster kernel, ``train_cluster``); above it {"colour": (C, P, S, Ns),
-    "geom": (Cg, Pg)}: the colour slices, the cluster kernel's ranks over
-    S channel slices of Ns columns (``fwd_slices(D,
-    COLOUR_SLICE_CHANNELS)``), and the geometry kernel (``geom_cluster``)
-    for columns D onward. The C side refuses any other layout."""
+    cluster kernel, ``train_cluster``); above it, up to GEOM_MAX_CHANNELS,
+    {"colour": (C, P, S, Ns), "geom": (Cg, Pg, G)}: one launch of the
+    colour slices, the cluster kernel's ranks over S channel slices of Ns
+    columns (``fwd_slices(D, COLOUR_SLICE_CHANNELS)``), and one of the
+    geometry kernel (``geom_cluster``) for columns D onward. Wider renders
+    raise. The C side refuses any other layout."""
     cluster = train_cluster(tile_size, channels)
     if cluster is not None:
         return {"cluster": cluster}
@@ -378,15 +391,14 @@ def train_rows(
     cotangent ``g_image`` (H, W, D), ``hterm`` = h * T_final and ``grem0``
     = g . (image without background) per pixel (H, W), and B4's
     ``blocks_done``. Rows of blocks the forward skipped are zero. Up to
-    CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above it the
-    colour slices (columns 0:D) and the geometry kernel (columns D onward),
-    chosen by width alone (``train_layout``)."""
+    CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above it, up to
+    GEOM_MAX_CHANNELS, the colour slices (columns 0:D) and the geometry
+    kernel (columns D onward), chosen by width alone (``train_layout``)."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
     if contrib_dtype not in CONTRIB_DTYPES:
         raise TypeError(f"contrib_dtype {contrib_dtype} not in {CONTRIB_DTYPES}")
-    if d > MAX_CHANNELS:
-        raise ValueError(f"{d} channels exceed the backward kernel's {MAX_CHANNELS}")
+    _check_width(d)
     if not _dispatch(dev):
         return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
                                 contrib_dtype)
@@ -404,20 +416,37 @@ def train_rows(
         _launched(_launch_train_bwd(fn, *args, layout["cluster"]), "train_bwd")
         LAUNCHES.train_bwd += 1
         return out
-    _check_chunk_alignment(cols)
     fn = lib.tpugs_train_bwd_colour_bf16 if bf16 else lib.tpugs_train_bwd_colour_f32
     _launched(_launch_train_bwd(fn, *args, layout["colour"]), "train_bwd_colour")
     LAUNCHES.train_bwd_colour += 1
-    fn = lib.tpugs_train_bwd_geom_bf16 if bf16 else lib.tpugs_train_bwd_geom_f32
-    _launched(_launch_train_bwd(fn, *args, layout["geom"]), "train_bwd_geom")
-    LAUNCHES.train_bwd_geom += 1
+    _launch_geom(lib, *args, layout["geom"])
     return out
 
 
-def _check_chunk_alignment(cols: torch.Tensor) -> None:
+def _launch_geom(lib, geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan,
+                 out: torch.Tensor, cluster) -> None:
+    """One launch of the geometry cluster kernel at ``cluster`` = (C, P, G)
+    into ``out`` (8 columns, or train_rows' columns D onward); G > 1 pixel
+    groups store their sums in a (T_padded, G, 8) f32 scratch, which the
+    launch's second kernel adds in group order. Counted in ``LAUNCHES``."""
     if cols.shape[1] % 4 == 0 and cols.data_ptr() % 16:
         raise ValueError("cols must be 16-byte aligned (the geometry kernel copies 16-byte "
                          "vectors where D % 4 == 0)")
+    groups = cluster[2]
+    gsum = (torch.empty((plan.T_padded, groups, GEOM_GRADS), dtype=torch.float32,
+                        device=out.device) if groups > 1 else None)
+    fn = lib.tpugs_train_bwd_geom_bf16 if out.dtype == torch.bfloat16 \
+        else lib.tpugs_train_bwd_geom_f32
+    ntx, _ = plan.grid
+    rc = fn(
+        _ptr(geom), _ptr(cols), _ptr(g_image), _ptr(hterm), _ptr(grem0),
+        _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
+        _ptr(blocks_done), _ptr(out), None if gsum is None else _ptr(gsum), plan.n_tiles, ntx,
+        plan.tile_size, plan.width, plan.height, cols.shape[1], out.shape[1], *cluster,
+        _stream(),
+    )
+    _launched(rc, "train_bwd_geom")
+    LAUNCHES.train_bwd_geom += 1
 
 
 def train_geom_rows(
@@ -429,34 +458,26 @@ def train_geom_rows(
     blocks_done: torch.Tensor,
     plan: Plan,
 ) -> torch.Tensor:
-    """B5's geometry launch: f32 rows (T_padded, GEOM_GRADS) of
+    """B5's geometry launch on its own: f32 rows (T_padded, GEOM_GRADS) of
     ``train_rows``' geometry columns (dmx dmy dca dcb dcc dop |dmx| |dmy|),
-    with the same inputs, at any number of channels D: the geometry cluster
-    kernel up to GEOM_CLUSTER_MAX_CHANNELS, the one-CTA geometry kernel
-    above it, chosen by width alone (``geom_cluster``). Its twin is
-    ``train_rows_plain(..., geometry_only=True)``. ``RenderTrain`` takes
-    the absgrad columns of a render wider than MAX_CHANNELS from it."""
+    with the same inputs, at any number of channels D up to
+    GEOM_MAX_CHANNELS: the geometry cluster kernel at ``geom_cluster``'s
+    (C, P, G), the launch ``train_rows`` makes above CLUSTER_MAX_CHANNELS.
+    Its twin is ``train_rows_plain(..., geometry_only=True)``."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
+    _check_width(d)
     if not _dispatch(dev):
         return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
                                 geometry_only=True)
     cluster = geom_cluster(plan.tile_size, d)
     from tpugs_torch.kernels.build import load_library
 
-    lib = load_library()
     out = torch.empty((plan.T_padded, GEOM_GRADS), dtype=torch.float32, device=dev)
     if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
-    args = (geom, cols, g_image, hterm, grem0, blocks_done, plan, out)
-    if cluster is None:
-        _launched(_launch_train_bwd(lib.tpugs_train_bwd_geom_cta_f32, *args),
-                  "train_bwd_geom_cta")
-        LAUNCHES.train_bwd_geom_cta += 1
-        return out
-    _check_chunk_alignment(cols)
-    _launched(_launch_train_bwd(lib.tpugs_train_bwd_geom_f32, *args, cluster), "train_bwd_geom")
-    LAUNCHES.train_bwd_geom += 1
+    _launch_geom(load_library(), geom, cols, g_image, hterm, grem0, blocks_done, plan, out,
+                 cluster)
     return out
 
 
@@ -508,44 +529,23 @@ def _no_mark(name: str) -> None:
     pass
 
 
-def channel_chunks(channels: int):
-    """[start, end) column ranges of at most MAX_CHANNELS each, the widest
-    ``train_rows``: a wider render runs B4 and B5 once per chunk."""
-    return [(a, min(a + MAX_CHANNELS, channels)) for a in range(0, channels, MAX_CHANNELS)]
-
-
 class RenderTrain(torch.autograd.Function):
     """(image (H, W, D), alpha (H, W)) of one camera, differentiable in
-    means2d, conics, opacities, colours and the background. The backward
-    is B5 then B3. ``abs_probe`` (N, 2) never touches the render; its
-    gradient is the absgrad statistic, sum over pixels of |d means2d|.
-
-    Above MAX_CHANNELS channels B4 and B5 run once per chunk of
-    ``channel_chunks``: alpha and the walked blocks do not depend on the
-    colours (the first chunk's are kept), and the alpha adjoint is linear in
-    the per-channel terms u and V, so each chunk's B5 gets its own channels'
-    ``grem0``, only the first gets the background/alpha term ``hterm``, and
-    the chunks' geometry gradients are summed. The absgrad columns, sums
-    over pixels of the absolute per-pixel screen gradient, are not linear
-    in the chunks: when the probe needs a gradient, B5's geometry-only
-    launch (``train_geom_rows``) runs once over all channels and B3 sums
-    its columns 6:8. ``record`` receives the first chunk's inputs and
-    outputs."""
+    means2d, conics, opacities, colours and the background. The forward is
+    one B4 launch over all D channels, the backward one ``train_rows``
+    (B5) then B3, at any D up to GEOM_MAX_CHANNELS. ``abs_probe`` (N, 2)
+    never touches the render; its gradient is the absgrad statistic, sum
+    over pixels of |d means2d|: B5's columns 6:8, summed by B3."""
 
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, background, abs_probe,
                 plan, trans_eps, contrib_dtype, mark, record):
-        chunks = channel_chunks(colors.shape[1])
         geom, cols = pack_train(means2d, conics, opacities, colors, plan)
         mark("pack")
-        outs = [train_forward(geom, cols[:, a:b].contiguous(), plan, trans_eps)
-                for a, b in chunks]
-        image = torch.cat([o[0] for o in outs], -1) if len(outs) > 1 else outs[0][0]
-        _, alpha, done = outs[0]
+        image, alpha, done = train_forward(geom, cols, plan, trans_eps)
         if record is not None:
-            record.update(geom=geom, cols=cols[:, : chunks[0][1]].contiguous(), plan=plan,
-                          trans_eps=trans_eps, image=outs[0][0].detach(),
-                          alpha=alpha.detach(), blocks_done=done)
+            record.update(geom=geom, cols=cols, plan=plan, trans_eps=trans_eps,
+                          image=image.detach(), alpha=alpha.detach(), blocks_done=done)
         if background is not None:
             image = image + (1.0 - alpha)[..., None] * background
         mark("render")
@@ -557,7 +557,7 @@ class RenderTrain(torch.autograd.Function):
     def backward(ctx, g_image, g_alpha):
         geom, cols, image, alpha, done, background = ctx.saved_tensors
         plan, mark = ctx.plan, ctx.mark
-        chunks = channel_chunks(cols.shape[1])
+        d = cols.shape[1]
         g_image = g_image.float().contiguous()
         transs = 1.0 - alpha
         h = -g_alpha.float()
@@ -568,34 +568,17 @@ class RenderTrain(torch.autograd.Function):
             d_bg = torch.einsum("hw,hwd->d", transs, g_image)
             img_nobg = image - transs[..., None] * background
         hterm = (h * transs).contiguous()
-        col_grads, geo_grads = [], None
-        for i, (a, b) in enumerate(chunks):
-            g_c = g_image[..., a:b].contiguous()
-            grem0 = (g_c * img_nobg[..., a:b]).sum(-1).contiguous()
-            rows = train_rows(geom, cols[:, a:b].contiguous(), g_c,
-                              hterm if i == 0 else torch.zeros_like(hterm), grem0, done, plan,
-                              ctx.contrib_dtype)
-            if ctx.record is not None and i == 0:
-                ctx.record.update(g_image=g_c, hterm=hterm, grem0=grem0,
-                                  contrib_dtype=ctx.contrib_dtype, rows=rows)
-            mark("B5 rows")
-            sums = reduce_rows(rows, plan, b - a + GEOM_GRADS)
-            mark("B3 reduce")
-            col_grads.append(sums[:, : b - a])
-            gg = sums[:, b - a:]
-            geo_grads = gg if geo_grads is None else geo_grads + gg
-        d_col = torch.cat(col_grads, 1) if len(col_grads) > 1 else col_grads[0]
-        gg = geo_grads
-        d_abs = None
-        if ctx.needs_input_grad[5]:
-            d_abs = gg[:, 6:8]
-            if len(chunks) > 1:  # |per-pixel sum over all channels|, not a sum over chunks
-                grem0 = (g_image * img_nobg).sum(-1).contiguous()
-                rows = train_geom_rows(geom, cols, g_image, hterm, grem0, done, plan)
-                mark("B5 rows")
-                d_abs = reduce_rows(rows, plan, GEOM_GRADS)[:, 6:8]
-                mark("B3 reduce")
-        return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], d_col, d_bg, d_abs,
+        grem0 = (g_image * img_nobg).sum(-1).contiguous()
+        rows = train_rows(geom, cols, g_image, hterm, grem0, done, plan, ctx.contrib_dtype)
+        if ctx.record is not None:
+            ctx.record.update(g_image=g_image, hterm=hterm, grem0=grem0,
+                              contrib_dtype=ctx.contrib_dtype, rows=rows)
+        mark("B5 rows")
+        sums = reduce_rows(rows, plan, d + GEOM_GRADS)
+        mark("B3 reduce")
+        gg = sums[:, d:]
+        d_abs = gg[:, 6:8] if ctx.needs_input_grad[5] else None
+        return (gg[:, 0:2], gg[:, 2:5], gg[:, 5], sums[:, :d], d_bg, d_abs,
                 None, None, None, None, None)
 
 
@@ -617,8 +600,7 @@ def render_plan_train(
     and after "B5 rows" and "B3 reduce" in the backward. ``record``, a
     dict, receives B4's inputs and outputs (geom, cols, plan, trans_eps,
     image, alpha, blocks_done) and B5's further inputs and rows (g_image,
-    hterm, grem0, contrib_dtype, rows), of the first channel chunk above
-    MAX_CHANNELS."""
+    hterm, grem0, contrib_dtype, rows)."""
     return RenderTrain.apply(means2d, conics, opacities, colors, background, abs_probe,
                              plan, trans_eps, contrib_dtype, on_stage or _no_mark, record)
 

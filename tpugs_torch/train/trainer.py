@@ -232,8 +232,10 @@ class Trainer:
     ``evaluate`` report LPIPS. ``on_stage(name)``, if set, is called at the
     end of each of ``STAGES`` within a step (for timing; "teacher" only in
     ``train_chunk``). ``record``, if set to a dict, receives each step's
-    render inputs, B4 outputs, B5 inputs and rows (``render_plan_train``),
-    so that the kernels can be checked on the main path's own inputs."""
+    render inputs, B4 outputs, B5 inputs and rows (``render_plan_train``)
+    and the screen-gradient probes' gradients (``probe_grads``: "off", and
+    "abs" under absgrad), so that the kernels can be checked on the main
+    path's own inputs."""
 
     def __init__(
         self,
@@ -515,6 +517,8 @@ class Trainer:
         for p, g in zip(params + modules, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         gprobes = dict(zip(("off", "abs"), grads[len(params) + len(modules):]))
+        if self.record is not None:
+            self.record["probe_grads"] = gprobes
         self._group("means")["lr"] = means_lr(self.cfg, self.scene_scale, self.cfg.batch_size,
                                               self.means_step_count())
         self.optimizer.step()
