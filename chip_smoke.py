@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root; one H100, nvcc on the box
 
-Eighteen phases; the first failure ends the run with a nonzero exit:
+Nineteen phases; the first failure ends the run with a nonzero exit:
 
 1. build   — compile ``tpugs_torch/csrc/*.cu`` for sm_90a and load them;
              B1's resident clusters by tile, with and without its cull;
@@ -62,6 +62,23 @@ Eighteen phases; the first failure ends the run with a nonzero exit:
              3 timed steps: ms/step, the stage split, launches, peak; the
              recorded step's first chunk held on 64 tiles and timed as
              phase 4's (B4-f512, B5-wide, B3-f512).
+   tiles   — tiles other than 16 and 32, which the kernels take with
+             ghost pixel slots: at phase 2's mid shape at tiles 8, 12 and
+             24, B1 (culled and not), B2, B3, B6 and B7 in f32 and bf16,
+             B4's wide kernel and B5 (its cluster kernel at D = 131, colour
+             slices plus its geometry kernel at 515, the geometry kernel's
+             absgrad rows at 1027) against their twins, each launch
+             counted; the geometry kernel with absgrad at D = 4097 and at
+             the widest D of 4, 2 and 1 pixels a rank (8620, 18460, 38140)
+             on a small shape; tile 33 refused by every tile-dependent
+             wrapper before any launch; then the canonical lift (both
+             engines, the view's rows reckoned against the free memory
+             first) and phase 4's train step (D = 131, 3 timed steps, from
+             phase 4's initial scene) at tiles 24 and 8: ms/view or
+             ms/step, the stage split, peak, launches, view 0 or the
+             recorded step held on 64 tiles and timed as phases 3 and 4
+             (B1-, B2-, B3-, B6-, B7-t24 and -t8; B4-, B5-, B3-train-t24
+             and -t8).
 5. raster API and eager lift — the canonical lift shape (N = 2^19,
              1296 x 840, D = 512, 8 orbit views) at tile 16 with no early
              exit (the reference's tiled path): ``create_feature_field``
@@ -284,7 +301,9 @@ Eighteen phases; the first failure ends the run with a nonzero exit:
              feature render as B4-viz, phase 9's as B4-, B5- and
              B3-refined, phase 10's as B1-, B2- and B3-prof, phase 11's
              viewer frame as B4-frame, phase 13's as B4-, B5- and
-             B3-atscale and phase 14's as B1-, B2-, B3-, B6- and B7-morton.
+             B3-atscale, phase 14's as B1-, B2-, B3-, B6- and B7-morton,
+             and the tiles phase's at tiles 24 and 8 as -t24 and -t8, its
+             wide geometry runs as B5-geom-t<tile>-d<D>.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the package beside this file, it exits nonzero and prints no
@@ -841,11 +860,12 @@ def _plan_to(plan, device):
         if isinstance(getattr(plan, f.name), torch.Tensor)})
 
 
-def timed_lift(args, engine: str, lift=None, extra_stages=(), **kw):
+def timed_lift(args, engine: str, lift=None, extra_stages=(), tile=TILE, **kw):
     """The 8 views through ``lift`` (default ``backproject_views``) with
-    ``engine`` and keywords ``kw``: (num, den, ms/view, launches, peak GB,
-    stage ms/view, peak GB within each stage). ``extra_stages`` names the
-    stages that ``lift`` reports beyond the per-view ones."""
+    ``engine`` at ``tile`` and keywords ``kw``: (num, den, ms/view,
+    launches, peak GB, stage ms/view, peak GB within each stage).
+    ``extra_stages`` names the stages that ``lift`` reports beyond the
+    per-view ones."""
     from tpugs_torch.lift.batch import STAGES, backproject_views
     from tpugs_torch.raster import kernels as K
 
@@ -866,7 +886,7 @@ def timed_lift(args, engine: str, lift=None, extra_stages=(), **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    num, den = (lift or backproject_views)(*args, tile_size=TILE, on_stage=on_stage,
+    num, den = (lift or backproject_views)(*args, tile_size=tile, on_stage=on_stage,
                                            reduce_engine=engine, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -891,22 +911,22 @@ def csr_select(offsets, columns, n_cols):
             size=(offsets.shape[0] - 1, n_cols), check_invariants=False)
 
 
-def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix=""):
+def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix="", tile=TILE):
     """View 0 of ``cams`` through ``run_view`` with both engines: 64 random
     tiles against the twins (B1, B2, B3, B6, B7), B1's culled walk against
     its unculled instantiation on every tile, the kernels' and twins' times,
     the library calls' and the bounds of the view's work. ``launches`` and
-    ``launches_s`` are each engine's counts from the caller's run. Returns
-    the kernel records (ids with ``suffix``) and the default engine's
-    ``ViewResult``."""
+    ``launches_s`` are each engine's counts from the caller's run at
+    ``tile``. Returns the kernel records (ids with ``suffix``) and the
+    default engine's ``ViewResult``."""
     from tpugs_torch.kernels.build import load_library
     from tpugs_torch.lift.batch import run_view
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.utils.timing import time_cuda
 
     # 64 random tiles of view 0 against the twins
-    r = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE)
-    r_s = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, TILE,
+    r = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, tile)
+    r_s = run_view(scene, cams.viewmats[0], cams.Ks[0], W_FULL, H_FULL, enc, tile,
                    reduce_engine="scatter")
     torch.cuda.synchronize()
     plan, plan_s, D = r.plan, r_s.plan, D_FULL
@@ -959,10 +979,10 @@ def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix=""):
     check(b1_culled, "B1's culled walk bit-equal to its unculled instantiation on the view")
 
     # times at the main path's shapes, and the bounds of this view's work
-    pairs = int(r.blocks_done.sum()) * 128 * TILE * TILE
+    pairs = int(r.blocks_done.sum()) * 128 * tile * tile
     check(pairs == walked, "the twin's walk takes the kernel's blocks")
     n_tiles, T_padded, n_isects = plan.n_tiles, plan.T_padded, plan.n_isects
-    tspx = TILE * TILE
+    tspx = tile * tile
     b1_ms = time_cuda(lambda: K.render_tiles(r.packed, plan), 20)
     b1_unculled = time_cuda(lambda: K.render_tiles_unculled(r.packed, plan), 20)
     b1_plain = time_cuda(lambda: K.render_tiles_plain(r.packed, plan), 1)
@@ -988,7 +1008,9 @@ def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix=""):
     live = plan_s.slot_pos.long()[plan_s.gauss_pos.long()]
     select = csr_select(plan_s.gauss_offsets, live.to(torch.int32), plan_s.R_striped + 1)
     striped32 = torch.zeros((plan_s.R_striped + 1, D + 1), device="cuda")
-    striped32[live] = r_s.rows[live, : D + 1].float()
+    for a in range(0, live.numel(), 1 << 20):  # no second f32 copy of the rows at small tiles
+        part = live[a:a + (1 << 20)]
+        striped32[part] = r_s.rows[part, : D + 1].float()
     lib7_err = rel_err(select @ striped32, r_s.sums)
     b7_lib = time_cuda(lambda: select @ striped32, 5)
     del select, striped32
@@ -1026,7 +1048,7 @@ def lift_view_records(scene, cams, enc, launches, launches_s, tag, suffix=""):
                  "tpugs/raster/pallas_tiled.py:1370", launches["render"], b1, b1_ms,
                  b1_plain, b1_bound)
     b1_rec.update(bound_walked_ms=b1_walked[0], unculled_ms=b1_unculled,
-                  resident_clusters=load_library().tpugs_render_max_clusters(TILE, 1))
+                  resident_clusters=load_library().tpugs_render_max_clusters(tile, 1))
     records = [
         b1_rec,
         rec("B2" + suffix, "adjoint", "tpugs_torch/csrc/adjoint.cu",
@@ -1234,13 +1256,14 @@ def phase_experiments(r):
 TRAIN_CAMS, TRAIN_WARMUP, TRAIN_STEPS = 8, 3, 10
 
 
-def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_bwd")):
+def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_bwd"),
+                       fwd=("train_fwd", "train_fwd")):
     """The kernels of one recorded train step (``Trainer.record``): B4, B5
     and B3 on 64 random tiles against their twins (phase 4's tolerances),
     then their times, their twins' and B3's library call's, against the
     bounds of this step's work. Returns the three kernel records under
     ``ids``; B5's under the name ``b5[0]`` with the launches of counter
-    ``b5[1]``."""
+    ``b5[1]``, B4's likewise by ``fwd``."""
     from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
@@ -1267,6 +1290,7 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     rows_t, mags = T.train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype, tiles,
                                       magnitudes=True)
     b5_name, b5_key = b5
+    b4_name, b4_key = fwd
     b5_err = T.grad_rows_error(rows[span], rows_t[span], D, mags[span])
     gids = gaussians_of(plan, span)
     red_t = K.reduce_rows_plain(rows, plan, D + 8, gaussians=gids)
@@ -1326,8 +1350,8 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
           f"B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}, library {b3_lib:.3f} ms, "
           f"{lib_err[1]:.3e} of max from the kernel)", flush=True)
     return [
-        rec(ids[0], "train_fwd", "tpugs_torch/csrc/train_fwd.cu",
-            "tpugs/raster/pallas_train.py:250", launches["train_fwd"], b4, b4_ms, b4_plain,
+        rec(ids[0], b4_name, "tpugs_torch/csrc/train_fwd.cu",
+            "tpugs/raster/pallas_train.py:250", launches[b4_key], b4, b4_ms, b4_plain,
             b4_bound),
         rec(ids[1], b5_name, "tpugs_torch/csrc/train_bwd.cu",
             "tpugs/raster/pallas_train.py:557", launches[b5_key], b5_err, b5_ms, b5_plain,
@@ -1338,10 +1362,12 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     ]
 
 
-def timed_train(tag, feature_dim, warmup, steps, teacher=512, absgrad=False):
+def timed_train(tag, feature_dim, warmup, steps, teacher=512, absgrad=False, tile=0,
+                scene0=None):
     """The train step at phase 4's configuration with ``feature_dim``
     features against a ``linear`` teacher ``teacher`` wide, absgrad on or
-    off, through ``Trainer.train_chunk``:
+    off, at ``tile`` (0: the trainer's choice), from ``scene0`` (default
+    the seed-0 points' initial scene), through ``Trainer.train_chunk``:
     ``warmup`` steps (SH degrees 0-2, sh_degree_interval 1), ``steps``
     timed steps at degree 3, then one more step recorded
     (``Trainer.record``). Returns the record, the timed steps' launches,
@@ -1367,8 +1393,8 @@ def timed_train(tag, feature_dim, warmup, steps, teacher=512, absgrad=False):
     cam_idx = rng.integers(0, TRAIN_CAMS, warmup + steps + 1)
     cfg = TrainConfig(max_steps=30_000, sh_degree=3, feature_dim=feature_dim,
                       feature_out_dim=teacher, strategy="none", random_bkgd=False,
-                      sh_degree_interval=1, absgrad=absgrad)
-    scene0 = init_scene_from_points(pts, rgbs, cfg)
+                      sh_degree_interval=1, absgrad=absgrad, pallas_tile_size=tile)
+    scene0 = init_scene_from_points(pts, rgbs, cfg) if scene0 is None else scene0.to("cuda")
     tr = Trainer(cfg, scene0, 1.0, teacher=get_encoder(f"linear:{teacher}"), width=w,
                  height=h, n_cameras=TRAIN_CAMS)
     staged = {"images": images, "viewmats": cams.viewmats, "Ks": cams.Ks}
@@ -1527,6 +1553,346 @@ def phase_train_wider():
         seen, W_FULL, H_FULL, launches, "phase 4x", ("B4-f1024", "B5-f1024", "B3-f1024"),
         b5=("train_bwd colour slices + geometry (feature_dim 1024 step, D=1027, absgrad)",
             "train_bwd_colour"))
+
+
+# The tiles phase: tiles other than 16 and 32 take the same kernels with
+# ghost pixel slots (B1's warp rectangles, B2's last pixel group, B5's
+# ranks; B4's wide kernel), held against the twins at phase 2's mid shape
+# at TILE_KERNEL_TILES; B5's geometry kernel with absgrad at the widest
+# widths of its smallest ranks at a small shape; the lift and phase 4's
+# train step at full width at TILE_PATH_TILES; a tile past TILE_MAX
+# refused before any launch.
+TILE_KERNEL_TILES = (8, 12, 24)
+TILE_KERNEL_D = 64  # B2's and B6's width at the mid shape (phase 2's at tile 32)
+TILE_TRAIN_D = (131, 515, 1027)  # B5's cluster kernel; colour slices + geometry; absgrad rows
+# (tile, D) of the geometry kernel with absgrad at a small shape: 4097 (8
+# pixels a rank, ghost ranks at tile 12), then the widest D of 4, 2 and 1
+# pixels a rank
+TILE_GEOM_WIDE = ((12, 4097), (24, 8620), (8, 18460), (16, 38140))
+TILE_PATH_TILES = (24, 8)
+TILE_TRAIN_WARMUP, TILE_TRAIN_STEPS = 3, 3
+
+
+def _mid_view(ts, scene, cams, view=0, w=300, h=200):
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, cams.viewmats[view],
+                   cams.Ks[view], w, h)
+    return proj, build_plan(proj, w, h, ts)
+
+
+def tiles_lift_kernels(ts, scene, cams):
+    """B1 (culled and not), B2, B3, B6 and B7 at tile ``ts`` against their
+    twins, each launch counted."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.colors import prepare_colors
+    from tpugs_torch.raster.pack import pack_isect_all
+    from tpugs_torch.raster.plan import with_scatter_extras
+
+    proj, plan = _mid_view(ts, scene, cams)
+    packed = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all,
+                                                 cams.viewmats[0], scene.sh_degree), plan)
+    spans = plan.tile_ends - plan.tile_starts
+    K.LAUNCHES.reset()
+    img_k, done_k = K.render_tiles(packed, plan)
+    img_u, done_u = K.render_tiles_unculled(packed, plan)
+    torch.cuda.synchronize()
+    counts = (K.LAUNCHES.render, K.LAUNCHES.render_unculled)
+    img_t, done_t = K.render_tiles_plain(packed, plan)
+    _, r = rel_err(img_k, img_t)
+    _, r_u = rel_err(img_u, img_t)
+    culled = torch.equal(img_k, img_u) and torch.equal(done_k, done_u)
+    exits = bool((done_t < (spans + 127) // 128).any())
+    print(f"phase tiles ts={ts} B1 render ({K.render_cluster(ts)} CTAs a tile): rel {r:.3e} "
+          f"(unculled {r_u:.3e}); culled bit-equal to unculled {culled}; launches (render, "
+          f"render_unculled) {counts}; a tile exits early {exits}", flush=True)
+    check(r <= 1e-4 and r_u <= 1e-4, "B1 within 1e-4 relative of its twin")
+    check(culled and counts == (1, 1), "B1's culled walk bit-equal to its unculled one")
+
+    D = TILE_KERNEL_D
+    feats = LinearRGBEncoder(D, seed=3, device="cuda")(img_k[..., :3]).contiguous()
+    splan = with_scatter_extras(plan)
+    real = splan.gauss_pos.long()
+    live = splan.slot_pos.long()[real]
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feats.to(dtype)
+        K.LAUNCHES.reset()
+        rows = K.adjoint_rows(packed, f, plan)
+        sums = K.reduce_rows(rows, plan, D + 1)
+        striped = K.adjoint_scatter_rows(packed, f, splan)
+        stripes = K.reduce_striped(striped, splan, D + 1)
+        torch.cuda.synchronize()
+        launched = tuple(getattr(K.LAUNCHES, k) for k in ("adjoint", "reduce", "adjoint_scatter",
+                                                          "stripe_sum"))
+        _, g, e = K.rows_error(rows, K.adjoint_rows_plain(packed, f, plan), D)
+        b3 = torch.equal(sums, K.reduce_rows_plain(rows, plan, D + 1))
+        _, g6, e6 = K.rows_error(striped[live],
+                                 K.adjoint_scatter_rows_plain(packed, f, splan)[live], D)
+        b6_b2 = torch.equal(striped[live], rows[real])
+        b7 = (torch.equal(stripes, K.reduce_striped_plain(striped, splan, D + 1))
+              and torch.equal(stripes, sums))
+        print(f"phase tiles ts={ts} D={D} {dtype} ({K.adjoint_groups(ts, dtype)[0]} pixel "
+              f"groups a tile): B2 {g:.3e} of column-group max, {e:.3e} of row max; B3 "
+              f"bit-equal {b3}; B6 {g6:.3e}, {e6:.3e}, bit-equal to B2 {b6_b2}; B7 bit-equal "
+              f"to its twin and B3 {b7}; launches (B2, B3, B6, B7) {launched}", flush=True)
+        check(within_rows_tol(g, e, dtype) and within_rows_tol(g6, e6, dtype),
+              "B2 and B6 within ROWS_TOL of their twins")
+        check(b3 and b6_b2 and b7 and launched == (1, 1, 1, 1),
+              "B3, B6 and B7 bit-equal, one launch each")
+
+
+def _train_inputs(ts, scene, cams, d, gen, w=300, h=200, view=1):
+    from tpugs_torch.raster import train as T
+
+    proj, plan = _mid_view(ts, scene, cams, view, w, h)
+    opac = torch.where(proj.valid, proj.opacities, torch.zeros_like(proj.opacities))
+    colors = torch.rand((scene.num_gaussians, d), device="cuda", generator=gen)
+    geom, cols = T.pack_train(proj.means2d, proj.conics, opac, colors, plan)
+    return geom, cols, plan
+
+
+def tiles_train_kernels(ts, scene, cams, gen):
+    """B4's wide kernel and B5 (its cluster kernel at D = 131, its colour
+    slices and geometry kernel at 515, the geometry kernel's absgrad rows
+    at 1027) at tile ``ts`` against their twins, each launch counted."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+
+    for d in TILE_TRAIN_D:
+        geom, cols, plan = _train_inputs(ts, scene, cams, d, gen)
+        W, H = plan.width, plan.height
+        K.LAUNCHES.reset()
+        img, alpha, done = T.train_forward(geom, cols, plan)
+        torch.cuda.synchronize()
+        fwd = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide)
+        img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
+        _, r_img = rel_err(img, img_t)
+        _, r_alpha = rel_err(alpha, alpha_t)
+        g = torch.randn((H, W, d), device="cuda", generator=gen)
+        hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha)
+        args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+        absgrad = d == TILE_TRAIN_D[-1]
+        parts = []
+        for dtype in (torch.float32,) if absgrad else (torch.float32, torch.bfloat16):
+            K.LAUNCHES.reset()
+            rows = T.train_geom_rows(*args) if absgrad else T.train_rows(*args, dtype)
+            torch.cuda.synchronize()
+            bwd = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour, K.LAUNCHES.train_bwd_geom)
+            ref, mags = T.train_rows_plain(*args, dtype, magnitudes=True, geometry_only=absgrad)
+            n = rows.shape[1] if absgrad else d + T.GEOM_GRADS
+            sums = K.reduce_rows(rows, plan, n)
+            dc = 0 if absgrad else d
+            _, g_r, e_r = T.grad_rows_error(rows, ref, dc, mags)
+            _, g_s, e_s = T.grad_rows_error(sums, K.reduce_rows_plain(ref, plan, n), dc,
+                                            K.reduce_rows_plain(mags, plan, n))
+            want = ((0, 0, 1) if absgrad else
+                    (1, 0, 0) if d <= T.CLUSTER_MAX_CHANNELS else (0, 1, 1))
+            what = ("geometry rows (C, P, G) = {}".format(T.geom_cluster(ts, d)) if absgrad
+                    else "layout {}".format(T.train_layout(ts, d)))
+            parts.append(f"B5 {dtype} {what}: rows {g_r:.3e} of column-group max, {e_r:.3e} of "
+                         f"the entry's magnitude, B3 sums {g_s:.3e} and {e_s:.3e}, launches "
+                         f"(cluster, colour, geometry) {bwd}")
+            check(within_grad_tol(g_r, e_r, dtype) and within_grad_tol(g_s, e_s, dtype),
+                  "B5 rows and their sums within GRAD_ROWS_TOL of the twins")
+            check(bwd == want, f"B5 launched the kernels its width selects ({bwd})")
+        print(f"phase tiles ts={ts} D={d} B4 wide kernel: image rel {r_img:.3e}, alpha rel "
+              f"{r_alpha:.3e}, exit blocks differ on {int((done != done_t).sum())} tiles, "
+              f"launches (cluster, wide) {fwd}; " + "; ".join(parts), flush=True)
+        check(r_img <= 1e-4 and r_alpha <= 1e-4, "B4 within 1e-4 relative of its twin")
+        check(fwd == (0, 1), "B4 at this tile launched its wide kernel once")
+
+
+def tiles_geom_wide(gen):
+    """The geometry kernel with absgrad at TILE_GEOM_WIDE's widths on a
+    small shape: rows and B3's sums against the twin, one launch each, its
+    time, the twin's and the bound (phase 5's B5-geom bound). Returns the
+    kernel records (B5-geom-t<ts>-d<D>)."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+    from tpugs_torch.utils.timing import time_cuda
+
+    scene = random_scene(2000, seed=2, extent=0.6, scale_range=(0.02, 0.12), device="cuda")
+    cams = orbit_cameras(2, 96, 64, radius=3.0, device="cuda")
+    tol = T.GRAD_ROWS_TOL[torch.float32]
+    records = []
+    for ts, d in TILE_GEOM_WIDE:
+        geom, cols, plan = _train_inputs(ts, scene, cams, d, gen, 96, 64, 0)
+        img, alpha, done = T.train_forward(geom, cols, plan)
+        g = torch.randn((64, 96, d), device="cuda", generator=gen)
+        hterm = torch.randn((64, 96), device="cuda", generator=gen) * (1.0 - alpha)
+        args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+        K.LAUNCHES.reset()
+        rows = T.train_geom_rows(*args)
+        torch.cuda.synchronize()
+        n = K.LAUNCHES.train_bwd_geom
+        ms = time_cuda(lambda: T.train_geom_rows(*args), 1)
+        plain = time_cuda(lambda: T.train_rows_plain(*args, geometry_only=True), 1, warmup=0)
+        ref, mags = T.train_rows_plain(*args, magnitudes=True, geometry_only=True)
+        err = T.grad_rows_error(rows, ref, 0, mags)
+        sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
+        _, g_s, e_s = T.grad_rows_error(sums, K.reduce_rows_plain(ref, plan, T.GEOM_GRADS), 0,
+                                        K.reduce_rows_plain(mags, plan, T.GEOM_GRADS))
+        walked = int(done.sum())
+        pairs, _, kept = walked_pairs(geom, plan, K.TRANS_EPS)
+        b = bound(walked * 128 * (8 + d) * 4 + 64 * 96 * (d + 2) * 4 + 4 * plan.n_tiles
+                  + plan.T_padded * T.GEOM_GRADS * 4,
+                  pairs * PAIR_OPS + kept * (2 * d + PAIR_OPS), PEAK_F32_FLOPS)
+        print(f"phase tiles ts={ts} D={d} B5 geometry rows with absgrad ((C, P, G) = "
+              f"{T.geom_cluster(ts, d)}; {plan.n_tiles} tiles, T_padded {plan.T_padded}): rows "
+              f"{err[1]:.3e} of column-group max, {err[2]:.3e} of the entry's magnitude, B3 sums "
+              f"{g_s:.3e} and {e_s:.3e}; launches {n}; {ms:.3f} ms (twin {plain:.1f}; bound "
+              f"{b[0]:.4f} ms by {b[1]})", flush=True)
+        check(err[1] <= tol[0] and err[2] <= tol[1] and g_s <= tol[0] and e_s <= tol[1],
+              "the geometry rows and their sums within GRAD_ROWS_TOL of the twins")
+        check(n == 1, "one geometry launch")
+        records.append(rec(f"B5-geom-t{ts}-d{d}", f"train_bwd geometry (absgrad, D={d}, "
+                           f"{plan.n_tiles} tiles of {ts})", "tpugs_torch/csrc/train_bwd.cu",
+                           "tpugs/raster/pallas_train.py:557", n, err, ms, plain, b))
+        del geom, cols, g, args, ref, mags
+    return records
+
+
+def tiles_cap(scene, cams):
+    """Every tile-dependent wrapper refuses tile TILE_MAX + 1 by a
+    ValueError naming the cap, before any launch."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+    from tpugs_torch.raster.colors import prepare_colors
+    from tpugs_torch.raster.pack import pack_isect_all
+    from tpugs_torch.raster.plan import with_scatter_extras
+
+    ts = K.TILE_MAX + 1
+    proj, plan = _mid_view(ts, scene, cams)
+    splan = with_scatter_extras(plan)
+    packed = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all,
+                                                 cams.viewmats[0], scene.sh_degree), plan)
+    feats = torch.zeros((plan.n_tiles, ts * ts, 8), device="cuda")
+    geom, cols = T.pack_train(proj.means2d, proj.conics, proj.opacities,
+                              torch.zeros((scene.num_gaussians, 5), device="cuda"), plan)
+    h, w = plan.height, plan.width
+    z = torch.zeros((h, w), device="cuda")
+    bwd = (geom, cols, torch.zeros((h, w, 5), device="cuda"), z, z,
+           torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda"), plan)
+    calls = {"B1": lambda: K.render_tiles(packed, plan),
+             "B1 unculled": lambda: K.render_tiles_unculled(packed, plan),
+             "B2": lambda: K.adjoint_rows(packed, feats, plan),
+             "B6": lambda: K.adjoint_scatter_rows(packed, feats, splan),
+             "B4": lambda: T.train_forward(geom, cols, plan),
+             "B5": lambda: T.train_rows(*bwd), "B5 geometry": lambda: T.train_geom_rows(*bwd)}
+    K.LAUNCHES.reset()
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except ValueError as e:
+            refused[name] = f"TILE_MAX = {K.TILE_MAX}" in str(e)
+    torch.cuda.synchronize()
+    launched = sum(K.LAUNCHES.snapshot().values())
+    print(f"phase tiles ts={ts}: refused naming TILE_MAX {refused}; kernel launches {launched}",
+          flush=True)
+    check(all(refused.values()) and launched == 0,
+          f"tile {ts} refused by every tile-dependent wrapper before any launch")
+
+
+def tiles_lift(ts, scene, cams, enc):
+    """The canonical lift at tile ``ts``: the view-0 plan's rows reckoned
+    against the card's free memory (the allocator's unused cache
+    included) first, then both engines' warm-up view and 8
+    timed views, and view 0's kernel records (lift_view_records)."""
+    from tpugs_torch.lift.batch import backproject_views
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.plan import build_plan
+    from tpugs_torch.raster.projection import project
+
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, cams.viewmats[0],
+                   cams.Ks[0], W_FULL, H_FULL)
+    plan = build_plan(proj, W_FULL, H_FULL, ts)
+    rows_gb = plan.T_padded * K.contrib_width(D_FULL) * 2 / 1e9
+    free_gb = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+               - torch.cuda.memory_allocated()) / 1e9
+    print(f"phase tiles ts={ts} lift reckoning: view 0 has {plan.n_tiles} tiles, "
+          f"{plan.n_isects} intersections, T_padded {plan.T_padded}: {rows_gb:.2f} GB of bf16 "
+          f"rows a view, {free_gb:.1f} GB free", flush=True)
+    # the view's records hold both engines' rows, the twin's and an f32 copy at once
+    check(4 * rows_gb < free_gb, "a view's rows fit the card four times over")
+    del proj, plan
+    args = (scene, cams.viewmats, cams.Ks, W_FULL, H_FULL, enc)
+    launches = {}
+    for engine, kernels in (("pallas", ("render", "adjoint", "reduce")),
+                            ("scatter", ("render", "adjoint_scatter", "stripe_sum"))):
+        backproject_views(scene, cams.viewmats[:1], cams.Ks[:1], W_FULL, H_FULL, enc,
+                          tile_size=ts, reduce_engine=engine)
+        num, den, ms_view, launches[engine], peak_gb, stage_ms, _ = timed_lift(args, engine,
+                                                                               tile=ts)
+        check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all())
+              and bool((den > 0).any()), "num and den finite, some den > 0")
+        for name in kernels:
+            check(launches[engine][name] >= VIEWS,
+                  f"{name} kernel launched at least once per view ({launches[engine][name]})")
+        stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
+        print(f"phase tiles ts={ts} lift reduce_engine={engine} N={N_FULL} {W_FULL}x{H_FULL} "
+              f"D={D_FULL} views={VIEWS}: {ms_view:.2f} ms/view, peak {peak_gb:.2f} GB; stage "
+              f"ms/view (CUDA events): {stages}; launches {launches[engine]}", flush=True)
+        del num, den
+    records, r = lift_view_records(scene, cams, enc, launches["pallas"], launches["scatter"],
+                                   f"phase tiles ts={ts}", f"-t{ts}", tile=ts)
+    del r
+    return records
+
+
+def tiles_train(ts, scene0):
+    """Phase 4's train step (D = 131) at tile ``ts`` from phase 4's initial
+    scene: 3 warm-up and 3 timed steps, then the recorded step's records
+    (B4's wide kernel, B5, B3)."""
+    r = timed_train(f"phase tiles ts={ts}", 128, TILE_TRAIN_WARMUP, TILE_TRAIN_STEPS, tile=ts,
+                    scene0=scene0)
+    launches = r["launches"]
+    check(r["tile"] == ts, f"the trainer took tile {ts}")
+    for name in ("train_fwd_wide", "train_bwd", "reduce"):
+        check(launches[name] >= TILE_TRAIN_STEPS,
+              f"{name} kernel launched at least once per step ({launches[name]})")
+    check(launches["train_fwd"] == 0, "no B4 cluster kernel at this tile")
+    stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
+    print(f"phase tiles ts={ts} train N={N_FULL} {W_FULL}x{H_FULL} D=131 steps="
+          f"{TILE_TRAIN_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, peak {r['peak_gb']:.2f} GB; "
+          f"stage ms/step (CUDA events): {stages}; launches {launches}", flush=True)
+    return train_step_records(r["seen"], W_FULL, H_FULL, launches, f"phase tiles ts={ts}",
+                              (f"B4-t{ts}", f"B5-t{ts}", f"B3-train-t{ts}"),
+                              fwd=("train_fwd (wide kernel)", "train_fwd_wide"))
+
+
+def phase_tiles(scene0):
+    """Tiles other than 16 and 32 (TILE_KERNEL_TILES; the path at
+    TILE_PATH_TILES), and the cap. Returns the kernel records of the wide
+    geometry runs and of the path."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    t0 = time.perf_counter()
+    scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
+    cams = orbit_cameras(2, 300, 200, radius=3.0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for ts in TILE_KERNEL_TILES:
+        tiles_lift_kernels(ts, scene, cams)
+        tiles_train_kernels(ts, scene, cams, gen)
+    records = tiles_geom_wide(gen)
+    tiles_cap(scene, cams)
+    del scene, cams
+    print(f"phase tiles kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    full = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
+    fcams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
+    enc = LinearRGBEncoder(D_FULL, device="cuda")
+    for ts in TILE_PATH_TILES:
+        records += tiles_lift(ts, full, fcams, enc)
+    del full, fcams, enc
+    for ts in TILE_PATH_TILES:
+        records += tiles_train(ts, scene0)
+    print(f"phase tiles: {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
 
 
 # Phase 5: the raster API and the eager lift at the canonical lift shape,
@@ -4534,6 +4900,7 @@ def main() -> int:
     records += train_records
     records += phase_train_wide()
     records += phase_train_wider()
+    records += phase_tiles(scene0)
     records += phase_eager()
     records += phase_absgrad()
     phase_app()

@@ -34,6 +34,13 @@ eight; ``geom_cluster``), against the twin by ``GRAD_ROWS_TOL`` (f32), two
 launches bit-equal, and its columns 0:6 against the sums of B5's rows'
 geometry over 512-channel chunks of the colours. B2 at
 D = 1024 (DINO's width) in f32 and bf16 by ``ROWS_TOL``, B6 bit-equal.
+At tiles 8, 12 and 24 (ghost pixel slots): B1 by the same limits and
+bit-equal to its unculled walk; B2 by ``ROWS_TOL``, B6's live rows
+bit-equal to B2's, B3 and B7 bit-equal to their twins and each other; B4's
+wide kernel (one launch) within 1e-4; B5 at D = 131 and 515 (f32 and bf16)
+and its geometry kernel at D = 4097 by ``GRAD_ROWS_TOL``. Tile 33 raises a
+``ValueError`` naming ``TILE_MAX`` in every tile-dependent wrapper, with
+no launch.
 
 The encoders have no kernel of their own; they are held on the card
 against the CPU in f32 (TF32 off): a reduced LSeg network through
@@ -653,3 +660,147 @@ def test_train_step_after_a_refine_matches_twins():
     assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
     assert torch.equal(K.reduce_rows(rows, plan, d + T.GEOM_GRADS),
                        K.reduce_rows_plain(rows, plan, d + T.GEOM_GRADS))
+
+
+# Tiles other than 16 and 32: the kernels' ranks and pixel groups with
+# ghost slots (B1, B2/B6, B5), B4's wide kernel, the same limits as above.
+@pytest.fixture(scope="module", params=[8, 12, 24])
+def tile_view(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tile = request.param
+    scene = random_scene(6000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
+    cams = orbit_cameras(1, W, H, radius=3.0, device="cuda")
+    vm, Km = cams.viewmats[0], cams.Ks[0]
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
+    plan = build_plan(proj, W, H, tile)
+    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan)
+    img, _ = K.render_tiles(pack, plan)
+    feats = LinearRGBEncoder(40, seed=2, device="cuda")(img[..., :3]).contiguous()
+    return plan, pack, feats
+
+
+def test_render_kernel_at_other_tiles(tile_view):
+    """B1 with ghost rectangles within 1e-4 of its twin, its culled walk
+    bit-equal to the unculled one, one launch each; its clusters fit."""
+    from tpugs_torch.kernels.build import load_library
+
+    plan, pack, _ = tile_view
+    K.LAUNCHES.reset()
+    img, done = K.render_tiles(pack, plan)
+    img_u, done_u = K.render_tiles_unculled(pack, plan)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES.render, K.LAUNCHES.render_unculled) == (1, 1)
+    assert torch.equal(img, img_u) and torch.equal(done, done_u)
+    ref, _ = K.render_tiles_plain(pack, plan)
+    assert _rel(img, ref) <= 1e-4
+    assert load_library().tpugs_render_max_clusters(plan.tile_size, 1) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adjoint_scatter_and_reduces_at_other_tiles(tile_view, dtype):
+    """B2 with a ghost-padded last pixel group within ROWS_TOL of its twin;
+    B6's live rows bit-equal to B2's; B3 and B7 bit-equal to their twins
+    and to each other."""
+    plan, pack, feats = tile_view
+    f = feats.to(dtype)
+    d = f.shape[-1]
+    rows = K.adjoint_rows(pack, f, plan)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, f, splan)
+    sums = K.reduce_rows(rows, plan, d + 1)
+    stripes = K.reduce_striped(striped, splan, d + 1)
+    torch.cuda.synchronize()
+    _, of_group, of_row = K.rows_error(rows, K.adjoint_rows_plain(pack, f, plan), d)
+    group_tol, row_tol = K.ROWS_TOL[dtype]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    real = splan.gauss_pos.long()
+    assert torch.equal(striped[splan.slot_pos.long()[real]], rows[real])
+    assert torch.equal(sums, K.reduce_rows_plain(rows, plan, d + 1))
+    assert torch.equal(stripes, K.reduce_striped_plain(striped, splan, d + 1))
+    assert torch.equal(stripes, sums)
+
+
+@pytest.mark.parametrize("d", [131, 515])
+def test_train_kernels_at_other_tiles(tile_view, d):
+    """B4's wide kernel (one launch) within 1e-4 of its twin; B5 (its
+    cluster kernel at 131, colour slices plus the geometry kernel at 515,
+    with ghost ranks) within GRAD_ROWS_TOL, rows and B3's sums, f32 and
+    bf16."""
+    plan, pack, _ = tile_view
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), device="cuda", generator=gen)
+    K.LAUNCHES.reset()
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (0, 1)
+    img_t, alpha_t, _ = T.train_forward_plain(geom, cols, plan)
+    assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = T.train_rows(*args, dtype)
+        sums = K.reduce_rows(rows, plan, d + T.GEOM_GRADS)
+        torch.cuda.synchronize()
+        rows_t, mags = T.train_rows_plain(*args, dtype, magnitudes=True)
+        group_tol, entry_tol = T.GRAD_ROWS_TOL[dtype]
+        _, of_group, of_entry = T.grad_rows_error(rows, rows_t, d, mags)
+        assert of_group <= group_tol and of_entry <= entry_tol, (dtype, of_group, of_entry)
+        _, of_group, of_entry = T.grad_rows_error(
+            sums, K.reduce_rows_plain(rows_t, plan, d + T.GEOM_GRADS), d,
+            K.reduce_rows_plain(mags, plan, d + T.GEOM_GRADS))
+        assert of_group <= group_tol and of_entry <= entry_tol, (dtype, of_group, of_entry)
+
+
+def test_train_geom_rows_above_4096_channels(tile_view):
+    """The geometry kernel at D = 4097 (8 pixels a rank in pixel groups,
+    the absgrad columns included) within GRAD_ROWS_TOL (f32) of its twin,
+    one launch."""
+    plan, pack, _ = tile_view
+    d = 4097
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    geom = pack[:, :8].contiguous()
+    cols = torch.rand((plan.T_padded, d), device="cuda", generator=gen)
+    img, alpha, done = T.train_forward(geom, cols, plan)
+    g = torch.randn(img.shape, device="cuda", generator=gen)
+    hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
+    args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
+    K.LAUNCHES.reset()
+    rows = T.train_geom_rows(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES.train_bwd_geom == 1
+    rows_t, mags = T.train_rows_plain(*args, magnitudes=True, geometry_only=True)
+    group_tol, entry_tol = T.GRAD_ROWS_TOL[torch.float32]
+    _, of_group, of_entry = T.grad_rows_error(rows, rows_t, 0, mags)
+    assert of_group <= group_tol and of_entry <= entry_tol, (of_group, of_entry)
+
+
+def test_a_tile_past_the_cap_raises_before_any_launch():
+    """Tile TILE_MAX + 1: every tile-dependent wrapper raises a ValueError
+    naming the cap, and no kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    ts = K.TILE_MAX + 1
+    scene = random_scene(2000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
+    cams = orbit_cameras(1, W, H, radius=3.0, device="cuda")
+    vm, Km = cams.viewmats[0], cams.Ks[0]
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
+    plan = build_plan(proj, W, H, ts)
+    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan)
+    feats = torch.zeros((plan.n_tiles, ts * ts, 8), device="cuda")
+    geom, cols = pack[:, :8].contiguous(), torch.zeros((plan.T_padded, 5), device="cuda")
+    z = torch.zeros((H, W), device="cuda")
+    bwd = (geom, cols, torch.zeros((H, W, 5), device="cuda"), z, z,
+           torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda"), plan)
+    K.LAUNCHES.reset()
+    for call in (lambda: K.render_tiles(pack, plan), lambda: K.adjoint_rows(pack, feats, plan),
+                 lambda: K.adjoint_scatter_rows(pack, feats, with_scatter_extras(plan)),
+                 lambda: T.train_forward(geom, cols, plan), lambda: T.train_rows(*bwd),
+                 lambda: T.train_geom_rows(*bwd)):
+        with pytest.raises(ValueError, match=f"TILE_MAX = {K.TILE_MAX}"):
+            call()
+    torch.cuda.synchronize()
+    assert sum(K.LAUNCHES.snapshot().values()) == 0

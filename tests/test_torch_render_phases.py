@@ -3,7 +3,8 @@
 * ``render_cluster`` gives C = ts*ts / 256 CTAs per tile (4 at tile 32, 1
   at tile 16), so a tile's pixels split into whole ranks of
   ``RENDER_THREADS`` pixels, each rank into whole 8 x 4 warp rectangles;
-  other tiles raise.
+  tiles 8 and 24 take 1 and 3 CTAs (with ghost slots), tiles past
+  ``TILE_MAX`` raise.
 * Every pattern of the tool's ``cluster`` table occurs exactly once in the
   tree's ``render.cu``, so each variant builds from the tree's kernel, and
   no substitution consumes another's pattern; the prelude and epilogue
@@ -36,7 +37,12 @@ def test_render_cluster_geometry(ts, c):
 
 @pytest.mark.parametrize("ts", [0, 8, 24, 33, 64])
 def test_render_cluster_refuses_other_tiles(ts):
-    with pytest.raises(ValueError):
+    """Tiles past 1..TILE_MAX raise, naming the cap; tiles 8 and 24 take
+    the CTAs their warp rectangles fill (1 and 3), ghost slots beyond."""
+    if 1 <= ts <= K.TILE_MAX:
+        assert K.render_cluster(ts) == {8: 1, 24: 3}[ts]
+        return
+    with pytest.raises(ValueError, match=f"TILE_MAX = {K.TILE_MAX}"):
         K.render_cluster(ts)
 
 

@@ -67,7 +67,8 @@ from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan, with_scatter_extras
 from tpugs_torch.raster.projection import project
-from tpugs_torch.raster.train import GEOM_MAX_CHANNELS, pack_train, train_forward, train_rows
+from tpugs_torch.raster.train import (
+    GEOM_MAX_CHANNELS, pack_train, train_forward, train_layout, train_rows)
 from tpugs_torch.train.config import TrainConfig
 from tpugs_torch.train.lpips import lpips_distance, random_lpips_params
 from tpugs_torch.train.modules import AppearanceOptModule, CameraOptModule
@@ -343,9 +344,8 @@ BAD_CALLS.update({
         lambda p, k, f: train_rows(*_bwd_args(p, k, done=lambda d: d.long()), p), TypeError),
     "train_bwd f16 rows": (
         lambda p, k, f: train_rows(*_bwd_args(p, k), p, torch.float16), TypeError),
-    "train_bwd too many channels": (
-        lambda p, k, f: train_rows(*_bwd_args(p, k, d=GEOM_MAX_CHANNELS + 1), p),
-        ValueError),
+    "train_bwd too many channels": (  # the card's layout; the CPU twin takes any D
+        lambda p, k, f: train_layout(p.tile_size, GEOM_MAX_CHANNELS + 1), ValueError),
 })
 
 

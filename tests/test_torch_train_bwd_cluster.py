@@ -4,8 +4,8 @@
   ``CLUSTER_MAX_CHANNELS`` channels, so a tile's pixels split into whole
   ranks (8 at tile 32, 2 at tile 16), and None above it, where
   ``train_layout`` gives the colour slices (the same ranks) and the
-  geometry kernel, up to ``GEOM_MAX_CHANNELS``; other tiles and widths
-  raise.
+  geometry kernel, up to ``GEOM_MAX_CHANNELS``; a tile of 8 has one rank;
+  tiles past ``TILE_MAX`` and widths past the cap raise.
 * Every pattern of every phase table that targets a source of this tree
   (adjoint's ``cluster``, train_bwd's ``cluster``, ``colour`` and ``geom``)
   occurs exactly once in
@@ -20,6 +20,7 @@ from pathlib import Path
 import pytest
 
 from tpugs_torch.experiments import adjoint_phases, train_bwd_phases
+from tpugs_torch.raster.kernels import TILE_MAX
 from tpugs_torch.raster.train import (
     CLUSTER_MAX_CHANNELS, GEOM_MAX_CHANNELS, PIXELS_PER_RANK, train_cluster, train_layout)
 
@@ -43,7 +44,14 @@ def test_train_cluster_geometry(ts, d):
 
 @pytest.mark.parametrize("ts, d", [(8, 3), (64, 3), (32, 0), (16, GEOM_MAX_CHANNELS + 1)])
 def test_train_cluster_refuses(ts, d):
-    with pytest.raises(ValueError):
+    """Tiles past TILE_MAX, no channels and widths past GEOM_MAX_CHANNELS
+    raise, naming the cap; a tile of 8 takes one rank of 128 pixel slots,
+    64 of them ghosts."""
+    if ts <= TILE_MAX and 1 <= d <= GEOM_MAX_CHANNELS:
+        assert train_cluster(ts, d) == (1, PIXELS_PER_RANK)
+        return
+    cap = "TILE_MAX = 32" if ts > TILE_MAX else "GEOM_MAX_CHANNELS"
+    with pytest.raises(ValueError, match=cap):
         train_cluster(ts, d)
 
 

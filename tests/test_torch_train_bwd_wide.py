@@ -7,9 +7,10 @@ two launches follow.
   kernel's ranks (``fwd_slices`` at ``COLOUR_SLICE_CHANNELS``) plus the
   geometry cluster kernel; ``geom_cluster`` gives that kernel's (C, P, G)
   at every width: P pixels a rank by ``GEOM_WIDTHS`` (64 up to 700
-  channels, 32 up to 1276, 16 up to 2108, 8 up to 4096), clusters of C =
-  min(ts*ts / P, 16) CTAs, G pixel groups; other tiles, widths below 1 and
-  above the cap raise, ``train_rows`` naming the cap.
+  channels, 32 up to 1276, 16 up to 2108, 8 up to 4276, 4 up to 8620, 2
+  up to 18460, 1 up to 38140), clusters of C = min(ts*ts / P, 16) CTAs at
+  tiles 16 and 32, G pixel groups; tiles past ``TILE_MAX``, widths below
+  1 and above the cap raise, the card's layout naming the cap.
 * The limits named in ``raster/train.py`` are the constants of
   ``csrc/train_bwd.cu``; the geometry kernel's shared memory at each
   width's P fits a CTA, and one channel past a width does not at its P
@@ -56,13 +57,15 @@ SMEM_PER_CTA = 232_448  # a Hopper CTA's shared memory (227 KB), static bytes in
 STATIC_BYTES = 6 * 128 * 4  # the block's geometry (BlockGeom)
 # (widest D, (C, P, G)) of the geometry kernel by tile
 GEOM_LAYOUTS = {16: ((700, (4, 64, 1)), (1276, (8, 32, 1)), (2108, (16, 16, 1)),
-                     (4096, (16, 8, 2))),
+                     (4276, (16, 8, 2)), (8620, (16, 4, 4)), (18460, (16, 2, 8)),
+                     (38140, (16, 1, 16))),
                 32: ((700, (16, 64, 1)), (1276, (16, 32, 2)), (2108, (16, 16, 4)),
-                     (4096, (16, 8, 8)))}
+                     (4276, (16, 8, 8)), (8620, (16, 4, 16)), (18460, (16, 2, 32)),
+                     (38140, (16, 1, 64)))}
 
 
 @pytest.mark.parametrize("d", [1, 3, 256, 257, 300, 512, 700, 701, 1027, 1276, 1277, 2051,
-                               2108, 2109, CAP])
+                               2108, 2109, 4096, 4097, 8620, 8621, 18461, CAP])
 @pytest.mark.parametrize("ts", [16, 32])
 def test_layout_by_width_and_tile(ts, d):
     geom = geom_cluster(ts, d)
@@ -82,8 +85,8 @@ def test_layout_by_width_and_tile(ts, d):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: train_layout(8, 300), lambda: train_layout(64, 3), lambda: train_layout(16, 0),
-    lambda: train_layout(32, CAP + 1), lambda: geom_cluster(24, 5),
+    lambda: train_layout(33, 300), lambda: train_layout(64, 3), lambda: train_layout(16, 0),
+    lambda: train_layout(32, CAP + 1), lambda: geom_cluster(33, 5),
     lambda: geom_cluster(16, 0), lambda: geom_cluster(32, CAP + 1),
     lambda: train_cluster(16, CAP + 1)])
 def test_layout_refuses(call):
@@ -92,10 +95,14 @@ def test_layout_refuses(call):
 
 
 def test_train_rows_names_the_cap():
+    """The card's layout (what ``train_rows`` calls on a CUDA tensor, before
+    any launch) names the cap; the twin on the CPU takes the width."""
     geom, cols, g, hterm, grem0, done, plan = _bwd_inputs(3, 16)
-    wide = cols.new_zeros((plan.T_padded, CAP + 1)), g.new_zeros((H, W, CAP + 1))
     with pytest.raises(ValueError, match=f"GEOM_MAX_CHANNELS = {CAP}"):
-        train_rows(geom, wide[0], wide[1], hterm, grem0, done, plan)
+        train_layout(plan.tile_size, CAP + 1)
+    rows = train_rows(geom, torch.cat([cols, cols.new_zeros((plan.T_padded, 2))], 1),
+                      torch.cat([g, g.new_zeros((H, W, 2))], -1), hterm, grem0, done, plan)
+    assert rows.shape == (plan.T_padded, grad_row_width(5))
 
 
 def _constant(name):
@@ -105,19 +112,21 @@ def _constant(name):
 
 
 def _c_widths():
-    m = re.search(r"constexpr int kGeomWidths\[4\]\[2\] = \{(.*)\};", SOURCE.read_text())
+    m = re.search(r"constexpr int kGeomWidths\[7\]\[2\] = \{(.*?)\};", SOURCE.read_text(),
+                  re.S)
     assert m
     return tuple(tuple(int(x) for x in pair) for pair in re.findall(r"\{(\d+), (\d+)\}", m[1]))
 
 
 def _geom_bytes(p, d):
     """The geometry kernel's dynamic shared memory at P = p (GeomLayout<P>::
-    bytes): g, two chunks of K KS colour columns, the u buffers (one at
-    K = 2), d sigma and d op, the block's partial sums."""
+    bytes): g, two chunks of K KS colour columns (K = 256 / (8 p / JP)
+    splits, JP = min(p, 4)), the u buffers (one at K = 2), d sigma and d
+    op, the block's partial sums."""
     d4 = -(-d // 4) * 4
     ldg = d4 if (d4 // 4) % 2 else d4 + 4
-    k = 128 // p
-    kc = k * (32 if p >= 16 else 16)
+    k = 256 // (8 * (p // min(p, 4)))
+    kc = k * (32 if p >= 16 else 16 if p == 8 else 8)
     return 4 * (p * ldg + 2 * 32 * (kc + 4) + (1 if k == 2 else k) * p * 36
                 + 2 * 32 * (p + 5) + 128 * GEOM_GRADS)
 

@@ -66,8 +66,10 @@ def test_train_fwd_cluster_refuses(ts, d):
 
 def test_wide_widths_are_not_bounded_by_the_backward():
     assert train_fwd_cluster(32, 600)[2:] == (3, 208)
-    assert train_fwd_cluster(32, GEOM_MAX_CHANNELS)[2:] == (16, 256)
-    assert train_fwd_cluster(16, GEOM_MAX_CHANNELS + 1)[2:] == (17, 256)
+    assert train_fwd_cluster(32, 4096)[2:] == (16, 256)
+    assert train_fwd_cluster(16, 4097)[2:] == (17, 256)
+    assert train_fwd_cluster(32, GEOM_MAX_CHANNELS)[2:] == (149, 256)
+    assert train_fwd_cluster(16, GEOM_MAX_CHANNELS + 1)[2:] == (149, 256)
 
 
 PATTERNS = [

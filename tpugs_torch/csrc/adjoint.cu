@@ -46,6 +46,11 @@
 //     pixels' T > eps and stores a mark into every rank's flag slot for
 //     the block; it is read after the next cluster barrier, so every rank
 //     decides what the one-CTA kernel decided.
+// Tiles up to 32 whose ts*ts pixels are not whole groups (kGhost): the
+// last group's slots past ts*ts are ghosts, whose T starts at 0 (so all
+// their weights are 0 and they vote for the exit) and whose feature rows
+// are staged as zeros; the product still runs over whole groups.
+// At tiles 16 and 32 the groups are whole and kGhost is false.
 // Every global store is 16 bytes: the product rows (bf16 through a 1-KB
 // per-warp stage), and the zero rows of exited blocks. Shared memory per
 // CTA: two buffers of C*P pixels x 128 columns (W and F) + 8 KB stage + 7
@@ -164,11 +169,11 @@ __device__ __forceinline__ long long out_row(const int* __restrict__ dest, long 
 // by cp.async (committed as one group), the others built in registers and
 // stored as 16 bytes. Vectors that start at or past column D hold no
 // feature and are the same in every round: fill_constant_columns wrote
-// them once.
-template <typename T>
+// them once. With kGhost, rows pl >= nreal (ghosts) get zero features.
+template <typename T, bool kGhost>
 __device__ __forceinline__ void stage_features(T* Fs, const T* __restrict__ feats,
-                                               long long pix_base, int npix, int c0, int D,
-                                               bool vec_ok, int tid) {
+                                               long long pix_base, int npix, int nreal, int c0,
+                                               int D, bool vec_ok, int tid) {
   using L = Layout<T>;
   constexpr int VPR = kSlice / L::V;
   for (int idx = tid; idx < npix * VPR; idx += kThreads) {
@@ -177,7 +182,9 @@ __device__ __forceinline__ void stage_features(T* Fs, const T* __restrict__ feat
     if (col >= D) continue;
     const T* src = feats + (pix_base + pl) * D + col;
     T* dst = Fs + L::off(pl, (idx % VPR) * L::V);
-    if (vec_ok && col + L::V <= D) {
+    if (kGhost && pl >= nreal) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    } else if (vec_ok && col + L::V <= D) {
       cp_async16(dst, src);
     } else {  // built in registers, stored as one vector
       alignas(16) T v[L::V];
@@ -383,7 +390,7 @@ using ProductOf = typename std::conditional<std::is_same<T, bf16>::value, WgmmaP
 
 // Grid (C * ceil(S / 8), n_tiles) in clusters of (C, 1, 1): blockIdx.x is
 // the channel slice, the cluster's CTAs share one tile.
-template <typename T, bool kScatter>
+template <typename T, bool kScatter, bool kGhost>
 __global__ void __launch_bounds__(kThreads, 2)
 adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_starts,
                const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
@@ -407,7 +414,7 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
   const int n_dst = min(C, DC / kSlice - (static_cast<int>(blockIdx.x) - rank));
   const int tile = blockIdx.y;
   const int tspx = ts * ts;
-  const int n_groups = tspx / L::P;
+  const int n_groups = kGhost ? (tspx + L::P - 1) / L::P : tspx / L::P;
   const int n_rounds = (n_groups + C - 1) / C;
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
@@ -417,7 +424,8 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
   const int pl = tid / L::K, q = tid % L::K;  // pixel of the group, lane of the pixel
   const uint32_t w_dst = map_rank(smem_addr(Ws), q < n_dst ? q : 0);
 
-  for (int p = tid; p < tspx; p += kThreads) Tpix[p] = 1.0f;
+  for (int p = tid; p < n_groups * L::P; p += kThreads)
+    Tpix[p] = !kGhost || p < tspx ? 1.0f : 0.0f;  // a ghost's T is 0
   if (tid < 2) exit_mark[tid] = 0;
   if (has_cols) fill_constant_columns<T>(Fs, C * L::P, c0, D, tid);
   cluster_arrive();  // every CTA of the cluster has started and initialised
@@ -440,13 +448,14 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
       const int npix = min(C, n_groups - g0) * L::P;
       __syncthreads();  // the geometry is in; every read of F (and W) is done
       if (has_cols)
-        stage_features<T>(Fs, feats, static_cast<long long>(tile) * tspx + g0 * L::P, npix,
-                          c0, D, vec_ok, tid);
+        stage_features<T, kGhost>(Fs, feats, static_cast<long long>(tile) * tspx + g0 * L::P,
+                                  npix, tspx - g0 * L::P, c0, D, vec_ok, tid);
       cluster_wait();  // every rank has finished reading its W
       if (g0 + rank < n_groups)
         walk_pixel<T>(g, Tpix, (g0 + rank) * L::P + pl, pl, rank, q, w_dst, q < n_dst,
                       remaining, x0, y0, ts, width, height);
-      fence_proxy_async();      if (r == n_rounds - 1) {  // the exit mark of this block, from this rank's pixels
+      fence_proxy_async();
+      if (r == n_rounds - 1) {  // the exit mark of this block, from this rank's pixels
         __syncthreads();  // this round's T updates are in
         int any = 0;
         for (int idx = tid; idx < ((n_groups - rank + C - 1) / C) * L::P; idx += kThreads)
@@ -470,19 +479,14 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
   cluster_wait();  // no rank leaves while another may still reach its memory
 }
 
-template <typename T, bool kScatter>
-int launch(const float* pack, const int* tile_starts, const int* tile_ends,
-           const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
-           int ntx, int ts, int width, int height, int D, int DC, float trans_eps, int C,
-           int grid_x, cudaStream_t stream) {
+template <typename T, bool kScatter, bool kGhost>
+int launch_as(const float* pack, const int* tile_starts, const int* tile_ends,
+              const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
+              int ntx, int ts, int width, int height, int D, int DC, float trans_eps, int C,
+              int grid_x, cudaStream_t stream) {
   using L = Layout<T>;
-  const int S = DC / kSlice;
-  const int per = (S + kMaxCluster - 1) / kMaxCluster;  // clusters per tile
-  if (DC % kSlice != 0 || DC < D + 1 || ts * ts > kMaxPixels || (ts * ts) % L::P != 0 ||
-      kScatter != (dest != nullptr) || C != (S + per - 1) / per || grid_x != C * per)
-    return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = L::bytes(C);
-  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter>,
+  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter, kGhost>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -499,11 +503,33 @@ int launch(const float* pack, const int* tile_starts, const int* tile_ends,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, adjoint_kernel<T, kScatter>, pack, tile_starts, tile_ends,
-                         padded_starts, feats, dest, out, ntx, ts, width, height, D, DC,
-                         trans_eps, vec_ok, C);
+  e = cudaLaunchKernelEx(&cfg, adjoint_kernel<T, kScatter, kGhost>, pack, tile_starts,
+                         tile_ends, padded_starts, feats, dest, out, ntx, ts, width, height, D,
+                         DC, trans_eps, vec_ok, C);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Tiles 1 to 32; C and grid_x from raster/kernels.py::adjoint_cluster(DC).
+template <typename T, bool kScatter>
+int launch(const float* pack, const int* tile_starts, const int* tile_ends,
+           const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
+           int ntx, int ts, int width, int height, int D, int DC, float trans_eps, int C,
+           int grid_x, cudaStream_t stream) {
+  using L = Layout<T>;
+  const int S = DC / kSlice;
+  const int per = (S + kMaxCluster - 1) / kMaxCluster;  // clusters per tile
+  if (DC % kSlice != 0 || DC < D + 1 || ts < 1 || ts > 32 ||
+      kScatter != (dest != nullptr) || C != (S + per - 1) / per || grid_x != C * per)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(32 * 32 <= kMaxPixels && kMaxPixels % Layout<T>::P == 0, "whole groups");
+  return (ts * ts) % L::P == 0
+             ? launch_as<T, kScatter, false>(pack, tile_starts, tile_ends, padded_starts, feats,
+                                             dest, out, n_tiles, ntx, ts, width, height, D, DC,
+                                             trans_eps, C, grid_x, stream)
+             : launch_as<T, kScatter, true>(pack, tile_starts, tile_ends, padded_starts, feats,
+                                            dest, out, n_tiles, ntx, ts, width, height, D, DC,
+                                            trans_eps, C, grid_x, stream);
 }
 
 // Clusters of C CTAs that can be resident on the card at once (0 if none).
@@ -511,7 +537,7 @@ template <typename T>
 int max_clusters(int C) {
   using L = Layout<T>;
   const size_t bytes = L::bytes(C);
-  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, false>,
+  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, false, false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return -static_cast<int>(e);
@@ -527,7 +553,7 @@ int max_clusters(int C) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, adjoint_kernel<T, false>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, adjoint_kernel<T, false, false>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

@@ -16,11 +16,12 @@
 // walk 8-14 blocks ran their walk serially on one SM while the rest of the
 // card idled, and two thirds of the pairs it evaluated cannot reach the
 // 1/255 clip anywhere near the pixel. Here:
-//   * a tile is a thread-block cluster of C = ts*ts / 256 CTAs of 256
-//     threads (4 at tile 32, 1 at tile 16; render_cluster in
-//     raster/kernels.py, checked here), rank r owning pixel rows
-//     [r * 256 / ts, (r + 1) * 256 / ts), one thread per pixel, so a heavy
-//     tile's walk runs on C SMs; each rank stages the block's 128 pack rows
+//   * a tile is a thread-block cluster of C CTAs of 256 threads (4 at tile
+//     32, 1 at tile 16; render_cluster in raster/kernels.py, checked here),
+//     warp w of rank r taking the tile's warp rectangle 8r + w (row-major,
+//     so rank r owns pixel rows [r * 256 / ts, (r + 1) * 256 / ts) at tiles
+//     16 and 32), one thread per pixel, so a heavy tile's walk runs on C
+//     SMs; each rank stages the block's 128 pack rows
 //     (geometry and colour, 48 bytes each, three 16-byte cp.async) itself,
 //     one block ahead, double-buffered;
 //   * a warp covers an 8 x 4 pixel rectangle (the output stays row-major in
@@ -45,6 +46,15 @@
 // The instantiation without the cull walks all 128 Gaussians of a block,
 // as the old kernel did; it exists for the checks that hold the two
 // bit-equal.
+//
+// Other tiles, up to 32 (kGhost): ceil(ts / 8) x ceil(ts / 4) warp
+// rectangles cover the tile, in C = ceil(rectangles / 8) CTAs. A pixel
+// slot outside the tile's ts x ts (in a rectangle that reaches past the
+// tile, or in a warp past the last rectangle) is a ghost: its T starts at
+// 0, so it weighs nothing and votes for the exit, and it writes nothing; a
+// warp without a rectangle walks no pair. The cull tests a rectangle that
+// reaches past the tile on all its 32 centres, which only culls less. At
+// tiles 16 and 32 the rectangles fill the CTAs, and kGhost is false.
 
 #include <cuda_runtime.h>
 
@@ -134,7 +144,7 @@ __device__ __forceinline__ bool rect_dead(const StagedRow& row, const float4& cs
 }
 
 // Grid C * n_tiles in clusters of (C, 1, 1).
-template <bool kCull>
+template <bool kCull, bool kGhost>
 __global__ void __launch_bounds__(kThreads, 6)
 render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_starts,
               const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
@@ -152,10 +162,21 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
   const int nb = (count + kBlock - 1) / kBlock;
   const long long pstart = padded_starts[tile];
   // The warp's rectangle and the thread's pixel (lx, ly) in the tile.
-  const int rects_x = ts / kRectW;
-  const int rx = (warp % rects_x) * kRectW;
-  const int ry = rank * (kThreads / ts) + (warp / rects_x) * kRectH;
+  int rx, ry;
+  bool rect = true;  // the warp has a rectangle
+  if constexpr (kGhost) {
+    const int rects_x = (ts + kRectW - 1) / kRectW;
+    const int r = rank * (kThreads / 32) + warp;
+    rx = (r % rects_x) * kRectW;
+    ry = (r / rects_x) * kRectH;
+    rect = r < rects_x * ((ts + kRectH - 1) / kRectH);
+  } else {
+    const int rects_x = ts / kRectW;
+    rx = (warp % rects_x) * kRectW;
+    ry = rank * (kThreads / ts) + (warp / rects_x) * kRectH;
+  }
   const int lx = rx + lane % kRectW, ly = ry + lane / kRectW;
+  const bool real = !kGhost || (rect && lx < ts && ly < ts);  // not a ghost
   const float x0 = static_cast<float>((tile % ntx) * ts + rx) + 0.5f;
   const float y0 = static_cast<float>((tile / ntx) * ts + ry) + 0.5f;
   const float px = x0 + static_cast<float>(lane % kRectW);
@@ -166,7 +187,7 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
   cp_async_commit();
   if (C > 1) cluster_arrive();  // every CTA has started and set its marks
 
-  float trans = 1.0f;
+  float trans = real ? 1.0f : 0.0f;
   float img[4] = {0.f, 0.f, 0.f, 0.f};
   bool keep = 1.0f > trans_eps;
   bool pending = C > 1;  // a cluster barrier phase arrived at and not yet waited for
@@ -188,6 +209,7 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
         live[k] = __ballot_sync(~0u, j < remaining && !rect_dead(r[j], cst[j], x0, y0));
       }
     }
+    if (kGhost && !rect) live[0] = live[1] = live[2] = live[3] = 0u;  // the whole warp
     // Block b - 1's exit marks were in flight while block b landed and its
     // masks were built: wait for them only now (b == 0: for the start).
     if (C > 1) {
@@ -245,9 +267,11 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
   if (pending) cluster_wait();  // no rank writes to this CTA's marks after this
   cp_async_wait_all();  // a block staged past the exit lands before the CTA ends
 
-  float* o = out + (static_cast<long long>(tile) * ts * ts + ly * ts + lx) * 5;
-  o[0] = img[0]; o[1] = img[1]; o[2] = img[2]; o[3] = img[3];
-  o[4] = 1.0f - trans;
+  if (real) {
+    float* o = out + (static_cast<long long>(tile) * ts * ts + ly * ts + lx) * 5;
+    o[0] = img[0]; o[1] = img[1]; o[2] = img[2]; o[3] = img[3];
+    o[4] = 1.0f - trans;
+  }
   if (rank == 0 && tid == 0) blocks_done[tile] = b;
 }
 
@@ -267,6 +291,27 @@ cudaLaunchConfig_t render_config(int n_tiles, int C, cudaStream_t stream,
   return cfg;
 }
 
+// CTAs of a tile at tile ts (1 to 32): its warp rectangles at 8 a CTA.
+int render_ctas(int ts) {
+  const int rects = ((ts + kRectW - 1) / kRectW) * ((ts + kRectH - 1) / kRectH);
+  return (rects + kThreads / 32 - 1) / (kThreads / 32);
+}
+
+template <bool kCull, bool kGhost>
+cudaError_t run_as(const float* pack, const int* tile_starts, const int* tile_ends,
+                   const int* padded_starts, float* out, int* blocks_done, int n_tiles, int ntx,
+                   int ts, float trans_eps, int C, cudaStream_t stream, int* resident) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = render_config(n_tiles > 0 ? n_tiles : 1, C, stream, attr);
+  if (n_tiles == 0)
+    return cudaOccupancyMaxActiveClusters(resident, render_kernel<kCull, kGhost>, &cfg);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, render_kernel<kCull, kGhost>, pack, tile_starts,
+                                     tile_ends, padded_starts, out, blocks_done, ntx, ts,
+                                     trans_eps, C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // Launches (n_tiles > 0) or, with n_tiles == 0, returns the resident
 // clusters in *resident. C must be raster/kernels.py::render_cluster(ts).
 template <bool kCull>
@@ -274,14 +319,12 @@ cudaError_t run(const float* pack, const int* tile_starts, const int* tile_ends,
                 const int* padded_starts, float* out, int* blocks_done,
                 int n_tiles, int ntx, int ts, float trans_eps, int C, cudaStream_t stream,
                 int* resident) {
-  if ((ts != 16 && ts != 32) || C * kThreads != ts * ts) return cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = render_config(n_tiles > 0 ? n_tiles : 1, C, stream, attr);
-  if (n_tiles == 0) return cudaOccupancyMaxActiveClusters(resident, render_kernel<kCull>, &cfg);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, render_kernel<kCull>, pack, tile_starts, tile_ends,
-                                     padded_starts, out, blocks_done, ntx, ts, trans_eps, C);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  if (ts < 1 || ts > 32 || C != render_ctas(ts)) return cudaErrorInvalidValue;
+  return C * kThreads == ts * ts
+             ? run_as<kCull, false>(pack, tile_starts, tile_ends, padded_starts, out,
+                                    blocks_done, n_tiles, ntx, ts, trans_eps, C, stream, resident)
+             : run_as<kCull, true>(pack, tile_starts, tile_ends, padded_starts, out,
+                                   blocks_done, n_tiles, ntx, ts, trans_eps, C, stream, resident);
 }
 
 }  // namespace
@@ -304,7 +347,7 @@ extern "C" int tpugs_render(const float* pack, const int* tile_starts, const int
 // Resident clusters of the render kernel at tile ts, or minus a CUDA error.
 extern "C" int tpugs_render_max_clusters(int ts, int cull) {
   int n = 0;
-  const int C = ts * ts / tpugs::kThreads;
+  const int C = ts >= 1 && ts <= 32 ? tpugs::render_ctas(ts) : 0;
   const cudaError_t e =
       cull ? tpugs::run<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, ts,
                               0.0f, C, nullptr, &n)

@@ -195,6 +195,21 @@ __device__ __forceinline__ int2 local_xy(int l, int ts) {
   return make_int2(8 * (w % per_row) + (lane & 7), 4 * (w / per_row) + (lane >> 3));
 }
 
+// Local pixel l (0..127) of rank ``rank`` at (x, y) from the tile's
+// corner: at tiles 16 and 32 (kGhost false) in the rank's pixel rows
+// (local_xy); at other tiles the rank's slots 128 rank + l, row-major over
+// the tile, where y >= ts (a slot past ts^2) marks a ghost.
+template <bool kGhost>
+__device__ __forceinline__ int2 rank_xy(int l, int rank, int ts) {
+  if constexpr (kGhost) {
+    const int p = rank * kPix + l;
+    return make_int2(p % ts, p / ts);
+  } else {
+    const int2 lp = local_xy(l, ts);
+    return make_int2(lp.x, rank * (kPix / ts) + lp.y);
+  }
+}
+
 // The sub-block's colour rows cols[row .. row + 32) into Ct (4-byte
 // cp.async, one committed group), zeros in columns [D, D4).
 __device__ __forceinline__ void stage_colours(float* Ct, const float* __restrict__ cols,
@@ -347,8 +362,9 @@ __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, fl
 }
 
 // Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
-// one tile, rank r its pixels [r * kPix, (r + 1) * kPix).
-template <typename OutT>
+// one tile, rank r its pixels [r * kPix, (r + 1) * kPix) (rank_xy). A
+// ghost (kGhost) has T and g 0, so it adds no weight and no gradient.
+template <typename OutT, bool kGhost>
 __global__ void __launch_bounds__(kCThreads, 2)
 train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                          const float* __restrict__ gimg, const float* __restrict__ hterm,
@@ -379,29 +395,30 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
 
-  const int rank_y = y0 + rank * (kPix / ts);  // the rank's first pixel row
-
   // this thread's pixel (threads of the walk) and its carried state
-  const int2 lp = local_xy(tid, ts);
+  const int2 lp = rank_xy<kGhost>(tid, rank, ts);
+  const bool real = !kGhost || lp.y < ts;
   const int xi = x0 + lp.x;
-  const int yi = rank_y + lp.y;
-  const bool in_img = tid < kPix && xi < width && yi < height;
+  const int yi = y0 + lp.y;
+  const bool in_img = tid < kPix && real && xi < width && yi < height;
   const float px = static_cast<float>(xi) + 0.5f;
   const float py = static_cast<float>(yi) + 0.5f;
   const long long pix = static_cast<long long>(yi) * width + xi;
   const float h = in_img ? hterm[pix] : 0.0f;
   float grem = in_img ? grem0[pix] : 0.0f;
-  float trans = 1.0f;
+  float trans = real ? 1.0f : 0.0f;
 
-  // this rank's g, once per tile: 0 outside the image and in columns [D, D4)
+  // this rank's g, once per tile: 0 outside the image, on ghosts and in
+  // columns [D, D4)
   for (int idx = tid; idx < kPix * D4; idx += kCThreads) {
     const int pl = idx / D4;
     const int c = idx - pl * D4;
-    const int2 l = local_xy(pl, ts);
+    const int2 l = rank_xy<kGhost>(pl, rank, ts);
     const int x = x0 + l.x;
-    const int y = rank_y + l.y;
+    const int y = y0 + l.y;
+    const bool ok = c < D && (!kGhost || l.y < ts) && x < width && y < height;
     float v = 0.0f;
-    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
+    if (ok) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
     Gs[pl * ldg + c] = v;
   }
   // row columns past the geometry sums: 0 in every partial
@@ -567,20 +584,42 @@ cudaLaunchConfig_t cluster_config(int n_tiles, int C, size_t bytes, cudaStream_t
   return cfg;
 }
 
+// The ranks of a tile of the cluster kernel and its colour slices: ts^2
+// pixels at kPix a rank, for tiles 1 to 32 (0 past them).
+int tile_ranks(int ts) { return ts >= 1 && ts <= 32 ? (ts * ts + kPix - 1) / kPix : 0; }
+
 // (C, P) as raster/train.py::train_cluster gives them, or an error.
-template <typename OutT>
+template <typename OutT, bool kGhost>
 cudaError_t prepare_cluster(int ts, int D, int RW, int C, int P, size_t* bytes) {
-  if (D < 1 || D > kMaxClusterD || RW < D + kGeomGrads || RW % 4 != 0 ||
-      (ts != 16 && ts != 32) || P != kPix || C * P != ts * ts || C > kMaxCluster)
+  if (D < 1 || D > kMaxClusterD || RW < D + kGeomGrads || RW % 4 != 0 || P != kPix ||
+      C != tile_ranks(ts) || C > kMaxCluster || kGhost != (C * P != ts * ts))
     return cudaErrorInvalidValue;
   *bytes = ClusterLayout(D, RW).bytes();
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT>,
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT, kGhost>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*bytes));
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT>,
+  return cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT, kGhost>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename OutT, bool kGhost>
+int launch_cluster_as(const float* geom, const float* cols, const float* gimg,
+                      const float* hterm, const float* grem0, const int* tile_starts,
+                      const int* tile_ends, const int* padded_starts, const int* blocks_done,
+                      OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D,
+                      int RW, int C, int P, cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, P, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_cluster_kernel<OutT, kGhost>, geom, cols, gimg, hterm,
+                         grem0, tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
+                         width, height, D, RW, C);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
@@ -589,32 +628,37 @@ int launch_cluster(const float* geom, const float* cols, const float* gimg, cons
                    const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
                    int ntx, int ts, int width, int height, int D, int RW, int C, int P,
                    cudaStream_t stream) {
+  return C * P == ts * ts
+             ? launch_cluster_as<OutT, false>(geom, cols, gimg, hterm, grem0, tile_starts,
+                                              tile_ends, padded_starts, blocks_done, out,
+                                              n_tiles, ntx, ts, width, height, D, RW, C, P,
+                                              stream)
+             : launch_cluster_as<OutT, true>(geom, cols, gimg, hterm, grem0, tile_starts,
+                                             tile_ends, padded_starts, blocks_done, out,
+                                             n_tiles, ntx, ts, width, height, D, RW, C, P,
+                                             stream);
+}
+
+template <typename OutT, bool kGhost>
+int max_clusters_as(int ts, int D, int C) {
+  const int RW = (D + kGeomGrads + 3) / 4 * 4;
   size_t bytes = 0;
-  cudaError_t e = prepare_cluster<OutT>(ts, D, RW, C, P, &bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, kPix, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, train_bwd_cluster_kernel<OutT>, geom, cols, gimg, hterm, grem0,
-                         tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
-                         width, height, D, RW, C);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_cluster_kernel<OutT, kGhost>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // Clusters of the cluster kernel at (ts, D) that can be resident at once,
 // or minus a CUDA error.
 template <typename OutT>
 int max_clusters(int ts, int D) {
-  const int RW = (D + kGeomGrads + 3) / 4 * 4;
-  const int C = ts * ts / kPix;
-  size_t bytes = 0;
-  cudaError_t e = prepare_cluster<OutT>(ts, D, RW, C, kPix, &bytes);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_cluster_kernel<OutT>, &cfg);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  const int C = tile_ranks(ts);
+  return C * kPix == ts * ts ? max_clusters_as<OutT, false>(ts, D, C)
+                             : max_clusters_as<OutT, true>(ts, D, C);
 }
 
 // ------------------------------------------ the colour slices (D > 256)
@@ -677,9 +721,9 @@ __device__ __forceinline__ void sum_columns(OutT* __restrict__ out,
 
 // Grid C * S * n_tiles in clusters of (C, 1, 1): cluster c takes tile c / S
 // and channel slice c % S, columns [c0, c0 + ns); rank r its pixels
-// [r * kPix, (r + 1) * kPix) as in the cluster kernel. Writes only the
-// slice's columns of the walked blocks' rows.
-template <typename OutT>
+// [r * kPix, (r + 1) * kPix) as in the cluster kernel, ghosts too. Writes
+// only the slice's columns of the walked blocks' rows.
+template <typename OutT, bool kGhost>
 __global__ void __launch_bounds__(kCThreads, 2)
 train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict__ gimg,
                         const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
@@ -710,21 +754,21 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
 
-  const int rank_y = y0 + rank * (kPix / ts);
-  const int2 lp = local_xy(tid, ts);
+  const int2 lp = rank_xy<kGhost>(tid, rank, ts);
   const float px = static_cast<float>(x0 + lp.x) + 0.5f;
-  const float py = static_cast<float>(rank_y + lp.y) + 0.5f;
-  float trans = 1.0f;
+  const float py = static_cast<float>(y0 + lp.y) + 0.5f;
+  float trans = !kGhost || lp.y < ts ? 1.0f : 0.0f;
 
-  // this rank's g of the slice, once per tile: 0 outside the image and past ns
+  // this rank's g of the slice, once per tile: 0 outside the image, on
+  // ghosts and past ns
   for (int idx = tid; idx < kPix * Ns; idx += kCThreads) {
     const int pl = idx / Ns;
     const int c = idx - pl * Ns;
-    const int2 l = local_xy(pl, ts);
+    const int2 l = rank_xy<kGhost>(pl, rank, ts);
     const int x = x0 + l.x;
-    const int y = rank_y + l.y;
+    const int y = y0 + l.y;
     float v = 0.0f;
-    if (c < ns && x < width && y < height)
+    if (c < ns && (!kGhost || l.y < ts) && x < width && y < height)
       v = gimg[(static_cast<long long>(y) * width + x) * D + c0 + c];
     Gs[pl * ldg + c] = v;
   }
@@ -781,21 +825,38 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
 }
 
 // (C, P, S, Ns) as raster/train.py::train_layout gives them, or an error.
-template <typename OutT>
+template <typename OutT, bool kGhost>
 cudaError_t prepare_colour(int ts, int D, int RW, int C, int P, int S, int Ns, size_t* bytes) {
   if (D < 1 || RW < D + kGeomGrads || RW % 4 != 0 || S < 1 || Ns < 16 || Ns > kMaxSliceD ||
       Ns % 16 != 0 || static_cast<long long>(S - 1) * Ns >= D ||
-      static_cast<long long>(S) * Ns < D || (ts != 16 && ts != 32) || P != kPix ||
-      C * P != ts * ts || C > kMaxCluster)
+      static_cast<long long>(S) * Ns < D || P != kPix || C != tile_ranks(ts) ||
+      C > kMaxCluster || kGhost != (C * P != ts * ts))
     return cudaErrorInvalidValue;
   *bytes = ColourLayout(Ns).bytes();
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_colour_kernel<OutT>,
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_colour_kernel<OutT, kGhost>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*bytes));
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(train_bwd_colour_kernel<OutT>,
+  return cudaFuncSetAttribute(train_bwd_colour_kernel<OutT, kGhost>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename OutT, bool kGhost>
+int launch_colour_as(const float* geom, const float* gimg, const int* tile_starts,
+                     const int* tile_ends, const int* padded_starts, const int* blocks_done,
+                     OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D,
+                     int RW, int C, int P, int S, int Ns, cudaStream_t stream) {
+  size_t bytes = 0;
+  cudaError_t e = prepare_colour<OutT, kGhost>(ts, D, RW, C, P, S, Ns, &bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(S * n_tiles, C, bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_colour_kernel<OutT, kGhost>, geom, gimg, tile_starts,
+                         tile_ends, padded_starts, blocks_done, out, ntx, ts, width, height, D,
+                         RW, C, S, Ns);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
@@ -803,31 +864,34 @@ int launch_colour(const float* geom, const float* gimg, const int* tile_starts,
                   const int* tile_ends, const int* padded_starts, const int* blocks_done,
                   OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D, int RW,
                   int C, int P, int S, int Ns, cudaStream_t stream) {
+  return C * P == ts * ts
+             ? launch_colour_as<OutT, false>(geom, gimg, tile_starts, tile_ends, padded_starts,
+                                             blocks_done, out, n_tiles, ntx, ts, width, height,
+                                             D, RW, C, P, S, Ns, stream)
+             : launch_colour_as<OutT, true>(geom, gimg, tile_starts, tile_ends, padded_starts,
+                                            blocks_done, out, n_tiles, ntx, ts, width, height,
+                                            D, RW, C, P, S, Ns, stream);
+}
+
+template <typename OutT, bool kGhost>
+int max_colour_clusters_as(int ts, int Ns, int C) {
   size_t bytes = 0;
-  cudaError_t e = prepare_colour<OutT>(ts, D, RW, C, P, S, Ns, &bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = prepare_colour<OutT, kGhost>(ts, Ns, Ns + kGeomGrads, C, kPix, 1, Ns, &bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(S * n_tiles, C, bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, train_bwd_colour_kernel<OutT>, geom, gimg, tile_starts,
-                         tile_ends, padded_starts, blocks_done, out, ntx, ts, width, height, D,
-                         RW, C, S, Ns);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_colour_kernel<OutT, kGhost>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // Clusters of one colour slice Ns columns wide at tile ts that can be
 // resident at once, or minus a CUDA error.
 template <typename OutT>
 int max_colour_clusters(int ts, int Ns) {
-  const int C = ts * ts / kPix;
-  size_t bytes = 0;
-  cudaError_t e = prepare_colour<OutT>(ts, Ns, Ns + kGeomGrads, C, kPix, 1, Ns, &bytes);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_colour_kernel<OutT>, &cfg);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  const int C = tile_ranks(ts);
+  return C * kPix == ts * ts ? max_colour_clusters_as<OutT, false>(ts, Ns, C)
+                             : max_colour_clusters_as<OutT, true>(ts, Ns, C);
 }
 
 // -------------------------------------------- the geometry cluster kernel
@@ -835,22 +899,26 @@ int max_colour_clusters(int ts, int Ns) {
 constexpr int kGThreads = 256;        // the u product's channel splits, the walk's pixels
 constexpr int kMaxGeomCluster = 16;   // GEOM_MAX_CLUSTER in raster/train.py; non-portable
 constexpr int kGeomSmem = 229376;     // dynamic bytes a CTA may take: 227 KB less BlockGeom
-constexpr int kMaxGeomD = 4096;       // GEOM_MAX_CHANNELS in raster/train.py
+constexpr int kMaxGeomD = 38140;      // GEOM_MAX_CHANNELS in raster/train.py
 // (widest D, pixels per rank P) of the geometry kernel, the largest P whose
 // layout fits kGeomSmem first: GEOM_WIDTHS in raster/train.py
-constexpr int kGeomWidths[4][2] = {{700, 64}, {1276, 32}, {2108, 16}, {4096, 8}};
+constexpr int kGeomWidths[7][2] = {{700, 64},  {1276, 32}, {2108, 16}, {4276, 8},
+                                   {8620, 4},  {18460, 2}, {38140, 1}};
 
 // The kernel's shape at NP pixels per rank: the u product in K channel
-// splits of 2 NP threads (a 4 x 4 register tile each), KS channels of every
-// staged chunk of KC = K KS to a split; the walk Q threads per pixel, NG
-// Gaussians of the sub-block each. NU u buffers: at K = 2 the halves add in
-// registers, else every split stores its partial and all threads add them.
+// splits of 8 NP / JP threads (a JP x 4 register tile each: JP pixels, 4
+// Gaussians), KS channels of every staged chunk of KC = K KS to a split;
+// the walk Q threads per pixel, NG Gaussians of the sub-block each (below
+// 8 pixels a rank, one warp a pixel and the other warps idle). NU u
+// buffers: at K = 2 the halves add in registers, else every split stores
+// its partial and all threads add them.
 template <int NP>
 struct GeomShape {
-  static constexpr int K = 128 / NP;
-  static constexpr int KS = NP >= 16 ? 32 : 16;
+  static constexpr int JP = NP < 4 ? NP : 4;
+  static constexpr int K = kGThreads / (8 * (NP / JP));
+  static constexpr int KS = NP >= 16 ? 32 : NP == 8 ? 16 : 8;
   static constexpr int KC = K * KS;
-  static constexpr int Q = kGThreads / NP;
+  static constexpr int Q = kGThreads / NP < kSub ? kGThreads / NP : kSub;
   static constexpr int NG = kSub / Q;
   static constexpr int NU = K == 2 ? 1 : K;
   static constexpr int LDC = KC + 4;  // Cc[gaussian][channel]: an odd count of 16-byte groups
@@ -889,6 +957,20 @@ __device__ __forceinline__ int2 geom_xy(int l, int R, int ts) {
   const int per_row = ts / bw, li = l % (4 * pw);
   return make_int2(bw * (R % per_row) + pw * (l / (4 * pw)) + li % pw,
                    4 * (R / per_row) + li / pw);
+}
+
+// Local pixel l of rank R at (x, y) from the tile's corner: geom_xy at
+// tiles 16 and 32 and P >= 8 (kGhost false; its blocks tile no other
+// tile), else the rank's slots NP R + l, row-major over the tile, where
+// y >= ts (a slot past ts^2) marks a ghost.
+template <int NP, bool kGhost>
+__device__ __forceinline__ int2 geom_pixel(int l, int R, int ts) {
+  if constexpr (kGhost) {
+    const int p = R * NP + l;
+    return make_int2(p % ts, p / ts);
+  } else {
+    return geom_xy<NP>(l, R, ts);
+  }
 }
 
 // Channels [k0, k0 + KC) of the colour rows cols[row .. row + 32) into
@@ -950,7 +1032,8 @@ __device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
 
 // Grid C * G * n_tiles in clusters of (C, 1, 1): cluster c takes tile c / G
 // and its pixel group c % G, the tile's ranks R = (c % G) C .. + C - 1 of
-// NP pixels each (geom_xy). Writes columns [col0, RW) of every row of the
+// NP pixels each (geom_pixel); a ghost has T and g 0, so it adds no
+// gradient. Writes columns [col0, RW) of every row of the
 // tile's span: col0 = 0 for RW = 8 (the geometry rows of train_geom_rows),
 // else col0 = D (train_rows' geometry and pad columns, and the whole rows
 // of the blocks past blocks_done). With G = 1 the cluster's sums are the
@@ -972,7 +1055,7 @@ __device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
 //       butterfly over the 8 (pairs whose d sigma and d op are 0 skipped);
 // and per 128-Gaussian block (4) the ranks' partials are added in rank
 // order through DSMEM, one cluster exchange a block.
-template <typename OutT, int NP>
+template <typename OutT, int NP, bool kGhost>
 __global__ void __launch_bounds__(kGThreads, 1)
 train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                       const float* __restrict__ gimg, const float* __restrict__ hterm,
@@ -982,7 +1065,7 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
                       float* __restrict__ gsum, int ntx, int ts, int width, int height, int D,
                       int RW, int C, int G) {
   using Sh = GeomShape<NP>;
-  constexpr int kLdC = Sh::LDC, kLdS = Sh::LDS, kStride = NP / 4;
+  constexpr int kLdC = Sh::LDC, kLdS = Sh::LDS, kStride = NP / Sh::JP, kJP = Sh::JP;
   extern __shared__ __align__(16) float smem[];
   const GeomLayout<NP> L(D);
   float* Gs = smem;                  // [NP][ldg]: this rank's g, for the whole tile
@@ -1013,29 +1096,33 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
     part[r] = map_rank(smem_addr(Gpart), r < C ? r : 0);
 
   // this thread's pixel in the walk, its share of the Gaussians and the
-  // pixel's carried state (the same in its Q threads)
+  // pixel's carried state (the same in its Q threads); below 8 pixels a
+  // rank the threads past NP Q walk no pixel
+  constexpr bool kAllWalk = Sh::Q * NP == kGThreads;
   const int wp = tid / Sh::Q, quarter = tid % Sh::Q;
-  const int2 lp = geom_xy<NP>(wp, R, ts);
+  const int2 lp = geom_pixel<NP, kGhost>(wp, R, ts);
+  const bool real = (kAllWalk || wp < NP) && (!kGhost || lp.y < ts);
   const int xi = x0 + lp.x;
   const int yi = y0 + lp.y;
-  const bool in_img = xi < width && yi < height;
+  const bool in_img = real && xi < width && yi < height;
   const float px = static_cast<float>(xi) + 0.5f;
   const float py = static_cast<float>(yi) + 0.5f;
   const long long pix = static_cast<long long>(yi) * width + xi;
   const float h = in_img ? hterm[pix] : 0.0f;
   float grem = in_img ? grem0[pix] : 0.0f;
-  float trans = 1.0f;
+  float trans = real ? 1.0f : 0.0f;
 
-  // this rank's g over all D channels, once per tile: 0 outside the image
-  // and in columns [D, D4)
+  // this rank's g over all D channels, once per tile: 0 outside the image,
+  // on ghosts and in columns [D, D4)
   for (int idx = tid; idx < NP * D4; idx += kGThreads) {
     const int pl = idx / D4;
     const int c = idx - pl * D4;
-    const int2 l = geom_xy<NP>(pl, R, ts);
+    const int2 l = geom_pixel<NP, kGhost>(pl, R, ts);
     const int x = x0 + l.x;
     const int y = y0 + l.y;
+    const bool inside = (!kGhost || l.y < ts) && x < width && y < height;
     float v = 0.0f;
-    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
+    if (c < D && inside) v = gimg[(static_cast<long long>(y) * width + x) * D + c];
     Gs[pl * ldg + c] = v;
   }
   // the colour chunks of the walk in order: sub-block q / n_ch of the span,
@@ -1047,7 +1134,7 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
   cluster_wait();
   cluster_arrive();  // Gpart is free (paired with the first block's wait)
 
-  // (1)'s thread (pg, gg) of channel split `half`: pixels pg + (NP / 4) j,
+  // (1)'s thread (pg, gg) of channel split `half`: pixels pg + (NP / JP) j,
   // Gaussians gg + 8m
   const int half = tid / (kGThreads / Sh::K);
   const int gg = tid & 7, pg = (tid % (kGThreads / Sh::K)) >> 3;
@@ -1061,9 +1148,9 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
       const int gbase = s * kSub;
 
       // (1) u = G Ct^T, chunk by chunk, each chunk staged one ahead
-      float u[4][4];
+      float u[kJP][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kJP; ++j)
 #pragma unroll
         for (int m = 0; m < 4; ++m) u[j][m] = 0.0f;
       for (int kc = 0; kc < n_ch; ++kc, ++q) {
@@ -1079,15 +1166,15 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
         const int kw4 = min(Sh::KS, D4 - k0);
 #pragma unroll 1
         for (int k = 0; k < kw4; k += 4) {
-          float4 gv[4], cv[4];
+          float4 gv[kJP], cv[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < kJP; ++j)
             gv[j] = *reinterpret_cast<const float4*>(Gk + (pg + kStride * j) * ldg + k);
 #pragma unroll
           for (int m = 0; m < 4; ++m)
             cv[m] = *reinterpret_cast<const float4*>(Cc + (gg + 8 * m) * kLdC + k);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < kJP; ++j)
 #pragma unroll
             for (int m = 0; m < 4; ++m) {
               float a = fmaf(gv[j].x, cv[m].x, u[j][m]);
@@ -1101,14 +1188,14 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
       if constexpr (Sh::K == 2) {
         if (half) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < kJP; ++j)
 #pragma unroll
             for (int m = 0; m < 4; ++m) Us[(pg + kStride * j) * kLdU + gg + 8 * m] = u[j][m];
         }
         __syncthreads();
         if (!half) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < kJP; ++j)
 #pragma unroll
             for (int m = 0; m < 4; ++m) {
               float* o = Us + (pg + kStride * j) * kLdU + gg + 8 * m;
@@ -1117,7 +1204,7 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kJP; ++j)
 #pragma unroll
           for (int m = 0; m < 4; ++m)
             Us[(half * NP + pg + kStride * j) * kLdU + gg + 8 * m] = u[j][m];
@@ -1134,7 +1221,7 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
 
       // (2) the walk: thread `quarter` of pixel wp takes Gaussians
       // NG quarter + 0..NG-1 of the sub-block
-      {
+      if (kAllWalk || wp < NP) {
         const float* row = Us + wp * kLdU + Sh::NG * quarter;
         float uu[Sh::NG];
         if constexpr (Sh::NG % 4 == 0) {
@@ -1216,7 +1303,7 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
           const float ds = Dsig[i * kLdS + p];
           const float dop = Dop[i * kLdS + p];
           if (ds == 0.0f && dop == 0.0f) continue;  // every term 0
-          const int2 xy = geom_xy<NP>(p, R, ts);
+          const int2 xy = geom_pixel<NP, kGhost>(p, R, ts);
           const float dx = __fsub_rn(static_cast<float>(x0 + xy.x) + 0.5f, mx);
           const float dy = __fsub_rn(static_cast<float>(y0 + xy.y) + 0.5f, my);
           const float dmx = ds * -(ca * dx + cb * dy);
@@ -1303,28 +1390,32 @@ int geom_pixels(int D) {
   return 0;
 }
 
-// (C, P, G) as raster/train.py::geom_cluster gives them, or an error. RW
-// is 8 (geometry rows) or train_rows' (D + 8 rounded up to 4).
+// (C, P, G) as raster/train.py::geom_cluster gives them, or an error: the
+// tile's ceil(ts^2 / P) ranks in G = ceil(ranks / 16) groups of C =
+// ceil(ranks / G). RW is 8 (geometry rows) or train_rows' (D + 8 rounded up
+// to 4).
 cudaError_t check_geom(int ts, int D, int RW, int C, int P, int G) {
   if (D < 1 || D > kMaxGeomD || (RW != kGeomGrads && RW != (D + kGeomGrads + 3) / 4 * 4) ||
-      (ts != 16 && ts != 32) || P != geom_pixels(D) ||
-      C != min(ts * ts / P, kMaxGeomCluster) || C * P * G != ts * ts)
+      ts < 1 || ts > 32 || P != geom_pixels(D))
     return cudaErrorInvalidValue;
+  const int ranks = (ts * ts + P - 1) / P;
+  const int groups = (ranks + kMaxGeomCluster - 1) / kMaxGeomCluster;
+  if (G != groups || C != (ranks + groups - 1) / groups) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-template <typename OutT, int NP>
+template <typename OutT, int NP, bool kGhost>
 cudaError_t prepare_geom(int D, size_t* bytes) {
   *bytes = GeomLayout<NP>(D).bytes();
   if (*bytes > static_cast<size_t>(kGeomSmem)) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP, kGhost>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*bytes));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
+  e = cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP, kGhost>,
                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP>,
+  return cudaFuncSetAttribute(train_bwd_geom_kernel<OutT, NP, kGhost>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -1336,20 +1427,20 @@ cudaLaunchConfig_t geom_config(int n_clusters, int C, size_t bytes, cudaStream_t
   return cfg;
 }
 
-template <typename OutT, int NP>
+template <typename OutT, int NP, bool kGhost>
 int launch_geom_p(const float* geom, const float* cols, const float* gimg, const float* hterm,
                   const float* grem0, const int* tile_starts, const int* tile_ends,
                   const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
                   int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C,
                   int G, cudaStream_t stream) {
   size_t bytes = 0;
-  cudaError_t e = prepare_geom<OutT, NP>(D, &bytes);
+  cudaError_t e = prepare_geom<OutT, NP, kGhost>(D, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = geom_config(G * n_tiles, C, bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, train_bwd_geom_kernel<OutT, NP>, geom, cols, gimg, hterm, grem0,
-                         tile_starts, tile_ends, padded_starts, blocks_done, out, gsum, ntx, ts,
-                         width, height, D, RW, C, G);
+  e = cudaLaunchKernelEx(&cfg, train_bwd_geom_kernel<OutT, NP, kGhost>, geom, cols, gimg, hterm,
+                         grem0, tile_starts, tile_ends, padded_starts, blocks_done, out, gsum,
+                         ntx, ts, width, height, D, RW, C, G);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 1)
     train_bwd_geom_groups_kernel<OutT><<<n_tiles, kGThreads, 0, stream>>>(
@@ -1366,28 +1457,33 @@ int launch_geom(const float* geom, const float* cols, const float* gimg, const f
   cudaError_t e = check_geom(ts, D, RW, C, P, G);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 1 && gsum == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define TPUGS_GEOM_LAUNCH(NP)                                                                  \
-  launch_geom_p<OutT, NP>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,             \
-                          padded_starts, blocks_done, out, gsum, n_tiles, ntx, ts, width,     \
-                          height, D, RW, C, G, stream)
+  // geom_xy's blocks tile only tiles 16 and 32 (at P >= 8, where C P G = ts^2)
+  const bool ghost = ts != 16 && ts != 32;
+#define TPUGS_GEOM_LAUNCH(NP, GHOST)                                                           \
+  launch_geom_p<OutT, NP, GHOST>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,      \
+                                 padded_starts, blocks_done, out, gsum, n_tiles, ntx, ts,     \
+                                 width, height, D, RW, C, G, stream)
   switch (P) {
-    case 64: return TPUGS_GEOM_LAUNCH(64);
-    case 32: return TPUGS_GEOM_LAUNCH(32);
-    case 16: return TPUGS_GEOM_LAUNCH(16);
-    default: return TPUGS_GEOM_LAUNCH(8);
+    case 64: return ghost ? TPUGS_GEOM_LAUNCH(64, true) : TPUGS_GEOM_LAUNCH(64, false);
+    case 32: return ghost ? TPUGS_GEOM_LAUNCH(32, true) : TPUGS_GEOM_LAUNCH(32, false);
+    case 16: return ghost ? TPUGS_GEOM_LAUNCH(16, true) : TPUGS_GEOM_LAUNCH(16, false);
+    case 8: return ghost ? TPUGS_GEOM_LAUNCH(8, true) : TPUGS_GEOM_LAUNCH(8, false);
+    case 4: return TPUGS_GEOM_LAUNCH(4, true);
+    case 2: return TPUGS_GEOM_LAUNCH(2, true);
+    default: return TPUGS_GEOM_LAUNCH(1, true);
   }
 #undef TPUGS_GEOM_LAUNCH
 }
 
-template <int NP>
+template <int NP, bool kGhost>
 int max_geom_clusters_p(int C, int D) {
   size_t bytes = 0;
-  cudaError_t e = prepare_geom<float, NP>(D, &bytes);
+  cudaError_t e = prepare_geom<float, NP, kGhost>(D, &bytes);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = geom_config(1, C, bytes, nullptr, attr);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_geom_kernel<float, NP>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, train_bwd_geom_kernel<float, NP, kGhost>, &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -1395,14 +1491,22 @@ int max_geom_clusters_p(int C, int D) {
 // (geometry rows, RW = 8), or minus a CUDA error.
 int max_geom_clusters(int ts, int D) {
   const int P = geom_pixels(D);
-  if (D < 1 || P == 0 || (ts != 16 && ts != 32)) return -static_cast<int>(cudaErrorInvalidValue);
-  const int C = min(ts * ts / P, kMaxGeomCluster);
+  if (D < 1 || P == 0 || ts < 1 || ts > 32) return -static_cast<int>(cudaErrorInvalidValue);
+  const int ranks = (ts * ts + P - 1) / P;
+  const int G = (ranks + kMaxGeomCluster - 1) / kMaxGeomCluster;
+  const int C = (ranks + G - 1) / G;
+  const bool ghost = ts != 16 && ts != 32;
+#define TPUGS_GEOM_RESIDENT(NP, GHOST) max_geom_clusters_p<NP, GHOST>(C, D)
   switch (P) {
-    case 64: return max_geom_clusters_p<64>(C, D);
-    case 32: return max_geom_clusters_p<32>(C, D);
-    case 16: return max_geom_clusters_p<16>(C, D);
-    default: return max_geom_clusters_p<8>(C, D);
+    case 64: return ghost ? TPUGS_GEOM_RESIDENT(64, true) : TPUGS_GEOM_RESIDENT(64, false);
+    case 32: return ghost ? TPUGS_GEOM_RESIDENT(32, true) : TPUGS_GEOM_RESIDENT(32, false);
+    case 16: return ghost ? TPUGS_GEOM_RESIDENT(16, true) : TPUGS_GEOM_RESIDENT(16, false);
+    case 8: return ghost ? TPUGS_GEOM_RESIDENT(8, true) : TPUGS_GEOM_RESIDENT(8, false);
+    case 4: return TPUGS_GEOM_RESIDENT(4, true);
+    case 2: return TPUGS_GEOM_RESIDENT(2, true);
+    default: return TPUGS_GEOM_RESIDENT(1, true);
   }
+#undef TPUGS_GEOM_RESIDENT
 }
 
 }  // namespace

@@ -550,7 +550,8 @@ cudaError_t dispatch(const float* geom, const float* cols, const int* tile_start
 
 constexpr int kSliceC = 32;  // channels per CUDA block
 
-// Grid (tile, slice of 32 channels); one thread per pixel (ts*ts threads)
+// Grid (tile, slice of 32 channels); one thread per pixel (ts*ts threads;
+// below 128 of them, each stages several of the block's geometry rows)
 // walks the 128 Gaussians of a block in order, carrying its exclusive
 // transmittance in a register (the exact sequential product, as B1), and
 // keeps its 32 channel sums in registers. The block's geometry and its 128
@@ -586,7 +587,7 @@ train_fwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
   int b = 0;
   for (; b < nb && keep; ++b) {
     const long long row0 = pstart + static_cast<long long>(b) * kBlock;
-    load_geom(g, geom, row0, p, kGeomCols);
+    for (int i = p; i < kBlock; i += blockDim.x) load_geom(g, geom, row0, i, kGeomCols);
     for (int idx = p; idx < kBlock * kSliceC; idx += blockDim.x) {
       const int i = idx / kSliceC;
       const int c = idx % kSliceC;
@@ -644,9 +645,9 @@ extern "C" int tpugs_train_fwd(TPUGS_TRAIN_FWD_ARGS, int C, int P, int S, int Ns
                                           height, D, trans_eps, C, P, S, Ns, stream, nullptr));
 }
 
-// The wide kernel, for any D >= 1 and ts * ts <= 1024.
+// The wide kernel, for any D >= 1 and tiles 1 to 32.
 extern "C" int tpugs_train_fwd_wide(TPUGS_TRAIN_FWD_ARGS, cudaStream_t stream) {
-  if (ts * ts > 1024 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (ts < 1 || ts > 32 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_tiles, (D + tpugs::kSliceC - 1) / tpugs::kSliceC);
   tpugs::train_fwd_wide_kernel<<<grid, ts * ts, 0, stream>>>(
       geom, cols, tile_starts, tile_ends, padded_starts, img, alpha, blocks_done, ntx, ts,

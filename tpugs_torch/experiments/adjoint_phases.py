@@ -84,13 +84,14 @@ TABLES: Dict[str, Dict[str, List[Sub]]] = {
              "if (__syncthreads_or(b + 1 < g_done[tile]) && tid < C)"),
         ],
         "staging": [("      if (has_cols)\n"
-                     "        stage_features<T>(Fs, feats, static_cast<long long>(tile) * tspx + "
-                     "g0 * L::P, npix,\n                          c0, D, vec_ok, tid);\n", "")],
+                     "        stage_features<T, kGhost>(Fs, feats, static_cast<long long>(tile) * "
+                     "tspx + g0 * L::P,\n                                  npix, tspx - g0 * L::P, "
+                     "c0, D, vec_ok, tid);\n", "")],
         "zero rows": [("      if (has_cols) zero_rows<T, kScatter>(out, dest, row0, DC, c0, tid);\n",
                        "")],
         "sharing": [("    if (store) {", "    if (false) {")],
-        "occupancy": [("  const size_t bytes = L::bytes(C);\n  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter>,",
-                       "  const size_t bytes = L::bytes(C) + 114 * 1024;\n  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter>,")],
+        "occupancy": [("  const size_t bytes = L::bytes(C);\n  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter, kGhost>,",
+                       "  const size_t bytes = L::bytes(C) + 114 * 1024;\n  cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter, kGhost>,")],
     },
 }
 

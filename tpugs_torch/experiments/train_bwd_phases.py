@@ -146,12 +146,9 @@ _D_COL = [("for (int q = q0; q < q0 + kPix / 2; ++q) {", "for (int q = q0; q < q
 
 TABLES["cluster"] = {
     "u product": [("for (int k = 0; k < D4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
-    "g staging": [("    const int y = rank_y + l.y;\n    float v = 0.0f;\n"
-                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
-                   "* width + x) * D + c];\n    Gs[pl * ldg + c] = v;\n",
-                   "    const int y = rank_y + l.y;\n    float v = 0.0f;\n"
-                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
-                   "* width + x) * D + c];\n")],
+    "g staging": [("    if (ok) v = gimg[(static_cast<long long>(y) * width + x) * D + c];\n"
+                   "    Gs[pl * ldg + c] = v;\n",
+                   "    if (ok) v = gimg[(static_cast<long long>(y) * width + x) * D + c];\n")],
     "colour staging": [("    cp_async4(Ct + i * L.ldg + e - i * D, src + e);\n", "")],
     "walk": [(_CLUSTER_WALK, _CLUSTER_CONST_WALK)],
     "geometry": [("make_float4(ww[0], ww[1], ww[2], ww[3]);\n"
@@ -198,12 +195,10 @@ _GEOM_CONST_WALK = """          al[e] = 1e-3f * gi + px + py;
 
 TABLES["geom"] = {
     "u product": [("for (int k = 0; k < kw4; k += 4) {", "for (int k = 0; k < 0; k += 4) {")],
-    "g staging": [("    const int y = y0 + l.y;\n    float v = 0.0f;\n"
-                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
-                   "* width + x) * D + c];\n    Gs[pl * ldg + c] = v;\n",
-                   "    const int y = y0 + l.y;\n    float v = 0.0f;\n"
-                   "    if (c < D && x < width && y < height) v = gimg[(static_cast<long long>(y) "
-                   "* width + x) * D + c];\n")],
+    "g staging": [("    if (c < D && inside) v = gimg[(static_cast<long long>(y) * width + x) * D "
+                   "+ c];\n    Gs[pl * ldg + c] = v;\n",
+                   "    if (c < D && inside) v = gimg[(static_cast<long long>(y) * width + x) * D "
+                   "+ c];\n")],
     "colour staging": [
         ("      if (k < kw) cp_async16(Cc + i * kLdC + k, src + static_cast<long long>(i) * D + k);\n",
          ""),

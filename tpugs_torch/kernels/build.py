@@ -117,14 +117,21 @@ def build_library() -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return compile_library(CSRC_DIR, so)
+
+
+def compile_library(csrc: Path, so: Path) -> Path:
+    """Compile every ``*.cu`` of ``csrc`` (one nvcc each, all started
+    together) and link them into ``so``; nvcc's output goes to
+    ``<so>.log``."""
+    so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    cus, _ = sources()
+    cus = sorted(csrc.glob("*.cu"))
     tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+    objs = [so.parent / f"{tag}.{cu.stem}.o" for cu in cus]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(cu), "-o", str(o)],
+            [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(cu), "-o", str(o)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for cu, o in zip(cus, objs)
@@ -137,7 +144,7 @@ def build_library() -> Path:
             failed.append(cu.name)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-    tmp = BUILD_DIR / f"{tag}.so"
+    tmp = so.parent / f"{tag}.so"
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

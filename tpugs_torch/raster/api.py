@@ -23,7 +23,7 @@ import torch
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.raster.plan import Plan, build_plan
 from tpugs_torch.raster.projection import Projected, ProjectionConfig, project
-from tpugs_torch.raster.tiled import TileConfig, check_tile_config, render_tiled
+from tpugs_torch.raster.tiled import TileConfig, render_tiled
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
@@ -62,7 +62,6 @@ def plan_render(
     tile_config: TileConfig = TileConfig(),
 ) -> RasterPlan:
     """The tile plan of one camera (no gradient)."""
-    check_tile_config(tile_config)
     with torch.no_grad():
         proj = project(means, quats, scales, opacities, viewmat, K, width, height, proj_config)
         plan = build_plan(proj, width, height, tile_config.tile_size)

@@ -19,7 +19,11 @@ pixel centres (``_tile_pixels`` :1219).
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. A CPU tensor goes to the plain twin (``*_plain``), a CUDA
 tensor to the CUDA kernel in ``tpugs_torch/csrc`` or an exception; nothing
-falls back. Each kernel launch adds one to ``LAUNCHES``.
+falls back. Each kernel launch adds one to ``LAUNCHES``. The twins take
+any tile size; the kernels take 1 to TILE_MAX (``check_tile``, on the CUDA
+path only), with ghost pixel slots where a tile's pixels do not fill the
+kernel's warp rectangles or pixel groups (``render_cluster``,
+``adjoint_groups``).
 
 B1 walks, per warp of 8 x 4 pixels, only the Gaussians of a block that can
 reach the 1/255 clip somewhere in the warp's rectangle (``rect_live``, the
@@ -69,6 +73,8 @@ RENDER_CHANNELS = 5  # rgb, depth, 1 - T
 CONTRIB_DTYPES = (torch.float32, torch.bfloat16)
 RENDER_THREADS = 256  # threads of a B1 CTA, one per pixel
 RECT_W, RECT_H = 8, 4  # a B1 warp's pixel rectangle
+TILE_MAX = 32  # the widest tile the kernels take: B1 and B4 exit tile-wide, so a tile's
+# ts*ts pixels must fit one cluster (and B2 keeps their T in each CTA's shared memory)
 CULL_SLACK = 1e-3  # the plan's slack on sig_cut (plan.py step 3)
 CULL_MARGIN = 1e-4  # of the quadratic's term magnitudes, against f32 rounding
 
@@ -129,8 +135,13 @@ def _check_plan(plan: Plan, device) -> None:
     n = plan.num_gaussians
     _check(plan.gauss_offsets, "plan.gauss_offsets", (torch.int32,), (n + 1,), device)
     _check(plan.gauss_pos, "plan.gauss_pos", (torch.int32,), (plan.n_isects,), device)
-    if plan.tile_size not in (16, 32):
-        raise ValueError(f"tile_size {plan.tile_size}: the kernels take 16 or 32")
+
+
+def check_tile(tile_size: int) -> None:
+    """The kernels take tiles of 1 to TILE_MAX pixels a side (the twins
+    any); a wrapper calls this on its CUDA path, before any launch."""
+    if not 1 <= tile_size <= TILE_MAX:
+        raise ValueError(f"tile_size {tile_size}: the kernels take 1 to TILE_MAX = {TILE_MAX}")
 
 
 def _check_scatter_plan(plan: Plan, device) -> None:
@@ -207,12 +218,13 @@ def _block_weights(alpha, trans):
 
 def tile_rects(tiles: torch.Tensor, ntx: int, ts: int):
     """B1's warp rectangles of tiles ``tiles`` (k,): the first pixel centres
-    x0, y0 (k, R) of the R = ts*ts / 32 rectangles of RECT_W x RECT_H
-    pixels, row-major over the tile, and each tile pixel's rectangle
-    (ts*ts,) int64."""
+    x0, y0 (k, R) of the R = ceil(ts / RECT_W) * ceil(ts / RECT_H)
+    rectangles of RECT_W x RECT_H pixels that cover the tile, row-major
+    (where RECT_W or RECT_H does not divide ts, the last ones reach past
+    it), and each tile pixel's rectangle (ts*ts,) int64."""
     dev = tiles.device
-    per_row = ts // RECT_W
-    r = torch.arange(ts * ts // (RECT_W * RECT_H), device=dev)
+    per_row = cdiv(ts, RECT_W)
+    r = torch.arange(per_row * cdiv(ts, RECT_H), device=dev)
     tx = (tiles % ntx)[:, None] * ts
     ty = (tiles // ntx)[:, None] * ts
     x0 = (tx + (r % per_row)[None, :] * RECT_W).to(torch.float32) + 0.5
@@ -363,11 +375,15 @@ def render_tiles_plain(
 
 
 def render_cluster(tile_size: int) -> int:
-    """CTAs per thread-block cluster of B1: one tile's ts*ts pixels at
-    RENDER_THREADS per CTA (4 at tile 32, 1 at tile 16)."""
-    if tile_size not in (16, 32):
-        raise ValueError(f"tile_size {tile_size}: the render kernel takes 16 or 32")
-    return tile_size**2 // RENDER_THREADS
+    """CTAs per thread-block cluster of B1: one tile's warp rectangles
+    (``tile_rects``), one warp each, at RENDER_THREADS per CTA (4 at tile
+    32, 1 at tile 16). Where the rectangles reach past the tile, or leave
+    warps of the last CTA without one, those pixel slots are ghosts: T
+    starts at 0 there, so they weigh nothing, pass every exit vote and
+    write nothing. Raises past TILE_MAX."""
+    check_tile(tile_size)
+    rects = cdiv(tile_size, RECT_W) * cdiv(tile_size, RECT_H)
+    return cdiv(rects * RECT_W * RECT_H, RENDER_THREADS)
 
 
 def launch_render(lib, pack, plan, trans_eps, cull, out, done) -> None:
@@ -388,6 +404,7 @@ def _render(pack, plan, trans_eps, cull):
     _check_plan(plan, dev)
     if not _dispatch(dev):
         return render_tiles_plain(pack, plan, trans_eps)
+    check_tile(plan.tile_size)
     from tpugs_torch.kernels.build import load_library
 
     nt, tspx = plan.n_tiles, plan.tile_size**2
@@ -475,6 +492,18 @@ def _check_adjoint(pack: torch.Tensor, feat_tiles: torch.Tensor, plan: Plan) -> 
     return D
 
 
+ADJOINT_GROUP = {torch.float32: 16, torch.bfloat16: 32}  # pixels per group of B2 and B6
+
+
+def adjoint_groups(tile_size: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(groups, P) of B2 and B6: a tile's ts*ts pixels in ceil(ts*ts / P)
+    groups of P (``ADJOINT_GROUP``), the slots past ts*ts in the last group
+    ghosts (T 0, zero features). Raises past TILE_MAX."""
+    check_tile(tile_size)
+    p = ADJOINT_GROUP[dtype]
+    return cdiv(tile_size**2, p), p
+
+
 def adjoint_cluster(width: int) -> Tuple[int, int]:
     """(C, gridDim.x) of B2 and B6 for contribution rows ``width`` wide:
     the S = width / CHANNEL_SLICE channel slices of a tile go to
@@ -526,6 +555,7 @@ def adjoint_rows(
     D = _check_adjoint(pack, feat_tiles, plan)
     if not _dispatch(pack.device):
         return adjoint_rows_plain(pack, feat_tiles, plan, trans_eps)
+    check_tile(plan.tile_size)
     out = torch.empty((plan.T_padded, contrib_width(D)), dtype=feat_tiles.dtype,
                       device=pack.device)
     if plan.n_tiles == 0 or plan.T_padded == 0:
@@ -670,6 +700,7 @@ def adjoint_scatter_rows(
     _check_scatter_plan(plan, dev)
     if not _dispatch(dev):
         return adjoint_scatter_rows_plain(pack, feat_tiles, plan, trans_eps)
+    check_tile(plan.tile_size)
     out = torch.empty((plan.R_striped + 1, contrib_width(D)), dtype=feat_tiles.dtype,
                       device=dev)
     if plan.n_tiles == 0 or plan.T_padded == 0:

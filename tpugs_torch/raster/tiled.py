@@ -123,14 +123,12 @@ def backproject_view(
 
 
 class TileConfig(NamedTuple):
-    tile_size: int = 16  # pixels per tile edge: the kernels take 16 and 32
+    tile_size: int = 16  # pixels per tile edge (the card's kernels take 1 to TILE_MAX)
     block_size: int = 128  # Gaussians per block of render_tiled_autodiff's walk
     tiles_per_chunk: int = 32  # tiles per step of render_tiled_autodiff's walk
 
 
 def check_tile_config(config: TileConfig, plan: Optional[Plan] = None) -> None:
-    if config.tile_size not in (16, 32):
-        raise ValueError(f"TileConfig.tile_size {config.tile_size}: the kernels take 16 or 32")
     if plan is not None and plan.tile_size != config.tile_size:
         raise ValueError(f"plan of tile {plan.tile_size}, TileConfig of {config.tile_size}")
 
@@ -153,10 +151,10 @@ def render_tiled(
 
     The train render (``render_plan_train``) with no early exit
     (``trans_eps=0``) and f32 gradient rows. ``config.tile_size`` must be
-    the plan's, 16 or 32; ``block_size`` and ``tiles_per_chunk`` are the
-    reference's TPU layout knobs and do not change the result. Any width up
-    to ``GEOM_MAX_CHANNELS`` renders and differentiates in one launch of
-    each kernel (``RenderTrain``).
+    the plan's; ``block_size`` and ``tiles_per_chunk`` are the reference's
+    TPU layout knobs and do not change the result. Any tile and any width
+    render and differentiate, on the card in one launch of each kernel
+    (``RenderTrain``) up to ``TILE_MAX`` and ``GEOM_MAX_CHANNELS``.
     ``abs_probe``'s gradient is the absgrad statistic; ``on_stage`` and
     ``record`` as in ``render_plan_train``."""
     check_tile_config(config, plan)

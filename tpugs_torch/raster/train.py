@@ -46,6 +46,7 @@ from tpugs_torch.raster.kernels import (
     _ptr,
     _stream,
     _walk_blocks,
+    check_tile,
     reduce_rows,
 )
 from tpugs_torch.raster.plan import Plan, build_plan
@@ -63,8 +64,8 @@ COLOUR_SLICE_CHANNELS = 128  # B5's widest colour slice above CLUSTER_MAX_CHANNE
 # (widest D, pixels per rank P) of B5's geometry cluster kernel, whose rank
 # keeps its P pixels' g over all D channels: the largest P whose shared
 # memory fits a CTA's 227 KB (kGeomWidths in csrc/train_bwd.cu)
-GEOM_WIDTHS = ((700, 64), (1276, 32), (2108, 16), (4096, 8))
-GEOM_MAX_CHANNELS = GEOM_WIDTHS[-1][0]  # B5's widest render (DINOv2's 1024 with room)
+GEOM_WIDTHS = ((700, 64), (1276, 32), (2108, 16), (4276, 8), (8620, 4), (18460, 2), (38140, 1))
+GEOM_MAX_CHANNELS = GEOM_WIDTHS[-1][0]  # B5's widest render on the card (the twin takes any)
 GEOM_MAX_CLUSTER = 16  # CTAs of one geometry cluster, the H100's largest (non-portable)
 
 
@@ -142,9 +143,9 @@ def train_fwd_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int,
     ``fwd_slices`` (a slice's image lives in wgmma accumulators, at most
     CLUSTER_MAX_CHANNELS columns a thread). None for tiles other than 16 and
     32 (their pixels do not split into ranks of P): those take the wide
-    kernel. The C side refuses any other (C, P, S, Ns)."""
-    if not 1 <= tile_size <= 32:
-        raise ValueError(f"tile_size {tile_size}: B4 takes 1 to 32")
+    kernel, one CTA of ts*ts threads a tile. Raises past TILE_MAX. The C
+    side refuses any other (C, P, S, Ns)."""
+    check_tile(tile_size)
     if channels < 1:
         raise ValueError(f"{channels} channels: B4 takes at least 1")
     if tile_size not in (16, 32):
@@ -200,61 +201,61 @@ def train_forward(
 # ----------------------------------------------------------- B5 backward
 
 
-def _check_width(channels: int) -> None:
+def _check_b5(tile_size: int, channels: int) -> None:
+    """The card's B5 takes tiles of 1 to TILE_MAX and 1 to
+    GEOM_MAX_CHANNELS channels; its twin any."""
+    check_tile(tile_size)
     if not 1 <= channels <= GEOM_MAX_CHANNELS:
         raise ValueError(f"{channels} channels: B5 takes 1 to GEOM_MAX_CHANNELS = "
                          f"{GEOM_MAX_CHANNELS}")
 
 
-def _check_b5(tile_size: int, channels: int) -> None:
-    if tile_size not in (16, 32):
-        raise ValueError(f"tile_size {tile_size}: the kernels take 16 or 32")
-    _check_width(channels)
-
-
 def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
     """(C, P) of B5's cluster kernel: a tile's ts*ts pixels go to a cluster
-    of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at tile
-    32, 2 at tile 16). None for more than CLUSTER_MAX_CHANNELS channels,
-    whose g does not fit a CTA's shared memory: those take the colour
-    slices and the geometry kernel (``train_layout``). The C side refuses
-    any other (C, P)."""
+    of C = ceil(ts*ts / P) CTAs of P = PIXELS_PER_RANK pixels each (8 at
+    tile 32, 2 at tile 16, 1 at tile 8), the slots past ts*ts ghosts (T
+    and g 0: no weight, no gradient). None for more than
+    CLUSTER_MAX_CHANNELS channels, whose g does not fit a CTA's shared
+    memory: those take the colour slices and the geometry kernel
+    (``train_layout``). The C side refuses any other (C, P)."""
     _check_b5(tile_size, channels)
     if channels > CLUSTER_MAX_CHANNELS:
         return None
-    return tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK
+    return cdiv(tile_size**2, PIXELS_PER_RANK), PIXELS_PER_RANK
 
 
 def geom_cluster(tile_size: int, channels: int) -> Tuple[int, int, int]:
     """(C, P, G) of B5's geometry cluster kernel at any D up to
     GEOM_MAX_CHANNELS: each rank keeps its P pixels' g over all D channels,
     P the largest of GEOM_WIDTHS' whose shared memory fits a CTA (64 up to
-    700 channels, then 32, 16, 8); a tile's ts*ts / P ranks form G pixel
-    groups, each a cluster of C = min(ts*ts / P, GEOM_MAX_CLUSTER) CTAs
-    (at tile 32 a tile's g over more than about 880 channels outgrows any
-    one cluster). Each group walks the tile for its own pixels; G > 1
-    groups' sums are added in group order by a second kernel. The C side
-    refuses any other (C, P, G)."""
+    700 channels, then 32, 16, 8, 4, 2, 1); a tile's ceil(ts*ts / P) ranks
+    form G = ceil(ranks / GEOM_MAX_CLUSTER) pixel groups, each a cluster of
+    C = ceil(ranks / G) CTAs (at tile 32 a tile's g over more than about
+    880 channels outgrows any one cluster). The C*G*P slots past ts*ts are
+    ghosts (fewer than G ranks' worth). Each group walks the tile for its
+    own pixels; G > 1 groups' sums are added in group order by a second
+    kernel. The C side refuses any other (C, P, G)."""
     _check_b5(tile_size, channels)
     p = next(p for widest, p in GEOM_WIDTHS if channels <= widest)
-    ranks = tile_size**2 // p
-    c = min(ranks, GEOM_MAX_CLUSTER)
-    return c, p, ranks // c
+    ranks = cdiv(tile_size**2, p)
+    groups = cdiv(ranks, GEOM_MAX_CLUSTER)
+    return cdiv(ranks, groups), p, groups
 
 
 def train_layout(tile_size: int, channels: int) -> dict:
-    """The launches of ``train_rows`` at tile ts and D channels, chosen by
-    width alone: {"cluster": (C, P)} up to CLUSTER_MAX_CHANNELS (the
-    cluster kernel, ``train_cluster``); above it, up to GEOM_MAX_CHANNELS,
-    {"colour": (C, P, S, Ns), "geom": (Cg, Pg, G)}: one launch of the
-    colour slices, the cluster kernel's ranks over S channel slices of Ns
-    columns (``fwd_slices(D, COLOUR_SLICE_CHANNELS)``), and one of the
-    geometry kernel (``geom_cluster``) for columns D onward. Wider renders
-    raise. The C side refuses any other layout."""
+    """The launches of ``train_rows`` on the card at tile ts and D channels,
+    chosen by width alone: {"cluster": (C, P)} up to CLUSTER_MAX_CHANNELS
+    (the cluster kernel, ``train_cluster``); above it, up to
+    GEOM_MAX_CHANNELS, {"colour": (C, P, S, Ns), "geom": (Cg, Pg, G)}: one
+    launch of the colour slices, the cluster kernel's ranks over S channel
+    slices of Ns columns (``fwd_slices(D, COLOUR_SLICE_CHANNELS)``), and one
+    of the geometry kernel (``geom_cluster``) for columns D onward. Wider
+    renders and tiles past TILE_MAX raise. The C side refuses any other
+    layout."""
     cluster = train_cluster(tile_size, channels)
     if cluster is not None:
         return {"cluster": cluster}
-    return {"colour": (tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK)
+    return {"colour": (cdiv(tile_size**2, PIXELS_PER_RANK), PIXELS_PER_RANK)
             + fwd_slices(channels, COLOUR_SLICE_CHANNELS),
             "geom": geom_cluster(tile_size, channels)}
 
@@ -390,27 +391,28 @@ def train_rows(
     (float32, or bfloat16 cast at the store). Inputs: the packs, the image
     cotangent ``g_image`` (H, W, D), ``hterm`` = h * T_final and ``grem0``
     = g . (image without background) per pixel (H, W), and B4's
-    ``blocks_done``. Rows of blocks the forward skipped are zero. Up to
-    CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above it, up to
-    GEOM_MAX_CHANNELS, the colour slices (columns 0:D) and the geometry
-    kernel (columns D onward), chosen by width alone (``train_layout``)."""
+    ``blocks_done``. Rows of blocks the forward skipped are zero. On the
+    card, up to CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above
+    it, up to GEOM_MAX_CHANNELS, the colour slices (columns 0:D) and the
+    geometry kernel (columns D onward), chosen by width alone
+    (``train_layout``, which raises past that width or TILE_MAX). The twin
+    takes any tile and any D."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
     if contrib_dtype not in CONTRIB_DTYPES:
         raise TypeError(f"contrib_dtype {contrib_dtype} not in {CONTRIB_DTYPES}")
-    _check_width(d)
     if not _dispatch(dev):
         return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
                                 contrib_dtype)
     from tpugs_torch.kernels.build import load_library
 
+    layout = train_layout(plan.tile_size, d)
     lib = load_library()
     out = torch.empty((plan.T_padded, grad_row_width(d)), dtype=contrib_dtype, device=dev)
     if plan.n_tiles == 0 or plan.T_padded == 0:
         return out
     bf16 = contrib_dtype == torch.bfloat16
     args = (geom, cols, g_image, hterm, grem0, blocks_done, plan, out)
-    layout = train_layout(plan.tile_size, d)
     if "cluster" in layout:
         fn = lib.tpugs_train_bwd_bf16 if bf16 else lib.tpugs_train_bwd_f32
         _launched(_launch_train_bwd(fn, *args, layout["cluster"]), "train_bwd")
@@ -460,13 +462,12 @@ def train_geom_rows(
 ) -> torch.Tensor:
     """B5's geometry launch on its own: f32 rows (T_padded, GEOM_GRADS) of
     ``train_rows``' geometry columns (dmx dmy dca dcb dcc dop |dmx| |dmy|),
-    with the same inputs, at any number of channels D up to
-    GEOM_MAX_CHANNELS: the geometry cluster kernel at ``geom_cluster``'s
+    with the same inputs, at any number of channels D (on the card up to
+    GEOM_MAX_CHANNELS): the geometry cluster kernel at ``geom_cluster``'s
     (C, P, G), the launch ``train_rows`` makes above CLUSTER_MAX_CHANNELS.
     Its twin is ``train_rows_plain(..., geometry_only=True)``."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
-    _check_width(d)
     if not _dispatch(dev):
         return train_rows_plain(geom, cols, g_image, hterm, grem0, blocks_done, plan,
                                 geometry_only=True)
@@ -533,7 +534,8 @@ class RenderTrain(torch.autograd.Function):
     """(image (H, W, D), alpha (H, W)) of one camera, differentiable in
     means2d, conics, opacities, colours and the background. The forward is
     one B4 launch over all D channels, the backward one ``train_rows``
-    (B5) then B3, at any D up to GEOM_MAX_CHANNELS. ``abs_probe`` (N, 2)
+    (B5) then B3, at any D (on the card up to GEOM_MAX_CHANNELS) and any
+    tile (on the card up to TILE_MAX). ``abs_probe`` (N, 2)
     never touches the render; its gradient is the absgrad statistic, sum
     over pixels of |d means2d|: B5's columns 6:8, summed by B3."""
 
