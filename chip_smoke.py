@@ -23,8 +23,8 @@ Nineteen phases; the first failure ends the run with a nonzero exit:
              kernels' widest, 300 and 512: B4's cluster kernel in two
              channel slices, B5 in two colour slices plus its geometry
              kernel; B4 also at 600, in three slices, where B5 refuses the
-             width; each width's launch counters; B4's alpha and exit blocks bit-equal to its wide
-             kernel's; two launches bit-equal); S1's
+             width; each width's launch counters; B4's alpha and exit blocks bit-equal to B1's
+             on the same geometry; two launches bit-equal); S1's
              asynchronous-copy probe returns 19;
              then ``render_plan_train`` with a background and the absgrad
              probe against the same call on the CPU; B2 and B6 at D = 200,
@@ -62,23 +62,31 @@ Nineteen phases; the first failure ends the run with a nonzero exit:
              3 timed steps: ms/step, the stage split, launches, peak; the
              recorded step's first chunk held on 64 tiles and timed as
              phase 4's (B4-f512, B5-wide, B3-f512).
-   tiles   — tiles other than 16 and 32, which the kernels take with
-             ghost pixel slots: at phase 2's mid shape at tiles 8, 12 and
-             24, B1 (culled and not), B2, B3, B6 and B7 in f32 and bf16,
-             B4's wide kernel and B5 (its cluster kernel at D = 131, colour
-             slices plus its geometry kernel at 515, the geometry kernel's
-             absgrad rows at 1027) against their twins, each launch
-             counted; the geometry kernel with absgrad at D = 4097 and at
+   tiles   — every tile other than 16 and 32, which the kernels take with
+             ghost pixel slots and, past one cluster, in pixel groups (B1's
+             and B4's exit by the exact vote over the groups, B5's rows
+             added in group order, B2's T in device memory): at
+             phase 2's mid shape at tiles 8, 12, 24, 33, 48, 64 and 128,
+             and on a 96 x 64 view at tile 128 (one tile), B1 (culled and
+             not), B2, B3, B6 and B7 in f32 and bf16, B4's cluster kernel
+             and B5 (its cluster kernel at D = 131, colour slices plus its
+             geometry kernel at 515, the geometry kernel's absgrad rows at
+             1027) against their twins, B1's and B4's exit blocks equal to
+             the twins', each launch counted (the votes and the group-order
+             adds too); B2 and B6 on a 272 x 256 view at tile 1 (69,632
+             tiles); the geometry kernel with absgrad at D = 4097 and at
              the widest D of 4, 2 and 1 pixels a rank (8620, 18460, 38140)
-             on a small shape; tile 33 refused by every tile-dependent
-             wrapper before any launch; then the canonical lift (both
-             engines, the view's rows reckoned against the free memory
-             first) and phase 4's train step (D = 131, 3 timed steps, from
-             phase 4's initial scene) at tiles 24 and 8: ms/view or
-             ms/step, the stage split, peak, launches, view 0 or the
-             recorded step held on 64 tiles and timed as phases 3 and 4
-             (B1-, B2-, B3-, B6-, B7-t24 and -t8; B4-, B5-, B3-train-t24
-             and -t8).
+             on a small shape; a plan of tile 0 refused by every
+             tile-dependent wrapper before any launch; then the canonical
+             lift (both engines, the view's rows reckoned against the free
+             memory first) and phase 4's train step (D = 131, 3 timed
+             steps, from phase 4's initial scene) at tiles 24, 8 and 64:
+             ms/view or ms/step, the stage split, peak, launches, view 0 or
+             the recorded step held on 64 tiles and timed as phases 3 and
+             4 (B1-, B2-, B3-, B6-, B7-t24, -t8 and -t64; B4-, B5-,
+             B3-train-t24, -t8 and -t64), and at tile 64 the exit votes
+             alone, their blocks_done equal to ``exit_vote_plain``'s
+             (B1-vote-t64, B4-vote-t64).
 5. raster API and eager lift — the canonical lift shape (N = 2^19,
              1296 x 840, D = 512, 8 orbit views) at tile 16 with no early
              exit (the reference's tiled path): ``create_feature_field``
@@ -140,8 +148,7 @@ Nineteen phases; the first failure ends the run with a nonzero exit:
              rendering the deleted scene within 1/510; the D = 512 feature
              render (B4-viz: the cluster kernel in two channel slices)
              against its twin on 64 tiles, its alpha and exit blocks
-             bit-equal to the wide kernel's, timed beside the wide kernel,
-             with its bound; the segment app's three GIFs and two scenes'
+             bit-equal to B1's, timed, with its bound; the segment app's three GIFs and two scenes'
              per-frame PNGs written to a temporary directory and read back
              with cv2 (each GIF frame its encoder's palette of the frame,
              100-ms delays, endless loop; each PNG the frame), the
@@ -360,6 +367,24 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     return abs_err, abs_err / scale if scale > 0 else abs_err
 
 
+def as_b1(geom, plan, alpha, done, trans_eps):
+    """Whether B4's alpha (in the image) and exit blocks are bit-equal to
+    B1's 1 - T and blocks_done on the same geometry: the two kernels take
+    every weight and the exit with the same instructions in the same
+    order."""
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.tiles import image_to_tiles
+
+    pack = torch.zeros((plan.T_padded, 16), device=geom.device)
+    pack[:, :8] = geom
+    tiles, done_b1 = K.render_tiles(pack, plan, trans_eps)
+    ts = plan.tile_size
+    inside = image_to_tiles(torch.ones((plan.height, plan.width, 1), device=geom.device), ts) > 0
+    got = torch.where(inside, image_to_tiles(alpha[..., None], ts), 0.0)
+    return torch.equal(got, torch.where(inside, tiles[..., 4:5], 0.0)) and torch.equal(done,
+                                                                                       done_b1)
+
+
 def within_rows_tol(of_group: float, of_row: float, dtype) -> bool:
     from tpugs_torch.raster.kernels import ROWS_TOL
 
@@ -408,9 +433,9 @@ def phase_build():
         print(f"  ptxas: {line}")
     lib = load_library()
     resident = {(ts, cull): lib.tpugs_render_max_clusters(ts, cull)
-                for ts in (16, 32) for cull in (1, 0)}
+                for ts in (16, 32, 64) for cull in (1, 0)}
     print(f"phase 1 B1: resident clusters by (tile, cull) (cudaOccupancyMaxActiveClusters; "
-          f"clusters of 1 and 4 CTAs): {resident}", flush=True)
+          f"clusters of 1, 4 and 8 CTAs): {resident}", flush=True)
     check(all(n > 0 for n in resident.values()), "B1 clusters fit on the card")
     for bf16, name in ((1, "bf16"), (0, "f32")):
         resident = {c: lib.tpugs_adjoint_max_clusters(bf16, c) for c in (1, 2, 3, 5, 6, 8)}
@@ -418,24 +443,25 @@ def phase_build():
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B2 {name} clusters fit on the card")
         resident = {(ts, d): lib.tpugs_train_bwd_max_clusters(bf16, ts, d)
-                    for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256))}
+                    for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256), (64, 131))}
         print(f"phase 1 B5 {name} rows: resident clusters by (tile, D) "
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B5 {name} clusters fit on the card")
         resident = {(ts, ns): lib.tpugs_train_bwd_colour_max_clusters(bf16, ts, ns)
-                    for ts in (16, 32) for ns in (128, 256)}
+                    for ts in (16, 32, 64) for ns in (128, 256)}
         print(f"phase 1 B5 {name} colour slices: resident clusters by (tile, slice width) "
               f"(cudaOccupancyMaxActiveClusters): {resident}", flush=True)
         check(all(n > 0 for n in resident.values()), f"B5 {name} colour slices fit on the card")
     resident = {(ts, d): lib.tpugs_train_bwd_geom_max_clusters(ts, d)
-                for ts in (16, 32) for d in (5, 515, 700, 1027, 2051, T.GEOM_MAX_CHANNELS)}
+                for ts in (16, 32, 64) for d in (5, 515, 700, 1027, 2051, T.GEOM_MAX_CHANNELS)}
     layouts = {(ts, d): T.geom_cluster(ts, d) for ts, d in resident}
     print(f"phase 1 B5 geometry kernel: resident clusters by (tile, D) "
           f"(cudaOccupancyMaxActiveClusters; (C, P, G) by geom_cluster {layouts}): "
           f"{resident}", flush=True)
     check(all(n > 0 for n in resident.values()), "B5's geometry clusters fit on the card")
     resident = {(ts, d): lib.tpugs_train_fwd_max_clusters(ts, d)
-                for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256))}
+                for ts, d in ((32, 3), (32, 131), (32, 256), (16, 131), (16, 256), (24, 131),
+                              (64, 131))}
     print(f"phase 1 B4: resident clusters by (tile, D) (cudaOccupancyMaxActiveClusters): "
           f"{resident}", flush=True)
     check(all(n > 0 for n in resident.values()), "B4 clusters fit on the card")
@@ -623,7 +649,6 @@ def phase_train_kernels():
     """B4 and B5 (f32 and bf16 rows, and B3's sums of them) against their
     twins at mid shapes, then one ``render_plan_train`` with a background
     and the absgrad probe against the same call on CPU copies (the twins)."""
-    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.kernels import reduce_rows, reduce_rows_plain
@@ -635,7 +660,6 @@ def phase_train_kernels():
     scene = random_scene(20000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
     cams = orbit_cameras(2, W, H, radius=3.0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    lib = load_library()
     seen_exit = seen_empty = False
     for ts, D, view in TRAIN_KERNEL_SHAPES:
         vm, Km = cams.viewmats[view], cams.Ks[view]
@@ -651,29 +675,26 @@ def phase_train_kernels():
         img_k, alpha_k, done_k = T.train_forward(geom, cols, plan)
         torch.cuda.synchronize()
         fwd_cluster = T.train_fwd_cluster(ts, D)
-        launched = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide)
-        check(launched == (1, 0) and fwd_cluster[2] == -(-D // T.SLICE_CHANNELS),
-              f"B4 at D = {D} launched its cluster kernel in {fwd_cluster[2]} channel slices "
+        launched = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_vote)
+        check(launched == (1, 0) and fwd_cluster[3] == -(-D // T.SLICE_CHANNELS),
+              f"B4 at D = {D} launched its cluster kernel in {fwd_cluster[3]} channel slices "
               f"({launched})")
         again = T.train_forward(geom, cols, plan)
-        img_w, alpha_w, done_w = T._launch_train_fwd(lib, geom, cols, plan, K.TRANS_EPS, None)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip((img_k, alpha_k, done_k), again))
-        as_wide = torch.equal(alpha_k, alpha_w) and torch.equal(done_k, done_w)
-        _, r_wide = rel_err(img_k, img_w)
+        b1_same = as_b1(geom, plan, alpha_k, done_k, K.TRANS_EPS)
         img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
         seen_exit |= bool((done_t < nb).any())
         seen_empty |= bool((spans == 0).any())
         _, r_img = rel_err(img_k, img_t)
         _, r_alpha = rel_err(alpha_k, alpha_t)
-        kind = "cluster (C, P, S, Ns) = {}".format(fwd_cluster)
+        kind = "cluster (C, P, G, S, Ns) = {}".format(fwd_cluster)
         print(f"phase 2 ts={ts} D={D} B4 train_fwd ({kind}): image rel {r_img:.3e}, alpha rel "
               f"{r_alpha:.3e} (exit blocks differ on {int((done_k != done_t).sum())} tiles); "
-              f"against the wide kernel: image rel {r_wide:.3e}, alpha and exit blocks "
-              f"bit-equal {as_wide}; a second launch bit-equal {same}", flush=True)
+              f"alpha and exit blocks bit-equal to B1's {b1_same}; a second launch bit-equal "
+              f"{same}", flush=True)
         check(r_img <= 1e-4 and r_alpha <= 1e-4, "B4 within 1e-4 relative of its twin")
-        check(as_wide and r_wide <= 1e-4, "B4's alpha and exit blocks bit-equal to the wide "
-              "kernel's, its image within 1e-4")
+        check(b1_same, "B4's alpha and exit blocks bit-equal to B1's")
         check(same, "two B4 launches give the same outputs")
 
         g = torch.randn((H, W, D), device="cuda", generator=gen)
@@ -696,8 +717,8 @@ def phase_train_kernels():
             sums_m = reduce_rows_plain(mags, plan, D + T.GEOM_GRADS)
             a, g_rows, e_rows = T.grad_rows_error(rows_k, rows_t, D, mags)
             _, g_sums, e_sums = T.grad_rows_error(sums_k, sums_t, D, sums_m)
-            kind = ("cluster (C, P) = {}".format(layout["cluster"]) if "cluster" in layout else
-                    "colour slices (C, P, S, Ns) = {} + geometry (C, P, G) = {}".format(
+            kind = ("cluster (C, P, G) = {}".format(layout["cluster"]) if "cluster" in layout
+                    else "colour slices (C, P, G, S, Ns) = {} + geometry (C, P, G) = {}".format(
                         layout["colour"], layout["geom"]))
             print(f"phase 2 ts={ts} D={D} B5 train_bwd {dtype} ({kind}): rows max abs {a:.3e}, "
                   f"{g_rows:.3e} of column-group max, {e_rows:.3e} of the entry's magnitude; "
@@ -785,8 +806,10 @@ def phase_train_geom():
         torch.cuda.synchronize()
         cluster = T.geom_cluster(ts, D)
         launched = K.LAUNCHES.snapshot()
-        check(launched == {**dict.fromkeys(launched, 0), "train_bwd_geom": 1},
-              f"train_geom_rows launched the geometry kernel once ({launched})")
+        check(launched == {**dict.fromkeys(launched, 0), "train_bwd_geom": 1,
+                           "train_bwd_groups": int(cluster[2] > 1)},
+              f"train_geom_rows launched the geometry kernel once, and its group-order add "
+              f"where it has pixel groups ({launched})")
         same = torch.equal(T.train_geom_rows(*args), rows)
         ms = time_cuda(lambda: T.train_geom_rows(*args), 3)
         sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
@@ -1264,7 +1287,6 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     bounds of this step's work. Returns the three kernel records under
     ``ids``; B5's under the name ``b5[0]`` with the launches of counter
     ``b5[1]``, B4's likewise by ``fwd``."""
-    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.tiles import image_to_tiles
@@ -1315,8 +1337,6 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     n_isects, t_padded, width = plan.n_isects, plan.T_padded, rows.shape[1]
     b4_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, eps), 5)
     b4_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, eps), 1)
-    lib = load_library()
-    b4_wide = time_cuda(lambda: T._launch_train_fwd(lib, geom, cols, plan, eps, None), 3)
     b5_ms = time_cuda(lambda: T.train_rows(geom, cols, g, hterm, grem0, done, plan, dtype),
                       3)
     b5_plain = time_cuda(
@@ -1345,7 +1365,7 @@ def train_step_records(seen, w, h, launches, tag, ids, b5=("train_bwd", "train_b
     print(f"{tag} work of one step: {plan.n_tiles} tiles, {n_isects} intersections, "
           f"T_padded {t_padded}, {walked} blocks walked ({pairs} pixel-Gaussian pairs, "
           f"{weighted} with a nonzero weight, {kept} with a nonzero alpha); "
-          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}; the wide kernel {b4_wide:.3f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
+          f"B4 {b4_ms:.3f} ms (twin {b4_plain:.1f}), B5 {b5_ms:.3f} ms (twin {b5_plain:.1f}; "
           f"with bf16 rows {b5_bf16:.3f} ms), "
           f"B3 {b3_ms:.3f} ms (twin {b3_plain:.1f}, library {b3_lib:.3f} ms, "
           f"{lib_err[1]:.3e} of max from the kernel)", flush=True)
@@ -1460,7 +1480,7 @@ def phase_train():
     for name in ("train_fwd", "train_bwd", "reduce"):
         check(launches[name] >= TRAIN_STEPS,
               f"{name} kernel launched at least once per step ({launches[name]})")
-    check(launches["train_fwd_wide"] == 0 and launches["train_bwd_colour"] == 0
+    check(launches["train_fwd_vote"] == 0 and launches["train_bwd_colour"] == 0
           and launches["train_bwd_geom"] == 0, "D = 131 takes the cluster kernels of B4 and B5")
     stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
     print(f"phase 4 train N={N_FULL} {W_FULL}x{H_FULL} D=131 (feature 128 -> teacher 512) tile="
@@ -1482,9 +1502,9 @@ WIDER_FEATURES = 1024
 
 def one_launch_per_step(tag, launches, steps):
     """Each render of the step ran B4 once and B5 as one colour launch and
-    one geometry launch, with no cluster-kernel B5 and no wide B4."""
+    one geometry launch, with no cluster-kernel B5 and no exit vote."""
     for name, want in (("train_fwd", 1), ("train_bwd_colour", 1), ("train_bwd_geom", 1),
-                       ("train_bwd", 0), ("train_fwd_wide", 0)):
+                       ("train_bwd", 0), ("train_fwd_vote", 0)):
         check(launches[name] == want * steps,
               f"{tag}: {name} launched {want} time(s) per step ({launches[name]})")
     check(launches["reduce"] >= steps, f"{tag}: B3 launched every step ({launches['reduce']})")
@@ -1555,21 +1575,29 @@ def phase_train_wider():
             "train_bwd_colour"))
 
 
-# The tiles phase: tiles other than 16 and 32 take the same kernels with
-# ghost pixel slots (B1's warp rectangles, B2's last pixel group, B5's
-# ranks; B4's wide kernel), held against the twins at phase 2's mid shape
-# at TILE_KERNEL_TILES; B5's geometry kernel with absgrad at the widest
-# widths of its smallest ranks at a small shape; the lift and phase 4's
-# train step at full width at TILE_PATH_TILES; a tile past TILE_MAX
-# refused before any launch.
-TILE_KERNEL_TILES = (8, 12, 24)
+# The tiles phase: every tile takes the same kernels, with ghost pixel
+# slots where a tile's pixels do not fill the kernels' units (B1's warp
+# rectangles, B2's last pixel group, B4's and B5's ranks) and, past one
+# cluster (B1 past 8 CTAs, B4 and B5 past 8 ranks), in pixel groups: B1's
+# and B4's tile-wide exit by the exact vote over the groups, B5's rows as
+# the groups' partial rows added in group order, B2's T in device memory.
+# Held against the twins at phase 2's mid shape at
+# TILE_KERNEL_TILES and on a view of one tile (TILE_ONE_VIEW); B2 and B6
+# past 65,535 tiles (TILE_MANY); B5's geometry kernel with absgrad at the
+# widest widths of its smallest ranks at a small shape; the lift and phase
+# 4's train step at full width at TILE_PATH_TILES, with the exit votes'
+# records at the tiles that vote; a plan of tile 0 refused before any
+# launch.
+TILE_KERNEL_TILES = (8, 12, 24, 33, 48, 64, 128)
+TILE_ONE_VIEW = (128, 96, 64)  # (tile, W, H): a view that is one tile
+TILE_MANY = (1, 272, 256, 4)  # (tile, W, H, D): 69,632 tiles
 TILE_KERNEL_D = 64  # B2's and B6's width at the mid shape (phase 2's at tile 32)
 TILE_TRAIN_D = (131, 515, 1027)  # B5's cluster kernel; colour slices + geometry; absgrad rows
 # (tile, D) of the geometry kernel with absgrad at a small shape: 4097 (8
 # pixels a rank, ghost ranks at tile 12), then the widest D of 4, 2 and 1
 # pixels a rank
 TILE_GEOM_WIDE = ((12, 4097), (24, 8620), (8, 18460), (16, 38140))
-TILE_PATH_TILES = (24, 8)
+TILE_PATH_TILES = (24, 8, 64)
 TILE_TRAIN_WARMUP, TILE_TRAIN_STEPS = 3, 3
 
 
@@ -1582,37 +1610,42 @@ def _mid_view(ts, scene, cams, view=0, w=300, h=200):
     return proj, build_plan(proj, w, h, ts)
 
 
-def tiles_lift_kernels(ts, scene, cams):
-    """B1 (culled and not), B2, B3, B6 and B7 at tile ``ts`` against their
-    twins, each launch counted."""
+def tiles_lift_kernels(ts, scene, cams, w=300, h=200, d=TILE_KERNEL_D):
+    """B1 (culled and not), B2, B3, B6 and B7 at tile ``ts`` on a w x h view
+    against their twins, B1's exit blocks (the vote's where a tile is pixel
+    groups) equal to the twin's, each launch counted."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster.colors import prepare_colors
     from tpugs_torch.raster.pack import pack_isect_all
     from tpugs_torch.raster.plan import with_scatter_extras
 
-    proj, plan = _mid_view(ts, scene, cams)
+    proj, plan = _mid_view(ts, scene, cams, 0, w, h)
     packed = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all,
                                                  cams.viewmats[0], scene.sh_degree), plan)
     spans = plan.tile_ends - plan.tile_starts
+    layout = K.render_cluster(ts)
+    votes = 2 if layout[2] > 1 else 0
     K.LAUNCHES.reset()
     img_k, done_k = K.render_tiles(packed, plan)
     img_u, done_u = K.render_tiles_unculled(packed, plan)
     torch.cuda.synchronize()
-    counts = (K.LAUNCHES.render, K.LAUNCHES.render_unculled)
+    counts = (K.LAUNCHES.render, K.LAUNCHES.render_unculled, K.LAUNCHES.render_vote)
     img_t, done_t = K.render_tiles_plain(packed, plan)
     _, r = rel_err(img_k, img_t)
     _, r_u = rel_err(img_u, img_t)
     culled = torch.equal(img_k, img_u) and torch.equal(done_k, done_u)
     exits = bool((done_t < (spans + 127) // 128).any())
-    print(f"phase tiles ts={ts} B1 render ({K.render_cluster(ts)} CTAs a tile): rel {r:.3e} "
-          f"(unculled {r_u:.3e}); culled bit-equal to unculled {culled}; launches (render, "
-          f"render_unculled) {counts}; a tile exits early {exits}", flush=True)
+    same_exit = torch.equal(done_k, done_t)
+    print(f"phase tiles ts={ts} {w}x{h} ({plan.n_tiles} tiles) B1 render ((C, P, G) = "
+          f"{layout}): rel {r:.3e} (unculled {r_u:.3e}); exit blocks equal to the twin's "
+          f"{same_exit}; culled bit-equal to unculled {culled}; launches (render, "
+          f"render_unculled, render_vote) {counts}; a tile exits early {exits}", flush=True)
     check(r <= 1e-4 and r_u <= 1e-4, "B1 within 1e-4 relative of its twin")
-    check(culled and counts == (1, 1), "B1's culled walk bit-equal to its unculled one")
+    check(same_exit, "B1's exit blocks (the vote's over pixel groups) are the twin's")
+    check(culled and counts == (1, 1, votes), "B1's culled walk bit-equal to its unculled one")
 
-    D = TILE_KERNEL_D
-    feats = LinearRGBEncoder(D, seed=3, device="cuda")(img_k[..., :3]).contiguous()
+    feats = LinearRGBEncoder(d, seed=3, device="cuda")(img_k[..., :3]).contiguous()
     splan = with_scatter_extras(plan)
     real = splan.gauss_pos.long()
     live = splan.slot_pos.long()[real]
@@ -1620,23 +1653,24 @@ def tiles_lift_kernels(ts, scene, cams):
         f = feats.to(dtype)
         K.LAUNCHES.reset()
         rows = K.adjoint_rows(packed, f, plan)
-        sums = K.reduce_rows(rows, plan, D + 1)
+        sums = K.reduce_rows(rows, plan, d + 1)
         striped = K.adjoint_scatter_rows(packed, f, splan)
-        stripes = K.reduce_striped(striped, splan, D + 1)
+        stripes = K.reduce_striped(striped, splan, d + 1)
         torch.cuda.synchronize()
         launched = tuple(getattr(K.LAUNCHES, k) for k in ("adjoint", "reduce", "adjoint_scatter",
                                                           "stripe_sum"))
-        _, g, e = K.rows_error(rows, K.adjoint_rows_plain(packed, f, plan), D)
-        b3 = torch.equal(sums, K.reduce_rows_plain(rows, plan, D + 1))
+        _, g, e = K.rows_error(rows, K.adjoint_rows_plain(packed, f, plan), d)
+        b3 = torch.equal(sums, K.reduce_rows_plain(rows, plan, d + 1))
         _, g6, e6 = K.rows_error(striped[live],
-                                 K.adjoint_scatter_rows_plain(packed, f, splan)[live], D)
+                                 K.adjoint_scatter_rows_plain(packed, f, splan)[live], d)
         b6_b2 = torch.equal(striped[live], rows[real])
-        b7 = (torch.equal(stripes, K.reduce_striped_plain(striped, splan, D + 1))
+        b7 = (torch.equal(stripes, K.reduce_striped_plain(striped, splan, d + 1))
               and torch.equal(stripes, sums))
-        print(f"phase tiles ts={ts} D={D} {dtype} ({K.adjoint_groups(ts, dtype)[0]} pixel "
-              f"groups a tile): B2 {g:.3e} of column-group max, {e:.3e} of row max; B3 "
-              f"bit-equal {b3}; B6 {g6:.3e}, {e6:.3e}, bit-equal to B2 {b6_b2}; B7 bit-equal "
-              f"to its twin and B3 {b7}; launches (B2, B3, B6, B7) {launched}", flush=True)
+        print(f"phase tiles ts={ts} D={d} {dtype} ({K.adjoint_groups(ts, dtype)[0]} pixel "
+              f"groups a tile): B2 {g:.3e} of column-group max, {e:.3e} of row "
+              f"max; B3 bit-equal {b3}; B6 {g6:.3e}, {e6:.3e}, bit-equal to B2 {b6_b2}; B7 "
+              f"bit-equal to its twin and B3 {b7}; launches (B2, B3, B6, B7) {launched}",
+              flush=True)
         check(within_rows_tol(g, e, dtype) and within_rows_tol(g6, e6, dtype),
               "B2 and B6 within ROWS_TOL of their twins")
         check(b3 and b6_b2 and b7 and launched == (1, 1, 1, 1),
@@ -1653,23 +1687,27 @@ def _train_inputs(ts, scene, cams, d, gen, w=300, h=200, view=1):
     return geom, cols, plan
 
 
-def tiles_train_kernels(ts, scene, cams, gen):
-    """B4's wide kernel and B5 (its cluster kernel at D = 131, its colour
-    slices and geometry kernel at 515, the geometry kernel's absgrad rows
-    at 1027) at tile ``ts`` against their twins, each launch counted."""
+def tiles_train_kernels(ts, scene, cams, gen, w=300, h=200):
+    """B4's cluster kernel (after the vote where a tile is pixel groups) and
+    B5 (its cluster kernel at D = 131, its colour slices and geometry
+    kernel at 515, the geometry kernel's absgrad rows at 1027) at tile
+    ``ts`` on a w x h view against their twins, B4's exit blocks equal to
+    the twin's, each launch counted."""
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
 
     for d in TILE_TRAIN_D:
-        geom, cols, plan = _train_inputs(ts, scene, cams, d, gen)
+        geom, cols, plan = _train_inputs(ts, scene, cams, d, gen, w, h, 1 if w == 300 else 0)
         W, H = plan.width, plan.height
+        layout = T.train_fwd_cluster(ts, d)
         K.LAUNCHES.reset()
         img, alpha, done = T.train_forward(geom, cols, plan)
         torch.cuda.synchronize()
-        fwd = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide)
+        fwd = (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_vote)
         img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
         _, r_img = rel_err(img, img_t)
         _, r_alpha = rel_err(alpha, alpha_t)
+        same_exit = torch.equal(done, done_t)
         g = torch.randn((H, W, d), device="cuda", generator=gen)
         hterm = torch.randn((H, W), device="cuda", generator=gen) * (1.0 - alpha)
         args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
@@ -1680,6 +1718,7 @@ def tiles_train_kernels(ts, scene, cams, gen):
             rows = T.train_geom_rows(*args) if absgrad else T.train_rows(*args, dtype)
             torch.cuda.synchronize()
             bwd = (K.LAUNCHES.train_bwd, K.LAUNCHES.train_bwd_colour, K.LAUNCHES.train_bwd_geom)
+            groups = K.LAUNCHES.train_bwd_groups
             ref, mags = T.train_rows_plain(*args, dtype, magnitudes=True, geometry_only=absgrad)
             n = rows.shape[1] if absgrad else d + T.GEOM_GRADS
             sums = K.reduce_rows(rows, plan, n)
@@ -1687,21 +1726,69 @@ def tiles_train_kernels(ts, scene, cams, gen):
             _, g_r, e_r = T.grad_rows_error(rows, ref, dc, mags)
             _, g_s, e_s = T.grad_rows_error(sums, K.reduce_rows_plain(ref, plan, n), dc,
                                             K.reduce_rows_plain(mags, plan, n))
+            lay = T.train_layout(ts, d)
             want = ((0, 0, 1) if absgrad else
                     (1, 0, 0) if d <= T.CLUSTER_MAX_CHANNELS else (0, 1, 1))
+            want_groups = (int(T.geom_cluster(ts, d)[2] > 1) if absgrad else
+                           int(lay["cluster"][2] > 1) if "cluster" in lay else
+                           int(lay["colour"][2] > 1) + int(lay["geom"][2] > 1))
             what = ("geometry rows (C, P, G) = {}".format(T.geom_cluster(ts, d)) if absgrad
-                    else "layout {}".format(T.train_layout(ts, d)))
+                    else "layout {}".format(lay))
             parts.append(f"B5 {dtype} {what}: rows {g_r:.3e} of column-group max, {e_r:.3e} of "
                          f"the entry's magnitude, B3 sums {g_s:.3e} and {e_s:.3e}, launches "
-                         f"(cluster, colour, geometry) {bwd}")
+                         f"(cluster, colour, geometry) {bwd}, group-order adds {groups}")
             check(within_grad_tol(g_r, e_r, dtype) and within_grad_tol(g_s, e_s, dtype),
                   "B5 rows and their sums within GRAD_ROWS_TOL of the twins")
-            check(bwd == want, f"B5 launched the kernels its width selects ({bwd})")
-        print(f"phase tiles ts={ts} D={d} B4 wide kernel: image rel {r_img:.3e}, alpha rel "
-              f"{r_alpha:.3e}, exit blocks differ on {int((done != done_t).sum())} tiles, "
-              f"launches (cluster, wide) {fwd}; " + "; ".join(parts), flush=True)
-        check(r_img <= 1e-4 and r_alpha <= 1e-4, "B4 within 1e-4 relative of its twin")
-        check(fwd == (0, 1), "B4 at this tile launched its wide kernel once")
+            check(bwd == want and groups == want_groups,
+                  f"B5 launched the kernels its width and tile select ({bwd}, {groups})")
+        print(f"phase tiles ts={ts} {w}x{h} D={d} B4 cluster kernel ((C, P, G, S, Ns) = "
+              f"{layout}): image rel {r_img:.3e}, alpha rel {r_alpha:.3e}, exit blocks equal to "
+              f"the twin's {same_exit}, launches (walk, vote) {fwd}; " + "; ".join(parts),
+              flush=True)
+        check(r_img <= 1e-4 and r_alpha <= 1e-4 and same_exit,
+              "B4 within 1e-4 relative of its twin, its exit blocks the twin's")
+        check(fwd == (1, int(layout[2] > 1)), "B4 launched its walk once (and its vote once)")
+
+
+def tiles_many(gen):
+    """B2 and B6 on TILE_MANY's view (more tiles than a grid's y takes) in
+    f32 and bf16 against their twins, B6 bit-equal to B2, B3 bit-equal."""
+    from tpugs_torch.encoders.base import LinearRGBEncoder
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster.colors import prepare_colors
+    from tpugs_torch.raster.pack import pack_isect_all
+    from tpugs_torch.raster.plan import with_scatter_extras
+    from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
+
+    ts, w, h, d = TILE_MANY
+    scene = random_scene(3000, seed=5, extent=0.6, scale_range=(0.01, 0.08), device="cuda")
+    cams = orbit_cameras(1, w, h, radius=3.0, device="cuda")
+    proj, plan = _mid_view(ts, scene, cams, 0, w, h)
+    packed = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all,
+                                                 cams.viewmats[0], scene.sh_degree), plan)
+    check(plan.n_tiles > 65535, f"{plan.n_tiles} tiles, past 65,535")
+    img, _ = K.render_tiles(packed, plan)
+    feats = LinearRGBEncoder(d, seed=6, device="cuda")(img[..., :3]).contiguous()
+    splan = with_scatter_extras(plan)
+    real = splan.gauss_pos.long()
+    live = splan.slot_pos.long()[real]
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feats.to(dtype)
+        K.LAUNCHES.reset()
+        rows = K.adjoint_rows(packed, f, plan)
+        striped = K.adjoint_scatter_rows(packed, f, splan)
+        torch.cuda.synchronize()
+        launched = (K.LAUNCHES.adjoint, K.LAUNCHES.adjoint_scatter)
+        _, g, e = K.rows_error(rows, K.adjoint_rows_plain(packed, f, plan), d)
+        b6_b2 = torch.equal(striped[live], rows[real])
+        b3 = torch.equal(K.reduce_rows(rows, plan, d + 1), K.reduce_rows_plain(rows, plan, d + 1))
+        print(f"phase tiles ts={ts} {w}x{h} D={d} {dtype}: {plan.n_tiles} tiles, "
+              f"{plan.n_isects} intersections; B2 {g:.3e} of column-group max, {e:.3e} of row "
+              f"max; B6 bit-equal to B2 {b6_b2}; B3 bit-equal {b3}; launches (B2, B6) "
+              f"{launched}", flush=True)
+        check(within_rows_tol(g, e, dtype) and b6_b2 and b3 and launched == (1, 1),
+              "B2 and B6 past 65,535 tiles within ROWS_TOL, B6 and B3 bit-equal")
+    del scene, cams, packed, splan
 
 
 def tiles_geom_wide(gen):
@@ -1755,27 +1842,29 @@ def tiles_geom_wide(gen):
     return records
 
 
-def tiles_cap(scene, cams):
-    """Every tile-dependent wrapper refuses tile TILE_MAX + 1 by a
-    ValueError naming the cap, before any launch."""
+def tiles_zero(scene, cams):
+    """A plan of tile 0 is refused by every tile-dependent wrapper, by a
+    ValueError before any launch (no tile above 0 is refused)."""
+    import dataclasses
+
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster import train as T
     from tpugs_torch.raster.colors import prepare_colors
     from tpugs_torch.raster.pack import pack_isect_all
     from tpugs_torch.raster.plan import with_scatter_extras
 
-    ts = K.TILE_MAX + 1
-    proj, plan = _mid_view(ts, scene, cams)
-    splan = with_scatter_extras(plan)
+    proj, plan16 = _mid_view(16, scene, cams)
     packed = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all,
-                                                 cams.viewmats[0], scene.sh_degree), plan)
-    feats = torch.zeros((plan.n_tiles, ts * ts, 8), device="cuda")
+                                                 cams.viewmats[0], scene.sh_degree), plan16)
+    plan = dataclasses.replace(plan16, tile_size=0)
+    splan = dataclasses.replace(with_scatter_extras(plan16), tile_size=0)
+    feats = torch.zeros((plan16.n_tiles, 0, 8), device="cuda")
     geom, cols = T.pack_train(proj.means2d, proj.conics, proj.opacities,
-                              torch.zeros((scene.num_gaussians, 5), device="cuda"), plan)
+                              torch.zeros((scene.num_gaussians, 5), device="cuda"), plan16)
     h, w = plan.height, plan.width
     z = torch.zeros((h, w), device="cuda")
     bwd = (geom, cols, torch.zeros((h, w, 5), device="cuda"), z, z,
-           torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda"), plan)
+           torch.zeros((plan16.n_tiles,), dtype=torch.int32, device="cuda"), plan)
     calls = {"B1": lambda: K.render_tiles(packed, plan),
              "B1 unculled": lambda: K.render_tiles_unculled(packed, plan),
              "B2": lambda: K.adjoint_rows(packed, feats, plan),
@@ -1789,20 +1878,79 @@ def tiles_cap(scene, cams):
             call()
             refused[name] = False
         except ValueError as e:
-            refused[name] = f"TILE_MAX = {K.TILE_MAX}" in str(e)
+            refused[name] = "at least 1 pixel" in str(e)
     torch.cuda.synchronize()
     launched = sum(K.LAUNCHES.snapshot().values())
-    print(f"phase tiles ts={ts}: refused naming TILE_MAX {refused}; kernel launches {launched}",
-          flush=True)
+    print(f"phase tiles ts=0: refused {refused}; kernel launches {launched}", flush=True)
     check(all(refused.values()) and launched == 0,
-          f"tile {ts} refused by every tile-dependent wrapper before any launch")
+          "tile 0 refused by every tile-dependent wrapper before any launch")
+
+
+def group_pairs(pack, plan, groups, trans_eps, cull):
+    """(pixel-Gaussian pairs each pixel group of ``groups`` walks to its own
+    exit, those of them with a nonzero alpha) over every tile, by the
+    twins' walk, with B1's cull where ``cull``."""
+    from tpugs_torch.raster.kernels import _all_tiles, _walk_blocks
+
+    nonzero = torch.zeros((), dtype=torch.int64, device=pack.device)
+    walked = 0
+    for g in range(int(groups.max()) + 1):
+        voters = (groups == g).to(pack.device)
+
+        def visit(st, voters=voters):
+            nonzero.add_((st.terms["alpha"][:, voters] != 0).sum())
+
+        _, done = _walk_blocks(pack, plan, _all_tiles(plan, pack.device), trans_eps, visit,
+                               cull=cull, voters=voters)
+        walked += int(done.sum()) * 128 * int(voters.sum())
+    return walked, int(nonzero)
+
+
+def vote_record(kid, name, src, replaces, launches, vote, twin, packed, plan, groups,
+                row_bytes, trans_eps, cull):
+    """The record of an exit vote (``vote()`` launches it alone into a
+    zeroed blocks_done and returns it): its blocks_done against the
+    twin's (``exit_vote_plain``, ``twin()`` -> (per group, per tile)),
+    exactly; its time and the twin's; its bound: each walked block's pack
+    rows (``row_bytes`` a row) read once and blocks_done written, against
+    PAIR_OPS f32 operations a pair, on the pairs its kernel's own bound
+    counts as each group walks to its own exit: with ``cull`` (B1's vote,
+    whose per-warp cull is exact) those with a nonzero alpha, the walked
+    pairs' bound beside it (``bound_walked_ms``); else every walked pair."""
+    from tpugs_torch.utils.timing import time_cuda
+
+    done = vote()
+    torch.cuda.synchronize()
+    own, done_t = twin()
+    diff = float((done - done_t).abs().max()) if done.numel() else 0.0
+    ms = time_cuda(vote, 10)
+    plain = time_cuda(twin, 1)
+    walked, nonzero = group_pairs(packed, plan, groups, trans_eps, cull)
+    read = int(done_t.sum()) * 128 * row_bytes + 4 * plan.n_tiles
+    b_walked = bound(read, walked * PAIR_OPS, PEAK_F32_FLOPS)
+    b = bound(read, nonzero * PAIR_OPS, PEAK_F32_FLOPS) if cull else b_walked
+    print(f"{kid}: the vote's exit blocks against exit_vote_plain's: max abs {diff:.0f} over "
+          f"{plan.n_tiles} tiles ({own.shape[1]} pixel groups a tile, {int(done_t.sum())} "
+          f"blocks walked, {int(own.sum())} by the groups to their own exits, {walked} pairs, "
+          f"{nonzero} with a nonzero alpha{' after the cull' if cull else ''}); {ms:.4f} ms "
+          f"(twin {plain:.1f}; bound {b[0]:.4f} ms by {b[1]} on the "
+          f"{'nonzero-alpha' if cull else 'walked'} pairs, share {b[0] / ms:.3f}; "
+          f"{b_walked[0]:.4f} ms on the walked pairs); launches on the path {launches}",
+          flush=True)
+    check(diff == 0, f"{kid}: the vote's blocks_done equal the twin's exactly")
+    r = rec(kid, name, src, replaces, launches, (diff, diff), ms, plain, b)
+    if cull:
+        r.update(bound_walked_ms=b_walked[0])
+    return r
 
 
 def tiles_lift(ts, scene, cams, enc):
     """The canonical lift at tile ``ts``: the view-0 plan's rows reckoned
     against the card's free memory (the allocator's unused cache
     included) first, then both engines' warm-up view and 8
-    timed views, and view 0's kernel records (lift_view_records)."""
+    timed views, and view 0's kernel records (lift_view_records), with
+    B1's exit vote's where a tile is pixel groups."""
+    from tpugs_torch.kernels.build import load_library
     from tpugs_torch.lift.batch import backproject_views
     from tpugs_torch.raster import kernels as K
     from tpugs_torch.raster.plan import build_plan
@@ -1820,6 +1968,7 @@ def tiles_lift(ts, scene, cams, enc):
     # the view's records hold both engines' rows, the twin's and an f32 copy at once
     check(4 * rows_gb < free_gb, "a view's rows fit the card four times over")
     del proj, plan
+    voting = K.render_cluster(ts)[2] > 1
     args = (scene, cams.viewmats, cams.Ks, W_FULL, H_FULL, enc)
     launches = {}
     for engine, kernels in (("pallas", ("render", "adjoint", "reduce")),
@@ -1830,9 +1979,11 @@ def tiles_lift(ts, scene, cams, enc):
                                                                                tile=ts)
         check(bool(torch.isfinite(num).all()) and bool(torch.isfinite(den).all())
               and bool((den > 0).any()), "num and den finite, some den > 0")
-        for name in kernels:
+        for name in kernels + (("render_vote",) if voting else ()):
             check(launches[engine][name] >= VIEWS,
                   f"{name} kernel launched at least once per view ({launches[engine][name]})")
+        if not voting:
+            check(launches[engine]["render_vote"] == 0, "no vote where a tile is one cluster")
         stages = " ".join(f"{k}={v:.2f}" for k, v in stage_ms.items())
         print(f"phase tiles ts={ts} lift reduce_engine={engine} N={N_FULL} {W_FULL}x{H_FULL} "
               f"D={D_FULL} views={VIEWS}: {ms_view:.2f} ms/view, peak {peak_gb:.2f} GB; stage "
@@ -1840,6 +1991,28 @@ def tiles_lift(ts, scene, cams, enc):
         del num, den
     records, r = lift_view_records(scene, cams, enc, launches["pallas"], launches["scatter"],
                                    f"phase tiles ts={ts}", f"-t{ts}", tile=ts)
+    if voting:
+        plan, packed = r.plan, r.packed
+        c, _, g = K.render_cluster(ts)
+        lib = load_library()
+        done = torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda")
+
+        def vote():
+            done.zero_()
+            rc = lib.tpugs_render(
+                K._ptr(packed), K._ptr(plan.tile_starts), K._ptr(plan.tile_ends),
+                K._ptr(plan.padded_starts), K._ptr(done), K._ptr(done), plan.n_tiles,
+                plan.grid[0], ts, float(K.TRANS_EPS), 1, c, g, 1, K._stream())
+            K._launched(rc, "render vote")
+            return done
+
+        groups = K.render_groups(ts)
+        records.append(vote_record(
+            f"B1-vote-t{ts}", f"render exit vote ({g} pixel groups of {c} CTAs a tile)",
+            "tpugs_torch/csrc/render.cu", "tpugs/raster/pallas_tiled.py:1370",
+            launches["pallas"]["render_vote"], vote,
+            lambda: K.exit_vote_plain(packed, plan, groups), packed, plan, groups, 64,
+            K.TRANS_EPS, True))
     del r
     return records
 
@@ -1847,27 +2020,60 @@ def tiles_lift(ts, scene, cams, enc):
 def tiles_train(ts, scene0):
     """Phase 4's train step (D = 131) at tile ``ts`` from phase 4's initial
     scene: 3 warm-up and 3 timed steps, then the recorded step's records
-    (B4's wide kernel, B5, B3)."""
+    (B4's cluster kernel, B5, B3; B4's exit vote's where a tile is pixel
+    groups)."""
+    from tpugs_torch.kernels.build import load_library
+    from tpugs_torch.raster import kernels as K
+    from tpugs_torch.raster import train as T
+
     r = timed_train(f"phase tiles ts={ts}", 128, TILE_TRAIN_WARMUP, TILE_TRAIN_STEPS, tile=ts,
                     scene0=scene0)
     launches = r["launches"]
     check(r["tile"] == ts, f"the trainer took tile {ts}")
-    for name in ("train_fwd_wide", "train_bwd", "reduce"):
+    voting = T.train_fwd_cluster(ts, 131)[2] > 1
+    grouped = T.train_cluster(ts, 131)[2] > 1
+    for name in ("train_fwd", "train_bwd", "reduce") + (("train_fwd_vote",) if voting else ()) \
+            + (("train_bwd_groups",) if grouped else ()):
         check(launches[name] >= TILE_TRAIN_STEPS,
               f"{name} kernel launched at least once per step ({launches[name]})")
-    check(launches["train_fwd"] == 0, "no B4 cluster kernel at this tile")
+    check(voting or launches["train_fwd_vote"] == 0, "no vote where a tile is one cluster")
     stages = " ".join(f"{k}={v:.2f}" for k, v in r["stage_ms"].items())
     print(f"phase tiles ts={ts} train N={N_FULL} {W_FULL}x{H_FULL} D=131 steps="
           f"{TILE_TRAIN_STEPS} at SH 3: {r['ms_step']:.2f} ms/step, peak {r['peak_gb']:.2f} GB; "
           f"stage ms/step (CUDA events): {stages}; launches {launches}", flush=True)
-    return train_step_records(r["seen"], W_FULL, H_FULL, launches, f"phase tiles ts={ts}",
-                              (f"B4-t{ts}", f"B5-t{ts}", f"B3-train-t{ts}"),
-                              fwd=("train_fwd (wide kernel)", "train_fwd_wide"))
+    records = train_step_records(r["seen"], W_FULL, H_FULL, launches, f"phase tiles ts={ts}",
+                                 (f"B4-t{ts}", f"B5-t{ts}", f"B3-train-t{ts}"))
+    if voting:
+        seen = r["seen"]
+        geom, cols, plan, eps = (seen[k] for k in ("geom", "cols", "plan", "trans_eps"))
+        c, p, g, _, _ = T.train_fwd_cluster(ts, cols.shape[1])
+        lib = load_library()
+        done = torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda")
+        scratch = torch.empty((1,), device="cuda")
+
+        def vote():
+            done.zero_()
+            rc = lib.tpugs_train_fwd(
+                K._ptr(geom), K._ptr(cols), K._ptr(plan.tile_starts), K._ptr(plan.tile_ends),
+                K._ptr(plan.padded_starts), K._ptr(scratch), K._ptr(scratch), K._ptr(done),
+                plan.n_tiles, plan.grid[0], ts, plan.width, plan.height, cols.shape[1],
+                float(eps), c, p, g, 1, 16, 1, K._stream())
+            K._launched(rc, "train_fwd vote")
+            return done
+
+        groups = T.train_fwd_groups(ts)
+        records.append(vote_record(
+            f"B4-vote-t{ts}", f"train_fwd exit vote ({g} pixel groups of {c} CTAs a tile)",
+            "tpugs_torch/csrc/train_fwd.cu", "tpugs/raster/pallas_train.py:250",
+            launches["train_fwd_vote"], vote,
+            lambda: K.exit_vote_plain(geom, plan, groups, eps), geom, plan, groups, 32, eps,
+            False))
+    return records
 
 
 def phase_tiles(scene0):
-    """Tiles other than 16 and 32 (TILE_KERNEL_TILES; the path at
-    TILE_PATH_TILES), and the cap. Returns the kernel records of the wide
+    """Every tile (TILE_KERNEL_TILES, TILE_ONE_VIEW, TILE_MANY; the path at
+    TILE_PATH_TILES) and tile 0. Returns the kernel records of the wide
     geometry runs and of the path."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
@@ -1879,9 +2085,14 @@ def phase_tiles(scene0):
     for ts in TILE_KERNEL_TILES:
         tiles_lift_kernels(ts, scene, cams)
         tiles_train_kernels(ts, scene, cams, gen)
+    ts, w, h = TILE_ONE_VIEW
+    one = orbit_cameras(1, w, h, radius=3.0, device="cuda")
+    tiles_lift_kernels(ts, scene, one, w, h)
+    tiles_train_kernels(ts, scene, one, gen, w, h)
+    tiles_many(gen)
     records = tiles_geom_wide(gen)
-    tiles_cap(scene, cams)
-    del scene, cams
+    tiles_zero(scene, cams)
+    del scene, cams, one
     print(f"phase tiles kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     full = random_scene(N_FULL, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
     fcams = orbit_cameras(VIEWS, W_FULL, H_FULL, radius=3.0, device="cuda")
@@ -1941,7 +2152,7 @@ def phase_eager():
     check(lit > 0, "some Gaussians have a feature")
     for name in ("train_fwd", "adjoint", "reduce"):
         check(launches[name] >= VIEWS, f"{name} launched at least once per view ({launches[name]})")
-    check(launches["train_fwd_wide"] == 0, "D = 3 takes B4's cluster kernel")
+    check(launches["train_fwd_vote"] == 0, "D = 3 takes B4's cluster kernel without a vote")
     print(f"phase 5 create_feature_field N={n} {w}x{h} D={D} tile={ts} views={VIEWS} "
           f"trans_eps=0: {lift_ms:.2f} ms/view, {1e3 / lift_ms:.3f} views/s, peak "
           f"{lift_peak:.2f} GB, {100 * lit:.1f}% of Gaussians with a feature; launches "
@@ -2222,7 +2433,7 @@ def phase_absgrad():
            launches["train_bwd_geom"]) == (0, 1, 1),
           f"the backward ran B5 over all 515 channels as one colour launch and one "
           f"geometry launch, which also gives the absgrad columns ({launches})")
-    check(launches["train_fwd"] == 1 and launches["train_fwd_wide"] == 0,
+    check(launches["train_fwd"] == 1 and launches["train_fwd_vote"] == 0,
           f"the forward rendered all 515 channels in one launch of B4's cluster kernel "
           f"({launches})")
     d_abs = grads[5]
@@ -3043,9 +3254,9 @@ def phase_queries(field_cpu, ref3):
         check(len(frames) == VIEWS and all(f.shape == (h, w, 3) and f.dtype == np.uint8
                                            for f in frames), f"{name}: {VIEWS} uint8 frames")
         check(launches["train_fwd"] >= VIEWS, f"{name}: B4 at D = 3 on every view ({launches})")
-    check(launches_e["train_fwd_wide"] == 0 and launches_d["train_fwd_wide"] == 0,
+    check(launches_e["train_fwd_vote"] == 0 and launches_d["train_fwd_vote"] == 0,
           "the RGB frames take B4's cluster kernel")
-    check(launches_m["train_fwd"] >= 2 * VIEWS and launches_m["train_fwd_wide"] == 0,
+    check(launches_m["train_fwd"] >= 2 * VIEWS and launches_m["train_fwd_vote"] == 0,
           f"mask2d: B4's cluster kernel at D = 3 and, in channel slices, at D = {d} on every "
           f"view ({launches_m})")
 
@@ -3103,18 +3314,15 @@ def phase_queries(field_cpu, ref3):
           f"(RGB + D={d} feature image + per-pixel mask) {seg_ms['mask2d']:.2f} (peak "
           f"{m2d_peak:.2f} GB), opacity-hidden {seg_ms['opacity']:.2f}; B4 launches: "
           f"extracted {launches_e['train_fwd']}, deleted {launches_d['train_fwd']}, mask2d "
-          f"{launches_m['train_fwd']} (D=3 and D={d} on each view), the wide kernel "
-          f"{launches_m['train_fwd_wide']}; segment_by_opacity(~mask) against the deleted "
+          f"{launches_m['train_fwd']} (D=3 and D={d} on each view), votes "
+          f"{launches_m['train_fwd_vote']}; segment_by_opacity(~mask) against the deleted "
           f"scene: max abs {worst:.3e} per pixel (bound 1/510), frames within {frames_close}",
           flush=True)
     check(worst <= 1 / 510, "the opacity-hidden render equals the deleted scene's within 1/510")
 
     # B4-viz: the D = 512 feature render of view 0 (B4's cluster kernel in
-    # channel slices) against its twin, its alpha and exit blocks against the
-    # wide kernel's, its time beside the wide kernel's, and its bound on the
-    # pairs with a nonzero weight
-    from tpugs_torch.kernels.build import load_library
-
+    # channel slices) against its twin, its alpha and exit blocks against
+    # B1's, and its bound on the pairs with a nonzero weight
     geom, cols, plan, done = (seen[k] for k in ("geom", "cols", "plan", "blocks_done"))
     ts = plan.tile_size
     layout = T.train_fwd_cluster(ts, d)
@@ -3129,13 +3337,8 @@ def phase_queries(field_cpu, ref3):
                         torch.where(inside[..., 0], alpha_t, 0.0))
     done_twin = torch.equal(done[tiles], done_t)
     del img_t, alpha_t
-    wide = lambda: T._launch_train_fwd(load_library(), geom, cols, plan, 0.0, None)  # noqa: E731
-    img_w, alpha_w, done_w = wide()
-    as_wide = torch.equal(seen["alpha"], alpha_w) and torch.equal(done, done_w)
-    _, b4v_wide_rel = rel_err(seen["image"], img_w)
-    del img_w, alpha_w, done_w
+    b4v_b1 = as_b1(geom, plan, seen["alpha"], done, 0.0)
     b4v_ms = time_cuda(lambda: T.train_forward(geom, cols, plan, 0.0), 3)
-    b4v_wide_ms = time_cuda(wide, 3)
     b4v_plain = time_cuda(lambda: T.train_forward_plain(geom, cols, plan, 0.0), 1)
     pairs, weighted, _ = walked_pairs(geom, plan, 0.0)
     walked = int(done.sum())
@@ -3143,23 +3346,20 @@ def phase_queries(field_cpu, ref3):
                       pairs * PAIR_OPS + weighted * 2 * d, PEAK_F32_FLOPS)
     b4v_walked = bound(walked * 128 * (8 + d) * 4 + h * w * (d + 1) * 4,
                        pairs * (PAIR_OPS + 2 * d), PEAK_F32_FLOPS)
-    print(f"phase 8 B4-viz (cluster kernel, (C, P, S, Ns) = {layout}, D={d}, tile {ts}, "
+    print(f"phase 8 B4-viz (cluster kernel, (C, P, G, S, Ns) = {layout}, D={d}, tile {ts}, "
           f"trans_eps=0) on view 0's feature image: 64 tiles against the twin, image rel "
-          f"{b4v[1]:.3e}, alpha rel {b4v_alpha[1]:.3e}, exit blocks equal {done_twin}; against "
-          f"the wide kernel: image rel {b4v_wide_rel:.3e}, alpha and exit blocks bit-equal "
-          f"{as_wide}; {b4v_ms:.3f} ms, the wide kernel {b4v_wide_ms:.3f} ms in the same call "
-          f"(twin {b4v_plain:.1f}); {pairs} pairs walked, {weighted} with a nonzero weight; "
+          f"{b4v[1]:.3e}, alpha rel {b4v_alpha[1]:.3e}, exit blocks equal {done_twin}; alpha "
+          f"and exit blocks bit-equal to B1's {b4v_b1}; {b4v_ms:.3f} ms (twin "
+          f"{b4v_plain:.1f}); {pairs} pairs walked, {weighted} with a nonzero weight; "
           f"bound {b4v_bound[0]:.4f} ms by {b4v_bound[1]}, share {b4v_bound[0] / b4v_ms:.3f} "
-          f"(the wide kernel's {b4v_bound[0] / b4v_wide_ms:.3f}; {b4v_walked[0]:.4f} on the "
-          f"walked pairs' products)", flush=True)
+          f"({b4v_walked[0]:.4f} on the walked pairs' products)", flush=True)
     check(b4v[1] <= 1e-4 and b4v_alpha[1] <= 1e-4 and done_twin,
           "B4 at D = 512 within 1e-4 of its twin, its exit blocks equal")
-    check(as_wide and b4v_wide_rel <= 1e-4, "B4 at D = 512: alpha and exit blocks bit-equal to "
-          "the wide kernel's, the image within 1e-4")
+    check(b4v_b1, "B4 at D = 512: alpha and exit blocks bit-equal to B1's")
     b4v_rec = rec("B4-viz", "train_fwd (feature image in channel slices, trans_eps 0)",
                   "tpugs_torch/csrc/train_fwd.cu", "tpugs/raster/pallas_train.py:250",
                   launches_m["train_fwd"] - VIEWS, b4v, b4v_ms, b4v_plain, b4v_bound)
-    b4v_rec.update(bound_walked_ms=b4v_walked[0], wide_ms=b4v_wide_ms)
+    b4v_rec.update(bound_walked_ms=b4v_walked[0])
     del seen, geom, cols, plan, done, frames_e, frames_d, frames_m, frames_h, hidden
 
     # the segment app's files, as it writes them (output paths given), read
@@ -3220,7 +3420,7 @@ def phase_queries(field_cpu, ref3):
     frames_f, f_s, f_peak = _timed(lambda: render_pca(scene, field, cams, None, "frame"))
     launches_f = K.LAUNCHES.snapshot()
     check(launches_g["train_fwd"] >= VIEWS, "PCA gaussian mode renders through B4")
-    check(launches_f["train_fwd"] >= VIEWS and launches_f["train_fwd_wide"] == 0,
+    check(launches_f["train_fwd"] >= VIEWS and launches_f["train_fwd_vote"] == 0,
           "PCA frame mode renders D = 512 through B4's cluster kernel in channel slices")
     mean, comps = feature_pca(field)
     colors, _, _ = pca_colors(field, mean, comps)
@@ -3278,7 +3478,7 @@ def phase_queries(field_cpu, ref3):
     preds, lab_s, lab_peak = _timed(lambda: [render_label_masks(
         scene, labels, cams.viewmats[c], cams.Ks[c], w, h) for c in range(VIEWS)])
     launches_l = K.LAUNCHES.snapshot()
-    check(launches_l["train_fwd"] >= VIEWS and launches_l["train_fwd_wide"] == 0,
+    check(launches_l["train_fwd"] >= VIEWS and launches_l["train_fwd_vote"] == 0,
           f"label masks: B4 at D = 8 on every view ({launches_l})")
     # view 0's label map against B4's twin: the one-hot render of the same
     # labels (the kernel's inputs recorded), argmax and alpha >= 0.5 on 64
@@ -4019,7 +4219,7 @@ def phase_interactive(field_cpu):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         n = K.LAUNCHES.snapshot()
         want = 2 if v.anaglyph else 1
-        check(n["train_fwd"] == want and n["train_fwd_wide"] == 0,
+        check(n["train_fwd"] == want and n["train_fwd_vote"] == 0,
               f"frame '{key}' ran B4 {want} time(s) ({n['train_fwd']})")
         frames_launches += n["train_fwd"]
         vms.append(v.state.viewmat())
@@ -4119,7 +4319,7 @@ def phase_interactive(field_cpu):
     K.LAUNCHES.reset()
     (rgbd, feat_img), rf_ms = synced_ms(lambda: session.render_rgbd_features(vm0, K0, w, h))
     n_rf = K.LAUNCHES.snapshot()
-    check(n_rf["train_fwd"] == 2 and n_rf["train_fwd_wide"] == 0,
+    check(n_rf["train_fwd"] == 2 and n_rf["train_fwd_vote"] == 0,
           "the RGB+ED render and, in channel slices, the 512-wide field ran B4's cluster "
           "kernel")
     s = session.scene

@@ -18,9 +18,9 @@ bit-equal to the cluster kernel's where both take the width (their
 weights are the same instructions). B4 at the same widths and at 600
 launches its cluster kernel in the channel slices its width selects
 (``train_fwd_cluster``: one slice up to 256 channels, two at 300 and 512,
-three at 600); its alpha and exit blocks are bit-equal to the wide
-kernel's on the same inputs, and two B4 launches give the same outputs
-bit for bit. B6's live striped rows within
+three at 600); its alpha and exit blocks are bit-equal to B1's on the same
+geometry (the same weights; the wide kernel they were once held to is
+gone), and two B4 launches give the same outputs bit for bit. B6's live striped rows within
 ``ROWS_TOL`` of its twin and bit-equal to B2's rows through ``slot_pos``,
 also at D = 200, 300, 600, 1100 (B2's clusters of 2, 3, 5, 5 CTAs);
 B7 bit-equal to its twin and to B3 on the same rows. S1's rows within one
@@ -34,13 +34,16 @@ eight; ``geom_cluster``), against the twin by ``GRAD_ROWS_TOL`` (f32), two
 launches bit-equal, and its columns 0:6 against the sums of B5's rows'
 geometry over 512-channel chunks of the colours. B2 at
 D = 1024 (DINO's width) in f32 and bf16 by ``ROWS_TOL``, B6 bit-equal.
-At tiles 8, 12 and 24 (ghost pixel slots): B1 by the same limits and
-bit-equal to its unculled walk; B2 by ``ROWS_TOL``, B6's live rows
-bit-equal to B2's, B3 and B7 bit-equal to their twins and each other; B4's
-wide kernel (one launch) within 1e-4; B5 at D = 131 and 515 (f32 and bf16)
-and its geometry kernel at D = 4097 by ``GRAD_ROWS_TOL``. Tile 33 raises a
-``ValueError`` naming ``TILE_MAX`` in every tile-dependent wrapper, with
-no launch.
+At tiles 8, 12, 24 and 64 (ghost pixel slots; at 64 pixel groups, B1's
+and B4's exit vote): B1 by the same limits and
+bit-equal to its unculled walk, its exit blocks equal to the twin's; B2 by
+``ROWS_TOL``, B6's live rows bit-equal to B2's, B3 and B7 bit-equal to
+their twins and each other; B4's cluster kernel within 1e-4, its exit
+blocks the twin's; B5 at D = 131 and 515 (f32 and bf16) and its
+geometry kernel at D = 4097 by ``GRAD_ROWS_TOL``. B2 and B6 on a view of
+69,632 tiles (272 x 256 at tile 1, past the 65,535 of a grid's y) by the
+same limits. A plan of tile 0 raises a ``ValueError`` in every
+tile-dependent wrapper, with no launch.
 
 The encoders have no kernel of their own; they are held on the card
 against the CPU in f32 (TF32 off): a reduced LSeg network through
@@ -262,30 +265,33 @@ def test_train_fwd_kernel_matches_twin(train_packs):
     K.LAUNCHES.reset()
     img, alpha, done = T.train_forward(geom, cols, plan)
     torch.cuda.synchronize()
-    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (1, 0)
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_vote) == (1, 0)
     d = cols.shape[1]
-    assert T.train_fwd_cluster(plan.tile_size, d)[2] == (1 if d <= 256 else 2 if d <= 512 else 3)
+    assert T.train_fwd_cluster(plan.tile_size, d)[3] == (1 if d <= 256 else 2 if d <= 512 else 3)
     img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
     assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
     assert torch.equal(done, done_t)
 
 
 def test_train_fwd_cluster_kernel_matches_the_wide_kernel(train_packs):
-    """The cluster kernel computes every weight with the wide kernel's
-    instructions in its order, in every channel slice: alpha and the exit
-    blocks are bit-equal to the wide kernel's on the same inputs (the image
-    differs by the sum order and 3xTF32, within 1e-4)."""
-    from tpugs_torch.kernels.build import load_library
-
+    """The wide kernel is gone. The cluster kernel computes every weight
+    with B1's instructions in its order (pair_alpha, the sequential texc
+    and T products), in every channel slice: alpha and the exit blocks are
+    bit-equal to B1's 1 - T and blocks_done on the same geometry."""
     plan, geom, cols, _ = train_packs
     img, alpha, done = T.train_forward(geom, cols, plan)
+    pack16 = torch.zeros((plan.T_padded, 16), device="cuda")
+    pack16[:, :8] = geom
     K.LAUNCHES.reset()
-    img_w, alpha_w, done_w = T._launch_train_fwd(load_library(), geom, cols, plan,
-                                                 K.TRANS_EPS, None)
+    tiles, done_b1 = K.render_tiles(pack16, plan)
     torch.cuda.synchronize()
-    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (0, 1)
-    assert torch.equal(alpha, alpha_w) and torch.equal(done, done_w)
-    assert _rel(img, img_w) <= 1e-4
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.render) == (0, 1)
+    ts = plan.tile_size
+    inside = image_to_tiles(torch.ones((plan.height, plan.width, 1), device="cuda"), ts) > 0
+    alpha_t = image_to_tiles(alpha[..., None], ts)
+    assert torch.equal(torch.where(inside, alpha_t, 0.0),
+                       torch.where(inside, tiles[..., 4:5], 0.0))
+    assert torch.equal(done, done_b1)
 
 
 def test_train_fwd_kernel_is_deterministic(train_packs):
@@ -381,8 +387,7 @@ def test_train_bwd_colour_and_geometry_launches_alone(train_packs, dtype):
     lib = load_library()
     bf16 = dtype == torch.bfloat16
     colour_fn = lib.tpugs_train_bwd_colour_bf16 if bf16 else lib.tpugs_train_bwd_colour_f32
-    colour = (plan.tile_size**2 // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK) + T.fwd_slices(
-        d, T.COLOUR_SLICE_CHANNELS)
+    colour = T.rank_groups(plan.tile_size) + T.fwd_slices(d, T.COLOUR_SLICE_CHANNELS)
     rows_c = _launch_alone(colour_fn, args, colour, d, dtype)
     assert torch.equal(rows_c, _launch_alone(colour_fn, args, colour, d, dtype))
     assert not rows_c[:, d:].any()
@@ -427,8 +432,9 @@ def test_train_geom_rows_match_twin_and_the_chunked_geometry(view, d, trans_eps)
     K.LAUNCHES.reset()
     rows = T.train_geom_rows(*args)
     torch.cuda.synchronize()
+    grouped = int(T.geom_cluster(plan.tile_size, d)[2] > 1)  # the group-order add
     assert K.LAUNCHES.snapshot() == {**{k: 0 for k in K.LAUNCHES.snapshot()},
-                                     "train_bwd_geom": 1}
+                                     "train_bwd_geom": 1, "train_bwd_groups": grouped}
     assert rows.shape == (plan.T_padded, T.GEOM_GRADS) and rows.dtype == torch.float32
     assert torch.equal(rows, T.train_geom_rows(*args))
     sums = K.reduce_rows(rows, plan, T.GEOM_GRADS)
@@ -663,8 +669,9 @@ def test_train_step_after_a_refine_matches_twins():
 
 
 # Tiles other than 16 and 32: the kernels' ranks and pixel groups with
-# ghost slots (B1, B2/B6, B5), B4's wide kernel, the same limits as above.
-@pytest.fixture(scope="module", params=[8, 12, 24])
+# ghost slots (B1, B2/B6, B4, B5), the same limits as above; at 64 pixel
+# groups, B1's and B4's exit vote.
+@pytest.fixture(scope="module", params=[8, 12, 24, 64])
 def tile_view(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -682,19 +689,23 @@ def tile_view(request):
 
 
 def test_render_kernel_at_other_tiles(tile_view):
-    """B1 with ghost rectangles within 1e-4 of its twin, its culled walk
-    bit-equal to the unculled one, one launch each; its clusters fit."""
+    """B1 with ghost rectangles within 1e-4 of its twin, its exit blocks
+    the twin's, its culled walk bit-equal to the unculled one, one launch
+    each (and one vote each where a tile is pixel groups); its clusters
+    fit."""
     from tpugs_torch.kernels.build import load_library
 
     plan, pack, _ = tile_view
+    voted = int(K.render_cluster(plan.tile_size)[2] > 1)
     K.LAUNCHES.reset()
     img, done = K.render_tiles(pack, plan)
     img_u, done_u = K.render_tiles_unculled(pack, plan)
     torch.cuda.synchronize()
-    assert (K.LAUNCHES.render, K.LAUNCHES.render_unculled) == (1, 1)
+    assert (K.LAUNCHES.render, K.LAUNCHES.render_unculled, K.LAUNCHES.render_vote) == (
+        1, 1, 2 * voted)
     assert torch.equal(img, img_u) and torch.equal(done, done_u)
-    ref, _ = K.render_tiles_plain(pack, plan)
-    assert _rel(img, ref) <= 1e-4
+    ref, done_t = K.render_tiles_plain(pack, plan)
+    assert _rel(img, ref) <= 1e-4 and torch.equal(done, done_t)
     assert load_library().tpugs_render_max_clusters(plan.tile_size, 1) > 0
 
 
@@ -724,10 +735,11 @@ def test_adjoint_scatter_and_reduces_at_other_tiles(tile_view, dtype):
 
 @pytest.mark.parametrize("d", [131, 515])
 def test_train_kernels_at_other_tiles(tile_view, d):
-    """B4's wide kernel (one launch) within 1e-4 of its twin; B5 (its
+    """B4's cluster kernel (one launch, and the vote where a tile is pixel
+    groups) within 1e-4 of its twin, its exit blocks the twin's; B5 (its
     cluster kernel at 131, colour slices plus the geometry kernel at 515,
-    with ghost ranks) within GRAD_ROWS_TOL, rows and B3's sums, f32 and
-    bf16."""
+    with ghost ranks and pixel groups) within GRAD_ROWS_TOL, rows and B3's
+    sums, f32 and bf16."""
     plan, pack, _ = tile_view
     gen = torch.Generator(device="cuda").manual_seed(d)
     geom = pack[:, :8].contiguous()
@@ -735,9 +747,11 @@ def test_train_kernels_at_other_tiles(tile_view, d):
     K.LAUNCHES.reset()
     img, alpha, done = T.train_forward(geom, cols, plan)
     torch.cuda.synchronize()
-    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_wide) == (0, 1)
-    img_t, alpha_t, _ = T.train_forward_plain(geom, cols, plan)
+    voted = int(T.train_fwd_cluster(plan.tile_size, d)[2] > 1)
+    assert (K.LAUNCHES.train_fwd, K.LAUNCHES.train_fwd_vote) == (1, voted)
+    img_t, alpha_t, done_t = T.train_forward_plain(geom, cols, plan)
     assert _rel(img, img_t) <= 1e-4 and _rel(alpha, alpha_t) <= 1e-4
+    assert torch.equal(done, done_t)
     g = torch.randn(img.shape, device="cuda", generator=gen)
     hterm = torch.randn(alpha.shape, device="cuda", generator=gen) * (1.0 - alpha)
     args = (geom, cols, g, hterm, (g * img).sum(-1), done, plan)
@@ -779,28 +793,62 @@ def test_train_geom_rows_above_4096_channels(tile_view):
 
 
 def test_a_tile_past_the_cap_raises_before_any_launch():
-    """Tile TILE_MAX + 1: every tile-dependent wrapper raises a ValueError
-    naming the cap, and no kernel launches."""
+    """Tiles have no cap above any more; a plan of tile 0 is refused: every
+    tile-dependent wrapper raises a ValueError, and no kernel launches."""
+    import dataclasses
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    ts = K.TILE_MAX + 1
     scene = random_scene(2000, seed=1, extent=0.6, scale_range=(0.01, 0.12), device="cuda")
     cams = orbit_cameras(1, W, H, radius=3.0, device="cuda")
     vm, Km = cams.viewmats[0], cams.Ks[0]
     proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, W, H)
-    plan = build_plan(proj, W, H, ts)
-    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan)
-    feats = torch.zeros((plan.n_tiles, ts * ts, 8), device="cuda")
+    plan16 = build_plan(proj, W, H, 16)
+    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan16)
+    plan = dataclasses.replace(plan16, tile_size=0)
+    splan = dataclasses.replace(with_scatter_extras(plan16), tile_size=0)
+    feats = torch.zeros((plan16.n_tiles, 0, 8), device="cuda")
     geom, cols = pack[:, :8].contiguous(), torch.zeros((plan.T_padded, 5), device="cuda")
     z = torch.zeros((H, W), device="cuda")
     bwd = (geom, cols, torch.zeros((H, W, 5), device="cuda"), z, z,
-           torch.zeros((plan.n_tiles,), dtype=torch.int32, device="cuda"), plan)
+           torch.zeros((plan16.n_tiles,), dtype=torch.int32, device="cuda"), plan)
     K.LAUNCHES.reset()
     for call in (lambda: K.render_tiles(pack, plan), lambda: K.adjoint_rows(pack, feats, plan),
-                 lambda: K.adjoint_scatter_rows(pack, feats, with_scatter_extras(plan)),
+                 lambda: K.adjoint_scatter_rows(pack, feats, splan),
                  lambda: T.train_forward(geom, cols, plan), lambda: T.train_rows(*bwd),
                  lambda: T.train_geom_rows(*bwd)):
-        with pytest.raises(ValueError, match=f"TILE_MAX = {K.TILE_MAX}"):
+        with pytest.raises(ValueError, match="at least 1 pixel"):
             call()
     torch.cuda.synchronize()
     assert sum(K.LAUNCHES.snapshot().values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adjoint_past_65535_tiles(dtype):
+    """B2 and B6 on a 272 x 256 view at tile 1: 69,632 tiles, past the
+    65,535 that a grid's y takes, at D = 4; rows by ROWS_TOL, B6's live
+    rows bit-equal to B2's, B3 bit-equal to its twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    w, h, d = 272, 256, 4
+    scene = random_scene(3000, seed=5, extent=0.6, scale_range=(0.01, 0.08), device="cuda")
+    cams = orbit_cameras(1, w, h, radius=3.0, device="cuda")
+    vm, Km = cams.viewmats[0], cams.Ks[0]
+    proj = project(scene.means, scene.quats, scene.scales, scene.opacities, vm, Km, w, h)
+    plan = build_plan(proj, w, h, 1)
+    assert plan.n_tiles == 69_632
+    pack = pack_isect_all(proj, prepare_colors(scene.means, scene.colors_all, vm, 3), plan)
+    img, _ = K.render_tiles(pack, plan)
+    f = LinearRGBEncoder(d, seed=6, device="cuda")(img[..., :3]).to(dtype).contiguous()
+    K.LAUNCHES.reset()
+    rows = K.adjoint_rows(pack, f, plan)
+    splan = with_scatter_extras(plan)
+    striped = K.adjoint_scatter_rows(pack, f, splan)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES.adjoint, K.LAUNCHES.adjoint_scatter) == (1, 1)
+    _, of_group, of_row = K.rows_error(rows, K.adjoint_rows_plain(pack, f, plan), d)
+    group_tol, row_tol = K.ROWS_TOL[dtype]
+    assert of_group <= group_tol and of_row <= row_tol, (of_group, of_row)
+    real = splan.gauss_pos.long()
+    assert torch.equal(striped[splan.slot_pos.long()[real]], rows[real])
+    assert torch.equal(K.reduce_rows(rows, plan, d + 1), K.reduce_rows_plain(rows, plan, d + 1))

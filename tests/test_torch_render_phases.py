@@ -1,10 +1,10 @@
 """B1's cluster geometry and its phases tool's tables, on the CPU.
 
-* ``render_cluster`` gives C = ts*ts / 256 CTAs per tile (4 at tile 32, 1
-  at tile 16), so a tile's pixels split into whole ranks of
-  ``RENDER_THREADS`` pixels, each rank into whole 8 x 4 warp rectangles;
-  tiles 8 and 24 take 1 and 3 CTAs (with ghost slots), tiles past
-  ``TILE_MAX`` raise.
+* ``render_cluster`` gives (C, P, G) = (ts*ts / 256, 256, 1) at tiles 16
+  and 32 (4 CTAs at tile 32, 1 at tile 16), so a tile's pixels split into
+  whole ranks of ``RENDER_THREADS`` pixels, each rank into whole 8 x 4 warp
+  rectangles; tiles 8, 24 and 33 take one cluster of 1, 3 and 6 CTAs (with
+  ghost slots), tile 64 two pixel groups of 8; tile 0 raises.
 * Every pattern of the tool's ``cluster`` table occurs exactly once in the
   tree's ``render.cu``, so each variant builds from the tree's kernel, and
   no substitution consumes another's pattern; the prelude and epilogue
@@ -28,7 +28,7 @@ TABLE = render_phases.TABLES["cluster"]
 
 @pytest.mark.parametrize("ts, c", [(16, 1), (32, 4)])
 def test_render_cluster_geometry(ts, c):
-    assert K.render_cluster(ts) == c
+    assert K.render_cluster(ts) == (c, K.RENDER_THREADS, 1)
     assert c * K.RENDER_THREADS == ts * ts
     rank_rows = K.RENDER_THREADS // ts
     assert rank_rows % K.RECT_H == 0 and ts % K.RECT_W == 0
@@ -37,12 +37,14 @@ def test_render_cluster_geometry(ts, c):
 
 @pytest.mark.parametrize("ts", [0, 8, 24, 33, 64])
 def test_render_cluster_refuses_other_tiles(ts):
-    """Tiles past 1..TILE_MAX raise, naming the cap; tiles 8 and 24 take
-    the CTAs their warp rectangles fill (1 and 3), ghost slots beyond."""
-    if 1 <= ts <= K.TILE_MAX:
-        assert K.render_cluster(ts) == {8: 1, 24: 3}[ts]
+    """Tile 0 raises; tiles 8, 24 and 33 take the CTAs their warp
+    rectangles fill (1, 3 and 6), ghost slots beyond; tile 64's 16 CTAs
+    form two pixel groups, whose exit is the vote's."""
+    if ts >= 1:
+        assert K.render_cluster(ts) == {8: (1, 256, 1), 24: (3, 256, 1), 33: (6, 256, 1),
+                                        64: (8, 256, 2)}[ts]
         return
-    with pytest.raises(ValueError, match=f"TILE_MAX = {K.TILE_MAX}"):
+    with pytest.raises(ValueError, match="at least 1 pixel"):
         K.render_cluster(ts)
 
 

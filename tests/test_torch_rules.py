@@ -384,11 +384,10 @@ def test_cpu_tensors_run_the_twins_and_count_no_launch(small):
     assert int(scatter_write.async_copy_probe(torch.arange(64, dtype=torch.int32), 2)) == 19
     assert set(scatter_write.LAUNCHES.values()) == {0}
     assert set(K.LAUNCHES.snapshot().values()) == {0}
-    assert set(K.LAUNCHES.snapshot()) == {"render", "render_unculled", "adjoint", "reduce",
-                                          "train_fwd",
-                                          "train_fwd_wide", "train_bwd", "train_bwd_colour",
-                                          "train_bwd_geom",
-                                          "adjoint_scatter", "stripe_sum"}
+    assert set(K.LAUNCHES.snapshot()) == {"render", "render_unculled", "render_vote", "adjoint",
+                                          "reduce", "train_fwd", "train_fwd_vote", "train_bwd",
+                                          "train_bwd_colour", "train_bwd_geom",
+                                          "train_bwd_groups", "adjoint_scatter", "stripe_sum"}
 
 
 UNPORTED = {

@@ -1,12 +1,13 @@
 """Tiles other than 16 and 32, and widths past the card's B5 cap, on the
 CPU: the port's twins against tpugs (Pallas in interpret mode) on the
-same numpy-seeded inputs, and the kernels' pixel layouts at every tile up
-to ``TILE_MAX``.
+same numpy-seeded inputs, the kernels' pixel layouts at tiles 1 to 64, 96
+and 128, and the exit vote's twin.
 
 * ``backproject_views`` (f32 rows) against ``backproject_views_grouped``
   at tiles 8 and 12: 1e-4 of max|ref|, as ``test_torch_lift.py``;
 * ``render_plan_train`` with a background and the absgrad probe against
-  tpugs' at tiles 8 and 12, ``trans_eps`` 1e-4, D = 5 and 300: image and
+  tpugs' at tiles 8 and 12, ``trans_eps`` 1e-4, D = 5 and 300, and at tile
+  48 (pixel groups and the exit vote on the card), D = 5: image and
   alpha 1e-5 of max|ref|, every gradient 3e-4 of its max, as
   ``test_torch_train_render.py``; at tile 8 both packages run twice and
   give the same bits each time;
@@ -14,14 +15,21 @@ to ``TILE_MAX``.
   card's old cap) against ``render_tiled_autodiff`` on a 20-Gaussian 32x32
   scene, the probe against autograd with a leaf copy of each mean per
   pixel: 5e-5 of each max, as ``test_torch_api.py``;
-* for every tile 1 to 32 and widths up to ``GEOM_MAX_CHANNELS``: B1's
-  warp rectangles, B2's pixel groups, B5's ranks (cluster kernel and
-  colour slices) and its geometry kernel's ranks and pixel groups, as the
-  kernels map their slots to pixels, cover each pixel of the tile exactly
-  once; the ghost slots are fewer than one CTA's (B1: beyond the
-  rectangles' rounding), one group's (B2), one rank's (B5) or one rank of
-  each pixel group (the geometry kernel), and every CTA of B1 and B5 and
-  every pixel group holds a pixel.
+* for every tile 1 to 64, 96 and 128 and widths up to
+  ``GEOM_MAX_CHANNELS``: B1's warp rectangles, B2's pixel groups, B4's
+  and B5's ranks (cluster kernel and colour slices) and B5's geometry
+  kernel's ranks, in their pixel groups, as the kernels map their slots to
+  pixels, cover each pixel of the tile exactly once; the ghost slots are
+  fewer than one CTA's a pixel group (B1: beyond the rectangles' rounding),
+  one group's (B2) or one rank's a pixel group (B4, B5), every pixel group
+  holds a pixel, and the exit vote's groups (``render_groups``,
+  ``train_fwd_groups``) are those of the slots;
+* ``exit_vote_plain`` at tiles 33, 48 and 64, on a one-tile scene whose
+  bottom rows (one pixel group of B1 and of B4) see only faint Gaussians
+  while opaque ones cover the rest: the planted group exits blocks after
+  every other, and the largest of the groups' exits is the whole-tile
+  twins' ``blocks_done`` (B1's and B4's);
+* every layout refuses tile 0 and takes tile 33.
 """
 
 import jax
@@ -47,6 +55,7 @@ from tpugs_torch.raster import kernels as K
 from tpugs_torch.raster import train as T
 from tpugs_torch.raster.kernels import _tile_pixels
 from tpugs_torch.raster.naive import evaluate_alpha
+from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import build_plan
 from tpugs_torch.raster.projection import Projected, project
 from tpugs_torch.raster.tiled import TileConfig, render_tiled, render_tiled_autodiff
@@ -136,7 +145,7 @@ def _port(arrays, r, s, tplan):
     return [x.detach().numpy() for x in (img, alpha, *grads)]
 
 
-@pytest.mark.parametrize("tile, d", [(8, 5), (8, 300), (12, 5), (12, 300)])
+@pytest.mark.parametrize("tile, d", [(8, 5), (8, 300), (12, 5), (12, 300), (48, 5)])
 def test_render_plan_train_matches_tpugs_at_other_tiles(tile, d):
     arrays, r, s, jplan, tplan = _train_inputs(d, tile)
     runs = 2 if tile == 8 else 1  # at tile 8 both packages give the same bits twice
@@ -250,17 +259,18 @@ def _covered_once(xs, ys, real, ts):
 
 
 def _render_slots(ts):
-    """B1's slots (rank, warp, lane) -> pixel: warp 8 rank + w takes the
-    tile's warp rectangle of that index, row-major (csrc/render.cu)."""
-    c = K.render_cluster(ts)
-    slot = np.arange(c * K.RENDER_THREADS)
+    """B1's slots (CTA, warp, lane) -> pixel: warp 8 k + w of CTA k (rank k
+    % C of pixel group k // C) takes the tile's warp rectangle of that
+    index, row-major (csrc/render.cu)."""
+    c, p, g = K.render_cluster(ts)
+    slot = np.arange(c * g * p)
     r, lane = slot // 32, slot % 32
     rects_x = -(-ts // K.RECT_W)
     rects = rects_x * -(-ts // K.RECT_H)
     xs = (r % rects_x) * K.RECT_W + lane % K.RECT_W
     ys = (r // rects_x) * K.RECT_H + lane // K.RECT_W
     real = (r < rects) & (xs < ts) & (ys < ts)
-    return c, xs, ys, real, rects * K.RECT_W * K.RECT_H
+    return (c, p, g), xs, ys, real, rects * K.RECT_W * K.RECT_H
 
 
 def _rank_slots(ranks, p, ts, blocks):
@@ -291,39 +301,123 @@ def _geom_blocks(ts, p):
     return blocks
 
 
-@pytest.mark.parametrize("ts", range(1, K.TILE_MAX + 1))
-def test_every_kernel_layout_covers_the_tile_once(ts):
-    c, xs, ys, real, rounded = _render_slots(ts)
+def _grouped(layout, xs, ys, real, ts, ghost_unit):
+    """The slots of C ranks a group, G groups, P slots a rank: each pixel
+    once; fewer ghosts than ``ghost_unit`` slots a group (None: B1, whose
+    rectangles' rounding adds more, checked by the caller); every group
+    holds a pixel. Returns the group of each pixel (ts*ts,), row-major."""
+    c, p, g = layout
     _covered_once(xs, ys, real, ts)
-    assert 0 <= c * K.RENDER_THREADS - rounded < K.RENDER_THREADS
-    assert real.reshape(c, -1).any(1).all(), "every B1 CTA holds a pixel"
+    if ghost_unit is not None:
+        assert 0 <= c * g * p - ts * ts < g * ghost_unit, "fewer ghosts than one unit a group"
+    group = np.arange(c * g * p) // (c * p)
+    assert real.reshape(g, c * p).any(1).all(), "every pixel group holds a pixel"
+    of_pixel = np.empty(ts * ts, dtype=np.int64)
+    of_pixel[ys[real] * ts + xs[real]] = group[real]
+    return of_pixel
+
+
+LAYOUT_TILES = list(range(1, 65)) + [96, 128]
+
+
+@pytest.mark.parametrize("ts", LAYOUT_TILES)
+def test_every_kernel_layout_covers_the_tile_once(ts):
+    (c, p, g), xs, ys, real, rounded = _render_slots(ts)
+    assert p == K.RENDER_THREADS and c <= K.MAX_CLUSTER
+    assert (g == 1) == (rounded <= K.MAX_CLUSTER * p), "one cluster while the CTAs fit one"
+    assert 0 <= c * g * p - rounded < g * p
+    of_pixel = _grouped((c, p, g), xs, ys, real, ts, None)
+    assert np.array_equal(K.render_groups(ts).numpy(), of_pixel), "the vote's groups are B1's"
     for dtype in K.CONTRIB_DTYPES:
         groups, p = K.adjoint_groups(ts, dtype)
         slot = np.arange(groups * p)
         _covered_once(slot % ts, slot // ts, slot < ts * ts, ts)
         assert 0 <= groups * p - ts * ts < p
+    c, p, g, s, ns = T.train_fwd_cluster(ts, 131)
+    assert (c, p, g) == T.rank_groups(ts) and (s, ns) == T.fwd_slices(131)
+    assert p == T.PIXELS_PER_RANK and c <= K.MAX_CLUSTER and (g == 1) == (ts <= 32)
+    of_pixel = _grouped((c, p, g), *_rank_slots(c * g, p, ts, None), ts, p)
+    assert np.array_equal(T.train_fwd_groups(ts).numpy(), of_pixel), "the vote's groups are B4's"
     for d in WIDTHS:
         layout = T.train_layout(ts, d)
-        c, p = layout["cluster"] if "cluster" in layout else layout["colour"][:2]
-        assert p == T.PIXELS_PER_RANK and c <= 8
-        xs, ys, real = _rank_slots(c, p, ts, _cluster_blocks(ts))
-        _covered_once(xs, ys, real, ts)
-        assert 0 <= c * p - ts * ts < p and real.reshape(c, p).any(1).all()
+        c, p, g = layout["cluster"] if "cluster" in layout else layout["colour"][:3]
+        assert (c, p, g) == T.rank_groups(ts) and c <= K.MAX_CLUSTER
+        _grouped((c, p, g), *_rank_slots(c * g, p, ts, _cluster_blocks(ts)), ts, p)
         c, p, g = T.geom_cluster(ts, d)
         assert c <= T.GEOM_MAX_CLUSTER and p == next(q for widest, q in T.GEOM_WIDTHS
                                                      if d <= widest)
-        xs, ys, real = _rank_slots(c * g, p, ts, _geom_blocks(ts, p) if p >= 8 else None)
-        _covered_once(xs, ys, real, ts)
-        assert 0 <= c * g * p - ts * ts < g * p, "fewer ghosts than one rank a group"
-        assert real.reshape(g, c * p).any(1).all(), "every pixel group holds a pixel"
+        _grouped((c, p, g), *_rank_slots(c * g, p, ts, _geom_blocks(ts, p) if p >= 8 else None),
+                 ts, p)
         if ts in (16, 32) and p >= 8:
             assert c * g * p == ts * ts
 
 
-@pytest.mark.parametrize("ts", [0, K.TILE_MAX + 1])
+@pytest.mark.parametrize("ts", [0, 33])
 def test_layouts_refuse_tiles_past_the_cap(ts):
-    for call in (lambda: K.render_cluster(ts), lambda: K.adjoint_groups(ts, torch.float32),
-                 lambda: T.train_layout(ts, 3), lambda: T.geom_cluster(ts, 3),
-                 lambda: T.train_fwd_cluster(ts, 3)):
-        with pytest.raises(ValueError, match=f"TILE_MAX = {K.TILE_MAX}"):
-            call()
+    """Tile 0 is refused by every layout; tile 33, past the old cap of 32,
+    is taken by every one (B1 in one cluster of 6 CTAs, B4 and B5 in two
+    pixel groups of 5 ranks)."""
+    calls = {"B1": lambda: K.render_cluster(ts), "B2": lambda: K.adjoint_groups(ts, torch.float32),
+             "B5": lambda: T.train_layout(ts, 3), "B5 geometry": lambda: T.geom_cluster(ts, 3),
+             "B4": lambda: T.train_fwd_cluster(ts, 3)}
+    if ts == 0:
+        for call in calls.values():
+            with pytest.raises(ValueError, match="at least 1 pixel"):
+                call()
+        return
+    got = {name: call() for name, call in calls.items()}
+    assert got == {"B1": (6, 256, 1), "B2": (69, 16), "B5": {"cluster": (5, 128, 2)},
+                   "B5 geometry": (9, 64, 2), "B4": (5, 128, 2, 1, 16)}
+
+
+# ------------------------------------------------------------ the exit vote
+
+
+def _planted_tile(ts):
+    """One ts x ts tile: 160 opaque Gaussians nearest the camera cover the
+    rows to 0.75 ts (centres every 0.05 ts, narrow in y), then 1000 faint
+    ones (opacity 0.03) centred in the bottom rows, broad, so that the
+    pixels below 0.75 ts keep T above trans_eps for blocks after the rest.
+    Returns (B1's pack, B4's packs, plan)."""
+    rng = np.random.default_rng(ts)
+    n_cover, n_faint = 160, 1000
+    cy = np.tile(np.arange(0.0, 0.76, 0.05), 10) * ts
+    cx = rng.uniform(0.1, 0.9, n_cover) * ts
+    fx = rng.uniform(0.0, 1.0, n_faint) * ts
+    fy = rng.uniform(0.88, 0.95, n_faint) * ts
+    means = np.concatenate([np.stack([cx, cy], 1), np.stack([fx, fy], 1)]).astype(np.float32)
+    conics = np.concatenate([np.tile([1.0 / ts**2, 0.0, 1100.0 / ts**2], (n_cover, 1)),
+                             np.tile([2.0 / ts**2, 0.0, 20.0 / ts**2], (n_faint, 1))])
+    opac = np.concatenate([np.full(n_cover, 0.99), np.full(n_faint, 0.03)]).astype(np.float32)
+    depths = np.concatenate([rng.uniform(1.0, 1.1, n_cover), rng.uniform(2.0, 3.0, n_faint)])
+    n = n_cover + n_faint
+    t = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32))  # noqa: E731
+    proj = Projected(t(means), t(conics), t(depths), t(np.full(n, 4.0 * ts)), t(opac),
+                     torch.ones(n, dtype=torch.bool), t(np.full(n, 64.0 * ts * ts)),
+                     t(np.log(255.0 * opac)))
+    plan = build_plan(proj, ts, ts, ts)
+    colors = t(rng.uniform(0, 1, (n, 3)))
+    geom, cols = T.pack_train(proj.means2d, proj.conics, proj.opacities, colors, plan)
+    return pack_isect_all(proj, colors, plan), (geom, cols), plan
+
+
+@pytest.mark.parametrize("ts", [33, 48, 64])
+def test_exit_vote_plain_is_the_whole_tile_exit(ts):
+    pack, (geom, cols), plan = _planted_tile(ts)
+    assert plan.n_tiles == 1 and int(plan.tile_ends[0] - plan.tile_starts[0]) == 1160
+    _, done_b1 = K.render_tiles_plain(pack, plan)
+    _, _, done_b4 = T.train_tiles_plain(geom, cols, plan)
+    assert torch.equal(done_b1, done_b4) and int(done_b1[0]) < 9, "the faint pixels exit"
+    voted = 0
+    for packed, groups in ((pack, K.render_groups(ts)), (geom, T.train_fwd_groups(ts))):
+        own, done = K.exit_vote_plain(packed, plan, groups)
+        assert own.shape == (1, int(groups.max()) + 1) and own.dtype == torch.int32
+        assert torch.equal(done, done_b1), "the largest group exit is the tile's"
+        if own.shape[1] == 1:
+            continue
+        voted += 1
+        planted = int(groups[ts * ts - 1])  # the bottom rows' group
+        others = torch.cat([own[:, :planted], own[:, planted + 1:]], 1)
+        assert int(own[0, planted]) >= int(others.max()) + 3, "the plant keeps its group walking"
+        assert int(own[0, planted]) == int(done[0])
+    assert voted == (1 if ts == 33 else 2)  # B1's tile 33 is one cluster

@@ -1,11 +1,11 @@
 """B5's cluster geometry and the phases tools' tables, on the CPU.
 
-* ``train_cluster`` gives (C, P) = (ts*ts / 128, 128) up to
+* ``train_cluster`` gives (C, P, G) = (ts*ts / 128, 128, 1) up to
   ``CLUSTER_MAX_CHANNELS`` channels, so a tile's pixels split into whole
   ranks (8 at tile 32, 2 at tile 16), and None above it, where
   ``train_layout`` gives the colour slices (the same ranks) and the
-  geometry kernel, up to ``GEOM_MAX_CHANNELS``; a tile of 8 has one rank;
-  tiles past ``TILE_MAX`` and widths past the cap raise.
+  geometry kernel, up to ``GEOM_MAX_CHANNELS``; a tile of 8 has one rank,
+  a tile of 64 four pixel groups of 8; widths past the cap raise.
 * Every pattern of every phase table that targets a source of this tree
   (adjoint's ``cluster``, train_bwd's ``cluster``, ``colour`` and ``geom``)
   occurs exactly once in
@@ -20,7 +20,6 @@ from pathlib import Path
 import pytest
 
 from tpugs_torch.experiments import adjoint_phases, train_bwd_phases
-from tpugs_torch.raster.kernels import TILE_MAX
 from tpugs_torch.raster.train import (
     CLUSTER_MAX_CHANNELS, GEOM_MAX_CHANNELS, PIXELS_PER_RANK, train_cluster, train_layout)
 
@@ -33,10 +32,11 @@ def test_train_cluster_geometry(ts, d):
     got = train_cluster(ts, d)
     if d > CLUSTER_MAX_CHANNELS:
         assert got is None
-        c, p = train_layout(ts, d)["colour"][:2]  # the colour slices keep the ranks
-        assert (c, p) == (ts * ts // PIXELS_PER_RANK, PIXELS_PER_RANK)
+        c, p, g = train_layout(ts, d)["colour"][:3]  # the colour slices keep the ranks
+        assert (c, p, g) == (ts * ts // PIXELS_PER_RANK, PIXELS_PER_RANK, 1)
         return
-    c, p = got
+    c, p, g = got
+    assert g == 1
     assert p == PIXELS_PER_RANK == 128
     assert c * p == ts * ts
     assert c == {16: 2, 32: 8}[ts]
@@ -44,14 +44,14 @@ def test_train_cluster_geometry(ts, d):
 
 @pytest.mark.parametrize("ts, d", [(8, 3), (64, 3), (32, 0), (16, GEOM_MAX_CHANNELS + 1)])
 def test_train_cluster_refuses(ts, d):
-    """Tiles past TILE_MAX, no channels and widths past GEOM_MAX_CHANNELS
-    raise, naming the cap; a tile of 8 takes one rank of 128 pixel slots,
-    64 of them ghosts."""
-    if ts <= TILE_MAX and 1 <= d <= GEOM_MAX_CHANNELS:
-        assert train_cluster(ts, d) == (1, PIXELS_PER_RANK)
+    """No channels and widths past GEOM_MAX_CHANNELS raise, naming the
+    cap; a tile of 8 takes one rank of 128 pixel slots, 64 of them ghosts,
+    and a tile of 64 (past the old cap of 32) four pixel groups of 8 ranks."""
+    if 1 <= d <= GEOM_MAX_CHANNELS:
+        assert train_cluster(ts, d) == {8: (1, PIXELS_PER_RANK, 1),
+                                        64: (8, PIXELS_PER_RANK, 4)}[ts]
         return
-    cap = "TILE_MAX = 32" if ts > TILE_MAX else "GEOM_MAX_CHANNELS"
-    with pytest.raises(ValueError, match=cap):
+    with pytest.raises(ValueError, match="GEOM_MAX_CHANNELS"):
         train_cluster(ts, d)
 
 

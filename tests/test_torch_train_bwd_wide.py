@@ -9,8 +9,8 @@ two launches follow.
   at every width: P pixels a rank by ``GEOM_WIDTHS`` (64 up to 700
   channels, 32 up to 1276, 16 up to 2108, 8 up to 4276, 4 up to 8620, 2
   up to 18460, 1 up to 38140), clusters of C = min(ts*ts / P, 16) CTAs at
-  tiles 16 and 32, G pixel groups; tiles past ``TILE_MAX``, widths below
-  1 and above the cap raise, the card's layout naming the cap.
+  tiles 16 and 32, G pixel groups; tile 0, widths below 1 and above the
+  cap raise, the card's layout naming the cap.
 * The limits named in ``raster/train.py`` are the constants of
   ``csrc/train_bwd.cu``; the geometry kernel's shared memory at each
   width's P fits a CTA, and one channel past a width does not at its P
@@ -75,18 +75,18 @@ def test_layout_by_width_and_tile(ts, d):
     layout = train_layout(ts, d)
     c = ts * ts // PIXELS_PER_RANK
     if d <= CLUSTER_MAX_CHANNELS:
-        assert layout == {"cluster": (c, PIXELS_PER_RANK)}
+        assert layout == {"cluster": (c, PIXELS_PER_RANK, 1)}
         return
     assert set(layout) == {"colour", "geom"} and layout["geom"] == geom
-    _, _, s, ns = layout["colour"]
-    assert layout["colour"] == (c, PIXELS_PER_RANK) + fwd_slices(d, COLOUR_SLICE_CHANNELS)
+    _, _, _, s, ns = layout["colour"]
+    assert layout["colour"] == (c, PIXELS_PER_RANK, 1) + fwd_slices(d, COLOUR_SLICE_CHANNELS)
     assert s == -(-d // COLOUR_SLICE_CHANNELS) and ns % 16 == 0 and ns <= COLOUR_SLICE_CHANNELS
     assert (s - 1) * ns < d <= s * ns
 
 
 @pytest.mark.parametrize("call", [
-    lambda: train_layout(33, 300), lambda: train_layout(64, 3), lambda: train_layout(16, 0),
-    lambda: train_layout(32, CAP + 1), lambda: geom_cluster(33, 5),
+    lambda: train_layout(0, 300), lambda: train_layout(-1, 3), lambda: train_layout(16, 0),
+    lambda: train_layout(32, CAP + 1), lambda: geom_cluster(0, 5),
     lambda: geom_cluster(16, 0), lambda: geom_cluster(32, CAP + 1),
     lambda: train_cluster(16, CAP + 1)])
 def test_layout_refuses(call):
@@ -145,7 +145,7 @@ def test_c_side_limits_are_the_python_ones():
                        for d in range(widest + 1, widest + 9)), p
 
 
-W, H, N = 64, 48, 600
+W, H, N = 40, 32, 150
 
 
 def _bwd_inputs(d, ts):
@@ -173,7 +173,7 @@ def test_slices_and_geometry_assemble_the_rows(d, ts, dtype):
     full = train_rows_plain(geom, cols, g, hterm, grem0, done, plan, dtype)
     rw = grad_row_width(d)
     assert full.shape == (plan.T_padded, rw)
-    _, _, s, ns = train_layout(ts, d)["colour"]
+    _, _, _, s, ns = train_layout(ts, d)["colour"]
     rows = torch.zeros((plan.T_padded, rw), dtype=dtype)
     for a in range(0, s * ns, ns):
         b = min(a + ns, d)

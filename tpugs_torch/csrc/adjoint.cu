@@ -27,7 +27,7 @@
 // them through distributed shared memory (DSMEM):
 //   - the tile's pixels form groups of P (32 in bf16, 16 in f32); group g
 //     belongs to cluster rank g mod C for every block, so each pixel's
-//     transmittance T stays in its owner's shared memory;
+//     transmittance T is read and written by its owner alone;
 //   - per 128-Gaussian block, in rounds of C groups: each rank issues the
 //     round's feature rows for its slice with cp.async (16 B, .cg); walks
 //     its group, kThreads / P lanes per pixel: each lane computes one
@@ -46,15 +46,22 @@
 //     pixels' T > eps and stores a mark into every rank's flag slot for
 //     the block; it is read after the next cluster barrier, so every rank
 //     decides what the one-CTA kernel decided.
-// Tiles up to 32 whose ts*ts pixels are not whole groups (kGhost): the
-// last group's slots past ts*ts are ghosts, whose T starts at 0 (so all
-// their weights are 0 and they vote for the exit) and whose feature rows
-// are staged as zeros; the product still runs over whole groups.
-// At tiles 16 and 32 the groups are whole and kGhost is false.
+// Tiles whose ts*ts pixels are not whole groups (kGhost): the last group's
+// slots past ts*ts are ghosts, whose T starts at 0 (so all their weights
+// are 0 and they vote for the exit) and whose feature rows are staged as
+// zeros; the product still runs over whole groups. At tiles 16 and 32 the
+// groups are whole and kGhost is false. Each cluster keeps its tile's T in
+// a scratch of device memory (n_groups P floats a cluster, the wrapper's),
+// so a tile of any size fits; each rank reads and writes only its own
+// groups' T there, and reads it back after its own __syncthreads, so the
+// rows are those of one cluster walking the whole tile. (T in each CTA's
+// shared memory held at most 1024 pixels, tile 32, and was 1.4-2.2% faster
+// at tiles 16 and 32 on the canonical view: PERF.md.) The grid puts the
+// tile on x (C ceil(S / 8) CTAs a tile), so it takes any number of tiles.
 // Every global store is 16 bytes: the product rows (bf16 through a 1-KB
 // per-warp stage), and the zero rows of exited blocks. Shared memory per
-// CTA: two buffers of C*P pixels x 128 columns (W and F) + 8 KB stage + 7
-// KB static; 95 KB at C = 5 in bf16, so two CTAs fit on an SM.
+// CTA: two buffers of C*P pixels x 128 columns (W and F) + 8 KB stage + 3
+// KB static; 91 KB at C = 5 in bf16, so two CTAs fit on an SM.
 //
 // Measured on the canonical view (N = 2^19, 1296 x 840, D = 512, tile
 // 32, bf16) on an NVIDIA H100 80GB HBM3 at 700 W, with
@@ -96,7 +103,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlice = 128;  // channels per CTA; CHANNEL_SLICE in kernels.py
-constexpr int kMaxPixels = 1024;
 constexpr int kMaxCluster = 8;  // MAX_CLUSTER in kernels.py (portable size)
 
 template <typename T> struct Cfg;
@@ -388,33 +394,38 @@ template <typename T>
 using ProductOf = typename std::conditional<std::is_same<T, bf16>::value, WgmmaProduct,
                                             FmaProduct>::type;
 
-// Grid (C * ceil(S / 8), n_tiles) in clusters of (C, 1, 1): blockIdx.x is
-// the channel slice, the cluster's CTAs share one tile.
+// Grid grid_x * n_tiles in clusters of (C, 1, 1), grid_x = C * ceil(S / 8):
+// blockIdx.x % grid_x is the channel slice, the cluster's CTAs share one
+// tile, blockIdx.x / grid_x. ``tscratch`` holds grid_x / C clusters' T of
+// n_groups P floats for each tile.
 template <typename T, bool kScatter, bool kGhost>
 __global__ void __launch_bounds__(kThreads, 2)
 adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_starts,
                const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
                const T* __restrict__ feats, const int* __restrict__ dest, T* __restrict__ out,
-               int ntx, int ts, int width, int height, int D, int DC, float trans_eps,
-               int vec_ok, int C) {
+               float* __restrict__ tscratch, int ntx, int ts, int width, int height, int D,
+               int DC, float trans_eps, int vec_ok, int C, int grid_x) {
   using L = Layout<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ws = reinterpret_cast<T*>(smem);
   T* Fs = reinterpret_cast<T*>(smem + L::buffer(C));
   float* stage = reinterpret_cast<float*>(smem + 2 * L::buffer(C));
   __shared__ BlockGeom g;
-  __shared__ float Tpix[kMaxPixels];
   __shared__ int exit_mark[2];  // block b's mark, b + 1, in slot b % 2
 
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster_rank());
-  const int c0 = blockIdx.x * kSlice;
+  const int slot = static_cast<int>(blockIdx.x % grid_x);  // the CTA's slice of the tile
+  const int c0 = slot * kSlice;
   const bool has_cols = c0 < DC;
   // ranks [0, n_dst) of this cluster have columns and read W
-  const int n_dst = min(C, DC / kSlice - (static_cast<int>(blockIdx.x) - rank));
-  const int tile = blockIdx.y;
+  const int n_dst = min(C, DC / kSlice - (slot - rank));
+  const int tile = blockIdx.x / grid_x;
   const int tspx = ts * ts;
   const int n_groups = kGhost ? (tspx + L::P - 1) / L::P : tspx / L::P;
+  // the tile's T, in the cluster's scratch
+  float* const Tpix =
+      tscratch + (static_cast<long long>(tile) * (grid_x / C) + slot / C) * n_groups * L::P;
   const int n_rounds = (n_groups + C - 1) / C;
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
@@ -424,8 +435,8 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
   const int pl = tid / L::K, q = tid % L::K;  // pixel of the group, lane of the pixel
   const uint32_t w_dst = map_rank(smem_addr(Ws), q < n_dst ? q : 0);
 
-  for (int p = tid; p < n_groups * L::P; p += kThreads)
-    Tpix[p] = !kGhost || p < tspx ? 1.0f : 0.0f;  // a ghost's T is 0
+  for (int p = tid; p < n_groups * L::P; p += kThreads)  // its own groups'
+    if ((p / L::P) % C == rank) Tpix[p] = !kGhost || p < tspx ? 1.0f : 0.0f;
   if (tid < 2) exit_mark[tid] = 0;
   if (has_cols) fill_constant_columns<T>(Fs, C * L::P, c0, D, tid);
   cluster_arrive();  // every CTA of the cluster has started and initialised
@@ -481,9 +492,9 @@ adjoint_kernel(const float* __restrict__ pack, const int* __restrict__ tile_star
 
 template <typename T, bool kScatter, bool kGhost>
 int launch_as(const float* pack, const int* tile_starts, const int* tile_ends,
-              const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
-              int ntx, int ts, int width, int height, int D, int DC, float trans_eps, int C,
-              int grid_x, cudaStream_t stream) {
+              const int* padded_starts, const T* feats, const int* dest, T* out, float* tscratch,
+              int n_tiles, int ntx, int ts, int width, int height, int D, int DC, float trans_eps,
+              int C, int grid_x, cudaStream_t stream) {
   using L = Layout<T>;
   const size_t bytes = L::bytes(C);
   cudaError_t e = cudaFuncSetAttribute(adjoint_kernel<T, kScatter, kGhost>,
@@ -492,7 +503,7 @@ int launch_as(const float* pack, const int* tile_starts, const int* tile_ends,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec_ok = (D % L::V == 0) && (reinterpret_cast<uintptr_t>(feats) % 16 == 0);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_x, n_tiles, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(grid_x) * n_tiles, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -504,32 +515,33 @@ int launch_as(const float* pack, const int* tile_starts, const int* tile_ends,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, adjoint_kernel<T, kScatter, kGhost>, pack, tile_starts,
-                         tile_ends, padded_starts, feats, dest, out, ntx, ts, width, height, D,
-                         DC, trans_eps, vec_ok, C);
+                         tile_ends, padded_starts, feats, dest, out, tscratch, ntx, ts, width,
+                         height, D, DC, trans_eps, vec_ok, C, grid_x);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tiles 1 to 32; C and grid_x from raster/kernels.py::adjoint_cluster(DC).
+// Any tile; C and grid_x from raster/kernels.py::adjoint_cluster(DC);
+// tscratch (grid_x / C) * n_tiles * n_groups * P floats.
 template <typename T, bool kScatter>
 int launch(const float* pack, const int* tile_starts, const int* tile_ends,
-           const int* padded_starts, const T* feats, const int* dest, T* out, int n_tiles,
-           int ntx, int ts, int width, int height, int D, int DC, float trans_eps, int C,
-           int grid_x, cudaStream_t stream) {
+           const int* padded_starts, const T* feats, const int* dest, T* out, float* tscratch,
+           int n_tiles, int ntx, int ts, int width, int height, int D, int DC, float trans_eps,
+           int C, int grid_x, cudaStream_t stream) {
   using L = Layout<T>;
   const int S = DC / kSlice;
   const int per = (S + kMaxCluster - 1) / kMaxCluster;  // clusters per tile
-  if (DC % kSlice != 0 || DC < D + 1 || ts < 1 || ts > 32 ||
-      kScatter != (dest != nullptr) || C != (S + per - 1) / per || grid_x != C * per)
+  if (DC % kSlice != 0 || DC < D + 1 || ts < 1 || kScatter != (dest != nullptr) ||
+      C != (S + per - 1) / per || grid_x != C * per || tscratch == nullptr ||
+      static_cast<long long>(grid_x) * n_tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  static_assert(32 * 32 <= kMaxPixels && kMaxPixels % Layout<T>::P == 0, "whole groups");
-  return (ts * ts) % L::P == 0
-             ? launch_as<T, kScatter, false>(pack, tile_starts, tile_ends, padded_starts, feats,
-                                             dest, out, n_tiles, ntx, ts, width, height, D, DC,
-                                             trans_eps, C, grid_x, stream)
-             : launch_as<T, kScatter, true>(pack, tile_starts, tile_ends, padded_starts, feats,
-                                            dest, out, n_tiles, ntx, ts, width, height, D, DC,
-                                            trans_eps, C, grid_x, stream);
+  if ((ts * ts) % L::P == 0)
+    return launch_as<T, kScatter, false>(pack, tile_starts, tile_ends, padded_starts, feats,
+                                         dest, out, tscratch, n_tiles, ntx, ts, width, height,
+                                         D, DC, trans_eps, C, grid_x, stream);
+  return launch_as<T, kScatter, true>(pack, tile_starts, tile_ends, padded_starts, feats, dest,
+                                      out, tscratch, n_tiles, ntx, ts, width, height, D, DC,
+                                      trans_eps, C, grid_x, stream);
 }
 
 // Clusters of C CTAs that can be resident on the card at once (0 if none).
@@ -562,45 +574,45 @@ int max_clusters(int C) {
 
 extern "C" int tpugs_adjoint_f32(const float* pack, const int* tile_starts,
                                  const int* tile_ends, const int* padded_starts,
-                                 const float* feats, float* out, int n_tiles, int ntx,
-                                 int ts, int width, int height, int D, int DC,
+                                 const float* feats, float* out, float* tscratch, int n_tiles,
+                                 int ntx, int ts, int width, int height, int D, int DC,
                                  float trans_eps, int C, int grid_x, cudaStream_t stream) {
   return tpugs::launch<float, false>(pack, tile_starts, tile_ends, padded_starts, feats,
-                                     nullptr, out, n_tiles, ntx, ts, width, height, D, DC,
-                                     trans_eps, C, grid_x, stream);
+                                     nullptr, out, tscratch, n_tiles, ntx, ts, width, height, D,
+                                     DC, trans_eps, C, grid_x, stream);
 }
 
 extern "C" int tpugs_adjoint_bf16(const float* pack, const int* tile_starts,
                                   const int* tile_ends, const int* padded_starts,
                                   const __nv_bfloat16* feats, __nv_bfloat16* out,
-                                  int n_tiles, int ntx, int ts, int width, int height,
-                                  int D, int DC, float trans_eps, int C, int grid_x,
+                                  float* tscratch, int n_tiles, int ntx, int ts, int width,
+                                  int height, int D, int DC, float trans_eps, int C, int grid_x,
                                   cudaStream_t stream) {
   return tpugs::launch<__nv_bfloat16, false>(pack, tile_starts, tile_ends, padded_starts,
-                                             feats, nullptr, out, n_tiles, ntx, ts, width,
-                                             height, D, DC, trans_eps, C, grid_x, stream);
+                                             feats, nullptr, out, tscratch, n_tiles, ntx, ts,
+                                             width, height, D, DC, trans_eps, C, grid_x, stream);
 }
 
 extern "C" int tpugs_adjoint_scatter_f32(const float* pack, const int* tile_starts,
                                          const int* tile_ends, const int* padded_starts,
                                          const float* feats, const int* dest, float* out,
-                                         int n_tiles, int ntx, int ts, int width,
-                                         int height, int D, int DC, float trans_eps, int C,
-                                         int grid_x, cudaStream_t stream) {
+                                         float* tscratch, int n_tiles, int ntx, int ts,
+                                         int width, int height, int D, int DC, float trans_eps,
+                                         int C, int grid_x, cudaStream_t stream) {
   return tpugs::launch<float, true>(pack, tile_starts, tile_ends, padded_starts, feats, dest,
-                                    out, n_tiles, ntx, ts, width, height, D, DC, trans_eps,
-                                    C, grid_x, stream);
+                                    out, tscratch, n_tiles, ntx, ts, width, height, D, DC,
+                                    trans_eps, C, grid_x, stream);
 }
 
 extern "C" int tpugs_adjoint_scatter_bf16(const float* pack, const int* tile_starts,
                                           const int* tile_ends, const int* padded_starts,
                                           const __nv_bfloat16* feats, const int* dest,
-                                          __nv_bfloat16* out, int n_tiles, int ntx, int ts,
-                                          int width, int height, int D, int DC,
+                                          __nv_bfloat16* out, float* tscratch, int n_tiles,
+                                          int ntx, int ts, int width, int height, int D, int DC,
                                           float trans_eps, int C, int grid_x,
                                           cudaStream_t stream) {
   return tpugs::launch<__nv_bfloat16, true>(pack, tile_starts, tile_ends, padded_starts,
-                                            feats, dest, out, n_tiles, ntx, ts, width,
+                                            feats, dest, out, tscratch, n_tiles, ntx, ts, width,
                                             height, D, DC, trans_eps, C, grid_x, stream);
 }
 

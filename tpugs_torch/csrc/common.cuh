@@ -71,4 +71,14 @@ __device__ __forceinline__ float pair_alpha(const BlockGeom& g, int i, float px,
   return clipped_alpha(pair_terms(g, i, px, py), valid);
 }
 
+// A tile's ``units`` ranks (CTAs) as one cluster of at most
+// ``max_cluster``, or past it as G = ceil(units / max_cluster) pixel groups
+// of C = ceil(units / G) ranks each: (C, G). The layouts of B1, B4 and B5
+// (render.cu, train_fwd.cu, train_bwd.cu) all take it, as their Python
+// twins in raster/kernels.py and raster/train.py do.
+inline int2 group_layout(int units, int max_cluster) {
+  const int G = (units + max_cluster - 1) / max_cluster;
+  return make_int2((units + G - 1) / G, G);
+}
+
 }  // namespace tpugs

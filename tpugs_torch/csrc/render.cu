@@ -47,14 +47,30 @@
 // as the old kernel did; it exists for the checks that hold the two
 // bit-equal.
 //
-// Other tiles, up to 32 (kGhost): ceil(ts / 8) x ceil(ts / 4) warp
-// rectangles cover the tile, in C = ceil(rectangles / 8) CTAs. A pixel
-// slot outside the tile's ts x ts (in a rectangle that reaches past the
-// tile, or in a warp past the last rectangle) is a ghost: its T starts at
-// 0, so it weighs nothing and votes for the exit, and it writes nothing; a
-// warp without a rectangle walks no pair. The cull tests a rectangle that
-// reaches past the tile on all its 32 centres, which only culls less. At
-// tiles 16 and 32 the rectangles fill the CTAs, and kGhost is false.
+// Other tiles (kGhost): ceil(ts / 8) x ceil(ts / 4) warp rectangles cover
+// the tile, row-major, 8 to a CTA. A pixel slot outside the tile's ts x ts
+// (in a rectangle that reaches past the tile, or in a warp past the last
+// rectangle) is a ghost: its T starts at 0, so it weighs nothing and votes
+// for the exit, and it writes nothing; a warp without a rectangle walks no
+// pair. The cull tests a rectangle that reaches past the tile on all its 32
+// centres, which only culls less. At tiles 16 and 32 the rectangles fill the
+// CTAs, and kGhost is false. Up to 8 CTAs (tiles up to 40) a tile is one
+// cluster, as above. Past that its CTAs form G pixel groups of C CTAs
+// (render_cluster in raster/kernels.py: G = ceil(CTAs / 8), C = ceil(CTAs /
+// G)), one cluster each (group blockIdx.y), and the tile-wide exit becomes
+// an exact vote over the groups in two launches:
+//   * the vote (kVote): every group walks its pixels' T alone, with this
+//     kernel's instructions and cull and without the colours, to its own
+//     exit, and atomicMax-es the blocks it walked into blocks_done[tile]
+//     (zeroed first). A pixel's T never grows from block to block, so
+//     neither does a group's largest T: the tile's largest T first falls to
+//     trans_eps at the block where the last group's does, the largest of
+//     the groups' exit blocks, which is the one-cluster walk's blocks_done;
+//   * the walk (replay): every group walks exactly blocks_done[tile] blocks
+//     with no exit test and no exchange (its pixels need nothing of the
+//     other groups'), writing the image.
+// The vote replays its group's walk a second time; resuming from it is a
+// later speed item.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +83,7 @@ constexpr int kThreads = 256;           // threads of a CTA, one per pixel
 constexpr int kRectW = 8, kRectH = 4;   // a warp's pixel rectangle
 constexpr int kRowVecs = 3;             // float4s of a staged pack row
 constexpr int kIlp = 4;                 // live pairs whose alphas are evaluated together
+constexpr int kMaxCluster = 8;          // CTAs of a cluster (the portable limit)
 constexpr float kCullSlack = 1e-3f;     // the plan's slack on sig_cut
 // Relative margin of the cull against f32 rounding: the kernel's sigma and
 // the test's minimum each err by a few units in the last place (2^-24) of
@@ -143,13 +160,15 @@ __device__ __forceinline__ bool rect_dead(const StagedRow& row, const float4& cs
   return __fsub_rn(qmin, __fmul_rn(kCullMargin, terms)) > cst.z;
 }
 
-// Grid C * n_tiles in clusters of (C, 1, 1).
-template <bool kCull, bool kGhost>
+// Grid (C * n_tiles, G) in clusters of (C, 1, 1): blockIdx.y is the pixel
+// group (G > 1 only with kGhost). With kGhost, ``replay`` walks exactly
+// blocks_done[tile] blocks with no exit test and writes no blocks_done.
+template <bool kCull, bool kGhost = false, bool kVote = false>
 __global__ void __launch_bounds__(kThreads, 6)
 render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_starts,
               const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
               float* __restrict__ out, int* __restrict__ blocks_done, int ntx, int ts,
-              float trans_eps, int C) {
+              float trans_eps, int C, int replay) {
   __shared__ __align__(16) StagedRow rows[2][kBlock];
   __shared__ float4 cst[kBlock];  // the block's cull_consts
   __shared__ int exit_mark[2];  // block b's mark, b + 1, in slot b % 2
@@ -161,12 +180,15 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
   const long long pstart = padded_starts[tile];
+  const bool fixed = kGhost && replay;  // walk blocks_done[tile] blocks, no exit test
+  const bool exchange = C > 1 && !fixed;  // the cluster-wide exit exchange
+  const int nb_walk = fixed ? min(nb, blocks_done[tile]) : nb;
   // The warp's rectangle and the thread's pixel (lx, ly) in the tile.
   int rx, ry;
   bool rect = true;  // the warp has a rectangle
   if constexpr (kGhost) {
     const int rects_x = (ts + kRectW - 1) / kRectW;
-    const int r = rank * (kThreads / 32) + warp;
+    const int r = (static_cast<int>(blockIdx.y) * C + rank) * (kThreads / 32) + warp;
     rx = (r % rects_x) * kRectW;
     ry = (r / rects_x) * kRectH;
     rect = r < rects_x * ((ts + kRectH - 1) / kRectH);
@@ -183,19 +205,19 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
   const float py = y0 + static_cast<float>(lane / kRectW);
 
   if (tid < 2) exit_mark[tid] = 0;
-  if (nb > 0) stage_rows(rows[0], pack, pstart, tid);
+  if (nb_walk > 0) stage_rows(rows[0], pack, pstart, tid);
   cp_async_commit();
-  if (C > 1) cluster_arrive();  // every CTA has started and set its marks
+  if (exchange) cluster_arrive();  // every CTA has started and set its marks
 
   float trans = real ? 1.0f : 0.0f;
   float img[4] = {0.f, 0.f, 0.f, 0.f};
   bool keep = 1.0f > trans_eps;
-  bool pending = C > 1;  // a cluster barrier phase arrived at and not yet waited for
+  bool pending = exchange;  // a cluster barrier phase arrived at and not yet waited for
   int b = 0;
-  while (keep && b < nb) {
+  while (keep && b < nb_walk) {
     cp_async_wait_all();
     __syncthreads();  // block b has landed; block b - 1's reads have ended
-    if (b + 1 < nb) stage_rows(rows[(b + 1) & 1], pack, pstart + (b + 1) * kBlock, tid);
+    if (b + 1 < nb_walk) stage_rows(rows[(b + 1) & 1], pack, pstart + (b + 1) * kBlock, tid);
     cp_async_commit();
     const StagedRow* r = rows[b & 1];
     const int remaining = count - b * kBlock;
@@ -212,7 +234,7 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
     if (kGhost && !rect) live[0] = live[1] = live[2] = live[3] = 0u;  // the whole warp
     // Block b - 1's exit marks were in flight while block b landed and its
     // masks were built: wait for them only now (b == 0: for the start).
-    if (C > 1) {
+    if (exchange) {
       cluster_wait();
       pending = false;
       if (b > 0 && exit_mark[(b - 1) & 1] != b) break;
@@ -241,12 +263,14 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
 #pragma unroll
         for (int u = 0; u < kIlp; ++u) {
           if (idx[u] < 0) break;  // the same for the whole warp
-          const float4 c = r[idx[u]].v[2];
-          const float w = alpha[u] * texc * trans;
-          acc[0] += w * c.x;
-          acc[1] += w * c.y;
-          acc[2] += w * c.z;
-          acc[3] += w * c.w;
+          if constexpr (!kVote) {
+            const float4 c = r[idx[u]].v[2];
+            const float w = alpha[u] * texc * trans;
+            acc[0] += w * c.x;
+            acc[1] += w * c.y;
+            acc[2] += w * c.z;
+            acc[3] += w * c.w;
+          }
           texc *= 1.0f - alpha[u];
         }
       }
@@ -256,29 +280,34 @@ render_kernel(const float* __restrict__ pack, const int* __restrict__ tile_start
     trans *= texc;
     const int any = __syncthreads_or(trans > trans_eps);
     ++b;
-    if (C > 1) {
+    if (exchange) {
       if (any && tid < C) st_cluster(map_rank(smem_addr(&exit_mark[(b - 1) & 1]), tid), b);
       cluster_arrive();
       pending = true;
-    } else {
+    } else if (!fixed) {
       keep = any;
     }
   }
   if (pending) cluster_wait();  // no rank writes to this CTA's marks after this
   cp_async_wait_all();  // a block staged past the exit lands before the CTA ends
 
-  if (real) {
+  if (!kVote && real) {
     float* o = out + (static_cast<long long>(tile) * ts * ts + ly * ts + lx) * 5;
     o[0] = img[0]; o[1] = img[1]; o[2] = img[2]; o[3] = img[3];
     o[4] = 1.0f - trans;
   }
-  if (rank == 0 && tid == 0) blocks_done[tile] = b;
+  if (rank == 0 && tid == 0) {
+    if constexpr (kVote)
+      atomicMax(&blocks_done[tile], b);  // this group's exit block
+    else if (!fixed)
+      blocks_done[tile] = b;
+  }
 }
 
-cudaLaunchConfig_t render_config(int n_tiles, int C, cudaStream_t stream,
+cudaLaunchConfig_t render_config(int n_tiles, int C, int G, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * n_tiles, 1, 1);
+  cfg.gridDim = dim3(C * n_tiles, G, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -291,67 +320,84 @@ cudaLaunchConfig_t render_config(int n_tiles, int C, cudaStream_t stream,
   return cfg;
 }
 
-// CTAs of a tile at tile ts (1 to 32): its warp rectangles at 8 a CTA.
-int render_ctas(int ts) {
+// (C, G) at tile ts, as raster/kernels.py::render_cluster gives them: the
+// tile's warp rectangles at 8 a CTA, one cluster of at most 8 CTAs, or G
+// pixel groups of C.
+int2 render_layout(int ts) {
   const int rects = ((ts + kRectW - 1) / kRectW) * ((ts + kRectH - 1) / kRectH);
-  return (rects + kThreads / 32 - 1) / (kThreads / 32);
+  return group_layout((rects + kThreads / 32 - 1) / (kThreads / 32), kMaxCluster);
 }
 
-template <bool kCull, bool kGhost>
+template <bool kCull, bool kGhost, bool kVote>
 cudaError_t run_as(const float* pack, const int* tile_starts, const int* tile_ends,
                    const int* padded_starts, float* out, int* blocks_done, int n_tiles, int ntx,
-                   int ts, float trans_eps, int C, cudaStream_t stream, int* resident) {
+                   int ts, float trans_eps, int C, int G, int replay, cudaStream_t stream,
+                   int* resident) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = render_config(n_tiles > 0 ? n_tiles : 1, C, stream, attr);
+  const cudaLaunchConfig_t cfg =
+      render_config(n_tiles > 0 ? n_tiles : 1, C, n_tiles > 0 ? G : 1, stream, attr);
   if (n_tiles == 0)
-    return cudaOccupancyMaxActiveClusters(resident, render_kernel<kCull, kGhost>, &cfg);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, render_kernel<kCull, kGhost>, pack, tile_starts,
-                                     tile_ends, padded_starts, out, blocks_done, ntx, ts,
-                                     trans_eps, C);
+    return cudaOccupancyMaxActiveClusters(resident, render_kernel<kCull, kGhost, kVote>, &cfg);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, render_kernel<kCull, kGhost, kVote>, pack,
+                                     tile_starts, tile_ends, padded_starts, out, blocks_done,
+                                     ntx, ts, trans_eps, C, replay);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // Launches (n_tiles > 0) or, with n_tiles == 0, returns the resident
-// clusters in *resident. C must be raster/kernels.py::render_cluster(ts).
+// clusters in *resident. (C, G) must be render_layout(ts); ``pass`` 0 is
+// the one-cluster walk (G = 1), 1 the vote and 2 the walk after it (G > 1).
 template <bool kCull>
 cudaError_t run(const float* pack, const int* tile_starts, const int* tile_ends,
                 const int* padded_starts, float* out, int* blocks_done,
-                int n_tiles, int ntx, int ts, float trans_eps, int C, cudaStream_t stream,
-                int* resident) {
-  if (ts < 1 || ts > 32 || C != render_ctas(ts)) return cudaErrorInvalidValue;
-  return C * kThreads == ts * ts
-             ? run_as<kCull, false>(pack, tile_starts, tile_ends, padded_starts, out,
-                                    blocks_done, n_tiles, ntx, ts, trans_eps, C, stream, resident)
-             : run_as<kCull, true>(pack, tile_starts, tile_ends, padded_starts, out,
-                                   blocks_done, n_tiles, ntx, ts, trans_eps, C, stream, resident);
+                int n_tiles, int ntx, int ts, float trans_eps, int C, int G, int pass,
+                cudaStream_t stream, int* resident) {
+  if (ts < 1) return cudaErrorInvalidValue;
+  const int2 want = render_layout(ts);
+  if (C != want.x || G != want.y || (G == 1) != (pass == 0) || pass < 0 || pass > 2)
+    return cudaErrorInvalidValue;
+  if (pass == 1)
+    return run_as<kCull, true, true>(pack, tile_starts, tile_ends, padded_starts, out,
+                                     blocks_done, n_tiles, ntx, ts, trans_eps, C, G, 0, stream,
+                                     resident);
+  return C * kThreads == ts * ts && G == 1
+             ? run_as<kCull, false, false>(pack, tile_starts, tile_ends, padded_starts, out,
+                                           blocks_done, n_tiles, ntx, ts, trans_eps, C, 1, 0,
+                                           stream, resident)
+             : run_as<kCull, true, false>(pack, tile_starts, tile_ends, padded_starts, out,
+                                          blocks_done, n_tiles, ntx, ts, trans_eps, C, G,
+                                          pass == 2, stream, resident);
 }
 
 }  // namespace
 }  // namespace tpugs
 
-// ``cull`` 0 walks every Gaussian of a block.
+// ``cull`` 0 walks every Gaussian of a block; ``pass`` as in run.
 extern "C" int tpugs_render(const float* pack, const int* tile_starts, const int* tile_ends,
                             const int* padded_starts, float* out, int* blocks_done, int n_tiles,
-                            int ntx, int ts, float trans_eps, int cull, int C,
+                            int ntx, int ts, float trans_eps, int cull, int C, int G, int pass,
                             cudaStream_t stream) {
   if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e =
       cull ? tpugs::run<true>(pack, tile_starts, tile_ends, padded_starts, out, blocks_done,
-                              n_tiles, ntx, ts, trans_eps, C, stream, nullptr)
+                              n_tiles, ntx, ts, trans_eps, C, G, pass, stream, nullptr)
            : tpugs::run<false>(pack, tile_starts, tile_ends, padded_starts, out, blocks_done,
-                               n_tiles, ntx, ts, trans_eps, C, stream, nullptr);
+                               n_tiles, ntx, ts, trans_eps, C, G, pass, stream, nullptr);
   return static_cast<int>(e);
 }
 
-// Resident clusters of the render kernel at tile ts, or minus a CUDA error.
+// Resident clusters of the render kernel's walk at tile ts, or minus a CUDA
+// error.
 extern "C" int tpugs_render_max_clusters(int ts, int cull) {
+  if (ts < 1) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
-  const int C = ts >= 1 && ts <= 32 ? tpugs::render_ctas(ts) : 0;
+  const int2 l = tpugs::render_layout(ts);
+  const int pass = l.y == 1 ? 0 : 2;
   const cudaError_t e =
       cull ? tpugs::run<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, ts,
-                              0.0f, C, nullptr, &n)
+                              0.0f, l.x, l.y, pass, nullptr, &n)
            : tpugs::run<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 1, ts,
-                               0.0f, C, nullptr, &n);
+                               0.0f, l.x, l.y, pass, nullptr, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

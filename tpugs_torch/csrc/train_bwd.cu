@@ -108,8 +108,8 @@
 // over pixels (from d sigma and d op the walk stores); a block's 128 x 8
 // partial sums are added over the group's ranks in rank order through
 // DSMEM. With G = 1 those are the rows. With G > 1 each group stores them
-// in a scratch [T_padded][G][8] and train_bwd_geom_groups_kernel adds the
-// groups in group order: no atomics, the same rows on every run. |dmx| and
+// in a scratch [T_padded / 128][G][128][8] and train_bwd_groups_kernel adds
+// the groups in group order: no atomics, the same rows on every run. |dmx| and
 // |dmy| are sums over pixels of per-pixel absolute values, so the groups'
 // sums add as the ranks' do. No d col product and no Dpart of width D.
 // Shared memory GeomLayout<P>: 256 ldg + 48,384 bytes at P = 64 (ldg = D
@@ -130,6 +130,16 @@
 // a per-block one; three chunk buffers instead of two gained 2.6% at D =
 // 512 and lost 1% at 515, and skipping the u of Gaussians whose alpha is 0
 // on all 64 pixels of a rank cost 12% (most are not), so neither was kept.
+//
+// Tiles past 32 (ghost layout, ts^2 > 8 ranks of 128): the cluster kernel
+// and the colour slices run as G pixel groups of C ranks (G = ceil(ranks /
+// 8), C = ceil(ranks / G); raster/train.py::rank_groups), one cluster each
+// (group blockIdx.y); a group walks the tile's blocks_done for its own
+// pixels, which need nothing of the other groups', and stores its partial
+// rows in an f32 scratch [T_padded / 128][G][128][RW]; train_bwd_groups_kernel
+// then adds the groups in group order, no atomics (the geometry kernel's
+// scheme and kernel). The geometry kernel takes every tile
+// with its ghost layout past 32.
 //
 // Geometry bound (chip_smoke.py, phase 5): walked pairs * 30 +
 // nonzero-alpha pairs * (2D + 30) f32 operations, against the colour rows
@@ -361,17 +371,20 @@ __device__ __forceinline__ void partial_rows(const float* X, const float* Gs, fl
   }
 }
 
-// Grid C * n_tiles in clusters of (C, 1, 1): the C CTAs of a cluster take
-// one tile, rank r its pixels [r * kPix, (r + 1) * kPix) (rank_xy). A
-// ghost (kGhost) has T and g 0, so it adds no weight and no gradient.
+// Grid (C * n_tiles, G) in clusters of (C, 1, 1): the C CTAs of a cluster
+// take one tile and its pixel group blockIdx.y, rank r its pixels [R *
+// kPix, (R + 1) * kPix) (rank_xy), R = C blockIdx.y + r. A ghost (kGhost)
+// has T and g 0, so it adds no weight and no gradient. With G > 1 (kGhost)
+// the group's partial rows go to gsum, [T_padded / 128][G][128][RW].
 template <typename OutT, bool kGhost>
 __global__ void __launch_bounds__(kCThreads, 2)
 train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                          const float* __restrict__ gimg, const float* __restrict__ hterm,
                          const float* __restrict__ grem0, const int* __restrict__ tile_starts,
                          const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
-                         const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
-                         int ts, int width, int height, int D, int RW, int C) {
+                         const int* __restrict__ blocks_done, OutT* __restrict__ out,
+                         float* __restrict__ gsum, int ntx, int ts, int width, int height, int D,
+                         int RW, int C, int G) {
   extern __shared__ __align__(16) float smem[];
   const ClusterLayout L(D, RW);
   float* Gs = smem;                 // [kPix][ldg]: this rank's g, for the whole tile
@@ -384,6 +397,8 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   const int lane = tid & 31, warp = tid >> 5;
   const int rank = static_cast<int>(cluster_rank());
   const int tile = blockIdx.x / C;
+  const int group = kGhost ? static_cast<int>(blockIdx.y) : 0;
+  const int R = group * C + rank;  // the rank among the tile's
   const int ldg = L.ldg, D4 = L.D4;
   const int count = tile_ends[tile] - tile_starts[tile];
   const int nb = (count + kBlock - 1) / kBlock;
@@ -396,7 +411,7 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
 
   // this thread's pixel (threads of the walk) and its carried state
-  const int2 lp = rank_xy<kGhost>(tid, rank, ts);
+  const int2 lp = rank_xy<kGhost>(tid, R, ts);
   const bool real = !kGhost || lp.y < ts;
   const int xi = x0 + lp.x;
   const int yi = y0 + lp.y;
@@ -413,7 +428,7 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   for (int idx = tid; idx < kPix * D4; idx += kCThreads) {
     const int pl = idx / D4;
     const int c = idx - pl * D4;
-    const int2 l = rank_xy<kGhost>(pl, rank, ts);
+    const int2 l = rank_xy<kGhost>(pl, R, ts);
     const int x = x0 + l.x;
     const int y = y0 + l.y;
     const bool ok = c < D && (!kGhost || l.y < ts) && x < width && y < height;
@@ -551,8 +566,13 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
         stage_colours(X, cols, row0 + kBlock, D, L, tid);
       cluster_arrive();  // every rank's partials are complete
       cluster_wait();
-      // (4) this rank's share of the 32 rows: the C partials summed in rank order
-      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);
+      // (4) this rank's share of the 32 rows: the C partials summed in rank
+      // order; with pixel groups, the group's rows in the scratch
+      if (kGhost && G > 1)
+        sum_partials(gsum + ((row0 / kBlock * G + group) * kBlock + gbase) * RW, part, C, rank,
+                     RW, tid);
+      else
+        sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);
       cluster_arrive();  // this rank has read the others' partials
     }
     trans *= texc;
@@ -563,15 +583,70 @@ train_bwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   constexpr int V = 16 / sizeof(OutT);
   const long long zero0 = (pstart + static_cast<long long>(nb_done) * kBlock) * RW;
   const long long n_vec = static_cast<long long>(nb - nb_done) * kBlock * RW / V;
-  for (long long v = rank * kCThreads + tid; v < n_vec; v += C * kCThreads)
+  for (long long v = R * kCThreads + tid; v < n_vec; v += (kGhost ? G : 1) * C * kCThreads)
     *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
   cluster_wait();  // no rank leaves while another may still read its partials
 }
 
+// The G pixel groups' partial rows (gsum [T_padded / 128][G][128][W]) of
+// every walked row, added in group order 0..G-1, into the row's columns
+// [col0, col0 + ncols) (rows RW apart), the pad columns after them to
+// col0 + ncols + pad written 0. Grid T_padded / 128: CTA b takes block b of
+// the plan's padded rows (spans are whole blocks; its tile is the last whose
+// span starts at or before it), if the forward walked it. Serves the
+// cluster kernel (W = RW), the colour slices (W = RW, their D columns) and
+// the geometry kernel (W = 8).
+template <typename OutT>
+__global__ void __launch_bounds__(kCThreads)
+train_bwd_groups_kernel(const float* __restrict__ gsum, const int* __restrict__ tile_starts,
+                        const int* __restrict__ tile_ends, const int* __restrict__ padded_starts,
+                        const int* __restrict__ blocks_done, OutT* __restrict__ out, int n_tiles,
+                        int W, int G, int RW, int col0, int ncols, int pad) {
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBlock;
+  int lo = 0, hi = n_tiles - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (padded_starts[mid] <= row0) lo = mid; else hi = mid - 1;
+  }
+  const int count = tile_ends[lo] - tile_starts[lo];
+  const int nb_done = min(blocks_done[lo], (count + kBlock - 1) / kBlock);
+  if ((row0 - padded_starts[lo]) / kBlock >= nb_done) return;
+  const float* blk = gsum + static_cast<long long>(blockIdx.x) * G * kBlock * W;
+  const int cols = ncols + pad;
+  for (int e = threadIdx.x; e < kBlock * cols; e += kCThreads) {
+    const int r = e / cols, c = e - r * cols;
+    OutT* o = out + (row0 + r) * RW + col0 + c;
+    if (c >= ncols) {
+      store(o, 0.0f);
+      continue;
+    }
+    const float* p = blk + r * W + c;
+    float sum = p[0];
+    for (int k = 1; k < G; ++k) sum += p[static_cast<long long>(k) * kBlock * W];
+    store(o, sum);
+  }
+}
+
+// The group-order add after a launch in G > 1 pixel groups (n_rows =
+// T_padded).
+template <typename OutT>
+cudaError_t add_groups(const float* gsum, const int* tile_starts, const int* tile_ends,
+                       const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
+                       long long n_rows, int W, int G, int RW, int col0, int ncols, int pad,
+                       cudaStream_t stream) {
+  if (n_rows % kBlock != 0) return cudaErrorInvalidValue;
+  if (n_rows > 0)
+    train_bwd_groups_kernel<OutT><<<static_cast<unsigned>(n_rows / kBlock), kCThreads, 0,
+                                    stream>>>(gsum, tile_starts, tile_ends, padded_starts,
+                                              blocks_done, out, n_tiles, W, G, RW, col0, ncols,
+                                              pad);
+  return cudaGetLastError();
+}
+
 cudaLaunchConfig_t cluster_config(int n_tiles, int C, size_t bytes, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+                                  cudaLaunchAttribute* attr, int G = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * n_tiles, 1, 1);
+  cfg.gridDim = dim3(C * n_tiles, G, 1);
   cfg.blockDim = dim3(kCThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -584,15 +659,25 @@ cudaLaunchConfig_t cluster_config(int n_tiles, int C, size_t bytes, cudaStream_t
   return cfg;
 }
 
-// The ranks of a tile of the cluster kernel and its colour slices: ts^2
-// pixels at kPix a rank, for tiles 1 to 32 (0 past them).
-int tile_ranks(int ts) { return ts >= 1 && ts <= 32 ? (ts * ts + kPix - 1) / kPix : 0; }
+// (C, G) of a tile of the cluster kernel and its colour slices, as
+// raster/train.py::rank_groups gives them: ts^2 pixels at kPix a rank, one
+// cluster of at most kMaxCluster ranks or G pixel groups of C ((0, 0) for
+// ts < 1).
+int2 rank_groups(int ts) {
+  if (ts < 1) return make_int2(0, 0);
+  return group_layout((ts * ts + kPix - 1) / kPix, kMaxCluster);
+}
 
-// (C, P) as raster/train.py::train_cluster gives them, or an error.
+// rank_xy's pixel blocks tile only tiles 16 and 32; every other tile takes
+// the ghost layout (row-major slots).
+bool ghost_tile(int ts) { return ts != 16 && ts != 32; }
+
+// (C, P, G) as raster/train.py::train_cluster gives them, or an error.
 template <typename OutT, bool kGhost>
-cudaError_t prepare_cluster(int ts, int D, int RW, int C, int P, size_t* bytes) {
+cudaError_t prepare_cluster(int ts, int D, int RW, int C, int P, int G, size_t* bytes) {
+  const int2 want = rank_groups(ts);
   if (D < 1 || D > kMaxClusterD || RW < D + kGeomGrads || RW % 4 != 0 || P != kPix ||
-      C != tile_ranks(ts) || C > kMaxCluster || kGhost != (C * P != ts * ts))
+      C != want.x || G != want.y || kGhost != ghost_tile(ts))
     return cudaErrorInvalidValue;
   *bytes = ClusterLayout(D, RW).bytes();
   cudaError_t e = cudaFuncSetAttribute(train_bwd_cluster_kernel<OutT, kGhost>,
@@ -608,42 +693,46 @@ template <typename OutT, bool kGhost>
 int launch_cluster_as(const float* geom, const float* cols, const float* gimg,
                       const float* hterm, const float* grem0, const int* tile_starts,
                       const int* tile_ends, const int* padded_starts, const int* blocks_done,
-                      OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D,
-                      int RW, int C, int P, cudaStream_t stream) {
+                      OutT* out, float* gsum, int n_tiles, int ntx, int ts, int width, int height,
+                      int D, int RW, int C, int P, int G, long long n_rows, cudaStream_t stream) {
   size_t bytes = 0;
-  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, P, &bytes);
+  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, P, G, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if ((G > 1) != (gsum != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(n_tiles, C, bytes, stream, attr, G);
   e = cudaLaunchKernelEx(&cfg, train_bwd_cluster_kernel<OutT, kGhost>, geom, cols, gimg, hterm,
-                         grem0, tile_starts, tile_ends, padded_starts, blocks_done, out, ntx, ts,
-                         width, height, D, RW, C);
+                         grem0, tile_starts, tile_ends, padded_starts, blocks_done, out, gsum,
+                         ntx, ts, width, height, D, RW, C, G);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 1)
+    return static_cast<int>(add_groups(gsum, tile_starts, tile_ends, padded_starts, blocks_done,
+                                       out, n_tiles, n_rows, RW, G, RW, 0, RW, 0, stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
 int launch_cluster(const float* geom, const float* cols, const float* gimg, const float* hterm,
                    const float* grem0, const int* tile_starts, const int* tile_ends,
-                   const int* padded_starts, const int* blocks_done, OutT* out, int n_tiles,
-                   int ntx, int ts, int width, int height, int D, int RW, int C, int P,
-                   cudaStream_t stream) {
-  return C * P == ts * ts
+                   const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
+                   int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C,
+                   int P, int G, long long n_rows, cudaStream_t stream) {
+  return !ghost_tile(ts)
              ? launch_cluster_as<OutT, false>(geom, cols, gimg, hterm, grem0, tile_starts,
-                                              tile_ends, padded_starts, blocks_done, out,
-                                              n_tiles, ntx, ts, width, height, D, RW, C, P,
-                                              stream)
+                                              tile_ends, padded_starts, blocks_done, out, gsum,
+                                              n_tiles, ntx, ts, width, height, D, RW, C, P, G,
+                                              n_rows, stream)
              : launch_cluster_as<OutT, true>(geom, cols, gimg, hterm, grem0, tile_starts,
-                                             tile_ends, padded_starts, blocks_done, out,
-                                             n_tiles, ntx, ts, width, height, D, RW, C, P,
-                                             stream);
+                                             tile_ends, padded_starts, blocks_done, out, gsum,
+                                             n_tiles, ntx, ts, width, height, D, RW, C, P, G,
+                                             n_rows, stream);
 }
 
 template <typename OutT, bool kGhost>
 int max_clusters_as(int ts, int D, int C) {
   const int RW = (D + kGeomGrads + 3) / 4 * 4;
   size_t bytes = 0;
-  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, kPix, &bytes);
+  cudaError_t e = prepare_cluster<OutT, kGhost>(ts, D, RW, C, kPix, rank_groups(ts).y, &bytes);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
@@ -656,9 +745,9 @@ int max_clusters_as(int ts, int D, int C) {
 // or minus a CUDA error.
 template <typename OutT>
 int max_clusters(int ts, int D) {
-  const int C = tile_ranks(ts);
-  return C * kPix == ts * ts ? max_clusters_as<OutT, false>(ts, D, C)
-                             : max_clusters_as<OutT, true>(ts, D, C);
+  const int C = rank_groups(ts).x;
+  return !ghost_tile(ts) ? max_clusters_as<OutT, false>(ts, D, C)
+                         : max_clusters_as<OutT, true>(ts, D, C);
 }
 
 // ------------------------------------------ the colour slices (D > 256)
@@ -719,17 +808,19 @@ __device__ __forceinline__ void sum_columns(OutT* __restrict__ out,
   }
 }
 
-// Grid C * S * n_tiles in clusters of (C, 1, 1): cluster c takes tile c / S
-// and channel slice c % S, columns [c0, c0 + ns); rank r its pixels
-// [r * kPix, (r + 1) * kPix) as in the cluster kernel, ghosts too. Writes
-// only the slice's columns of the walked blocks' rows.
+// Grid (C * S * n_tiles, G) in clusters of (C, 1, 1): cluster c takes tile
+// c / S and channel slice c % S, columns [c0, c0 + ns), of pixel group
+// blockIdx.y; rank r its pixels [R * kPix, (R + 1) * kPix) as in the
+// cluster kernel, ghosts and groups too. Writes only the slice's columns of
+// the walked blocks' rows (with G > 1, of the group's rows in gsum).
 template <typename OutT, bool kGhost>
 __global__ void __launch_bounds__(kCThreads, 2)
 train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict__ gimg,
                         const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
                         const int* __restrict__ padded_starts,
-                        const int* __restrict__ blocks_done, OutT* __restrict__ out, int ntx,
-                        int ts, int width, int height, int D, int RW, int C, int S, int Ns) {
+                        const int* __restrict__ blocks_done, OutT* __restrict__ out,
+                        float* __restrict__ gsum, int ntx, int ts, int width, int height, int D,
+                        int RW, int C, int S, int Ns, int G) {
   extern __shared__ __align__(16) float smem[];
   const ColourLayout L(Ns);
   float* Gs = smem;                 // [kPix][ldg]: this rank's g of the slice, for the whole tile
@@ -741,6 +832,8 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
   const int rank = static_cast<int>(cluster_rank());
   const int cl = blockIdx.x / C;
   const int tile = cl / S;
+  const int group = kGhost ? static_cast<int>(blockIdx.y) : 0;
+  const int R = group * C + rank;  // the rank among the tile's
   const int c0 = (cl % S) * Ns;
   const int ns = min(Ns, D - c0);
   const int ldg = L.ldg;
@@ -754,7 +847,7 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) part[r] = map_rank(smem_addr(Dpart), r < C ? r : 0);
 
-  const int2 lp = rank_xy<kGhost>(tid, rank, ts);
+  const int2 lp = rank_xy<kGhost>(tid, R, ts);
   const float px = static_cast<float>(x0 + lp.x) + 0.5f;
   const float py = static_cast<float>(y0 + lp.y) + 0.5f;
   float trans = !kGhost || lp.y < ts ? 1.0f : 0.0f;
@@ -764,7 +857,7 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
   for (int idx = tid; idx < kPix * Ns; idx += kCThreads) {
     const int pl = idx / Ns;
     const int c = idx - pl * Ns;
-    const int2 l = rank_xy<kGhost>(pl, rank, ts);
+    const int2 l = rank_xy<kGhost>(pl, R, ts);
     const int x = x0 + l.x;
     const int y = y0 + l.y;
     float v = 0.0f;
@@ -815,8 +908,13 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
       }
       cluster_arrive();  // every rank's partials are complete
       cluster_wait();
-      // (4) this rank's share of the slice's columns of the 32 rows
-      sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, tid);
+      // (4) this rank's share of the slice's columns of the 32 rows (with
+      // pixel groups, of the group's rows in the scratch)
+      if (kGhost && G > 1)
+        sum_columns(gsum + ((row0 / kBlock * G + group) * kBlock + gbase) * RW + c0, part, C,
+                    rank, Ns, ns, RW, tid);
+      else
+        sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, tid);
       cluster_arrive();  // this rank has read the others' partials
     }
     trans *= texc;
@@ -824,13 +922,15 @@ train_bwd_colour_kernel(const float* __restrict__ geom, const float* __restrict_
   cluster_wait();  // no rank leaves while another may still read its partials
 }
 
-// (C, P, S, Ns) as raster/train.py::train_layout gives them, or an error.
+// (C, P, G, S, Ns) as raster/train.py::train_layout gives them, or an error.
 template <typename OutT, bool kGhost>
-cudaError_t prepare_colour(int ts, int D, int RW, int C, int P, int S, int Ns, size_t* bytes) {
+cudaError_t prepare_colour(int ts, int D, int RW, int C, int P, int G, int S, int Ns,
+                          size_t* bytes) {
+  const int2 want = rank_groups(ts);
   if (D < 1 || RW < D + kGeomGrads || RW % 4 != 0 || S < 1 || Ns < 16 || Ns > kMaxSliceD ||
       Ns % 16 != 0 || static_cast<long long>(S - 1) * Ns >= D ||
-      static_cast<long long>(S) * Ns < D || P != kPix || C != tile_ranks(ts) ||
-      C > kMaxCluster || kGhost != (C * P != ts * ts))
+      static_cast<long long>(S) * Ns < D || P != kPix || C != want.x || G != want.y ||
+      kGhost != ghost_tile(ts))
     return cudaErrorInvalidValue;
   *bytes = ColourLayout(Ns).bytes();
   cudaError_t e = cudaFuncSetAttribute(train_bwd_colour_kernel<OutT, kGhost>,
@@ -845,38 +945,45 @@ cudaError_t prepare_colour(int ts, int D, int RW, int C, int P, int S, int Ns, s
 template <typename OutT, bool kGhost>
 int launch_colour_as(const float* geom, const float* gimg, const int* tile_starts,
                      const int* tile_ends, const int* padded_starts, const int* blocks_done,
-                     OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D,
-                     int RW, int C, int P, int S, int Ns, cudaStream_t stream) {
+                     OutT* out, float* gsum, int n_tiles, int ntx, int ts, int width, int height,
+                     int D, int RW, int C, int P, int G, int S, int Ns, long long n_rows,
+                     cudaStream_t stream) {
   size_t bytes = 0;
-  cudaError_t e = prepare_colour<OutT, kGhost>(ts, D, RW, C, P, S, Ns, &bytes);
+  cudaError_t e = prepare_colour<OutT, kGhost>(ts, D, RW, C, P, G, S, Ns, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if ((G > 1) != (gsum != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(S * n_tiles, C, bytes, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(S * n_tiles, C, bytes, stream, attr, G);
   e = cudaLaunchKernelEx(&cfg, train_bwd_colour_kernel<OutT, kGhost>, geom, gimg, tile_starts,
-                         tile_ends, padded_starts, blocks_done, out, ntx, ts, width, height, D,
-                         RW, C, S, Ns);
+                         tile_ends, padded_starts, blocks_done, out, gsum, ntx, ts, width,
+                         height, D, RW, C, S, Ns, G);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 1)
+    return static_cast<int>(add_groups(gsum, tile_starts, tile_ends, padded_starts, blocks_done,
+                                       out, n_tiles, n_rows, RW, G, RW, 0, D, 0, stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
 int launch_colour(const float* geom, const float* gimg, const int* tile_starts,
                   const int* tile_ends, const int* padded_starts, const int* blocks_done,
-                  OutT* out, int n_tiles, int ntx, int ts, int width, int height, int D, int RW,
-                  int C, int P, int S, int Ns, cudaStream_t stream) {
-  return C * P == ts * ts
+                  OutT* out, float* gsum, int n_tiles, int ntx, int ts, int width, int height,
+                  int D, int RW, int C, int P, int G, int S, int Ns, long long n_rows,
+                  cudaStream_t stream) {
+  return !ghost_tile(ts)
              ? launch_colour_as<OutT, false>(geom, gimg, tile_starts, tile_ends, padded_starts,
-                                             blocks_done, out, n_tiles, ntx, ts, width, height,
-                                             D, RW, C, P, S, Ns, stream)
+                                             blocks_done, out, gsum, n_tiles, ntx, ts, width,
+                                             height, D, RW, C, P, G, S, Ns, n_rows, stream)
              : launch_colour_as<OutT, true>(geom, gimg, tile_starts, tile_ends, padded_starts,
-                                            blocks_done, out, n_tiles, ntx, ts, width, height,
-                                            D, RW, C, P, S, Ns, stream);
+                                            blocks_done, out, gsum, n_tiles, ntx, ts, width,
+                                            height, D, RW, C, P, G, S, Ns, n_rows, stream);
 }
 
 template <typename OutT, bool kGhost>
 int max_colour_clusters_as(int ts, int Ns, int C) {
   size_t bytes = 0;
-  cudaError_t e = prepare_colour<OutT, kGhost>(ts, Ns, Ns + kGeomGrads, C, kPix, 1, Ns, &bytes);
+  cudaError_t e = prepare_colour<OutT, kGhost>(ts, Ns, Ns + kGeomGrads, C, kPix,
+                                               rank_groups(ts).y, 1, Ns, &bytes);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(1, C, bytes, nullptr, attr);
@@ -889,9 +996,9 @@ int max_colour_clusters_as(int ts, int Ns, int C) {
 // resident at once, or minus a CUDA error.
 template <typename OutT>
 int max_colour_clusters(int ts, int Ns) {
-  const int C = tile_ranks(ts);
-  return C * kPix == ts * ts ? max_colour_clusters_as<OutT, false>(ts, Ns, C)
-                             : max_colour_clusters_as<OutT, true>(ts, Ns, C);
+  const int C = rank_groups(ts).x;
+  return !ghost_tile(ts) ? max_colour_clusters_as<OutT, false>(ts, Ns, C)
+                         : max_colour_clusters_as<OutT, true>(ts, Ns, C);
 }
 
 // -------------------------------------------- the geometry cluster kernel
@@ -1038,7 +1145,7 @@ __device__ __forceinline__ void sum_geometry(OutT* __restrict__ out,
 // else col0 = D (train_rows' geometry and pad columns, and the whole rows
 // of the blocks past blocks_done). With G = 1 the cluster's sums are the
 // rows; with G > 1 each group stores its sums of every walked row in gsum
-// [T_padded][G][8], and train_bwd_geom_groups_kernel adds them.
+// [T_padded / 128][G][128][8], and train_bwd_groups_kernel adds them.
 // Per 32-Gaussian sub-block:
 //   (1) u (NP x 32) = G Ct^T chunk by chunk, each chunk's K slices of KS
 //       channels to the K splits of the CTA (a 4 x 4 register tile per
@@ -1335,8 +1442,8 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
     if (G == 1)
       sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);
     else
-      sum_geometry(gsum + (row0 * G + group) * kGeomGrads, part, C, rank, G * kGeomGrads, 0,
-                   tid);
+      sum_geometry(gsum + (row0 / kBlock * G + group) * kBlock * kGeomGrads, part, C, rank,
+                   kGeomGrads, 0, tid);
     cluster_arrive();  // this rank has read the others' partials
     trans *= texc;
     grem -= cs;
@@ -1349,38 +1456,6 @@ train_bwd_geom_kernel(const float* __restrict__ geom, const float* __restrict__ 
   for (long long v = R * kGThreads + tid; v < n_vec; v += G * C * kGThreads)
     *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);
   cluster_wait();  // no rank leaves while another may still read its partial
-}
-
-// The G pixel groups' sums of every walked row (gsum [T_padded][G][8]),
-// added in group order 0..G-1, into the row's columns [col0, col0 + 8), the
-// pad columns after them 0 (col0 as in train_bwd_geom_kernel). Grid
-// n_tiles: CTA t takes tile t's walked blocks, two 16-byte vectors a row.
-template <typename OutT>
-__global__ void __launch_bounds__(kGThreads)
-train_bwd_geom_groups_kernel(const float* __restrict__ gsum, const int* __restrict__ tile_starts,
-                             const int* __restrict__ tile_ends,
-                             const int* __restrict__ padded_starts,
-                             const int* __restrict__ blocks_done, OutT* __restrict__ out, int D,
-                             int RW, int G) {
-  const int tile = blockIdx.x;
-  const int count = tile_ends[tile] - tile_starts[tile];
-  const int nb_done = min(blocks_done[tile], (count + kBlock - 1) / kBlock);
-  const long long pstart = padded_starts[tile];
-  const int col0 = RW == kGeomGrads ? 0 : D;
-  const int n_pad = RW - col0 - kGeomGrads;
-  for (int v = threadIdx.x; v < nb_done * kBlock * 2; v += kGThreads) {
-    const long long row = pstart + (v >> 1);
-    const int t = 4 * (v & 1);
-    const float* p = gsum + row * G * kGeomGrads + t;
-    float4 s = *reinterpret_cast<const float4*>(p);
-    for (int k = 1; k < G; ++k) add4(s, *reinterpret_cast<const float4*>(p + k * kGeomGrads));
-    OutT* o = out + row * RW + col0 + t;
-    store(o, s.x);
-    store(o + 1, s.y);
-    store(o + 2, s.z);
-    store(o + 3, s.w);
-    if (t) for (int k = 0; k < n_pad; ++k) store(o + 4 + k, 0.0f);
-  }
 }
 
 // P of the geometry kernel at D channels (kGeomWidths), 0 past its cap.
@@ -1396,7 +1471,7 @@ int geom_pixels(int D) {
 // to 4).
 cudaError_t check_geom(int ts, int D, int RW, int C, int P, int G) {
   if (D < 1 || D > kMaxGeomD || (RW != kGeomGrads && RW != (D + kGeomGrads + 3) / 4 * 4) ||
-      ts < 1 || ts > 32 || P != geom_pixels(D))
+      ts < 1 || P != geom_pixels(D))
     return cudaErrorInvalidValue;
   const int ranks = (ts * ts + P - 1) / P;
   const int groups = (ranks + kMaxGeomCluster - 1) / kMaxGeomCluster;
@@ -1432,7 +1507,7 @@ int launch_geom_p(const float* geom, const float* cols, const float* gimg, const
                   const float* grem0, const int* tile_starts, const int* tile_ends,
                   const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
                   int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C,
-                  int G, cudaStream_t stream) {
+                  int G, long long n_rows, cudaStream_t stream) {
   size_t bytes = 0;
   cudaError_t e = prepare_geom<OutT, NP, kGhost>(D, &bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1442,9 +1517,12 @@ int launch_geom_p(const float* geom, const float* cols, const float* gimg, const
                          grem0, tile_starts, tile_ends, padded_starts, blocks_done, out, gsum,
                          ntx, ts, width, height, D, RW, C, G);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (G > 1)
-    train_bwd_geom_groups_kernel<OutT><<<n_tiles, kGThreads, 0, stream>>>(
-        gsum, tile_starts, tile_ends, padded_starts, blocks_done, out, D, RW, G);
+  if (G > 1) {
+    const int col0 = RW == kGeomGrads ? 0 : D;
+    return static_cast<int>(add_groups(gsum, tile_starts, tile_ends, padded_starts, blocks_done,
+                                       out, n_tiles, n_rows, kGeomGrads, G, RW, col0, kGeomGrads,
+                                       RW - col0 - kGeomGrads, stream));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1453,16 +1531,16 @@ int launch_geom(const float* geom, const float* cols, const float* gimg, const f
                 const float* grem0, const int* tile_starts, const int* tile_ends,
                 const int* padded_starts, const int* blocks_done, OutT* out, float* gsum,
                 int n_tiles, int ntx, int ts, int width, int height, int D, int RW, int C, int P,
-                int G, cudaStream_t stream) {
+                int G, long long n_rows, cudaStream_t stream) {
   cudaError_t e = check_geom(ts, D, RW, C, P, G);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 1 && gsum == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // geom_xy's blocks tile only tiles 16 and 32 (at P >= 8, where C P G = ts^2)
-  const bool ghost = ts != 16 && ts != 32;
+  const bool ghost = ghost_tile(ts);
 #define TPUGS_GEOM_LAUNCH(NP, GHOST)                                                           \
   launch_geom_p<OutT, NP, GHOST>(geom, cols, gimg, hterm, grem0, tile_starts, tile_ends,      \
                                  padded_starts, blocks_done, out, gsum, n_tiles, ntx, ts,     \
-                                 width, height, D, RW, C, G, stream)
+                                 width, height, D, RW, C, G, n_rows, stream)
   switch (P) {
     case 64: return ghost ? TPUGS_GEOM_LAUNCH(64, true) : TPUGS_GEOM_LAUNCH(64, false);
     case 32: return ghost ? TPUGS_GEOM_LAUNCH(32, true) : TPUGS_GEOM_LAUNCH(32, false);
@@ -1491,11 +1569,11 @@ int max_geom_clusters_p(int C, int D) {
 // (geometry rows, RW = 8), or minus a CUDA error.
 int max_geom_clusters(int ts, int D) {
   const int P = geom_pixels(D);
-  if (D < 1 || P == 0 || ts < 1 || ts > 32) return -static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || P == 0 || ts < 1) return -static_cast<int>(cudaErrorInvalidValue);
   const int ranks = (ts * ts + P - 1) / P;
   const int G = (ranks + kMaxGeomCluster - 1) / kMaxGeomCluster;
   const int C = (ranks + G - 1) / G;
-  const bool ghost = ts != 16 && ts != 32;
+  const bool ghost = ghost_tile(ts);
 #define TPUGS_GEOM_RESIDENT(NP, GHOST) max_geom_clusters_p<NP, GHOST>(C, D)
   switch (P) {
     case 64: return ghost ? TPUGS_GEOM_RESIDENT(64, true) : TPUGS_GEOM_RESIDENT(64, false);
@@ -1519,60 +1597,66 @@ int max_geom_clusters(int ts, int D) {
 #define TPUGS_TRAIN_BWD_PASS                                                                  \
   geom, cols, gimg, hterm, grem0, tile_starts, tile_ends, padded_starts, blocks_done
 
-// The cluster kernel, for D <= 256, at (C, P) from raster/train.py::train_layout.
-extern "C" int tpugs_train_bwd_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles, int ntx,
-                                   int ts, int width, int height, int D, int RW, int C, int P,
-                                   cudaStream_t stream) {
-  return tpugs::launch_cluster<float>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts, width,
-                                      height, D, RW, C, P, stream);
+// The cluster kernel, for D <= 256, at (C, P, G) from
+// raster/train.py::train_layout; gsum (f32, T_padded * G * RW, with
+// n_rows = T_padded) holds the pixel groups' partial rows where G > 1 (else
+// null), and a second kernel adds them into out.
+extern "C" int tpugs_train_bwd_f32(TPUGS_TRAIN_BWD_ARGS, float* out, float* gsum, int n_tiles,
+                                   int ntx, int ts, int width, int height, int D, int RW, int C,
+                                   int P, int G, long long n_rows, cudaStream_t stream) {
+  return tpugs::launch_cluster<float>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts, width,
+                                      height, D, RW, C, P, G, n_rows, stream);
 }
 
-extern "C" int tpugs_train_bwd_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, int n_tiles,
-                                    int ntx, int ts, int width, int height, int D, int RW,
-                                    int C, int P, cudaStream_t stream) {
-  return tpugs::launch_cluster<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, n_tiles, ntx, ts,
-                                              width, height, D, RW, C, P, stream);
+extern "C" int tpugs_train_bwd_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, float* gsum,
+                                    int n_tiles, int ntx, int ts, int width, int height, int D,
+                                    int RW, int C, int P, int G, long long n_rows,
+                                    cudaStream_t stream) {
+  return tpugs::launch_cluster<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts,
+                                              width, height, D, RW, C, P, G, n_rows, stream);
 }
 
-// The colour slices (the row's columns [0, D)), at (C, P, S, Ns) from
-// train_layout; cols, hterm and grem0 are not read.
-extern "C" int tpugs_train_bwd_colour_f32(TPUGS_TRAIN_BWD_ARGS, float* out, int n_tiles,
-                                          int ntx, int ts, int width, int height, int D,
-                                          int RW, int C, int P, int S, int Ns,
-                                          cudaStream_t stream) {
+// The colour slices (the row's columns [0, D)), at (C, P, G, S, Ns) from
+// train_layout, gsum as for the cluster kernel; cols, hterm and grem0 are
+// not read.
+extern "C" int tpugs_train_bwd_colour_f32(TPUGS_TRAIN_BWD_ARGS, float* out, float* gsum,
+                                          int n_tiles, int ntx, int ts, int width, int height,
+                                          int D, int RW, int C, int P, int G, int S, int Ns,
+                                          long long n_rows, cudaStream_t stream) {
   return tpugs::launch_colour<float>(geom, gimg, tile_starts, tile_ends, padded_starts,
-                                     blocks_done, out, n_tiles, ntx, ts, width, height, D, RW,
-                                     C, P, S, Ns, stream);
+                                     blocks_done, out, gsum, n_tiles, ntx, ts, width, height, D,
+                                     RW, C, P, G, S, Ns, n_rows, stream);
 }
 
 extern "C" int tpugs_train_bwd_colour_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out,
-                                           int n_tiles, int ntx, int ts, int width,
-                                           int height, int D, int RW, int C, int P, int S,
-                                           int Ns, cudaStream_t stream) {
-  return tpugs::launch_colour<__nv_bfloat16>(geom, gimg, tile_starts, tile_ends,
-                                             padded_starts, blocks_done, out, n_tiles, ntx, ts,
-                                             width, height, D, RW, C, P, S, Ns, stream);
+                                           float* gsum, int n_tiles, int ntx, int ts, int width,
+                                           int height, int D, int RW, int C, int P, int G, int S,
+                                           int Ns, long long n_rows, cudaStream_t stream) {
+  return tpugs::launch_colour<__nv_bfloat16>(geom, gimg, tile_starts, tile_ends, padded_starts,
+                                             blocks_done, out, gsum, n_tiles, ntx, ts, width,
+                                             height, D, RW, C, P, G, S, Ns, n_rows, stream);
 }
 
 // The geometry cluster kernel at (C, P, G) from raster/train.py::geom_cluster:
 // rows of the 8 geometry columns (RW = 8), or train_rows' columns D..RW
 // and the skipped blocks' whole rows (RW = D + 8 rounded up to 4); gsum,
-// f32 [T_padded][G][8], holds the pixel groups' sums where G > 1 (else it
-// may be null), and a second kernel adds them into out.
+// f32 T_padded * G * 8 (n_rows = T_padded), holds the pixel groups' sums
+// where G > 1 (else it may be null), and a second kernel adds them into
+// out.
 extern "C" int tpugs_train_bwd_geom_f32(TPUGS_TRAIN_BWD_ARGS, float* out, float* gsum,
                                         int n_tiles, int ntx, int ts, int width, int height,
-                                        int D, int RW, int C, int P, int G,
+                                        int D, int RW, int C, int P, int G, long long n_rows,
                                         cudaStream_t stream) {
   return tpugs::launch_geom<float>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts, width,
-                                   height, D, RW, C, P, G, stream);
+                                   height, D, RW, C, P, G, n_rows, stream);
 }
 
 extern "C" int tpugs_train_bwd_geom_bf16(TPUGS_TRAIN_BWD_ARGS, __nv_bfloat16* out, float* gsum,
                                          int n_tiles, int ntx, int ts, int width, int height,
-                                         int D, int RW, int C, int P, int G,
+                                         int D, int RW, int C, int P, int G, long long n_rows,
                                          cudaStream_t stream) {
   return tpugs::launch_geom<__nv_bfloat16>(TPUGS_TRAIN_BWD_PASS, out, gsum, n_tiles, ntx, ts,
-                                           width, height, D, RW, C, P, G, stream);
+                                           width, height, D, RW, C, P, G, n_rows, stream);
 }
 
 // Resident clusters of the cluster kernel at tile ts and D channels (bf16

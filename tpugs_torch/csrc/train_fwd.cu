@@ -17,7 +17,7 @@
 //
 // Design (the cluster kernel). The TPU kernel keeps a tile's
 // (1024, d_pad) f32 image in VMEM, 536 KB at D = 131, over a Hopper CTA's
-// 227 KB. The one-CTA-per-32-channel-slice kernel below (the wide kernel)
+// 227 KB. The one-CTA-per-32-channel-slice kernel it replaced (the wide kernel)
 // therefore computed every pair's weight once per slice, five times at
 // D = 131, and ran the colour product as scalar FMA in a divergent branch.
 // Here a tile is a thread-block cluster of C = ts^2 / 128 CTAs (8 at tile
@@ -37,8 +37,9 @@
 //       the chunk's Gaussians (common.cuh's pair_alpha, the _rn intrinsics);
 //       the alphas are exchanged by one shuffle each and both lanes carry
 //       the exact sequential product (w = alpha * texc * T, texc *= 1 -
-//       alpha, in the wide kernel's order), so every weight, T, alpha and
-//       blocks_done are bit-identical to the wide kernel's; each lane
+//       alpha, in B1's order), so every weight, T, alpha and blocks_done
+//       are bit-identical to B1's (render.cu) and were to the wide kernel's
+//       it replaced; each lane
 //       stores its 8 weights' hi and lo as the A operand (pixel rows);
 //   (3) one CTA barrier, then each warpgroup issues the 3xTF32 product
 //       img += Whi Chi + Whi Clo + Wlo Chi (m64nNk8, N split into 128, 64,
@@ -47,10 +48,9 @@
 //       double-buffered, and each warpgroup waits for its previous product
 //       just before the next barrier.
 // The exit: after each block, each rank ORs T > eps over its pixels (those
-// outside the image too, as the wide kernel's __syncthreads_or), stores a
-// mark for the block into every rank's slot through DSMEM and passes one
-// cluster barrier; every rank then takes the decision the wide kernel,
-// the TPU kernel and the twin take. The next block's geometry comes in by
+// outside the image too, as B1 does), stores a mark for the block into
+// every rank's slot through DSMEM and passes one cluster barrier; every rank
+// then takes the decision B1, the TPU kernel and the twin take. The next block's geometry comes in by
 // cp.async during the walk. The image leaves through shared memory, each
 // pixel's D channels one contiguous run. Shared memory per CTA: 32768 +
 // 384 N bytes of operands and staging (at least 512 (N + 8) for the
@@ -87,8 +87,23 @@
 // the product 5.9, the colour staging and split 6.0; skipping the product
 // of all-zero chunks costs 0.4 ms more here too.
 //
-// Tiles other than 16 and 32, whose pixels do not split into ranks of 128,
-// take the wide kernel at the end of this file (tpugs_train_fwd_wide).
+// Every other tile (kGhost): a tile's ts^2 pixels, row-major, fill
+// ceil(ts^2 / 128) ranks of 128 slots (rank R takes slots 128 R ..
+// 128 R + 127); the slots past ts^2 are ghosts, whose T starts at 0, so they
+// weigh nothing, vote for the exit and write nothing. Up to 8 ranks (tiles
+// up to 32) a tile is one cluster. Past that its ranks form G pixel groups
+// of C (train_fwd_cluster: G = ceil(ranks / 8), C = ceil(ranks / G)), one
+// cluster each (group blockIdx.y), and the tile-wide exit becomes B1's exact
+// vote over the groups (render.cu): the vote (kVote: this kernel, one
+// slice, its walk without the colours, staging or product) takes every
+// group to its own exit and atomicMax-es its block count into
+// blocks_done[tile]; the walk after it (replay) takes every group and slice
+// through exactly blocks_done[tile] blocks, with no exit test and no
+// exchange, and writes no blocks_done. Each pixel's weights, T and image
+// are then those of one cluster walking the whole tile. This replaced the
+// one-CTA-per-tile-and-32-channels wide kernel (ts^2 threads, so at most
+// tile 32), which took 12.41 ms at tile 24 against this kernel's 5.10 at
+// tile 32 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -356,16 +371,20 @@ __device__ __forceinline__ void walk_chunk(const BlockGeom& g, int i0, int q, fl
   }
 }
 
-// Grid C * S * n_tiles in clusters of (C, 1, 1): the C CTAs of cluster c
-// take tile c / S and channel slice c % S (Ns = 16 NB columns), rank r the
-// tile's pixel rows [r * kPix / ts, (r + 1) * kPix / ts).
-template <int NB>
+// Grid (C * S * n_tiles, G) in clusters of (C, 1, 1): the C CTAs of cluster
+// c take tile c / S and channel slice c % S (Ns = 16 NB columns), of pixel
+// group blockIdx.y; rank r the tile's pixel rows [r * kPix / ts, (r + 1) *
+// kPix / ts) at tiles 16 and 32, else (kGhost) the slots of rank R = C
+// blockIdx.y + r. With kGhost, ``replay`` walks exactly blocks_done[tile]
+// blocks with no exit test and writes no blocks_done.
+template <int NB, bool kGhost = false, bool kVote = false>
 __global__ void __launch_bounds__(kThreads, NB <= 9 ? 2 : 1)
 train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
                          const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
                          const int* __restrict__ padded_starts, float* __restrict__ img,
                          float* __restrict__ alpha_out, int* __restrict__ blocks_done, int ntx,
-                         int ts, int width, int height, int D, float trans_eps, int C, int S) {
+                         int ts, int width, int height, int D, float trans_eps, int C, int S,
+                         int replay) {
   constexpr int N = 16 * NB;
   extern __shared__ __align__(128) float smem[];
   float* Wbuf = smem;                      // [2][hi, lo][kPix * kKC]
@@ -383,27 +402,34 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   const int tile = blockIdx.x / C / S;
   const int slice = blockIdx.x / C % S;
   const int c0 = slice * N, ns = min(N, D - c0);  // the slice's channels
+  const bool fixed = kGhost && replay;  // walk blocks_done[tile] blocks, no exit test
   const int count = tile_ends[tile] - tile_starts[tile];
-  const int nb = (count + kBlock - 1) / kBlock;
+  const int nb = fixed ? min((count + kBlock - 1) / kBlock, blocks_done[tile])
+                       : (count + kBlock - 1) / kBlock;
   const long long pstart = padded_starts[tile];
   const int x0 = (tile % ntx) * ts;
-  const int y0 = (tile / ntx) * ts + rank * (kPix / ts);  // the rank's first pixel row
-  const float px = static_cast<float>(x0 + pl % ts) + 0.5f;
-  const float py = static_cast<float>(y0 + pl / ts) + 0.5f;
+  // the rank's first pixel row; with kGhost the tile's first, and the
+  // thread's pixel is its slot lp0 + pl of the tile (rank R)
+  const int y0 = (tile / ntx) * ts + (kGhost ? 0 : rank * (kPix / ts));
+  const int lp0 = kGhost ? (static_cast<int>(blockIdx.y) * C + rank) * kPix : 0;
+  const bool real = !kGhost || lp0 + pl < ts * ts;  // not a ghost
+  const float px = static_cast<float>(x0 + (lp0 + pl) % ts) + 0.5f;
+  const float py = static_cast<float>(y0 + (lp0 + pl) / ts) + 0.5f;
 
   if (tid < 2) exit_mark[tid] = 0;
-  zero_pad_colours<N>(Cbuf, ns, tid);
+  if (!kVote) zero_pad_colours<N>(Cbuf, ns, tid);
   if (nb > 0) {
     stage_geom(gs[0], geom, pstart, tid);
-    stage_colours(Raw, cols, pstart, D, c0, ns, tid);
+    if (!kVote) stage_colours(Raw, cols, pstart, D, c0, ns, tid);
     cp_async_commit();
   }
-  cluster_arrive();  // every CTA has started and set its marks (waited before the first mark)
+  // every CTA has started and set its marks (waited before the first mark)
+  if (!fixed) cluster_arrive();
 
   float acc[8 * NB];
 #pragma unroll
   for (int i = 0; i < 8 * NB; ++i) acc[i] = 0.0f;
-  float trans = 1.0f;
+  float trans = real ? 1.0f : 0.0f;
   bool keep = 1.0f > trans_eps;
   int b = 0;
   cp_async_wait_all();
@@ -420,31 +446,38 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
       float* Wl = Wh + kPix * kKC;
       float* Ch = Cbuf + buf * 2 * N * kKC;
       float* Cl = Ch + N * kKC;
-      split_colours<N>(Ch, Cl, Raw + buf * kKC * N, ns, tid);
-      if (j + 1 < kChunks || b + 1 < nb)  // the next chunk's colours, by cp.async
-        stage_colours(Raw + (buf ^ 1) * kKC * N, cols, row0 + (j + 1) * kKC, D, c0, ns, tid);
+      if (!kVote) {  // the vote walks T alone
+        split_colours<N>(Ch, Cl, Raw + buf * kKC * N, ns, tid);
+        if (j + 1 < kChunks || b + 1 < nb)  // the next chunk's colours, by cp.async
+          stage_colours(Raw + (buf ^ 1) * kKC * N, cols, row0 + (j + 1) * kKC, D, c0, ns, tid);
+      }
       cp_async_commit();
       walk_chunk(g, j * kKC, q, px, py, remaining, trans, texc, Wh, Wl, pl);
       fence_proxy_async();
       cp_async_wait_all();
       wgmma_wait_all();  // this warpgroup's previous product has read its operands
       __syncthreads();
-      mma_chunk<NB>(acc, Wh, Wl, Ch, Cl, wg);
+      if (!kVote) mma_chunk<NB>(acc, Wh, Wl, Ch, Cl, wg);
     }
     trans *= texc;
     const int any = __syncthreads_or(trans > trans_eps);
+    if (fixed) continue;  // no exit test: blocks_done[tile] blocks
     if (b == 0) cluster_wait();
     if (any && tid < C) st_cluster(map_rank(smem_addr(&exit_mark[b & 1]), tid), b + 1);
     cluster_arrive();
     cluster_wait();
     keep = exit_mark[b & 1] == b + 1;
   }
-  if (b == 0) cluster_wait();
+  if (b == 0 && !fixed) cluster_wait();
   wgmma_wait_all();
 
-  if (slice == 0 && rank == 0 && tid == 0) blocks_done[tile] = b;
-  const int xi = x0 + pl % ts, yi = y0 + pl / ts;
-  if (slice == 0 && q == 0 && xi < width && yi < height)
+  if (kVote) {
+    if (rank == 0 && tid == 0) atomicMax(&blocks_done[tile], b);  // this group's exit block
+    return;
+  }
+  if (slice == 0 && rank == 0 && tid == 0 && !fixed) blocks_done[tile] = b;
+  const int xi = x0 + (lp0 + pl) % ts, yi = y0 + (lp0 + pl) / ts;
+  if (slice == 0 && q == 0 && real && xi < width && yi < height)
     alpha_out[static_cast<long long>(yi) * width + xi] = 1.0f - trans;
   // The image through shared memory, free once every product has read its
   // operands: thread (warp w of the warpgroup, lane l) holds rows 16w + l/4
@@ -463,18 +496,18 @@ train_fwd_cluster_kernel(const float* __restrict__ geom, const float* __restrict
   }
   __syncthreads();
   for (int p = 16 * warp; p < 16 * warp + 16; ++p) {
-    const int x = x0 + p % ts, y = y0 + p / ts;
-    if (x < width && y < height) {
+    const int x = x0 + (lp0 + p) % ts, y = y0 + (lp0 + p) / ts;
+    if ((!kGhost || lp0 + p < ts * ts) && x < width && y < height) {
       float* o = img + (static_cast<long long>(y) * width + x) * D + c0;
       for (int c = lane; c < ns; c += 32) o[c] = smem[p * LD + c];
     }
   }
 }
 
-cudaLaunchConfig_t cluster_config(int n_clusters, int C, size_t bytes, cudaStream_t stream,
+cudaLaunchConfig_t cluster_config(int n_clusters, int C, int G, size_t bytes, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * n_clusters, 1, 1);
+  cfg.gridDim = dim3(C * n_clusters, G, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -487,55 +520,79 @@ cudaLaunchConfig_t cluster_config(int n_clusters, int C, size_t bytes, cudaStrea
   return cfg;
 }
 
-template <int NB>
+template <int NB, bool kGhost, bool kVote>
 cudaError_t prepare(size_t* bytes) {
   *bytes = cluster_bytes(16 * NB);
-  cudaError_t e = cudaFuncSetAttribute(train_fwd_cluster_kernel<NB>,
+  cudaError_t e = cudaFuncSetAttribute(train_fwd_cluster_kernel<NB, kGhost, kVote>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*bytes));
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(train_fwd_cluster_kernel<NB>,
+  return cudaFuncSetAttribute(train_fwd_cluster_kernel<NB, kGhost, kVote>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
 
 // Launches (n_tiles > 0) or, with n_tiles == 0, returns the resident
 // clusters in *resident.
-template <int NB>
+template <int NB, bool kGhost, bool kVote>
 cudaError_t run(const float* geom, const float* cols, const int* tile_starts,
                 const int* tile_ends, const int* padded_starts, float* img, float* alpha,
                 int* blocks_done, int n_tiles, int ntx, int ts, int width, int height, int D,
-                float trans_eps, int C, int S, cudaStream_t stream, int* resident) {
+                float trans_eps, int C, int G, int S, int replay, cudaStream_t stream,
+                int* resident) {
   size_t bytes = 0;
-  cudaError_t e = prepare<NB>(&bytes);
+  cudaError_t e = prepare<NB, kGhost, kVote>(&bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      cluster_config(n_tiles > 0 ? S * n_tiles : 1, C, bytes, stream, attr);
-  if (n_tiles == 0) return cudaOccupancyMaxActiveClusters(resident, train_fwd_cluster_kernel<NB>, &cfg);
-  e = cudaLaunchKernelEx(&cfg, train_fwd_cluster_kernel<NB>, geom, cols, tile_starts, tile_ends,
-                         padded_starts, img, alpha, blocks_done, ntx, ts, width, height, D,
-                         trans_eps, C, S);
+      cluster_config(n_tiles > 0 ? S * n_tiles : 1, C, n_tiles > 0 ? G : 1, bytes, stream, attr);
+  if (n_tiles == 0)
+    return cudaOccupancyMaxActiveClusters(resident, train_fwd_cluster_kernel<NB, kGhost, kVote>,
+                                          &cfg);
+  e = cudaLaunchKernelEx(&cfg, train_fwd_cluster_kernel<NB, kGhost, kVote>, geom, cols,
+                         tile_starts, tile_ends, padded_starts, img, alpha, blocks_done, ntx, ts,
+                         width, height, D, trans_eps, C, S, replay);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// (C, P, S, Ns) as raster/train.py::train_fwd_cluster gives them: every
+// (C, G) at tile ts, as raster/train.py::train_fwd_cluster gives them: the
+// tile's ceil(ts^2 / kPix) ranks, one cluster of at most 8 or G pixel
+// groups of C.
+int2 fwd_layout(int ts) {
+  return group_layout((ts * ts + kPix - 1) / kPix, kMaxCluster);
+}
+
+// (C, P, G, S, Ns) as raster/train.py::train_fwd_cluster gives them: every
 // slice Ns columns wide (a multiple of 16, at most kMaxSliceD) and holding
-// at least one channel; or an error.
+// at least one channel; ``pass`` 0 the one-cluster walk (G = 1), 1 the vote
+// (one slice of 16 columns; G > 1), 2 the walk after it; or an error.
 cudaError_t dispatch(const float* geom, const float* cols, const int* tile_starts,
                      const int* tile_ends, const int* padded_starts, float* img, float* alpha,
                      int* blocks_done, int n_tiles, int ntx, int ts, int width, int height,
-                     int D, float trans_eps, int C, int P, int S, int Ns, cudaStream_t stream,
-                     int* resident) {
-  if (D < 1 || S < 1 || Ns < 16 || Ns > kMaxSliceD || Ns % 16 != 0 ||
-      static_cast<long long>(S - 1) * Ns >= D || static_cast<long long>(S) * Ns < D ||
-      (ts != 16 && ts != 32) || P != kPix || C * P != ts * ts || C > kMaxCluster)
+                     int D, float trans_eps, int C, int P, int G, int S, int Ns, int pass,
+                     cudaStream_t stream, int* resident) {
+  if (ts < 1 || D < 1) return cudaErrorInvalidValue;
+  const int2 want = fwd_layout(ts);
+  if (pass == 1 && (S != 1 || Ns != 16)) return cudaErrorInvalidValue;
+  if (pass != 1 && (S < 1 || Ns < 16 || Ns > kMaxSliceD || Ns % 16 != 0 ||
+                    static_cast<long long>(S - 1) * Ns >= D || static_cast<long long>(S) * Ns < D))
     return cudaErrorInvalidValue;
+  if (P != kPix || C != want.x || G != want.y || pass < 0 || pass > 2 || (G == 1) != (pass == 0))
+    return cudaErrorInvalidValue;
+  if (pass == 1)
+    return run<1, true, true>(geom, cols, tile_starts, tile_ends, padded_starts, img, alpha,
+                              blocks_done, n_tiles, ntx, ts, width, height, D, trans_eps, C, G,
+                              1, 0, stream, resident);
+  const bool ghost = ts != 16 && ts != 32;
 #define TPUGS_FWD_CASE(nb)                                                                    \
   case nb:                                                                                   \
-    return run<nb>(geom, cols, tile_starts, tile_ends, padded_starts, img, alpha, blocks_done, \
-                   n_tiles, ntx, ts, width, height, D, trans_eps, C, S, stream, resident);
+    return ghost ? run<nb, true, false>(geom, cols, tile_starts, tile_ends, padded_starts, img, \
+                                        alpha, blocks_done, n_tiles, ntx, ts, width, height, D, \
+                                        trans_eps, C, G, S, pass == 2, stream, resident)        \
+                 : run<nb, false, false>(geom, cols, tile_starts, tile_ends, padded_starts, img,\
+                                         alpha, blocks_done, n_tiles, ntx, ts, width, height,  \
+                                         D, trans_eps, C, 1, S, 0, stream, resident);
   switch (Ns / 16) {
     TPUGS_FWD_CASE(1) TPUGS_FWD_CASE(2) TPUGS_FWD_CASE(3) TPUGS_FWD_CASE(4)
     TPUGS_FWD_CASE(5) TPUGS_FWD_CASE(6) TPUGS_FWD_CASE(7) TPUGS_FWD_CASE(8)
@@ -546,87 +603,6 @@ cudaError_t dispatch(const float* geom, const float* cols, const int* tile_start
 #undef TPUGS_FWD_CASE
 }
 
-// ------------------------------------ the wide kernel (tiles other than 16, 32)
-
-constexpr int kSliceC = 32;  // channels per CUDA block
-
-// Grid (tile, slice of 32 channels); one thread per pixel (ts*ts threads;
-// below 128 of them, each stages several of the block's geometry rows)
-// walks the 128 Gaussians of a block in order, carrying its exclusive
-// transmittance in a register (the exact sequential product, as B1), and
-// keeps its 32 channel sums in registers. The block's geometry and its 128
-// x 32 colour slice are staged in shared memory and read as broadcasts
-// (float4). Every slice recomputes the same weights, so every slice takes
-// the same exit.
-__global__ void __launch_bounds__(1024)
-train_fwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ cols,
-                      const int* __restrict__ tile_starts, const int* __restrict__ tile_ends,
-                      const int* __restrict__ padded_starts, float* __restrict__ img,
-                      float* __restrict__ alpha_out, int* __restrict__ blocks_done, int ntx,
-                      int ts, int width, int height, int D, float trans_eps) {
-  __shared__ BlockGeom g;
-  __shared__ __align__(16) float col[kBlock][kSliceC];
-
-  const int tile = blockIdx.x;
-  const int c0 = blockIdx.y * kSliceC;
-  const int nc = min(kSliceC, D - c0);
-  const int p = threadIdx.x;
-  const int count = tile_ends[tile] - tile_starts[tile];
-  const int nb = (count + kBlock - 1) / kBlock;
-  const long long pstart = padded_starts[tile];
-  const int x = (tile % ntx) * ts + p % ts;
-  const int y = (tile / ntx) * ts + p / ts;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-
-  float acc[kSliceC];
-#pragma unroll
-  for (int c = 0; c < kSliceC; ++c) acc[c] = 0.0f;
-  float trans = 1.0f;
-  int keep = 1.0f > trans_eps;
-  int b = 0;
-  for (; b < nb && keep; ++b) {
-    const long long row0 = pstart + static_cast<long long>(b) * kBlock;
-    for (int i = p; i < kBlock; i += blockDim.x) load_geom(g, geom, row0, i, kGeomCols);
-    for (int idx = p; idx < kBlock * kSliceC; idx += blockDim.x) {
-      const int i = idx / kSliceC;
-      const int c = idx % kSliceC;
-      col[i][c] = c < nc ? cols[(row0 + i) * D + c0 + c] : 0.0f;
-    }
-    __syncthreads();
-    const int remaining = count - b * kBlock;
-    float texc = 1.0f;
-    for (int i = 0; i < kBlock; ++i) {
-      const float alpha = pair_alpha(g, i, px, py, i < remaining);
-      const float w = alpha * texc * trans;
-      if (w != 0.0f) {
-        const float4* cv = reinterpret_cast<const float4*>(col[i]);
-#pragma unroll
-        for (int c4 = 0; c4 < kSliceC / 4; ++c4) {
-          const float4 v = cv[c4];
-          acc[4 * c4 + 0] = fmaf(w, v.x, acc[4 * c4 + 0]);
-          acc[4 * c4 + 1] = fmaf(w, v.y, acc[4 * c4 + 1]);
-          acc[4 * c4 + 2] = fmaf(w, v.z, acc[4 * c4 + 2]);
-          acc[4 * c4 + 3] = fmaf(w, v.w, acc[4 * c4 + 3]);
-        }
-      }
-      texc *= 1.0f - alpha;
-    }
-    trans *= texc;
-    keep = __syncthreads_or(trans > trans_eps);
-  }
-  if (x < width && y < height) {
-    const long long pix = static_cast<long long>(y) * width + x;
-    float* o = img + pix * D + c0;
-#pragma unroll
-    for (int c = 0; c < kSliceC; ++c)
-      if (c < nc) o[c] = acc[c];
-    if (blockIdx.y == 0) alpha_out[pix] = 1.0f - trans;
-  }
-  if (blockIdx.y == 0 && p == 0) blocks_done[tile] = b;
-}
-
-
 }  // namespace
 }  // namespace tpugs
 
@@ -635,32 +611,27 @@ train_fwd_wide_kernel(const float* __restrict__ geom, const float* __restrict__ 
       const int *padded_starts, float *img, float *alpha, int *blocks_done, int n_tiles,   \
       int ntx, int ts, int width, int height, int D, float trans_eps
 
-// The cluster kernel in channel slices, for any D at tiles 16 and 32, at
-// (C, P, S, Ns) from raster/train.py::train_fwd_cluster.
-extern "C" int tpugs_train_fwd(TPUGS_TRAIN_FWD_ARGS, int C, int P, int S, int Ns,
-                               cudaStream_t stream) {
+// The cluster kernel in channel slices, for any D and any tile, at (C, P,
+// G, S, Ns) from raster/train.py::train_fwd_cluster; ``pass`` as in
+// dispatch (past 8 ranks a tile the vote, into zeroed blocks_done, then the
+// walk).
+extern "C" int tpugs_train_fwd(TPUGS_TRAIN_FWD_ARGS, int C, int P, int G, int S, int Ns,
+                               int pass, cudaStream_t stream) {
   if (n_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tpugs::dispatch(geom, cols, tile_starts, tile_ends, padded_starts,
                                           img, alpha, blocks_done, n_tiles, ntx, ts, width,
-                                          height, D, trans_eps, C, P, S, Ns, stream, nullptr));
+                                          height, D, trans_eps, C, P, G, S, Ns, pass, stream,
+                                          nullptr));
 }
 
-// The wide kernel, for any D >= 1 and tiles 1 to 32.
-extern "C" int tpugs_train_fwd_wide(TPUGS_TRAIN_FWD_ARGS, cudaStream_t stream) {
-  if (ts < 1 || ts > 32 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_tiles, (D + tpugs::kSliceC - 1) / tpugs::kSliceC);
-  tpugs::train_fwd_wide_kernel<<<grid, ts * ts, 0, stream>>>(
-      geom, cols, tile_starts, tile_ends, padded_starts, img, alpha, blocks_done, ntx, ts,
-      width, height, D, trans_eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Resident clusters of the cluster kernel at tile ts and a slice of D <=
-// 256 channels, or minus a CUDA error.
+// Resident clusters of the cluster kernel's walk at tile ts and a slice of
+// D <= 256 channels, or minus a CUDA error.
 extern "C" int tpugs_train_fwd_max_clusters(int ts, int D) {
+  if (ts < 1) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
+  const int2 l = tpugs::fwd_layout(ts);
   const cudaError_t e = tpugs::dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                        nullptr, nullptr, 0, 1, ts, 1, 1, D, 0.0f, ts * ts / 128,
-                                        128, 1, (D + 15) / 16 * 16, nullptr, &n);
+                                        nullptr, nullptr, 0, 1, ts, 1, 1, D, 0.0f, l.x, 128, l.y,
+                                        1, (D + 15) / 16 * 16, l.y == 1 ? 0 : 2, nullptr, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

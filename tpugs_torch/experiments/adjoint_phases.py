@@ -157,15 +157,16 @@ def build_variants(source: Path, table: Dict[str, List[Sub]], out_dir: Path,
 def _load(so: Path, table: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     cluster = [_I, _I] if table == "cluster" else []
+    scratch = 1 if table == "cluster" else 0  # the tiles' T past tile 32 (null here)
     for fn, n_ptr in (("tpugs_adjoint_bf16", 6), ("tpugs_adjoint_scatter_bf16", 7)):
-        getattr(lib, fn).argtypes = [_P] * n_ptr + [_I] * 7 + [_F] + cluster + [_P]
+        getattr(lib, fn).argtypes = [_P] * (n_ptr + scratch) + [_I] * 7 + [_F] + cluster + [_P]
         getattr(lib, fn).restype = _I
     return lib
 
 
-def canonical_views():
-    """The canonical view (chip_smoke.py's phase 3 shape), default and
-    scatter plans."""
+def canonical_views(tile: int = 32):
+    """The canonical view (chip_smoke.py's phase 3 shape) at ``tile``,
+    default and scatter plans."""
     from tpugs_torch.encoders.base import LinearRGBEncoder
     from tpugs_torch.lift.batch import run_view
     from tpugs_torch.utils.synthetic import orbit_cameras, random_scene
@@ -174,7 +175,7 @@ def canonical_views():
     scene = random_scene(2**19, seed=0, extent=1.0, scale_range=(0.004, 0.02), device="cuda")
     cams = orbit_cameras(8, w, h, radius=3.0, device="cuda")
     enc = LinearRGBEncoder(512, device="cuda")
-    args = (scene, cams.viewmats[0], cams.Ks[0], w, h, enc, 32)
+    args = (scene, cams.viewmats[0], cams.Ks[0], w, h, enc, tile)
     return run_view(*args), run_view(*args, reduce_engine="scatter")
 
 
@@ -196,12 +197,13 @@ def measure(source: Path, table: str, iters: int = 5) -> List[Tuple[str, str, fl
         fn = lib.tpugs_adjoint_scatter_bf16 if scatter else lib.tpugs_adjoint_bf16
         extra = (K._ptr(plan.slot_pos),) if scatter else ()
         cluster = K.adjoint_cluster(out.shape[1]) if table == "cluster" else ()
+        scratch = (ctypes.c_void_p(None),) if table == "cluster" else ()
         ntx, _ = plan.grid
 
         def go():
             rc = fn(K._ptr(r.packed), K._ptr(plan.tile_starts), K._ptr(plan.tile_ends),
                     K._ptr(plan.padded_starts), K._ptr(r.feat_tiles), *extra, K._ptr(out),
-                    plan.n_tiles, ntx, plan.tile_size, plan.width, plan.height,
+                    *scratch, plan.n_tiles, ntx, plan.tile_size, plan.width, plan.height,
                     r.feat_tiles.shape[-1], out.shape[1], K.TRANS_EPS, *cluster, stream)
             if rc != 0:
                 raise RuntimeError(f"variant launch failed with CUDA error {rc}")

@@ -156,7 +156,7 @@ TABLES["cluster"] = {
     "walk": [("          alpha[u] = clipped_alpha(pair_terms(g0.x, g0.y, g0.z, g0.w, g1.x, "
               "g1.y, px, py),\n                                   kCull || i < remaining);",
               "          alpha[u] = kCull || i < remaining ? 1e-3f : 0.0f;"), _CL_REPLAY],
-    "staging": [("    if (b + 1 < nb) stage_rows(rows[(b + 1) & 1], pack, pstart + (b + 1) * "
+    "staging": [("    if (b + 1 < nb_walk) stage_rows(rows[(b + 1) & 1], pack, pstart + (b + 1) * "
                  "kBlock, tid);\n", ""),
                 ("    const StagedRow* r = rows[b & 1];", "    const StagedRow* r = rows[0];"),
                 _CL_REPLAY],

@@ -157,10 +157,12 @@ TABLES["cluster"] = {
                   "make_float4(ww[0], ww[1], ww[2], ww[3]);\n"
                   "          float sum = 0.0f;\n          if (false) {")],
     "d col": _D_COL,
-    "zero rows": [("  for (long long v = rank * kCThreads + tid; v < n_vec; v += C * kCThreads)\n"
+    "zero rows": [("  for (long long v = R * kCThreads + tid; v < n_vec; v += (kGhost ? G : 1) * C "
+                   "* kCThreads)\n"
                    "    *reinterpret_cast<uint4*>(out + zero0 + v * V) = make_uint4(0, 0, 0, 0);\n",
                    "")],
-    "exchange": [("      sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);\n", "")],
+    "exchange": [("        sum_partials(out + (row0 + gbase) * RW, part, C, rank, RW, tid);\n",
+                  "        ;\n")],
     "occupancy": [("*bytes = ClusterLayout(D, RW).bytes();",
                    "*bytes = ClusterLayout(D, RW).bytes() + 114 * 1024;")],
 }
@@ -174,8 +176,8 @@ TABLES["colour"] = {
             ww[e] = alpha * texc * trans;
             texc *= 1.0f - alpha;""", """            ww[e] = 1e-3f * gi + trans + px + py;""")],
     "d col": _D_COL,
-    "exchange": [("      sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, "
-                  "tid);\n", "")],
+    "exchange": [("        sum_columns(out + (row0 + gbase) * RW + c0, part, C, rank, Ns, ns, RW, "
+                  "tid);\n", "        ;\n")],
 }
 
 _GEOM_WALK = """          const PairTerms pt = pair_terms(g, gi, px, py);
@@ -213,10 +215,10 @@ TABLES["geom"] = {
     "exchange": [("    if (G == 1)\n"
                   "      sum_geometry(out + row0 * RW + col0, part, C, rank, RW, n_pad, tid);\n"
                   "    else\n"
-                  "      sum_geometry(gsum + (row0 * G + group) * kGeomGrads, part, C, rank, "
-                  "G * kGeomGrads, 0,\n                   tid);\n", "")],
-    "group sum": [("  if (G > 1)\n    train_bwd_geom_groups_kernel<OutT>",
-                   "  if (false)\n    train_bwd_geom_groups_kernel<OutT>")],
+                  "      sum_geometry(gsum + (row0 / kBlock * G + group) * kBlock * kGeomGrads, "
+                  "part, C, rank,\n                   kGeomGrads, 0, tid);\n", "")],
+    "group sum": [("  if (G > 1) {\n    const int col0 = RW == kGeomGrads ? 0 : D;",
+                   "  if (false) {\n    const int col0 = RW == kGeomGrads ? 0 : D;")],
 }
 
 VARIANTS = (
@@ -254,18 +256,18 @@ def _old_geom(d: int, text: str):
 # widest) -> the cluster arguments after the row width, or None where the
 # kernel does not take the width, or (ts, D, source text) -> them; the
 # columns it writes: "all", "colour" 0:D or "geometry" D onward; whether the
-# entry takes the pixel groups' scratch after out)
+# entry takes the pixel groups' scratch after out (and, for the tree's
+# cluster kernel and colour slices, the scratch's row count T_padded last))
 LAUNCH = {
     "d4ac1ba": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: (), "all", False)},
     "cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d), "all",
-                         False)},
-    "old-cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: T.train_cluster(ts, d),
-                             "all", False)},
+                         True)},
+    "old-cluster": {"rows": ("tpugs_train_bwd_f32", lambda ts, d, ws: (
+        None if T.train_cluster(ts, d) is None else T.train_cluster(ts, d)[:2]), "all", False)},
     "old": {"geometry": (lambda d, text: _old_geom(d, text)[0],
                          lambda ts, d, text: _old_geom(d, text)[1](ts), "all", False)},
-    "colour": {"rows": ("tpugs_train_bwd_colour_f32", lambda ts, d, ws: (
-        ts * ts // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK) + T.fwd_slices(
-            d, ws or T.COLOUR_SLICE_CHANNELS), "colour", False)},
+    "colour": {"rows": ("tpugs_train_bwd_colour_f32", lambda ts, d, ws: T.rank_groups(ts)
+                        + T.fwd_slices(d, ws or T.COLOUR_SLICE_CHANNELS), "colour", True)},
     "geom": {"rows": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
                       "geometry", True),
              "geometry": ("tpugs_train_bwd_geom_f32", lambda ts, d, ws: T.geom_cluster(ts, d),
@@ -372,7 +374,7 @@ def parent_route(lib, text: str, args, image, absgrad: bool, stream):
         grem_c = (g_c * image[..., a:b]).sum(-1).contiguous()
         out = torch.empty((plan.T_padded, T.grad_row_width(b - a)), device="cuda")
         if b - a <= T.CLUSTER_MAX_CHANNELS:
-            add("tpugs_train_bwd_f32", T.train_cluster(ts, b - a), c, g_c, h_c, grem_c, out)
+            add("tpugs_train_bwd_f32", T.train_cluster(ts, b - a)[:2], c, g_c, h_c, grem_c, out)
             continue
         add("tpugs_train_bwd_colour_f32", (ts * ts // T.PIXELS_PER_RANK, T.PIXELS_PER_RANK)
             + T.fwd_slices(b - a, T.COLOUR_SLICE_CHANNELS), c, g_c, h_c, grem_c, out)
@@ -474,12 +476,15 @@ def measure(runs: List[Tuple[str, Path]], iters: int = 3, inputs: str = "step",
             if table == "old":  # its launch depends on the width and its source
                 name, ws = name(d, texts[table]), texts[table]
             cluster = layout(ts, d, ws)
+            rows_last = table in ("cluster", "colour", "geom")  # T_padded after the layout
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * (11 if takes_gsum else 10) + [_I] * (7 + len(cluster)) + [_P]
+            fn.argtypes = ([_P] * (11 if takes_gsum else 10) + [_I] * (7 + len(cluster))
+                           + [ctypes.c_longlong] * rows_last + [_P])
             fn.restype = _I
-            gsum = (torch.empty((plan.T_padded, cluster[2], T.GEOM_GRADS), device="cuda")
+            gsum = (torch.empty((plan.T_padded * cluster[2] * width,), device="cuda")
                     if takes_gsum and cluster[2] > 1 else None)
             extra = (None if gsum is None else K._ptr(gsum),) if takes_gsum else ()
+            cluster = cluster + (plan.T_padded,) * rows_last
 
             def go():
                 rc = fn(

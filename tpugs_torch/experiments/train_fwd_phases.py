@@ -157,7 +157,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _load(so: Path, table: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.tpugs_train_fwd
-    cluster = [_I] * 4 if table in CLUSTER_TABLES else []
+    cluster = [_I] * 6 if table in CLUSTER_TABLES else []  # C, P, G, S, Ns, pass
     fn.argtypes = [_P] * 8 + [_I] * 6 + [_F] + cluster + [_P]
     fn.restype = _I
     if hasattr(lib, "tpugs_diag_set_done"):
@@ -223,7 +223,8 @@ def measure(runs: List[Tuple[str, Path]], iters: int = 5, inputs: str = "step",
         if table in CLUSTER_TABLES:
             cluster = T.train_fwd_cluster(ts, d)
             if wide_slice is not None:
-                cluster = cluster[:2] + T.fwd_slices(d, wide_slice)
+                cluster = cluster[:3] + T.fwd_slices(d, wide_slice)
+            cluster += (0,)  # one pass: the recorded tiles are one cluster each (G = 1)
 
         def go():
             rc = lib.tpugs_train_fwd(

@@ -28,52 +28,51 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # pack, starts, ends, padded_starts, out, blocks_done, n_tiles, ntx, ts, eps,
-    # cull (0/1), cluster size, stream
-    "tpugs_render": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
+    # cull (0/1), cluster size, pixel groups, pass (0 one cluster, 1 vote, 2 walk), stream
+    "tpugs_render": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     # tile size, cull (0/1) -> resident clusters
     "tpugs_render_max_clusters": [_I, _I],
-    # pack, starts, ends, padded_starts, feats, out, n_tiles, ntx, ts, W, H, D, DC, eps,
-    # cluster size, grid x, stream
-    "tpugs_adjoint_f32": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
-    "tpugs_adjoint_bf16": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    # pack, starts, ends, padded_starts, feats, out, T scratch (past tile 32, or null),
+    # n_tiles, ntx, ts, W, H, D, DC, eps, cluster size, grid x, stream
+    "tpugs_adjoint_f32": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
+    "tpugs_adjoint_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
     # bf16 (0/1), cluster size -> resident clusters
     "tpugs_adjoint_max_clusters": [_I, _I],
     # rows, offsets, pos, out, n, n_cols, row_stride, stream
     "tpugs_reduce_f32": [_P] * 4 + [_I] * 3 + [_P],
     "tpugs_reduce_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # geom, cols, starts, ends, padded_starts, img, alpha, blocks_done,
-    # n_tiles, ntx, ts, W, H, D, eps, cluster size, pixels per rank,
-    # channel slices, slice width, stream
-    "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _I, _P],
-    # the same without the cluster geometry: the wide kernel (one CTA per
-    # tile and 32-channel slice), for tiles other than 16 and 32
-    "tpugs_train_fwd_wide": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # n_tiles, ntx, ts, W, H, D, eps, cluster size, pixels per rank, pixel
+    # groups, channel slices, slice width, pass (0 one cluster, 1 vote, 2 walk), stream
+    "tpugs_train_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     # tile size, D of one slice -> resident clusters
     "tpugs_train_fwd_max_clusters": [_I, _I],
     # geom, cols, g, hterm, grem0, starts, ends, padded_starts, blocks_done, out,
-    # n_tiles, ntx, ts, W, H, D, row width, cluster size, pixels per rank, stream
-    "tpugs_train_bwd_f32": [_P] * 10 + [_I] * 9 + [_P],
-    "tpugs_train_bwd_bf16": [_P] * 10 + [_I] * 9 + [_P],
-    # the colour slices: ... cluster size, pixels per rank, slices, slice width, stream
-    "tpugs_train_bwd_colour_f32": [_P] * 10 + [_I] * 11 + [_P],
-    "tpugs_train_bwd_colour_bf16": [_P] * 10 + [_I] * 11 + [_P],
+    # the pixel groups' partial rows (or null), n_tiles, ntx, ts, W, H, D, row width,
+    # cluster size, pixels per rank, pixel groups, T_padded, stream
+    "tpugs_train_bwd_f32": [_P] * 11 + [_I] * 10 + [_L, _P],
+    "tpugs_train_bwd_bf16": [_P] * 11 + [_I] * 10 + [_L, _P],
+    # the colour slices: ... pixel groups, slices, slice width, T_padded, stream
+    "tpugs_train_bwd_colour_f32": [_P] * 11 + [_I] * 12 + [_L, _P],
+    "tpugs_train_bwd_colour_bf16": [_P] * 11 + [_I] * 12 + [_L, _P],
     # the geometry cluster kernel: ..., out (row width 8, or D's rows), the
     # pixel groups' sums (or null), n_tiles, ntx, ts, W, H, D, row width,
-    # cluster size, pixels per rank, pixel groups, stream
-    "tpugs_train_bwd_geom_f32": [_P] * 11 + [_I] * 10 + [_P],
-    "tpugs_train_bwd_geom_bf16": [_P] * 11 + [_I] * 10 + [_P],
+    # cluster size, pixels per rank, pixel groups, T_padded, stream
+    "tpugs_train_bwd_geom_f32": [_P] * 11 + [_I] * 10 + [_L, _P],
+    "tpugs_train_bwd_geom_bf16": [_P] * 11 + [_I] * 10 + [_L, _P],
     # bf16 (0/1), tile size, D -> resident clusters
     "tpugs_train_bwd_max_clusters": [_I, _I, _I],
     # bf16 (0/1), tile size, slice width -> resident clusters of one colour slice
     "tpugs_train_bwd_colour_max_clusters": [_I, _I, _I],
     # tile size, D -> resident clusters of the geometry kernel
     "tpugs_train_bwd_geom_max_clusters": [_I, _I],
-    # pack, starts, ends, padded_starts, feats, dest, out, n_tiles, ntx, ts, W, H, D, DC,
-    # eps, cluster size, grid x, stream
-    "tpugs_adjoint_scatter_f32": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
-    "tpugs_adjoint_scatter_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P],
+    # pack, starts, ends, padded_starts, feats, dest, out, T scratch, n_tiles, ntx, ts, W, H,
+    # D, DC, eps, cluster size, grid x, stream
+    "tpugs_adjoint_scatter_f32": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
+    "tpugs_adjoint_scatter_bf16": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
     # striped, base, culled, index (or null), out, n, n_cols, row_stride, stream
     "tpugs_stripe_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
     "tpugs_stripe_sum_bf16": [_P] * 5 + [_I] * 3 + [_P],

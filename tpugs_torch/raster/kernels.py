@@ -19,11 +19,14 @@ pixel centres (``_tile_pixels`` :1219).
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. A CPU tensor goes to the plain twin (``*_plain``), a CUDA
 tensor to the CUDA kernel in ``tpugs_torch/csrc`` or an exception; nothing
-falls back. Each kernel launch adds one to ``LAUNCHES``. The twins take
-any tile size; the kernels take 1 to TILE_MAX (``check_tile``, on the CUDA
-path only), with ghost pixel slots where a tile's pixels do not fill the
-kernel's warp rectangles or pixel groups (``render_cluster``,
-``adjoint_groups``).
+falls back. Each kernel launch adds one to ``LAUNCHES``. The twins and the
+kernels take any tile size (``check_tile``: at least 1), with ghost pixel
+slots where a tile's pixels do not fill the kernel's warp rectangles or
+pixel groups (``render_cluster``, ``adjoint_groups``). Where a tile's
+pixels outgrow one cluster, B1 (and B4, ``raster/train.py``) decide the
+tile-wide exit by an exact vote over pixel groups (``exit_vote_plain``
+is its twin): a pixel's T never grows, so the tile exits at the largest of
+the groups' own exit blocks.
 
 B1 walks, per warp of 8 x 4 pixels, only the Gaussians of a block that can
 reach the 1/255 clip somewhere in the warp's rectangle (``rect_live``, the
@@ -68,13 +71,12 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
 TRANS_EPS = 1e-4  # early-exit transmittance threshold
 CHANNEL_SLICE = 128  # contribution-row columns per CUDA block of B2
-MAX_CLUSTER = 8  # CTAs per thread-block cluster of B2 (the portable limit)
+MAX_CLUSTER = 8  # CTAs of a thread-block cluster of B1, B2, B4 and B5 (the portable limit)
 RENDER_CHANNELS = 5  # rgb, depth, 1 - T
 CONTRIB_DTYPES = (torch.float32, torch.bfloat16)
 RENDER_THREADS = 256  # threads of a B1 CTA, one per pixel
 RECT_W, RECT_H = 8, 4  # a B1 warp's pixel rectangle
-TILE_MAX = 32  # the widest tile the kernels take: B1 and B4 exit tile-wide, so a tile's
-# ts*ts pixels must fit one cluster (and B2 keeps their T in each CTA's shared memory)
+# tile (1024 pixels), and in a per-cluster scratch in device memory past it
 CULL_SLACK = 1e-3  # the plan's slack on sig_cut (plan.py step 3)
 CULL_MARGIN = 1e-4  # of the quadratic's term magnitudes, against f32 rounding
 
@@ -85,13 +87,15 @@ class LaunchCounts:
 
     render: int = 0
     render_unculled: int = 0
+    render_vote: int = 0
     adjoint: int = 0
     reduce: int = 0
     train_fwd: int = 0
-    train_fwd_wide: int = 0
+    train_fwd_vote: int = 0
     train_bwd: int = 0
     train_bwd_colour: int = 0
     train_bwd_geom: int = 0
+    train_bwd_groups: int = 0  # B5's group-order adds after a launch in pixel groups
     adjoint_scatter: int = 0
     stripe_sum: int = 0
 
@@ -129,6 +133,7 @@ def _check(t: torch.Tensor, name: str, dtypes, shape, device) -> None:
 
 
 def _check_plan(plan: Plan, device) -> None:
+    check_tile(plan.tile_size)
     nt = plan.n_tiles
     for name in ("tile_starts", "tile_ends", "padded_starts"):
         _check(getattr(plan, name), f"plan.{name}", (torch.int32,), (nt,), device)
@@ -138,10 +143,10 @@ def _check_plan(plan: Plan, device) -> None:
 
 
 def check_tile(tile_size: int) -> None:
-    """The kernels take tiles of 1 to TILE_MAX pixels a side (the twins
-    any); a wrapper calls this on its CUDA path, before any launch."""
-    if not 1 <= tile_size <= TILE_MAX:
-        raise ValueError(f"tile_size {tile_size}: the kernels take 1 to TILE_MAX = {TILE_MAX}")
+    """The kernels and twins take tiles of at least 1 pixel a side; the
+    plan checks and the layout functions call this."""
+    if tile_size < 1:
+        raise ValueError(f"tile_size {tile_size}: a tile is at least 1 pixel a side")
 
 
 def _check_scatter_plan(plan: Plan, device) -> None:
@@ -294,15 +299,18 @@ class BlockStep:
     py: torch.Tensor
 
 
-def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None, cull=False):
+def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None, cull=False,
+                 voters=None):
     """The tile walk of B1/B2/B4/B5 for tiles ``tiles`` (k,), vectorised
     over tiles: for each block index b, the tiles still running get a
     ``BlockStep`` through ``visit``. A tile stops at its early exit, or,
     with ``n_blocks`` (k,), after exactly that many blocks (the forward's
-    count, which the backward replays). With ``cull`` the alpha of every
-    pair that B1's cull skips is set to 0 and ``terms["live"]`` (ka, ts*ts,
-    BLOCK) holds the live bit of each pixel's rectangle. Returns (T (k,
-    ts*ts), blocks processed (k,) int32)."""
+    count, which the backward replays). The exit tests the largest T over
+    all the tile's pixels, or over those of the bool mask ``voters``
+    (ts*ts,) alone (a pixel group's own exit, ``exit_vote_plain``). With
+    ``cull`` the alpha of every pair that B1's cull skips is set to 0 and
+    ``terms["live"]`` (ka, ts*ts, BLOCK) holds the live bit of each pixel's
+    rectangle. Returns (T (k, ts*ts), blocks processed (k,) int32)."""
     ntx, _ = plan.grid
     ts = plan.tile_size
     dev = pack.device
@@ -338,7 +346,7 @@ def _walk_blocks(pack, plan, tiles, trans_eps, visit, n_blocks=None, cull=False)
         w, t_new = _block_weights(terms["alpha"], trans[active])
         visit(BlockStep(active, w, trans[active], terms, geo, rows, px[active], py[active]))
         trans[active] = t_new
-        max_t[active] = t_new.max(dim=1).values
+        max_t[active] = (t_new if voters is None else t_new[:, voters]).max(dim=1).values
         done[active] += 1
     return trans, done
 
@@ -374,28 +382,71 @@ def render_tiles_plain(
     return torch.cat([img, (1.0 - trans)[..., None]], dim=-1), done
 
 
-def render_cluster(tile_size: int) -> int:
-    """CTAs per thread-block cluster of B1: one tile's warp rectangles
-    (``tile_rects``), one warp each, at RENDER_THREADS per CTA (4 at tile
-    32, 1 at tile 16). Where the rectangles reach past the tile, or leave
-    warps of the last CTA without one, those pixel slots are ghosts: T
-    starts at 0 there, so they weigh nothing, pass every exit vote and
-    write nothing. Raises past TILE_MAX."""
+def render_cluster(tile_size: int) -> Tuple[int, int, int]:
+    """(C, P, G) of B1: one tile's warp rectangles (``tile_rects``), one
+    warp each, P = RENDER_THREADS pixel slots a CTA; up to MAX_CLUSTER CTAs
+    (tiles up to 40) one cluster of C (G = 1: 4 at tile 32, 1 at tile 16),
+    past that G = ceil(CTAs / MAX_CLUSTER) pixel groups of C = ceil(CTAs /
+    G) CTAs, whose exit is the vote's (``exit_vote_plain``). Where the
+    rectangles reach past the tile, or leave warps or CTAs without one,
+    those pixel slots are ghosts: T starts at 0 there, so they weigh
+    nothing, pass every exit vote and write nothing. The C side refuses
+    any other layout."""
     check_tile(tile_size)
     rects = cdiv(tile_size, RECT_W) * cdiv(tile_size, RECT_H)
-    return cdiv(rects * RECT_W * RECT_H, RENDER_THREADS)
+    ctas = cdiv(rects * RECT_W * RECT_H, RENDER_THREADS)
+    groups = cdiv(ctas, MAX_CLUSTER)
+    return cdiv(ctas, groups), RENDER_THREADS, groups
 
 
-def launch_render(lib, pack, plan, trans_eps, cull, out, done) -> None:
-    """One launch of ``lib``'s ``tpugs_render`` (the package's library or a
-    copy of it) into ``out`` and ``done``."""
+def render_groups(tile_size: int) -> torch.Tensor:
+    """B1's pixel group of each of a tile's ts*ts pixels (row-major), int64:
+    the group of the CTA whose warp rectangle holds it (``render_cluster``)."""
+    c, p, _ = render_cluster(tile_size)
+    _, _, rect_of = tile_rects(torch.zeros((1,), dtype=torch.int64), 1, tile_size)
+    return rect_of // (p // 32) // c
+
+
+def exit_vote_plain(
+    pack: torch.Tensor,
+    plan: Plan,
+    groups: torch.Tensor,
+    trans_eps: float = TRANS_EPS,
+    tiles: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exit vote's twin: for each tile (all, or ``tiles`` (k,)) and each
+    pixel group of ``groups`` (ts*ts,) (``render_groups``, or
+    ``raster/train.py::train_fwd_groups``), the blocks the group's pixels
+    walk before their own largest T is at most ``trans_eps`` (k, G) int32,
+    and the tile's blocks, the largest of them (k,) int32: the whole-tile
+    walk's ``blocks_done``, since no pixel's T ever grows."""
+    if tiles is None:
+        tiles = _all_tiles(plan, pack.device)
+    n_groups = int(groups.max()) + 1
+    own = torch.stack([
+        _walk_blocks(pack, plan, tiles, trans_eps, lambda st: None,
+                     voters=(groups == g).to(pack.device))[1]
+        for g in range(n_groups)], 1)
+    return own, own.amax(1)
+
+
+def launch_render(lib, pack, plan, trans_eps, cull, out, done) -> bool:
+    """B1 through ``lib``'s ``tpugs_render`` (the package's library or a
+    copy of it) into ``out`` and ``done``: one launch where the tile is
+    one cluster, else the vote into zeroed ``done`` and the walk after it.
+    Returns whether it voted."""
     ntx, _ = plan.grid
-    rc = lib.tpugs_render(
-        _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
-        _ptr(out), _ptr(done), plan.n_tiles, ntx, plan.tile_size, float(trans_eps), int(cull),
-        render_cluster(plan.tile_size), _stream(),
-    )
-    _launched(rc, "render" if cull else "render_unculled")
+    c, _, g = render_cluster(plan.tile_size)
+    if g > 1:
+        done.zero_()
+    for pas in ((1, 2) if g > 1 else (0,)):
+        rc = lib.tpugs_render(
+            _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
+            _ptr(out), _ptr(done), plan.n_tiles, ntx, plan.tile_size, float(trans_eps),
+            int(cull), c, g, pas, _stream(),
+        )
+        _launched(rc, "render vote" if pas == 1 else "render" if cull else "render_unculled")
+    return g > 1
 
 
 def _render(pack, plan, trans_eps, cull):
@@ -404,7 +455,6 @@ def _render(pack, plan, trans_eps, cull):
     _check_plan(plan, dev)
     if not _dispatch(dev):
         return render_tiles_plain(pack, plan, trans_eps)
-    check_tile(plan.tile_size)
     from tpugs_torch.kernels.build import load_library
 
     nt, tspx = plan.n_tiles, plan.tile_size**2
@@ -412,7 +462,8 @@ def _render(pack, plan, trans_eps, cull):
     done = torch.empty((nt,), dtype=torch.int32, device=dev)
     if nt == 0:
         return out, done
-    launch_render(load_library(), pack, plan, trans_eps, cull, out, done)
+    if launch_render(load_library(), pack, plan, trans_eps, cull, out, done):
+        LAUNCHES.render_vote += 1
     if cull:
         LAUNCHES.render += 1
     else:
@@ -424,7 +475,9 @@ def render_tiles(
     pack: torch.Tensor, plan: Plan, trans_eps: float = TRANS_EPS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: per-tile images (n_tiles, ts*ts, 5) float32 and the number of
-    128-Gaussian blocks each tile processed before its early exit."""
+    128-Gaussian blocks each tile processed before its early exit. Where a
+    tile outgrows one cluster (``render_cluster``), two launches: the exit
+    vote (counted in ``LAUNCHES.render_vote``) and the walk."""
     return _render(pack, plan, trans_eps, True)
 
 
@@ -433,7 +486,8 @@ def render_tiles_unculled(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1's instantiation without the cull, for the checks that hold it
     bit-equal to ``render_tiles``: every warp walks all 128 Gaussians of a
-    block. Counted in ``LAUNCHES.render_unculled``; never on a main path."""
+    block. Counted in ``LAUNCHES.render_unculled`` (its vote, where it
+    votes, in ``render_vote``); never on a main path."""
     return _render(pack, plan, trans_eps, False)
 
 
@@ -482,11 +536,11 @@ def _check_adjoint(pack: torch.Tensor, feat_tiles: torch.Tensor, plan: Plan) -> 
     """Checks of B2 and B6; returns D."""
     dev = pack.device
     _check(pack, "pack", (torch.float32,), (plan.T_padded, PACK_COLS), dev)
+    _check_plan(plan, dev)
     if feat_tiles.ndim != 3:
         raise ValueError(f"feat_tiles must be (n_tiles, ts*ts, D), got {tuple(feat_tiles.shape)}")
     D = feat_tiles.shape[-1]
     _check(feat_tiles, "feat_tiles", CONTRIB_DTYPES, (plan.n_tiles, plan.tile_size**2, D), dev)
-    _check_plan(plan, dev)
     if D < 1:
         raise ValueError("feat_tiles needs at least one channel")
     return D
@@ -498,7 +552,9 @@ ADJOINT_GROUP = {torch.float32: 16, torch.bfloat16: 32}  # pixels per group of B
 def adjoint_groups(tile_size: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(groups, P) of B2 and B6: a tile's ts*ts pixels in ceil(ts*ts / P)
     groups of P (``ADJOINT_GROUP``), the slots past ts*ts in the last group
-    ghosts (T 0, zero features). Raises past TILE_MAX."""
+    ghosts (T 0, zero features), all walked by one cluster of channel
+    slices (``adjoint_cluster``), whose T lives in a scratch in device
+    memory."""
     check_tile(tile_size)
     p = ADJOINT_GROUP[dtype]
     return cdiv(tile_size**2, p), p
@@ -519,12 +575,16 @@ def adjoint_cluster(width: int) -> Tuple[int, int]:
 
 
 def _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, dest) -> None:
-    """B2 (``dest`` None: row r at out[r]) or B6 (row r at out[dest[r]])."""
+    """B2 (``dest`` None: row r at out[r]) or B6 (row r at out[dest[r]]),
+    with a scratch for every cluster's T."""
     from tpugs_torch.kernels.build import load_library
 
-    if plan.n_tiles > 65535:
-        raise ValueError(f"{plan.n_tiles} tiles exceed the adjoint kernel's grid")
+    check_tile(plan.tile_size)
     lib = load_library()
+    c, grid_x = adjoint_cluster(out.shape[1])
+    groups, p = adjoint_groups(plan.tile_size, feat_tiles.dtype)
+    t = torch.empty((plan.n_tiles * (grid_x // c) * groups * p,), dtype=torch.float32,
+                    device=pack.device)
     bf16 = feat_tiles.dtype == torch.bfloat16
     if dest is None:
         fn = lib.tpugs_adjoint_bf16 if bf16 else lib.tpugs_adjoint_f32
@@ -535,10 +595,9 @@ def _launch_adjoint(pack, feat_tiles, plan, trans_eps, out, dest) -> None:
     ntx, _ = plan.grid
     rc = fn(
         _ptr(pack), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
-        _ptr(plan.padded_starts), _ptr(feat_tiles), *extra, _ptr(out),
+        _ptr(plan.padded_starts), _ptr(feat_tiles), *extra, _ptr(out), _ptr(t),
         plan.n_tiles, ntx, plan.tile_size, plan.width, plan.height,
-        feat_tiles.shape[-1], out.shape[1], float(trans_eps), *adjoint_cluster(out.shape[1]),
-        _stream(),
+        feat_tiles.shape[-1], out.shape[1], float(trans_eps), c, grid_x, _stream(),
     )
     _launched(rc, "adjoint" if dest is None else "adjoint_scatter")
 
@@ -555,7 +614,6 @@ def adjoint_rows(
     D = _check_adjoint(pack, feat_tiles, plan)
     if not _dispatch(pack.device):
         return adjoint_rows_plain(pack, feat_tiles, plan, trans_eps)
-    check_tile(plan.tile_size)
     out = torch.empty((plan.T_padded, contrib_width(D)), dtype=feat_tiles.dtype,
                       device=pack.device)
     if plan.n_tiles == 0 or plan.T_padded == 0:
@@ -700,7 +758,6 @@ def adjoint_scatter_rows(
     _check_scatter_plan(plan, dev)
     if not _dispatch(dev):
         return adjoint_scatter_rows_plain(pack, feat_tiles, plan, trans_eps)
-    check_tile(plan.tile_size)
     out = torch.empty((plan.R_striped + 1, contrib_width(D)), dtype=feat_tiles.dtype,
                       device=dev)
     if plan.n_tiles == 0 or plan.T_padded == 0:

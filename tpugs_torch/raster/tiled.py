@@ -123,7 +123,7 @@ def backproject_view(
 
 
 class TileConfig(NamedTuple):
-    tile_size: int = 16  # pixels per tile edge (the card's kernels take 1 to TILE_MAX)
+    tile_size: int = 16  # pixels per tile edge (the card's kernels take any)
     block_size: int = 128  # Gaussians per block of render_tiled_autodiff's walk
     tiles_per_chunk: int = 32  # tiles per step of render_tiled_autodiff's walk
 
@@ -153,8 +153,8 @@ def render_tiled(
     (``trans_eps=0``) and f32 gradient rows. ``config.tile_size`` must be
     the plan's; ``block_size`` and ``tiles_per_chunk`` are the reference's
     TPU layout knobs and do not change the result. Any tile and any width
-    render and differentiate, on the card in one launch of each kernel
-    (``RenderTrain``) up to ``TILE_MAX`` and ``GEOM_MAX_CHANNELS``.
+    render and differentiate, on the card through each kernel
+    (``RenderTrain``) at any tile up to ``GEOM_MAX_CHANNELS``.
     ``abs_probe``'s gradient is the absgrad statistic; ``on_stage`` and
     ``record`` as in ``render_plan_train``."""
     check_tile_config(config, plan)

@@ -13,7 +13,8 @@ twins and the ``torch.autograd.Function`` around them. Counterparts in
   ``render_scene``      <- ``render_scene_pallas`` (:661)
 
 B4 renders D channels and alpha with B1's weights and tile-wide early
-exit, and reports the blocks each tile walked. B5 replays exactly those
+exit (where a tile outgrows one cluster, B1's exact exit vote over pixel
+groups), and reports the blocks each tile walked. B5 replays exactly those
 blocks, rebuilds the blend state with ``_block_weights_full``'s semantics
 and writes one gradient row per intersection:
 ``[d colour (D) | dmx dmy dca dcb dcc dop |dmx| |dmy| | 0 pad]``; B3's
@@ -36,6 +37,7 @@ from tpugs_torch.raster.kernels import (
     ALPHA_MAX,
     CONTRIB_DTYPES,
     LAUNCHES,
+    MAX_CLUSTER,
     TRANS_EPS,
     BlockStep,
     _all_tiles,
@@ -136,48 +138,66 @@ def fwd_slices(channels: int, widest: int = SLICE_CHANNELS) -> Tuple[int, int]:
     return s, 16 * cdiv(channels, 16 * s)
 
 
-def train_fwd_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int, int, int]]:
-    """(C, P, S, Ns) of B4's cluster kernel: a tile's ts*ts pixels go to
-    clusters of C = ts*ts / P CTAs of P = PIXELS_PER_RANK pixels each (8 at
-    tile 32, 2 at tile 16), one cluster for each of the S channel slices of
-    ``fwd_slices`` (a slice's image lives in wgmma accumulators, at most
-    CLUSTER_MAX_CHANNELS columns a thread). None for tiles other than 16 and
-    32 (their pixels do not split into ranks of P): those take the wide
-    kernel, one CTA of ts*ts threads a tile. Raises past TILE_MAX. The C
-    side refuses any other (C, P, S, Ns)."""
+def rank_groups(tile_size: int) -> Tuple[int, int, int]:
+    """(C, P, G) of the B4 and B5 cluster kernels (and B5's colour
+    slices): a tile's ts*ts pixels, row-major at tiles other than 16 and 32,
+    in ceil(ts*ts / P) ranks of P = PIXELS_PER_RANK slots (the slots past
+    ts*ts ghosts: T and g 0), up to MAX_CLUSTER ranks one cluster (G = 1: 8
+    at tile 32, 2 at tile 16, 1 at tile 8), past that G = ceil(ranks /
+    MAX_CLUSTER) pixel groups of C = ceil(ranks / G) ranks, one cluster
+    each (fewer ghost slots than G ranks hold)."""
     check_tile(tile_size)
+    ranks = cdiv(tile_size**2, PIXELS_PER_RANK)
+    groups = cdiv(ranks, MAX_CLUSTER)
+    return cdiv(ranks, groups), PIXELS_PER_RANK, groups
+
+
+def train_fwd_cluster(tile_size: int, channels: int) -> Tuple[int, int, int, int, int]:
+    """(C, P, G, S, Ns) of B4's cluster kernel at any tile and any D: the
+    tile's ranks in G pixel groups of C CTAs (``rank_groups``), one cluster
+    for each group and each of the S channel slices of ``fwd_slices`` (a
+    slice's image lives in wgmma accumulators, at most CLUSTER_MAX_CHANNELS
+    columns a thread). With G > 1 the tile's exit is the vote's
+    (``train_fwd_groups``). The C side refuses any other (C, P, G, S, Ns)."""
     if channels < 1:
         raise ValueError(f"{channels} channels: B4 takes at least 1")
-    if tile_size not in (16, 32):
-        return None
-    return (tile_size**2 // PIXELS_PER_RANK, PIXELS_PER_RANK) + fwd_slices(channels)
+    return rank_groups(tile_size) + fwd_slices(channels)
 
 
-def _launch_train_fwd(lib, geom, cols, plan: Plan, trans_eps: float, cluster):
-    """One B4 launch into new outputs: the cluster kernel at ``cluster`` =
-    (C, P, S, Ns), or the wide kernel for None; counts it in ``LAUNCHES``."""
+def train_fwd_groups(tile_size: int) -> torch.Tensor:
+    """B4's pixel group of each of a tile's ts*ts pixels (row-major),
+    int64 (``rank_groups``; the groups of ``kernels.exit_vote_plain``)."""
+    c, p, _ = rank_groups(tile_size)
+    return torch.arange(tile_size * tile_size) // p // c
+
+
+def _launch_train_fwd(lib, geom, cols, plan: Plan, trans_eps: float, layout):
+    """B4 into new outputs at ``layout`` = (C, P, G, S, Ns): one launch of
+    the cluster kernel where a tile is one cluster (G = 1), else the vote
+    (counted in ``LAUNCHES.train_fwd_vote``) and the walk."""
     dev = geom.device
     nt, w, h, d = plan.n_tiles, plan.width, plan.height, cols.shape[1]
+    c, p, g, s, ns = layout
     img = torch.empty((h, w, d), dtype=torch.float32, device=dev)
     alpha = torch.empty((h, w), dtype=torch.float32, device=dev)
-    done = torch.empty((nt,), dtype=torch.int32, device=dev)
+    done = (torch.zeros if g > 1 else torch.empty)((nt,), dtype=torch.int32, device=dev)
     if nt == 0:
         return img, alpha, done
     if cols.data_ptr() % 16:
         raise ValueError("cols must be 16-byte aligned (the kernel copies 16-byte vectors)")
     ntx, _ = plan.grid
-    fn = lib.tpugs_train_fwd_wide if cluster is None else lib.tpugs_train_fwd
-    rc = fn(
-        _ptr(geom), _ptr(cols), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
-        _ptr(plan.padded_starts), _ptr(img), _ptr(alpha), _ptr(done),
-        nt, ntx, plan.tile_size, w, h, d, float(trans_eps), *(cluster or ()), _stream(),
-    )
-    if cluster is None:
-        _launched(rc, "train_fwd_wide")
-        LAUNCHES.train_fwd_wide += 1
-    else:
-        _launched(rc, "train_fwd")
-        LAUNCHES.train_fwd += 1
+    passes = ((1, 1, 16), (2, s, ns)) if g > 1 else ((0, s, ns),)
+    for pas, s_, ns_ in passes:
+        rc = lib.tpugs_train_fwd(
+            _ptr(geom), _ptr(cols), _ptr(plan.tile_starts), _ptr(plan.tile_ends),
+            _ptr(plan.padded_starts), _ptr(img), _ptr(alpha), _ptr(done),
+            nt, ntx, plan.tile_size, w, h, d, float(trans_eps), c, p, g, s_, ns_, pas, _stream(),
+        )
+        _launched(rc, "train_fwd vote" if pas == 1 else "train_fwd")
+        if pas == 1:
+            LAUNCHES.train_fwd_vote += 1
+        else:
+            LAUNCHES.train_fwd += 1
     return img, alpha, done
 
 
@@ -186,42 +206,43 @@ def train_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B4: image (H, W, D) and alpha = 1 - T (H, W), float32, without a
     background, and the number of 128-Gaussian blocks each tile walked
-    before its early exit (n_tiles,) int32. At tiles 16 and 32 the cluster
-    kernel runs in channel slices (``train_fwd_cluster``), at other tiles
-    the wide kernel."""
+    before its early exit (n_tiles,) int32: the cluster kernel in channel
+    slices at every tile (``train_fwd_cluster``), after the exit vote where
+    a tile outgrows one cluster."""
     d = _check_packs(geom, cols, plan)
     if not _dispatch(geom.device):
         return train_forward_plain(geom, cols, plan, trans_eps)
     from tpugs_torch.kernels.build import load_library
 
-    cluster = train_fwd_cluster(plan.tile_size, d)
-    return _launch_train_fwd(load_library(), geom, cols, plan, trans_eps, cluster)
+    layout = train_fwd_cluster(plan.tile_size, d)
+    return _launch_train_fwd(load_library(), geom, cols, plan, trans_eps, layout)
 
 
 # ----------------------------------------------------------- B5 backward
 
 
 def _check_b5(tile_size: int, channels: int) -> None:
-    """The card's B5 takes tiles of 1 to TILE_MAX and 1 to
-    GEOM_MAX_CHANNELS channels; its twin any."""
+    """The card's B5 takes any tile and 1 to GEOM_MAX_CHANNELS channels;
+    its twin any width."""
     check_tile(tile_size)
     if not 1 <= channels <= GEOM_MAX_CHANNELS:
         raise ValueError(f"{channels} channels: B5 takes 1 to GEOM_MAX_CHANNELS = "
                          f"{GEOM_MAX_CHANNELS}")
 
 
-def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int]]:
-    """(C, P) of B5's cluster kernel: a tile's ts*ts pixels go to a cluster
-    of C = ceil(ts*ts / P) CTAs of P = PIXELS_PER_RANK pixels each (8 at
-    tile 32, 2 at tile 16, 1 at tile 8), the slots past ts*ts ghosts (T
-    and g 0: no weight, no gradient). None for more than
+def train_cluster(tile_size: int, channels: int) -> Optional[Tuple[int, int, int]]:
+    """(C, P, G) of B5's cluster kernel: a tile's ranks of P =
+    PIXELS_PER_RANK pixels in G pixel groups of C CTAs (``rank_groups``: one
+    cluster of 8 at tile 32, 2 at tile 16, 1 at tile 8; past 8 ranks G > 1,
+    whose partial rows a second kernel adds in group order), the slots past
+    ts*ts ghosts (T and g 0: no weight, no gradient). None for more than
     CLUSTER_MAX_CHANNELS channels, whose g does not fit a CTA's shared
     memory: those take the colour slices and the geometry kernel
-    (``train_layout``). The C side refuses any other (C, P)."""
+    (``train_layout``). The C side refuses any other (C, P, G)."""
     _check_b5(tile_size, channels)
     if channels > CLUSTER_MAX_CHANNELS:
         return None
-    return cdiv(tile_size**2, PIXELS_PER_RANK), PIXELS_PER_RANK
+    return rank_groups(tile_size)
 
 
 def geom_cluster(tile_size: int, channels: int) -> Tuple[int, int, int]:
@@ -244,19 +265,18 @@ def geom_cluster(tile_size: int, channels: int) -> Tuple[int, int, int]:
 
 def train_layout(tile_size: int, channels: int) -> dict:
     """The launches of ``train_rows`` on the card at tile ts and D channels,
-    chosen by width alone: {"cluster": (C, P)} up to CLUSTER_MAX_CHANNELS
-    (the cluster kernel, ``train_cluster``); above it, up to
-    GEOM_MAX_CHANNELS, {"colour": (C, P, S, Ns), "geom": (Cg, Pg, G)}: one
-    launch of the colour slices, the cluster kernel's ranks over S channel
-    slices of Ns columns (``fwd_slices(D, COLOUR_SLICE_CHANNELS)``), and one
-    of the geometry kernel (``geom_cluster``) for columns D onward. Wider
-    renders and tiles past TILE_MAX raise. The C side refuses any other
-    layout."""
+    chosen by width alone: {"cluster": (C, P, G)} up to
+    CLUSTER_MAX_CHANNELS (the cluster kernel, ``train_cluster``); above it,
+    up to GEOM_MAX_CHANNELS, {"colour": (C, P, G, S, Ns), "geom": (Cg, Pg,
+    Gg)}: one launch of the colour slices, the cluster kernel's ranks and
+    pixel groups over S channel slices of Ns columns (``fwd_slices(D,
+    COLOUR_SLICE_CHANNELS)``), and one of the geometry kernel
+    (``geom_cluster``) for columns D onward. Wider renders raise. The C side
+    refuses any other layout."""
     cluster = train_cluster(tile_size, channels)
     if cluster is not None:
         return {"cluster": cluster}
-    return {"colour": (cdiv(tile_size**2, PIXELS_PER_RANK), PIXELS_PER_RANK)
-            + fwd_slices(channels, COLOUR_SLICE_CHANNELS),
+    return {"colour": rank_groups(tile_size) + fwd_slices(channels, COLOUR_SLICE_CHANNELS),
             "geom": geom_cluster(tile_size, channels)}
 
 
@@ -365,16 +385,26 @@ def _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan) -> in
 
 
 def _launch_train_bwd(fn, geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan,
-                      out: torch.Tensor, cluster=None) -> int:
-    """One B5 launch of ``fn`` into ``out`` (T_padded, row width); the
-    CUDA error code."""
+                      out: torch.Tensor, layout) -> int:
+    """One B5 launch of ``fn`` (the cluster kernel or the colour slices) at
+    ``layout`` = (C, P, G, ...) into ``out`` (T_padded, row width); G > 1
+    pixel groups store their partial rows in an f32 scratch, which the
+    launch's second kernel adds in group order (counted in
+    ``LAUNCHES.train_bwd_groups``). The CUDA error code."""
     ntx, _ = plan.grid
-    return fn(
+    groups = layout[2]
+    gsum = (torch.empty((plan.T_padded * groups * out.shape[1],), dtype=torch.float32,
+                        device=out.device) if groups > 1 else None)
+    rc = fn(
         _ptr(geom), _ptr(cols), _ptr(g_image), _ptr(hterm), _ptr(grem0),
         _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
-        _ptr(blocks_done), _ptr(out), plan.n_tiles, ntx, plan.tile_size, plan.width,
-        plan.height, cols.shape[1], out.shape[1], *(cluster or ()), _stream(),
+        _ptr(blocks_done), _ptr(out), None if gsum is None else _ptr(gsum), plan.n_tiles, ntx,
+        plan.tile_size, plan.width, plan.height, cols.shape[1], out.shape[1], *layout,
+        plan.T_padded, _stream(),
     )
+    if rc == 0 and groups > 1:
+        LAUNCHES.train_bwd_groups += 1
+    return rc
 
 
 def train_rows(
@@ -392,11 +422,11 @@ def train_rows(
     cotangent ``g_image`` (H, W, D), ``hterm`` = h * T_final and ``grem0``
     = g . (image without background) per pixel (H, W), and B4's
     ``blocks_done``. Rows of blocks the forward skipped are zero. On the
-    card, up to CLUSTER_MAX_CHANNELS channels the cluster kernel runs; above
-    it, up to GEOM_MAX_CHANNELS, the colour slices (columns 0:D) and the
-    geometry kernel (columns D onward), chosen by width alone
-    (``train_layout``, which raises past that width or TILE_MAX). The twin
-    takes any tile and any D."""
+    card, at any tile, up to CLUSTER_MAX_CHANNELS channels the cluster
+    kernel runs; above it, up to GEOM_MAX_CHANNELS, the colour slices
+    (columns 0:D) and the geometry kernel (columns D onward), chosen by
+    width alone (``train_layout``, which raises past that width). The twin
+    takes any D."""
     d = _check_bwd(geom, cols, g_image, hterm, grem0, blocks_done, plan)
     dev = geom.device
     if contrib_dtype not in CONTRIB_DTYPES:
@@ -429,13 +459,14 @@ def _launch_geom(lib, geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan
                  out: torch.Tensor, cluster) -> None:
     """One launch of the geometry cluster kernel at ``cluster`` = (C, P, G)
     into ``out`` (8 columns, or train_rows' columns D onward); G > 1 pixel
-    groups store their sums in a (T_padded, G, 8) f32 scratch, which the
-    launch's second kernel adds in group order. Counted in ``LAUNCHES``."""
+    groups store their sums in an f32 scratch, which the launch's second
+    kernel adds in group order. Counted in ``LAUNCHES``
+    (the add in ``train_bwd_groups``)."""
     if cols.shape[1] % 4 == 0 and cols.data_ptr() % 16:
         raise ValueError("cols must be 16-byte aligned (the geometry kernel copies 16-byte "
                          "vectors where D % 4 == 0)")
     groups = cluster[2]
-    gsum = (torch.empty((plan.T_padded, groups, GEOM_GRADS), dtype=torch.float32,
+    gsum = (torch.empty((plan.T_padded * groups * GEOM_GRADS,), dtype=torch.float32,
                         device=out.device) if groups > 1 else None)
     fn = lib.tpugs_train_bwd_geom_bf16 if out.dtype == torch.bfloat16 \
         else lib.tpugs_train_bwd_geom_f32
@@ -445,10 +476,12 @@ def _launch_geom(lib, geom, cols, g_image, hterm, grem0, blocks_done, plan: Plan
         _ptr(plan.tile_starts), _ptr(plan.tile_ends), _ptr(plan.padded_starts),
         _ptr(blocks_done), _ptr(out), None if gsum is None else _ptr(gsum), plan.n_tiles, ntx,
         plan.tile_size, plan.width, plan.height, cols.shape[1], out.shape[1], *cluster,
-        _stream(),
+        plan.T_padded, _stream(),
     )
     _launched(rc, "train_bwd_geom")
     LAUNCHES.train_bwd_geom += 1
+    if groups > 1:
+        LAUNCHES.train_bwd_groups += 1
 
 
 def train_geom_rows(
@@ -533,9 +566,9 @@ def _no_mark(name: str) -> None:
 class RenderTrain(torch.autograd.Function):
     """(image (H, W, D), alpha (H, W)) of one camera, differentiable in
     means2d, conics, opacities, colours and the background. The forward is
-    one B4 launch over all D channels, the backward one ``train_rows``
-    (B5) then B3, at any D (on the card up to GEOM_MAX_CHANNELS) and any
-    tile (on the card up to TILE_MAX). ``abs_probe`` (N, 2)
+    B4 over all D channels (one launch, or the exit vote and the walk), the
+    backward one ``train_rows`` (B5) then B3, at any tile and any D (on the
+    card up to GEOM_MAX_CHANNELS). ``abs_probe`` (N, 2)
     never touches the render; its gradient is the absgrad statistic, sum
     over pixels of |d means2d|: B5's columns 6:8, summed by B3."""
 
