@@ -30,12 +30,13 @@ from tpugs_torch.core.scene import GaussianScene
 from tpugs_torch.raster.colors import prepare_colors
 from tpugs_torch.core.camera import Camera
 from tpugs_torch.raster.binning import bucket, tile_bbox, tile_grid
-from tpugs_torch.raster.kernels import TRANS_EPS, render_tiles
+from tpugs_torch.raster.kernels import TRANS_EPS, WORK, render_tiles
 from tpugs_torch.raster.pack import pack_isect_all
 from tpugs_torch.raster.plan import Plan, build_plan
 from tpugs_torch.raster.projection import ProjectionConfig, project
 from tpugs_torch.raster.tiled import TileConfig, contribution_sums, required_blocks, split_sums
 from tpugs_torch.raster.tiles import image_to_tiles, tiles_to_image
+from tpugs_torch.utils.profiling import annotation
 
 DEFAULT_TILE = 32  # larger tiles: ~4x fewer intersections than 16
 STAGES = ("project+sh", "plan", "pack", "render", "encode", "adjoint", "reduce")
@@ -84,17 +85,25 @@ def render_and_pack(
     scatter: bool = False,
 ) -> Rendered:
     """Projection + SH colours, the plan (with the scatter engine's extras
-    when ``scatter``), the pack and B1: the stages up to "render"."""
+    when ``scatter``), the pack and B1: the stages up to "render", in the
+    trace's spans ``tpugs.lift.project``, ``sh``, ``plan``, ``pack`` and
+    ``render``. B1's walked slots go to ``WORK`` (``raster/kernels.py``)."""
     mark = on_stage or (lambda name: None)
-    proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
-                   viewmat, K, width, height, proj_config)
-    cols3 = prepare_colors(scene.means, scene.colors_all, viewmat, scene.sh_degree)
+    with annotation("tpugs.lift.project"):
+        proj = project(scene.means, scene.quats, scene.scales, scene.opacities,
+                       viewmat, K, width, height, proj_config)
+    with annotation("tpugs.lift.sh"):
+        cols3 = prepare_colors(scene.means, scene.colors_all, viewmat, scene.sh_degree)
     mark("project+sh")
-    plan = build_plan(proj, width, height, tile_size, scatter=scatter)
+    with annotation("tpugs.lift.plan"):
+        plan = build_plan(proj, width, height, tile_size, scatter=scatter)
     mark("plan")
-    packed = pack_isect_all(proj, cols3, plan)
+    with annotation("tpugs.lift.pack"):
+        packed = pack_isect_all(proj, cols3, plan)
     mark("pack")
-    tiles, blocks_done = render_tiles(packed, plan, trans_eps)
+    with annotation("tpugs.lift.render"):
+        tiles, blocks_done = render_tiles(packed, plan, trans_eps)
+        WORK.walked(blocks_done)
     mark("render")
     return Rendered(plan, packed, tiles, blocks_done)
 
@@ -119,12 +128,13 @@ def run_view(
     mark = on_stage or (lambda name: None)
     r = render_and_pack(scene, viewmat, K, width, height, tile_size, proj_config,
                         trans_eps, mark, scatter=(reduce_engine == "scatter"))
-    if getattr(encoder, "pixelwise", False):
-        feats = encoder(r.tiles[..., :3])
-    else:
-        rgb = tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
-        feats = image_to_tiles(encoder(rgb), tile_size)
-    feats = feats.to(contrib_dtype).contiguous()
+    with annotation("tpugs.lift.encode", timed=True):
+        if getattr(encoder, "pixelwise", False):
+            feats = encoder(r.tiles[..., :3])
+        else:
+            rgb = tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
+            feats = image_to_tiles(encoder(rgb), tile_size)
+        feats = feats.to(contrib_dtype).contiguous()
     mark("encode")
     rows, sums = contribution_sums(r.packed, feats, r.plan, trans_eps, mark, reduce_engine)
     return ViewResult(r.plan, r.packed, r.tiles, r.blocks_done, feats, rows, sums)
@@ -173,26 +183,47 @@ def backproject_views(
     (default) or "scatter" give bit-equal results, "xla" equal to float
     rounding; any other value raises ValueError. ``cam_weights`` multiplies
     each view's sums (0 drops a padding camera), as the reference's scan
-    does."""
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    viewmats = viewmats.to(dev)
-    Ks = Ks.to(dev)
-    if cam_weights is not None:
-        cam_weights = torch.as_tensor(cam_weights, dtype=torch.float32).tolist()
-    n = scene.num_gaussians
-    num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
-    den = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for c in range(viewmats.shape[0]):
-        fs, ws = backproject_one_view(
-            scene, viewmats[c], Ks[c], width, height, encoder, tile_size,
-            contrib_dtype, proj_config, trans_eps, on_stage, reduce_engine,
-        )
+    does.
+
+    Traced, the call is a ``tpugs.lift.call`` span and each view a
+    ``tpugs.lift.view`` span around the stage spans (``run_view``), then
+    ``tpugs.lift.accumulate``: the weighting and ``num += fs``, which the
+    device runs inside the next view's "project+sh" stage."""
+    with annotation("tpugs.lift.call"):
+        dev = resolve_device(device)
+        scene = scene.to(dev)
+        viewmats = viewmats.to(dev)
+        Ks = Ks.to(dev)
+        cam_weights = _host_weights(cam_weights)
+        n = scene.num_gaussians
+        num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
+        den = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for c in range(viewmats.shape[0]):
+            with annotation("tpugs.lift.view"):
+                fs, ws = backproject_one_view(
+                    scene, viewmats[c], Ks[c], width, height, encoder, tile_size,
+                    contrib_dtype, proj_config, trans_eps, on_stage, reduce_engine,
+                )
+                _accumulate(num, den, fs, ws, cam_weights, c)
+        return num, den
+
+
+def _host_weights(cam_weights) -> Optional[list]:
+    """``cam_weights`` as a list of floats on the host (a host sync where
+    they live on the device), or None."""
+    if cam_weights is None:
+        return None
+    with annotation("tpugs.sync.cam_weights"):
+        return torch.as_tensor(cam_weights, dtype=torch.float32).tolist()
+
+
+def _accumulate(num, den, fs, ws, cam_weights: Optional[list], c: int) -> None:
+    """``num += w * fs``, ``den += w * ws`` with view ``c``'s weight."""
+    with annotation("tpugs.lift.accumulate"):
         if cam_weights is not None:
             fs, ws = cam_weights[c] * fs, cam_weights[c] * ws
         num += fs
         den += ws
-    return num, den
 
 
 def backproject_views_split(
@@ -224,41 +255,42 @@ def backproject_views_split(
     be short: tpugs pads it with a zero-weighted view only because its
     shapes are static, which changes no sum. ``on_stage`` is called after
     each view's render stages, once per group after "encode", and after
-    each view's "adjoint" and "reduce"."""
-    dev = resolve_device(device)
-    scene = scene.to(dev)
-    viewmats = viewmats.to(dev)
-    Ks = Ks.to(dev)
-    if cam_weights is not None:
-        cam_weights = torch.as_tensor(cam_weights, dtype=torch.float32).tolist()
-    mark = on_stage or (lambda name: None)
-    g = max(1, group_size)
-    n, C = scene.num_gaussians, viewmats.shape[0]
-    num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
-    den = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for c0 in range(0, C, g):
-        views = range(c0, min(c0 + g, C))
-        rendered = [render_and_pack(scene, viewmats[c], Ks[c], width, height, tile_size,
-                                    proj_config, trans_eps, mark,
-                                    scatter=(reduce_engine == "scatter")) for c in views]
-        rgbs = torch.stack([tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
-                            for r in rendered])
-        stage = getattr(encoder, "staged_apply", None)
-        if stage is not None:
-            feats = stage(rgbs)
-        else:
-            feats = torch.stack([encoder(rgb).to(torch.bfloat16) for rgb in rgbs])
-        feat_tiles = [image_to_tiles(f, tile_size).to(contrib_dtype).contiguous() for f in feats]
-        del feats, rgbs
-        mark("encode")
-        for c, r, f in zip(views, rendered, feat_tiles):
-            _, sums = contribution_sums(r.packed, f, r.plan, trans_eps, mark, reduce_engine)
-            fs, ws = split_sums(sums)
-            if cam_weights is not None:
-                fs, ws = cam_weights[c] * fs, cam_weights[c] * ws
-            num += fs
-            den += ws
-    return num, den
+    each view's "adjoint" and "reduce". Traced, the call is a
+    ``tpugs.lift.call`` span around the stage spans of ``backproject_views``
+    with no view span: ``tpugs.lift.encode`` once per group, the others
+    once per view."""
+    with annotation("tpugs.lift.call"):
+        dev = resolve_device(device)
+        scene = scene.to(dev)
+        viewmats = viewmats.to(dev)
+        Ks = Ks.to(dev)
+        cam_weights = _host_weights(cam_weights)
+        mark = on_stage or (lambda name: None)
+        g = max(1, group_size)
+        n, C = scene.num_gaussians, viewmats.shape[0]
+        num = torch.zeros((n, encoder.feature_dim), dtype=torch.float32, device=dev)
+        den = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for c0 in range(0, C, g):
+            views = range(c0, min(c0 + g, C))
+            rendered = [render_and_pack(scene, viewmats[c], Ks[c], width, height, tile_size,
+                                        proj_config, trans_eps, mark,
+                                        scatter=(reduce_engine == "scatter")) for c in views]
+            with annotation("tpugs.lift.encode", timed=True):
+                rgbs = torch.stack([tiles_to_image(r.tiles, width, height, tile_size)[..., :3]
+                                    for r in rendered])
+                stage = getattr(encoder, "staged_apply", None)
+                if stage is not None:
+                    feats = stage(rgbs)
+                else:
+                    feats = torch.stack([encoder(rgb).to(torch.bfloat16) for rgb in rgbs])
+                feat_tiles = [image_to_tiles(f, tile_size).to(contrib_dtype).contiguous()
+                              for f in feats]
+                del feats, rgbs
+            mark("encode")
+            for c, r, f in zip(views, rendered, feat_tiles):
+                _, sums = contribution_sums(r.packed, f, r.plan, trans_eps, mark, reduce_engine)
+                _accumulate(num, den, *split_sums(sums), cam_weights, c)
+        return num, den
 
 
 def normalize_field(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ pixel centres (``_tile_pixels`` :1219).
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. A CPU tensor goes to the plain twin (``*_plain``), a CUDA
 tensor to the CUDA kernel in ``tpugs_torch/csrc`` or an exception; nothing
-falls back. Each kernel launch adds one to ``LAUNCHES``. The twins and the
+falls back. Each kernel launch adds one to ``LAUNCHES``; B2 and B6 add
+the lift's work, kernel or twin, to ``WORK``. The twins and the
 kernels take any tile size (``check_tile``: at least 1), with ghost pixel
 slots where a tile's pixels do not fill the kernel's warp rectangles or
 pixel groups (``render_cluster``, ``adjoint_groups``). Where a tile's
@@ -66,6 +67,7 @@ import torch
 from tpugs_torch.raster.binning import cdiv
 from tpugs_torch.raster.pack import COL_COLOR, COL_GEOM, PACK_COLS
 from tpugs_torch.raster.plan import BLOCK, Plan, scatter_columns
+from tpugs_torch.utils.profiling import register_counters
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
@@ -108,6 +110,47 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+register_counters("launches", LAUNCHES)
+
+
+class WorkCounts:
+    """The lift kernels' work, whether the kernel or its twin runs:
+    ``calls`` views whose rows B2 or B6 wrote, ``slots`` their plans'
+    padded slots (the rows B2 writes and B3 reads), and ``isects`` their
+    intersections, counted at the B2 and B6 wrappers; ``walked_slots``,
+    BLOCK x the blocks each tile walked in B1 before its early exit, which
+    the lift adds (``lift/batch.py::render_and_pack``). Every other slot is
+    a zero row that B2 writes for a block past its tile's exit.
+    ``walked_slots`` adds up on the device (one reduction and one add a
+    view, no host sync); only ``snapshot`` reads it back."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = self.slots = self.isects = 0
+        self._blocks = {}  # device -> () int64 blocks walked, added on that device
+
+    def lifted(self, plan: Plan) -> None:
+        self.calls += 1
+        self.slots += plan.T_padded
+        self.isects += plan.n_isects
+
+    def walked(self, blocks_done: torch.Tensor) -> None:
+        acc = self._blocks.get(blocks_done.device)
+        if acc is None:
+            acc = torch.zeros((), dtype=torch.int64, device=blocks_done.device)
+            self._blocks[blocks_done.device] = acc
+        acc.add_(blocks_done.sum(dtype=torch.int64))
+
+    def snapshot(self) -> dict:
+        blocks = sum(int(t) for t in self._blocks.values())
+        return {"calls": self.calls, "slots": self.slots, "isects": self.isects,
+                "walked_slots": BLOCK * blocks}
+
+
+WORK = WorkCounts()
+register_counters("work", WORK)
 
 
 def contrib_width(feature_dim: int) -> int:
@@ -612,6 +655,7 @@ def adjoint_rows(
     dtype (float32 or bfloat16). Row r holds, for the intersection in
     padded slot r, sum_p w(p) * [features(p) | 1 | 0...]."""
     D = _check_adjoint(pack, feat_tiles, plan)
+    WORK.lifted(plan)
     if not _dispatch(pack.device):
         return adjoint_rows_plain(pack, feat_tiles, plan, trans_eps)
     out = torch.empty((plan.T_padded, contrib_width(D)), dtype=feat_tiles.dtype,
@@ -756,6 +800,7 @@ def adjoint_scatter_rows(
     D = _check_adjoint(pack, feat_tiles, plan)
     dev = pack.device
     _check_scatter_plan(plan, dev)
+    WORK.lifted(plan)
     if not _dispatch(dev):
         return adjoint_scatter_rows_plain(pack, feat_tiles, plan, trans_eps)
     out = torch.empty((plan.R_striped + 1, contrib_width(D)), dtype=feat_tiles.dtype,

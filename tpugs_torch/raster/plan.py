@@ -36,6 +36,7 @@ import torch
 
 from tpugs_torch.raster.binning import tile_bbox, tile_cut_mask, tile_grid
 from tpugs_torch.raster.projection import Projected
+from tpugs_torch.utils.profiling import annotation
 
 BLOCK = 128  # Gaussians per kernel block
 _I32_MAX = 2**31 - 1
@@ -94,7 +95,11 @@ def build_plan(
     """The exact plan of one view; ``scatter=True`` adds the striped
     layout of the scatter reduce engine (``with_scatter_extras``).
     ``on_stage(name)`` is called after each of ``PLAN_STAGES``: steps 1-3,
-    4, 5 and 6 (for timing)."""
+    4, 5 and 6 (for timing). Those steps are also the trace's spans
+    ``tpugs.plan.cull``, ``sort``, ``slots`` and ``csr``, and each host read
+    of the device in them a ``tpugs.sync.plan_*`` span: the expansion's
+    total, the kept list, the two bincounts (each reads its input's range)
+    and the padded total."""
     mark = on_stage or (lambda name: None)
     dev = proj.means2d.device
     n = proj.means2d.shape[0]
@@ -102,79 +107,88 @@ def build_plan(
     n_tiles = ntx * nty
     i64 = dict(dtype=torch.int64, device=dev)
 
-    # 1. depth order (the reference's argsort is stable)
-    inf = torch.full_like(proj.depths, float("inf"))
-    order = torch.sort(
-        torch.where(proj.valid, proj.depths, inf), stable=True
-    ).indices
-    m2d = proj.means2d[order]
-    conics = proj.conics[order]
-    sig_cut = proj.sig_cut[order]
-    tx0, ty0, tx1, ty1 = tile_bbox(
-        m2d, proj.radii[order], proj.valid[order], tile_size, ntx, nty
-    )
-    w = (tx1 - tx0).long()
-    cnt = w * (ty1 - ty0).long()
-    w_safe = torch.clamp(w, min=1)
+    with annotation("tpugs.plan.cull"):
+        # 1. depth order (the reference's argsort is stable)
+        inf = torch.full_like(proj.depths, float("inf"))
+        order = torch.sort(
+            torch.where(proj.valid, proj.depths, inf), stable=True
+        ).indices
+        m2d = proj.means2d[order]
+        conics = proj.conics[order]
+        sig_cut = proj.sig_cut[order]
+        tx0, ty0, tx1, ty1 = tile_bbox(
+            m2d, proj.radii[order], proj.valid[order], tile_size, ntx, nty
+        )
+        w = (tx1 - tx0).long()
+        cnt = w * (ty1 - ty0).long()
+        w_safe = torch.clamp(w, min=1)
 
-    # 2. row-major expansion of every rectangle, in depth-rank order
-    total = int(cnt.sum())
-    rank = torch.repeat_interleave(torch.arange(n, **i64), cnt, output_size=total)
-    j = torch.arange(total, **i64) - _excl_cumsum(cnt)[rank]
-    jx = j % w_safe[rank]
-    jy = j // w_safe[rank]
-    gx = tx0[rank].long() + jx
-    gy = ty0[rank].long() + jy
+        # 2. row-major expansion of every rectangle, in depth-rank order
+        with annotation("tpugs.sync.plan_total"):
+            total = int(cnt.sum())
+        rank = torch.repeat_interleave(torch.arange(n, **i64), cnt, output_size=total)
+        j = torch.arange(total, **i64) - _excl_cumsum(cnt)[rank]
+        jx = j % w_safe[rank]
+        jy = j // w_safe[rank]
+        gx = tx0[rank].long() + jx
+        gy = ty0[rank].long() + jy
 
-    # 3. exact sub-cutoff cull: min of the conic quadratic over the tile
-    #    rectangle against ln(255*op) (pallas_tiled.py:357-396, which has
-    #    no magnitude slack)
-    keep = tile_cut_mask(m2d[rank], conics[rank], sig_cut[rank], gx[:, None], gy[:, None],
-                         tile_size, magnitude_slack=False)
-    keep = torch.nonzero(keep[:, 0]).squeeze(1)
-    rank = rank[keep]
-    tid = (gy * ntx + gx)[keep]
-    n_isects = rank.shape[0]
+        # 3. exact sub-cutoff cull: min of the conic quadratic over the tile
+        #    rectangle against ln(255*op) (pallas_tiled.py:357-396, which has
+        #    no magnitude slack)
+        keep = tile_cut_mask(m2d[rank], conics[rank], sig_cut[rank], gx[:, None], gy[:, None],
+                             tile_size, magnitude_slack=False)
+        with annotation("tpugs.sync.plan_keep"):
+            keep = torch.nonzero(keep[:, 0]).squeeze(1)
+        rank = rank[keep]
+        tid = (gy * ntx + gx)[keep]
+        n_isects = rank.shape[0]
     mark("plan/bboxes+cull")
 
-    # 4. sort by (tile, depth rank); keys are unique
-    perm = torch.sort(tid * max(n, 1) + rank).indices
-    tid_s = tid[perm]
+    with annotation("tpugs.plan.sort"):
+        # 4. sort by (tile, depth rank); keys are unique
+        perm = torch.sort(tid * max(n, 1) + rank).indices
+        tid_s = tid[perm]
     mark("plan/sort")
 
-    # 5. spans, block padding, padded_gid
-    spans = torch.bincount(tid_s, minlength=n_tiles)
-    tile_ends = torch.cumsum(spans, 0)
-    tile_starts = tile_ends - spans
-    padded_spans = (spans + BLOCK - 1) // BLOCK * BLOCK
-    padded_starts = _excl_cumsum(padded_spans)
-    T_padded = int(padded_spans.sum())
-    if T_padded > _I32_MAX or n >= _I32_MAX:
-        raise ValueError(
-            f"plan needs {T_padded} padded slots for {n} Gaussians; "
-            "int32 indices overflow"
+    with annotation("tpugs.plan.slots"):
+        # 5. spans, block padding, padded_gid
+        with annotation("tpugs.sync.plan_spans"):
+            spans = torch.bincount(tid_s, minlength=n_tiles)
+        tile_ends = torch.cumsum(spans, 0)
+        tile_starts = tile_ends - spans
+        padded_spans = (spans + BLOCK - 1) // BLOCK * BLOCK
+        padded_starts = _excl_cumsum(padded_spans)
+        with annotation("tpugs.sync.plan_padded"):
+            T_padded = int(padded_spans.sum())
+        if T_padded > _I32_MAX or n >= _I32_MAX:
+            raise ValueError(
+                f"plan needs {T_padded} padded slots for {n} Gaussians; "
+                "int32 indices overflow"
+            )
+        pos_sorted = padded_starts[tid_s] + (
+            torch.arange(n_isects, **i64) - tile_starts[tid_s]
         )
-    pos_sorted = padded_starts[tid_s] + (
-        torch.arange(n_isects, **i64) - tile_starts[tid_s]
-    )
-    padded_gid = torch.full((T_padded,), n, dtype=torch.int32, device=dev)
-    padded_gid[pos_sorted] = rank[perm].to(torch.int32)
+        padded_gid = torch.full((T_padded,), n, dtype=torch.int32, device=dev)
+        padded_gid[pos_sorted] = rank[perm].to(torch.int32)
     mark("plan/slot table")
 
-    # 6. per-Gaussian positions, CSR by original index. Kept entries are
-    #    rank-major and in increasing tile order within a rank.
-    pos_entry = torch.empty_like(pos_sorted)
-    pos_entry[perm] = pos_sorted
-    per_rank = torch.bincount(rank, minlength=n)
-    per_orig = torch.zeros(n, **i64)
-    per_orig[order] = per_rank
-    offsets = torch.zeros(n + 1, **i64)
-    offsets[1:] = torch.cumsum(per_orig, 0)
-    dest = offsets[order[rank]] + (
-        torch.arange(n_isects, **i64) - _excl_cumsum(per_rank)[rank]
-    )
-    gauss_pos = torch.empty(n_isects, dtype=torch.int32, device=dev)
-    gauss_pos[dest] = pos_entry.to(torch.int32)
+    with annotation("tpugs.plan.csr"):
+        # 6. per-Gaussian positions, CSR by original index. Kept entries are
+        #    rank-major and in increasing tile order within a rank.
+        pos_entry = torch.empty_like(pos_sorted)
+        pos_entry[perm] = pos_sorted
+        with annotation("tpugs.sync.plan_ranks"):
+            per_rank = torch.bincount(rank, minlength=n)
+        per_orig = torch.zeros(n, **i64)
+        per_orig[order] = per_rank
+        offsets = torch.zeros(n + 1, **i64)
+        offsets[1:] = torch.cumsum(per_orig, 0)
+        dest = offsets[order[rank]] + (
+            torch.arange(n_isects, **i64) - _excl_cumsum(per_rank)[rank]
+        )
+        gauss_pos = torch.empty(n_isects, dtype=torch.int32, device=dev)
+        gauss_pos[dest] = pos_entry.to(torch.int32)
     mark("plan/csr")
 
     i32 = torch.int32
@@ -253,7 +267,8 @@ def with_scatter_extras(plan: Plan) -> Plan:
     # stripe j is BLOCK x #{blocks b : culled[BLOCK * b] > j}.
     leads = culled[::BLOCK]
     sizes = torch.stack([culled[:1].sum(), leads.sum() * BLOCK])
-    n_stripes, r_striped = sizes.tolist()  # the one host sync
+    with annotation("tpugs.sync.plan_stripes"):
+        n_stripes, r_striped = sizes.tolist()  # the one host sync
     if r_striped + 1 > _I32_MAX:
         raise ValueError(
             f"striped layout needs {r_striped + 1} rows; int32 indices overflow"

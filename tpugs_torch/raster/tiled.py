@@ -36,6 +36,7 @@ from tpugs_torch.raster.projection import ProjectionConfig, project
 from tpugs_torch.raster.reduce import reduce_contribs_xla
 from tpugs_torch.raster.tiles import tiles_to_image
 from tpugs_torch.raster.train import render_plan_train
+from tpugs_torch.utils.profiling import annotation
 
 
 def render_view(
@@ -81,21 +82,21 @@ def contribution_sums(
     image carry zero weight, so uncropped tile features are fine. With
     "xla" the rows are B2's, summed by ``reduce_contribs_xla`` (equal to
     B3's sums to float rounding). ``on_stage`` is called after "adjoint"
-    and "reduce"."""
+    and "reduce", which are also the trace's spans ``tpugs.lift.adjoint``
+    and ``tpugs.lift.reduce``."""
     if reduce_engine not in REDUCE_ENGINES:
         raise ValueError(
             f"unknown reduce_engine {reduce_engine!r}; the port has "
             + ", ".join(REDUCE_ENGINES))
     mark = on_stage or (lambda name: None)
     n_cols = feat_tiles.shape[-1] + 1
-    if reduce_engine == "scatter":
-        rows = adjoint_scatter_rows(packed, feat_tiles, plan, trans_eps)
-        mark("adjoint")
-        sums = reduce_striped(rows, plan, n_cols)
-    else:
-        rows = adjoint_rows(packed, feat_tiles, plan, trans_eps)
-        mark("adjoint")
-        reduce = reduce_contribs_xla if reduce_engine == "xla" else reduce_rows
+    adjoint = adjoint_scatter_rows if reduce_engine == "scatter" else adjoint_rows
+    reduce = {"scatter": reduce_striped, "xla": reduce_contribs_xla}.get(reduce_engine,
+                                                                         reduce_rows)
+    with annotation("tpugs.lift.adjoint"):
+        rows = adjoint(packed, feat_tiles, plan, trans_eps)
+    mark("adjoint")
+    with annotation("tpugs.lift.reduce"):
         sums = reduce(rows, plan, n_cols)
     mark("reduce")
     return rows, sums

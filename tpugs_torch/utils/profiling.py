@@ -2,11 +2,15 @@
 Counterpart: ``tpugs/utils/profiling.py``.
 
 * ``trace`` — a ``torch.profiler`` capture (CPU, and CUDA where the card
-  is) written as a Chrome trace under ``logdir``. Unlike the reference's,
-  a profiler that cannot start raises: a run that asked for a trace gets
-  one or fails.
-* ``annotation`` — ``torch.profiler.record_function``: a named host span in
-  the trace.
+  is) written as a Chrome trace under ``logdir``, with the body's counts
+  of every ``register_counters`` object beside it. Unlike the
+  reference's, a profiler that cannot start raises: a run that asked for
+  a trace gets one or fails.
+* ``annotation`` — a named host span in the trace
+  (``torch.profiler.record_function``) while a profiler records, else a
+  shared no-op context: the lift's spans cost one check each untraced.
+  A ``timed`` span's host seconds go to ``HOST_TIMES`` while no profiler
+  records (the profiler's own cost per operation would swell them).
 * ``StageTimer`` — host-side stage table for the roofline report. On a
   CUDA device it synchronises at each stage's entry and exit, so a stage's
   seconds are the device's work and not only the host's enqueue.
@@ -31,6 +35,7 @@ import contextlib
 import json
 import os
 import re
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
@@ -49,14 +54,27 @@ PEAKS_H100 = {
 # Chrome-trace categories of work on the device.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_FILE = "trace.json"
+COUNTERS_FILE = "counters.json"
+_NO_SPAN = contextlib.nullcontext()
+_COUNTERS: Dict[str, object] = {}
+
+
+def register_counters(name: str, counts) -> None:
+    """Has ``trace`` write ``counts``' change over its body to
+    ``counters.json`` under ``name``; ``counts.snapshot()`` returns a dict
+    of numbers."""
+    _COUNTERS[name] = counts
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]):
     """``with trace(logdir) as path:`` profiles the body and writes a
-    Chrome trace to ``path`` (``logdir/trace.json``) on exit. ``None`` or
-    ``""`` disables it (``path`` is None). CUDA activity is recorded where
-    ``torch.cuda.is_available()``."""
+    Chrome trace to ``path`` (``logdir/trace.json``) on exit, and the
+    change over the body of each registered counter to
+    ``logdir/counters.json`` as ``{name: snapshot}`` (``register_counters``;
+    ``raster/kernels.py`` registers ``"work"`` and ``"launches"``).
+    ``None`` or ``""`` disables it (``path`` is None). CUDA activity is
+    recorded where ``torch.cuda.is_available()``."""
     if not logdir:
         yield None
         return
@@ -67,17 +85,68 @@ def trace(logdir: Optional[str]):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    before = {k: c.snapshot() for k, c in _COUNTERS.items()}
     with profile(activities=activities) as prof:
         yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+    after = {k: _COUNTERS[k].snapshot() for k in before}
+    with open(os.path.join(logdir, COUNTERS_FILE), "w") as f:
+        json.dump({k: {c: v - before[k][c] for c, v in after[k].items()} for k in after}, f,
+                  indent=1)
     print(f"# trace written to {path}", flush=True)
 
 
-def annotation(name: str):
-    """A named span in the trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+class HostTimes:
+    """Host seconds of each ``timed`` span (``annotation``) that ran while
+    no profiler recorded, the last ``KEEP`` of each name."""
+
+    KEEP = 4096
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.seconds: Dict[str, List[float]] = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        times = self.seconds.setdefault(name, [])
+        times.append(seconds)
+        if len(times) > self.KEEP:
+            del times[0]
+
+    def median_ms(self, name: str) -> Optional[float]:
+        times = self.seconds.get(name)
+        return 1e3 * statistics.median(times) if times else None
+
+
+HOST_TIMES = HostTimes()
+
+
+class _Timed:
+    __slots__ = ("name", "t0")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        HOST_TIMES.add(self.name, time.perf_counter() - self.t0)
+
+
+def annotation(name: str, timed: bool = False):
+    """A named span in the trace: ``torch.profiler.record_function(name)``
+    while a profiler records, so that it lands on the device trace's
+    clock; otherwise one shared no-op context (a record_function costs
+    some 20 us even with no profiler, the check well under 1 us). With
+    ``timed`` and no profiler, the span's host seconds go to
+    ``HOST_TIMES`` instead."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _Timed(name) if timed else _NO_SPAN
 
 
 def kernel_stats(
